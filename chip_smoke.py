@@ -9,13 +9,20 @@ Phases, in order; any failure exits non-zero:
   2. build every CUDA kernel from csrc/ (one nvcc per source, in parallel);
   3. TF32 off for the comparisons;
   4. each kernel against its plain PyTorch version at main-path shapes, bf16
-     inputs, rel-L2 < 2e-2 (bf16 rounding gives ~1e-3, a wrong kernel O(1));
+     inputs, rel-L2 < 2e-2 (bf16 rounding gives ~1e-3, a wrong kernel O(1)):
+     K1 forward, K2 residual units, K3 attention backward (each gradient);
   5. the one-shot slice at the full width of DiTConfig(has_latent_modules=
      False) and AEConfig() in bf16, random weights from a seed: one CFG
      forward and one decode through the kernels against the plain versions;
      sample_pipeline on three requests, with per-stage wall times and
      launch counts of each kernel; a torch.profiler pass over one more;
-  6. kernel times (CUDA events, median of 7 after warm-up) beside the plain
+  6. the training slice on the same weights: 16 synthetic 29.72 s clips
+     written to WAV, pre-encoded by EchoTTSDataset (K2), LoRA r16/alpha32
+     steps at B=8 (K1 forward and recompute, K3 backward), one warm-up and
+     three timed, with exact launch counts; a torch.profiler pass over one
+     more step; the LoRA gradient at B=1 through K1+K3 against the plain
+     attention under autograd;
+  7. kernel times (CUDA events, median of 7 after warm-up) beside the plain
      version, one library call where one exists, and the bound.
 The line before the last is the kernel JSON; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -141,12 +148,43 @@ def f32_units(units):
                  else v.float()) for k, v in u.items()} for u in units]
 
 
+def _k3_inputs(gen, g, b, s, h, seg_lens, scales, dev, all_masked=()):
+    """seq-major q/k_self/v_self/dO (G, B, S, H, 128) bf16; head-major
+    segments with fp32 0/-1e30 biases (80 % visible)."""
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    q, k, v, do = (rnd(g, b, s, h, 128) for _ in range(4))
+    segs = []
+    for i, (t, sc) in enumerate(zip(seg_lens, scales)):
+        keep = torch.rand(g, b, t, generator=gen, device=dev) < 0.8
+        if i in all_masked:
+            keep = torch.zeros_like(keep)
+        segs.append((rnd(b, h, t, 128), rnd(b, h, t, 128),
+                     torch.where(keep, 0.0, -1e30).float(), sc))
+    return q, k, v, do, segs
+
+
+def k3_check(ja, q, k, v, do, segs):
+    """K1 (with its log-sum-exp) then K3 on bf16 inputs, and the plain
+    backward in fp32 on the same inputs: [(name, got, ref)] per gradient."""
+    g, b, s, h, _ = q.shape
+    lse = torch.empty((g, b, h, s), dtype=torch.float32, device=q.device)
+    out = ja._joint_attention_cuda(q, k, v, segs, "sm", None, None, lse)
+    got = ja._joint_attention_bwd_cuda(q, k, v, segs, out, lse, do, "sm")
+    ref = ja.joint_attention_bwd_plain(q.float(), k.float(), v.float(), f32_segments(segs),
+                                       do.float(), "sm")
+    names = ["dq", "dk_self", "dv_self"] + [f"{x}_seg{i}" for i in range(len(segs))
+                                            for x in ("dk", "dv")]
+    return list(zip(names, [*got[:3], *got[3]], [*ref[:3], *ref[3]]))
+
+
 def phase_kernel_checks(dev) -> dict:
     from echo_tts_tpu_torch.ops import joint_attention as ja
     from echo_tts_tpu_torch.ops import res_chain as rc
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    errs = {"joint_attention": 0.0, "res_chain": 0.0}
+    errs = {"joint_attention": 0.0, "res_chain": 0.0, "joint_attention_bwd": 0.0}
     failures = []
 
     def check(kernel, case, got, ref):
@@ -219,6 +257,39 @@ def phase_kernel_checks(dev) -> dict:
               rc._res_chain_cuda(x, us, (1, 3, 9), zb),
               rc.res_chain_plain(x.float(), f32_units(us), (1, 3, 9), zb))
 
+    # K3 at the training shape (G=1, B=8, S=640, text 768 + speaker 160,
+    # speaker scale 1.5), then G=3, B=2 with a T=1 all-masked segment and an
+    # unaligned T=700 one; every gradient against the fp32 plain backward
+    for case, args in (("training shape G=1 B=8 S=640 H=16, text 768 + speaker 160, scale 1.5",
+                        (1, 8, 640, 16, (768, 160), (None, 1.5))),
+                       ("G=3 B=2 S=640 H=16, T=700 + T=1 all-masked, scale 1.5",
+                        (3, 2, 640, 16, (700, 1), (None, 1.5)))):
+        q3, k3, v3, do3, segs3 = _k3_inputs(gen, *args, dev, all_masked=(1,) if "T=1" in case
+                                            else ())
+        for name, got, ref in k3_check(ja, q3, k3, v3, do3, segs3):
+            check("joint_attention_bwd", f"{case}: {name}", got, ref)
+        del q3, k3, v3, do3, segs3
+    # K3 through the autograd Function (layout "sm", bool masks), under
+    # torch.autograd.grad, against the plain backward
+    q3, k3, v3, do3, segs3 = _k3_inputs(gen, 1, 2, 200, 16, (300, 52), (None, 1.5), dev)
+    segs_b = [(kk, vv, bias == 0, sc) for kk, vv, bias, sc in segs3]
+    inputs = [x.clone().requires_grad_() for x in (q3, k3, v3, segs3[0][0], segs3[0][1],
+                                                    segs3[1][0], segs3[1][1])]
+    k1_before, k3_before = ja.joint_attention.launches, ja.joint_attention_bwd.launches
+    out = ja.joint_attention_trainable(inputs[0], inputs[1], inputs[2],
+                                       [(inputs[3], inputs[4], segs_b[0][2], None),
+                                        (inputs[5], inputs[6], segs_b[1][2], 1.5)], layout="sm")
+    grads = torch.autograd.grad(out, inputs, grad_outputs=do3)
+    launched = (ja.joint_attention.launches - k1_before, ja.joint_attention_bwd.launches - k3_before)
+    if launched != (1, 1):
+        failures.append(f"joint_attention_trainable launched (K1, K3) = {launched}, expected (1, 1)")
+    ref = ja.joint_attention_bwd_plain(q3.float(), k3.float(), v3.float(), f32_segments(segs3),
+                                       do3.float(), "sm")
+    for name, got, r in zip(("dq", "dk_self", "dv_self", "dk_seg0", "dv_seg0", "dk_seg1",
+                             "dv_seg1"), grads, [*ref[:3], *ref[3]]):
+        check("joint_attention_bwd", f"autograd.grad through joint_attention_trainable, "
+              f"B=2 S=200, text 300 + speaker 52: {name}", got, r)
+
     # the wrappers refuse what the kernels do not take, on the card too
     for bad in ("dtype", "layout"):
         xq = q.float() if bad == "dtype" else q.transpose(3, 4)
@@ -244,11 +315,18 @@ def phase_kernel_checks(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 6: kernel times
+# phase 7: kernel times
 # ---------------------------------------------------------------------------
 
 
+def by_path(launches: dict, name: str) -> dict:
+    return {path: counts[name] for path, counts in launches.items() if name in counts}
+
+
 def phase_kernel_times(dev, errs: dict, launches: dict) -> list:
+    """launches: {path: {kernel: count}} from the one-shot and training runs;
+    a row's `launches` is the count on the path that introduced the kernel,
+    and `launches_by_path` has every path's."""
     from echo_tts_tpu_torch.ops import joint_attention as ja
     from echo_tts_tpu_torch.ops import res_chain as rc
 
@@ -280,7 +358,8 @@ def phase_kernel_times(dev, errs: dict, launches: dict) -> list:
     rows.append({"name": "joint_attention", "route": "cuda",
                  "source": "echo_tts_tpu_torch/csrc/joint_attention.cu",
                  "replaces": "echo_tts_tpu/ops/pallas_attention.py:49",
-                 "launches": launches["joint_attention"],
+                 "launches": launches["one_shot"]["joint_attention"],
+                 "launches_by_path": by_path(launches, "joint_attention"),
                  "max_abs_err": errs["joint_attention"], "ms": ms, "plain_ms": plain_ms,
                  "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
                  "shape": f"G=1 B=1 S={s} H={h} D={d} self {s} + text {t_text} + speaker {t_spk}"})
@@ -313,7 +392,8 @@ def phase_kernel_times(dev, errs: dict, launches: dict) -> list:
     rows.append({"name": "res_chain", "route": "cuda",
                  "source": "echo_tts_tpu_torch/csrc/res_chain.cu",
                  "replaces": "echo_tts_tpu/ops/pallas_conv.py:60",
-                 "launches": launches["res_chain"],
+                 "launches": launches["one_shot"]["res_chain"],
+                 "launches_by_path": by_path(launches, "res_chain"),
                  "max_abs_err": errs["res_chain"], "ms": tot["ms"], "plain_ms": tot["plain"],
                  # no single PyTorch call computes a snake/conv7/snake/1x1 unit
                  "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
@@ -321,7 +401,51 @@ def phase_kernel_times(dev, errs: dict, launches: dict) -> list:
     log(f"# time joint_attention: kernel {rows[0]['ms']:.3f} ms, plain "
         f"{rows[0]['plain_ms']:.3f} ms, sdpa {rows[0]['library_ms']:.3f} ms, "
         f"bound {rows[0]['bound_ms']:.4f} ms ({rows[0]['bound_by']})")
+    rows.append(k3_times(dev, gen, errs, launches))
     return rows
+
+
+def k3_times(dev, gen, errs: dict, launches: dict) -> dict:
+    """K3 at the training shape (G=1, B=8, S=640, H=16, text 768, speaker 160
+    at scale 1.5), with K1's out and lse of the same inputs; the plain
+    backward on the same bf16 inputs; the yardstick is the backward of one
+    SDPA call over [k_self | k_text | k_spk*s] with the concatenated bias
+    (timed only; the port never calls it)."""
+    from echo_tts_tpu_torch.ops import joint_attention as ja
+
+    g, b, s, h, d, t_text, t_spk = 1, TRAIN_B, 640, 16, 128, 768, 160
+    q, k, v, do, segs = _k3_inputs(gen, g, b, s, h, (t_text, t_spk), (None, 1.5), dev)
+    lse = torch.empty((g, b, h, s), dtype=torch.float32, device=dev)
+    out = ja._joint_attention_cuda(q, k, v, segs, "sm", None, None, lse)
+    ms = cuda_ms(lambda: ja._joint_attention_bwd_cuda(q, k, v, segs, out, lse, do, "sm"))
+    plain_ms = cuda_ms(lambda: ja.joint_attention_bwd_plain(q, k, v, segs, do, "sm"), reps=3)
+    (kt, vt, bt, _), (ksp, vsp, bsp, ssp) = segs
+    qh = q[0].transpose(1, 2).detach().requires_grad_()
+    kc = torch.cat([k[0].transpose(1, 2), kt, ksp * ssp], dim=2).detach().requires_grad_()
+    vc = torch.cat([v[0].transpose(1, 2), vt, vsp * ssp], dim=2).detach().requires_grad_()
+    bias = torch.cat([torch.zeros(b, s, device=dev), bt[0], bsp[0]], dim=-1)
+    bias = bias[:, None, None, :].to(torch.bfloat16)
+    o_lib = torch.nn.functional.scaled_dot_product_attention(qh, kc, vc, attn_mask=bias)
+    do_lib = do[0].transpose(1, 2)
+    lib_ms = cuda_ms(lambda: torch.autograd.grad(o_lib, (qh, kc, vc), do_lib, retain_graph=True))
+    t_all = s + t_text + t_spk
+    flops = 10.0 * g * b * h * s * t_all * d
+    # q, k_self, v_self, out, dO read and dq, dk_self, dv_self written (bf16);
+    # segment k, v read and dk, dv written; lse and biases read
+    nbytes = (2 * 8 * g * b * s * h * d + 2 * 4 * b * h * (t_text + t_spk) * d
+              + 4 * g * b * h * s + 4 * g * b * (t_text + t_spk))
+    b_ms, b_by = bound(flops, nbytes)
+    log(f"# time joint_attention_bwd: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        f"sdpa backward {lib_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return {"name": "joint_attention_bwd", "route": "cuda",
+            "source": "echo_tts_tpu_torch/csrc/joint_attention_bwd.cu",
+            "replaces": "echo_tts_tpu/ops/pallas_attention.py:379",
+            "launches": launches["training"]["joint_attention_bwd"],
+            "launches_by_path": by_path(launches, "joint_attention_bwd"),
+            "max_abs_err": errs["joint_attention_bwd"], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            "shape": f"G={g} B={b} S={s} H={h} D={d} self {s} + text {t_text} + "
+                     f"speaker {t_spk} (scale 1.5)"}
 
 
 # ---------------------------------------------------------------------------
@@ -432,8 +556,9 @@ def phase_slice(dev, wrappers: dict) -> dict:
         raise SystemExit("the speaker prompt did not run the encoder's residual chains")
     totals = {k: w.launches for k, w in wrappers.items()}
     log(f"# launches over the three requests: {totals}")
-    phase_profile(tts, sc, SHORT_TEXT)
-    return totals
+    profile_families("request i again", lambda: sample_pipeline(tts, SHORT_TEXT, None,
+                                                                rng_seed=5, sc=sc))
+    return tts, totals
 
 
 def phase_path_check(tts, dev) -> None:
@@ -511,28 +636,30 @@ def phase_path_check(tts, dev) -> None:
         raise SystemExit("the full-width path disagrees with its plain versions")
 
 
-def phase_profile(tts, sc, text) -> None:
-    """torch.profiler over one more no-speaker request: device time by
-    kernel family and the device-busy share of the request's wall time."""
+def profile_families(what: str, run) -> None:
+    """Wall time of run() unprofiled, then under torch.profiler: device time
+    by kernel family and the device-busy share of the unprofiled wall."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from echo_tts_tpu_torch.pipeline.pipeline import sample_pipeline
-
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    sample_pipeline(tts, text, None, rng_seed=5, sc=sc)
+    run()
+    torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  acc_events=True) as prof:
         t0 = time.perf_counter()
-        sample_pipeline(tts, text, None, rng_seed=5, sc=sc)
+        run()
+        torch.cuda.synchronize()
         prof_wall_ms = (time.perf_counter() - t0) * 1e3
     # device-side events only: CPU ops also carry their kernels' device time
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     total = sum(e.device_time_total for e in kernels) / 1e3
 
     def family(name: str) -> str:
+        if "dq_kernel" in name or "dkdv_kernel" in name or "rowdot_kernel" in name:
+            return "K3 joint_attention_bwd"
         if "joint_attention" in name:
             return "K1 joint_attention"
         if "res_unit" in name:
@@ -548,13 +675,165 @@ def phase_profile(tts, sc, text) -> None:
         f = family(e.key)
         n, ms = fam.get(f, (0, 0.0))
         fam[f] = (n + e.count, ms + e.device_time_total / 1e3)
-    log(f"# profile, request i again: wall {wall_ms:.1f} ms unprofiled, "
+    log(f"# profile, {what}: wall {wall_ms:.1f} ms unprofiled, "
         f"{prof_wall_ms:.1f} ms profiled; device busy {total:.1f} ms = "
         f"{total / wall_ms:.1%} of the unprofiled wall")
     for f, (n, ms) in sorted(fam.items(), key=lambda kv: -kv[1][1]):
         log(f"#   {f}: {ms:.1f} ms in {n} launches ({ms / total:.1%} of device time)")
     for e in sorted(kernels, key=lambda e: -e.device_time_total)[:8]:
         log(f"#   top kernel {e.key[:70]}: {e.device_time_total / 1e3:.1f} ms, {e.count} launches")
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the training slice at full width
+# ---------------------------------------------------------------------------
+
+TRAIN_B = 8
+TRAIN_CLIPS = 16
+CLIP_LATENTS = 640  # 29.72 s at 44.1 kHz
+
+
+def phase_train(tts, dev, wrappers: dict) -> dict:
+    """LoRA finetuning as scripts/finetune_lora.py runs it, on the weights
+    the one-shot phase made: WAV clips -> prepare_samples_from_directory ->
+    EchoTTSDataset (K2 encodes) -> batches_prefetch(B=8) -> LoRA steps."""
+    import tempfile
+
+    from echo_tts_tpu_torch.pipeline.audio_io import write_wav
+    from echo_tts_tpu_torch.train.data import (
+        EchoTTSDataset,
+        batches_prefetch,
+        prepare_samples_from_directory,
+    )
+    from echo_tts_tpu_torch.train.lora import LoRAConfig, count_lora_params, init_lora
+    from echo_tts_tpu_torch.train.loop import TrainConfig, make_train_step
+
+    cfg, ae_cfg = tts.dit_cfg, tts.ae_cfg
+    sr = ae_cfg.sample_rate
+    for w in wrappers.values():
+        w.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        transcripts = {}
+        for i in range(TRAIN_CLIPS):
+            path = os.path.join(tmp, f"clip{i:02d}.wav")
+            write_wav(path, synthetic_speech(CLIP_LATENTS * ae_cfg.frame_length / sr, sr, 100 + i),
+                      sr)
+            transcripts[path] = f"[S1] Training clip number {i}. " + LONG_TEXT[5:200 + 20 * i]
+        samples = prepare_samples_from_directory(tmp, transcripts)
+        t1 = time.perf_counter()
+        ds = EchoTTSDataset(samples, tts.ae_params, ae_cfg, tts.pca)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    k2 = wrappers["res_chain"].launches
+    log(f"# training data: {len(samples)} clips of {CLIP_LATENTS} latents written in "
+        f"{(t1 - t0) * 1e3:.1f} ms, pre-encoded in {(t2 - t1) * 1e3:.1f} ms "
+        f"({k2} K2 launches)")
+    if len(ds) != TRAIN_CLIPS or k2 <= 0:
+        raise SystemExit(f"the dataset encode did not run through K2 ({k2} launches, "
+                         f"{len(ds)} samples)")
+    lat_shapes = {v.shape for v in ds.latent_cache.values()}
+    if lat_shapes != {(CLIP_LATENTS, cfg.latent_size)}:
+        raise SystemExit(f"unexpected latent shapes {lat_shapes}")
+
+    lc = LoRAConfig(rank=16, alpha=32.0)  # scripts/finetune_lora.py defaults
+    lora = init_lora(torch.Generator(device=dev).manual_seed(0), tts.dit_params, lc)
+    tc = TrainConfig(learning_rate=5e-5)
+    opt, step = make_train_step(cfg, tc, model_dtype=torch.bfloat16, lora_cfg=lc)
+    opt_state = opt.init(lora)
+    log(f"# LoRA r{lc.rank} alpha {lc.alpha}: {count_lora_params(lora) / 1e6:.3f} M "
+        f"adapter params over {len(lc.targets)} targets")
+
+    rng = np.random.default_rng(0)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    per_step = {"joint_attention": 2 * cfg.num_layers, "joint_attention_bwd": cfg.num_layers,
+                "res_chain": 0}
+    rows, first_batch = [], None
+    for epoch in range(2):  # two batches of 8 per epoch
+        for batch in batches_prefetch(ds, TRAIN_B, rng, prefetch=2):
+            first_batch = first_batch or batch
+            shapes = {k: v.shape for k, v in batch.items()}
+            before = {k: w.launches for k, w in wrappers.items()}
+            torch.cuda.reset_peak_memory_stats(dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lora, opt_state, loss = step(tts.dit_params, lora, opt_state, gen, batch)
+            loss = float(loss)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            delta = {k: w.launches - before[k] for k, w in wrappers.items()}
+            rows.append((wall, loss, delta))
+            log(f"# train step {len(rows) - 1}{' (warm-up)' if len(rows) == 1 else ''}, "
+                f"epoch {epoch}: wall {wall * 1e3:.1f} ms, {TRAIN_B / wall:.2f} samples/s, "
+                f"loss {loss:.5f}, peak memory "
+                f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB, launches {delta}; "
+                f"batch {shapes['latent']} text {shapes['text_input_ids']} "
+                f"speaker {shapes['speaker_latent']}")
+            if not math.isfinite(loss) or delta != per_step:
+                raise SystemExit(f"train step: loss {loss}, launches {delta}, "
+                                 f"expected finite and {per_step}")
+    timed = [r[0] for r in rows[1:]]
+    log(f"# LoRA step at B={TRAIN_B}, {CLIP_LATENTS} latents: median "
+        f"{statistics.median(timed) * 1e3:.1f} ms over {len(timed)} timed steps "
+        f"({', '.join(f'{w * 1e3:.1f}' for w in timed)}), "
+        f"{TRAIN_B / statistics.median(timed):.2f} samples/s; optimizer count {opt_state.count}")
+    moved = max(float(ab["b"].detach().abs().max()) for ab in lora.values())
+    if not moved > 0:
+        raise SystemExit("no LoRA b moved from zero after the steps")
+    log(f"# largest |b| after the steps: {moved:.3e} (the first update has lr 0)")
+    totals = {k: w.launches for k, w in wrappers.items()}
+    log(f"# launches on the training path (encode + {len(rows)} steps): {totals}")
+
+    profile_families("one more LoRA step",
+                     lambda: step(tts.dit_params, lora, opt_state, gen, first_batch))
+    phase_train_grad_check(tts, dev, lora, lc, first_batch)
+    return totals
+
+
+def phase_train_grad_check(tts, dev, lora, lc, batch) -> None:
+    """At B=1, with every b perturbed from zero and one injected t and
+    noise: the LoRA gradient through K1+K3 against the same loss with the
+    plain attention under autograd. rel-L2 of the whole vector < 2e-2."""
+    import echo_tts_tpu_torch.models.dit as dit_mod
+    from echo_tts_tpu_torch.ops.joint_attention import joint_attention_plain
+    from echo_tts_tpu_torch.train.loop import tree_leaves
+    from echo_tts_tpu_torch.train.lora import lora_params
+    from echo_tts_tpu_torch.train.loss import compute_diffusion_loss
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    lora = {tgt: {"a": ab["a"].detach().clone().requires_grad_(),
+                  "b": (0.02 * torch.randn(ab["b"].shape, generator=gen, device=dev)
+                        ).requires_grad_()} for tgt, ab in lora.items()}
+    b1 = {k: torch.as_tensor(v[:1], device=dev) for k, v in batch.items()}
+    t = torch.full((1,), 0.6, device=dev)
+    noise = torch.randn(b1["latent"].shape, generator=gen, device=dev)
+    leaves = tree_leaves(lora)
+
+    def grads():
+        loss = compute_diffusion_loss(
+            lora_params(tts.dit_params, lora, lc), tts.dit_cfg, None, b1["latent"],
+            b1["latent_mask"], b1["text_input_ids"], b1["text_mask"], b1["speaker_latent"],
+            b1["speaker_mask"], model_dtype=torch.bfloat16, t=t, noise=noise)
+        gs = torch.autograd.grad(loss, leaves, allow_unused=True)
+        return float(loss.detach()), torch.cat([(torch.zeros_like(p) if g is None else g).flatten()
+                                       for p, g in zip(leaves, gs)])
+
+    def plain_trainable(q, k_self, v_self, segments, layout="hm", self_len=None):
+        return joint_attention_plain(q, k_self, v_self, segments, layout, self_len)
+
+    loss_k, g_k = grads()
+    kernel_fn, dit_mod.joint_attention_trainable = (dit_mod.joint_attention_trainable,
+                                                    plain_trainable)
+    try:
+        loss_p, g_p = grads()
+    finally:
+        dit_mod.joint_attention_trainable = kernel_fn
+    r = rel_l2(g_k, g_p)
+    log(f"# full-width LoRA gradient at B=1, K1+K3 vs plain attention under autograd: "
+        f"rel-L2 {r:.3e} over {g_k.numel()} values (|g| {float(g_p.norm()):.3e}); "
+        f"loss {loss_k:.6f} vs {loss_p:.6f}")
+    if not (r < REL_L2_BOUND and torch.isfinite(g_k).all()):
+        raise SystemExit("the full-width LoRA gradient disagrees with the plain attention's")
 
 
 def main(argv) -> int:
@@ -570,13 +849,18 @@ def main(argv) -> int:
     torch.backends.cudnn.allow_tf32 = False
     errs = phase_kernel_checks(dev)
 
-    from echo_tts_tpu_torch.ops.joint_attention import joint_attention
+    from echo_tts_tpu_torch.ops.joint_attention import joint_attention, joint_attention_bwd
     from echo_tts_tpu_torch.ops.res_chain import res_units_cl
 
-    launches = {"joint_attention": 0, "res_chain": 0}
+    launches = {"one_shot": {"joint_attention": 0, "res_chain": 0},
+                "training": {"joint_attention": 0, "joint_attention_bwd": 0, "res_chain": 0}}
     if not kernels_only:
-        launches = phase_slice(dev, {"joint_attention": joint_attention,
-                                     "res_chain": res_units_cl})
+        tts, launches["one_shot"] = phase_slice(dev, {"joint_attention": joint_attention,
+                                                      "res_chain": res_units_cl})
+        launches["training"] = phase_train(tts, dev, {"joint_attention": joint_attention,
+                                                      "joint_attention_bwd": joint_attention_bwd,
+                                                      "res_chain": res_units_cl})
+        del tts
     rows = phase_kernel_times(dev, errs, launches)
     log(f"# {smi}")
     print(json.dumps({"kernels": rows}))

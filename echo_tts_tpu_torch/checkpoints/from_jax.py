@@ -63,3 +63,16 @@ def ae_params_from_numpy(tree: dict, cfg: AEConfig, device=None,
     if len(p["quantizer"]["residual"]) != cfg.n_codebooks:
         raise ValueError("residual codebook count does not match the config")
     return p
+
+
+def lora_from_numpy(tree: dict, device=None) -> dict:
+    """A JAX LoRA side-car ({target: {"a": (L, in, r), "b": (L, r, out)}},
+    echo_tts_tpu/train/lora.py:init_lora) -> the port's, fp32 on `device`
+    (default cuda)."""
+    lora = _convert(tree, resolve_device(device), torch.float32)
+    for tgt, ab in lora.items():
+        a, b = ab["a"], ab["b"]
+        if a.dim() != 3 or b.dim() != 3 or a.shape[0] != b.shape[0] or a.shape[2] != b.shape[1]:
+            raise ValueError(f"{tgt}: a {tuple(a.shape)} and b {tuple(b.shape)} are not "
+                             "a stacked (L, in, r) / (L, r, out) adapter")
+    return lora

@@ -25,6 +25,11 @@
 // segment's end (T=1 included) are excluded in the kernel, not padded on the
 // host. Products use WMMA bf16 16x16x16 tiles with fp32 accumulation
 // (mma.sync on sm_90a); wgmma/TMA pipelining is left for a later version.
+//
+// Training. When `lse` is not null the kernel also writes each query row's
+// base-2 log-sum-exp, m + log2(sum), as fp32 (G, B, H, S) contiguous; the
+// backward kernel K3 (joint_attention_bwd.cu) rebuilds p = exp2(l - lse)
+// from it without a second softmax pass. Inference passes null.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -69,6 +74,7 @@ struct Params {
   bf16* out;
   long long q_s[4], ks_s[4], vs_s[4], o_s[4];  // element strides of (g, b, h, s)
   const int* self_len;
+  float* lse;  // (G, B, H, S) base-2 log-sum-exp, or null
   int G, B, H, S, S_kv, nseg;
   float scale;
   Seg seg[MAX_SEG];
@@ -209,6 +215,8 @@ joint_attention_kernel(const Params p) {
     }
   }
 
+  if (p.lse && r < nq && c0 == 0)
+    p.lse[(((long long)g * p.B + b) * p.H + h) * p.S + q0 + r] = m_run + log2f(l_run);
   if (r < nq) {
     const float inv = 1.f / l_run;
     bf16* o = p.out + g * p.o_s[0] + b * p.o_s[1] + h * p.o_s[2] + (q0 + r) * p.o_s[3];
@@ -226,7 +234,7 @@ joint_attention_kernel(const Params p) {
 extern "C" int joint_attention_fwd(
     const void* q, const void* ks, const void* vs, void* out,
     const long long* q_s, const long long* ks_s, const long long* vs_s,
-    const long long* o_s, const void* self_len, int G, int B, int H, int S,
+    const long long* o_s, const void* self_len, void* lse, int G, int B, int H, int S,
     int S_kv, const Seg* segs, int nseg, float scale, void* stream) {
   if (nseg < 0 || nseg > MAX_SEG || S < 1 || S_kv < 1) return (int)cudaErrorInvalidValue;
   Params p;
@@ -241,6 +249,7 @@ extern "C" int joint_attention_fwd(
     p.o_s[i] = o_s[i];
   }
   p.self_len = static_cast<const int*>(self_len);
+  p.lse = static_cast<float*>(lse);
   p.G = G; p.B = B; p.H = H; p.S = S; p.S_kv = S_kv; p.nseg = nseg;
   p.scale = scale;
   for (int i = 0; i < MAX_SEG; ++i) p.seg[i] = i < nseg ? segs[i] : Seg{};

@@ -1,4 +1,5 @@
-"""EchoDiT (counterpart of echo_tts_tpu/models/dit.py), one-shot path.
+"""EchoDiT (counterpart of echo_tts_tpu/models/dit.py): one-shot and training
+forwards.
 
 Parameters are the JAX package's pytree as nested dicts of tensors: trunk and
 encoder layers are stacked on a leading L axis and looped over in Python,
@@ -10,6 +11,13 @@ only in its masks. Joint attention goes through kernel K1
 
 The "force speaker" scale is a per-layer list of host floats (the schedule
 is known on the host), applied at use-site inside the attention.
+
+Training (`dit_forward(..., remat=True, attn_impl="trainable")`) runs each
+trunk layer under `torch.utils.checkpoint` and attention through
+`joint_attention_trainable` (K1 forward, K3 backward). A stacked leaf may be
+a LoRA-adapted weight (`train/lora.py:LoRAWeight`) instead of a tensor: each
+layer forms its own w + s·a@b where it uses it, so under remat the merged
+weight is recomputed, never saved.
 """
 from __future__ import annotations
 
@@ -17,6 +25,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from echo_tts_tpu_torch.core.config import DiTConfig
 from echo_tts_tpu_torch.core.device import resolve_device
@@ -29,16 +38,29 @@ from echo_tts_tpu_torch.core.layers import (
 from echo_tts_tpu_torch.core.rope import apply_rope, apply_rope_half_heads, precompute_rope
 from echo_tts_tpu_torch.models import quant
 from echo_tts_tpu_torch.ops.attention import sdpa
-from echo_tts_tpu_torch.ops.joint_attention import joint_attention
+from echo_tts_tpu_torch.ops.joint_attention import joint_attention, joint_attention_trainable
 
 _NEG = -1e30
 
 
-def _layer(tree, l: int):
-    """Layer l of a pytree whose leaves are stacked on a leading L axis."""
+def _layers(tree) -> list:
+    """The per-layer slices of a pytree whose leaves are stacked on a leading
+    L axis. One unbind per leaf, so a leaf that requires grad gets one
+    backward node that stacks the layers' gradients, not one full-size zero
+    stack per layer. A LoRA-adapted leaf slices itself the same way."""
     if isinstance(tree, dict):
-        return {k: _layer(v, l) for k, v in tree.items()}
-    return tree[l]
+        per = {k: _layers(v) for k, v in tree.items()}
+        n = len(next(iter(per.values())))
+        return [{k: v[l] for k, v in per.items()} for l in range(n)]
+    return list(tree.unbind(0))
+
+
+def _weights(tree):
+    """Tensors of a (per-layer or stacked) pytree: a LoRA-adapted leaf
+    becomes its merged weight w + s·a@b here."""
+    if isinstance(tree, dict):
+        return {k: _weights(v) for k, v in tree.items()}
+    return tree if isinstance(tree, torch.Tensor) else tree.weight()
 
 
 # ---------------------------------------------------------------------------
@@ -52,8 +74,8 @@ def encoder_forward(blocks: dict, x: torch.Tensor, mask: Optional[torch.Tensor],
     """Stack of encoder transformer blocks; blocks are stacked over layers."""
     b, s, d = x.shape
     hd = d // num_heads
-    for l in range(blocks["attention_norm"].shape[0]):
-        p = _layer(blocks, l)
+    for p in _layers(blocks):
+        p = _weights(p)
         a = p["attention"]
         h = rms_norm(x, p["attention_norm"], eps)
         q, k, v, gate = quant.proj_shared(h, [a["wq"], a["wk"], a["wv"], a["gate"]])
@@ -106,11 +128,11 @@ def _project_kv(blocks_attn: dict, state: torch.Tensor, wk_name: str, wv_name: s
     (L, B, H, S, Dh); k_norm on the keys, no RoPE."""
     b, s, _ = state.shape
     ks, vs = [], []
-    for l in range(blocks_attn[wk_name].shape[0]):
-        wk, wv = blocks_attn[wk_name][l], blocks_attn[wv_name][l]
-        hd = wk.shape[-1] // num_heads
-        k, v = quant.proj_shared(state, [wk, wv])
-        k = rms_norm(k.reshape(b, s, num_heads, hd), blocks_attn["k_norm"][l], eps)
+    for p in _layers({n: blocks_attn[n] for n in (wk_name, wv_name, "k_norm")}):
+        p = _weights(p)
+        hd = p[wk_name].shape[-1] // num_heads
+        k, v = quant.proj_shared(state, [p[wk_name], p[wv_name]])
+        k = rms_norm(k.reshape(b, s, num_heads, hd), p["k_norm"], eps)
         ks.append(k.transpose(1, 2))
         vs.append(v.reshape(b, s, num_heads, hd).transpose(1, 2))
     return torch.stack(ks), torch.stack(vs)
@@ -189,8 +211,15 @@ def _dit_forward_grouped(
     speaker_kv_scale: Optional[Sequence[float]] = None,  # per layer
     branch_skips: Tuple[tuple, tuple] = ((), ()),
     self_len=None,
+    remat: bool = False,
+    attn_impl: Optional[str] = None,
 ) -> torch.Tensor:
-    """Core trunk. Returns fp32 (G, B, S, latent_size)."""
+    """Core trunk. Returns fp32 (G, B, S, latent_size). remat: run each
+    layer under torch.utils.checkpoint (the counterpart of
+    jax.checkpoint(body)). attn_impl: None for the inference kernel,
+    "trainable" for the differentiable K1/K3 pair."""
+    if attn_impl not in (None, "trainable"):
+        raise ValueError(f"attn_impl must be None or 'trainable', got {attn_impl!r}")
     g, b, s, _ = x.shape
     h_, dh = cfg.num_heads, cfg.head_dim
     eps = cfg.norm_eps
@@ -204,31 +233,45 @@ def _dit_forward_grouped(
 
     x = x @ params["in_proj"]["w"] + params["in_proj"]["b"]
     blocks = params["blocks"]
-    a_shift, a_scale, a_gate = precompute_adaln(cond, blocks["attention_adaln"])
-    m_shift, m_scale, m_gate = precompute_adaln(cond, blocks["mlp_adaln"])
+    a_shift, a_scale, a_gate = precompute_adaln(cond, _weights(blocks["attention_adaln"]))
+    m_shift, m_scale, m_gate = precompute_adaln(cond, _weights(blocks["mlp_adaln"]))
     text_bias, spk_bias = _mask_bias(text_mask), _mask_bias(spk_mask)
-    kt_k, kt_v = kv_text
-    ks_k, ks_v = kv_speaker
+    per = zip(_layers({"attention": blocks["attention"], "mlp": blocks["mlp"]}),
+              *(stack.unbind(0) for stack in (*kv_text, *kv_speaker, a_shift, a_scale,
+                                              a_gate, m_shift, m_scale, m_gate)))
 
-    for l in range(cfg.num_layers):
-        a = _layer(blocks["attention"], l)
-        h = modulate_rms(x, a_shift[l], a_scale[l], eps)
+    def layer(x, p, kt_k, kt_v, ks_k, ks_v, a_shift, a_scale, a_gate, m_shift, m_scale,
+              m_gate, skv):
+        p = _weights(p)
+        a = p["attention"]
+        h = modulate_rms(x, a_shift, a_scale, eps)
         q, k_self, v_self, gate = quant.proj_shared(h, [a["wq"], a["wk"], a["wv"], a["gate"]])
         q = rms_norm(q.reshape(g, b, s, h_, dh), a["q_norm"], eps)
         k_self = rms_norm(k_self.reshape(g, b, s, h_, dh), a["k_norm"], eps)
         v_self = v_self.reshape(g, b, s, h_, dh)
         q = apply_rope_half_heads(q, cos_q, sin_q)
         k_self = apply_rope_half_heads(k_self, cos_q, sin_q)
-        skv = None if speaker_kv_scale is None else speaker_kv_scale[l]
-        # segment order [text | speaker]
-        segments = [(kt_k[l], kt_v[l], text_bias, None, branch_skips[0]),
-                    (ks_k[l], ks_v[l], spk_bias, skv, branch_skips[1])]
-        o = _joint_attention_grouped(q, k_self, v_self, segments, layout="sm",
-                                     self_len=self_len)
+        if attn_impl == "trainable":
+            o = joint_attention_trainable(q, k_self, v_self,
+                                          [(kt_k, kt_v, text_bias, None),
+                                           (ks_k, ks_v, spk_bias, skv)], layout="sm")
+        else:
+            # segment order [text | speaker]
+            segments = [(kt_k, kt_v, text_bias, None, branch_skips[0]),
+                        (ks_k, ks_v, spk_bias, skv, branch_skips[1])]
+            o = _joint_attention_grouped(q, k_self, v_self, segments, layout="sm",
+                                         self_len=self_len)
         o = o.reshape(g, b, s, cfg.model_size) * torch.sigmoid(gate)
-        x = x + a_gate[l] * quant.mm(o, a["wo"])
-        h = modulate_rms(x, m_shift[l], m_scale[l], eps)
-        x = x + m_gate[l] * quant.swiglu_mlp_q(h, _layer(blocks["mlp"], l))
+        x = x + a_gate * quant.mm(o, a["wo"])
+        h = modulate_rms(x, m_shift, m_scale, eps)
+        return x + m_gate * quant.swiglu_mlp_q(h, p["mlp"])
+
+    for l, args in enumerate(per):
+        skv = None if speaker_kv_scale is None else speaker_kv_scale[l]
+        if remat:
+            x = checkpoint(layer, x, *args, skv, use_reentrant=False)
+        else:
+            x = layer(x, *args, skv)
 
     x = rms_norm(x, params["out_norm"], eps)
     x = x @ params["out_proj"]["w"] + params["out_proj"]["b"]
@@ -237,13 +280,15 @@ def _dit_forward_grouped(
 
 def dit_forward(params: dict, cfg: DiTConfig, x, t, text_mask, speaker_mask,
                 kv_text, kv_speaker, rope_q=None, speaker_kv_scale=None,
-                self_len=None) -> torch.Tensor:
+                self_len=None, remat: bool = False,
+                attn_impl: Optional[str] = None) -> torch.Tensor:
     """Single-branch forward, fp32 output. speaker_mask is (B, S_spk_latents),
-    strided by the patch size here."""
+    strided by the patch size here. remat/attn_impl as in
+    `_dit_forward_grouped` (training passes True and "trainable")."""
     spk_mask = speaker_mask[..., :: cfg.speaker_patch_size]
     out = _dit_forward_grouped(params, cfg, x[None], t, text_mask[None], spk_mask[None],
                                kv_text, kv_speaker, rope_q, speaker_kv_scale,
-                               self_len=self_len)
+                               self_len=self_len, remat=remat, attn_impl=attn_impl)
     return out[0]
 
 

@@ -7,6 +7,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from echo_tts_tpu_torch.core.device import resolve_device
+
 
 @dataclasses.dataclass(frozen=True)
 class PCAState:
@@ -16,8 +18,10 @@ class PCAState:
 
     @staticmethod
     def from_arrays(components, mean, latent_scale, device=None) -> "PCAState":
-        return PCAState(torch.as_tensor(np.asarray(components), dtype=torch.float32, device=device),
-                        torch.as_tensor(np.asarray(mean), dtype=torch.float32, device=device),
+        """On `device` (default cuda; raises when CUDA is absent)."""
+        dev = resolve_device(device)
+        return PCAState(torch.as_tensor(np.asarray(components), dtype=torch.float32, device=dev),
+                        torch.as_tensor(np.asarray(mean), dtype=torch.float32, device=dev),
                         float(latent_scale))
 
     @staticmethod
@@ -25,7 +29,8 @@ class PCAState:
                device=None) -> "PCAState":
         """The JAX package's random projection, drawn by the same numpy
         generator, so both packages get the same state from one seed:
-        orthonormal rows when out_dim <= latent_dim, else plain gaussian."""
+        orthonormal rows when out_dim <= latent_dim, else plain gaussian.
+        On `device` (default cuda), as `from_arrays`."""
         rng = np.random.default_rng(key_seed)
         if out_dim <= latent_dim:
             q, _ = np.linalg.qr(rng.standard_normal((latent_dim, latent_dim)))

@@ -21,7 +21,7 @@ from typing import Dict, Iterable
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "echo_tts_tpu_torch"
-KERNELS = ("joint_attention", "res_chain")
+KERNELS = ("joint_attention", "joint_attention_bwd", "res_chain")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

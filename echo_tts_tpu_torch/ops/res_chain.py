@@ -184,6 +184,12 @@ def _res_chain_cuda(x, units, dilations, zero_below):
     return x
 
 
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree] if isinstance(tree, torch.Tensor) else []
+
+
 def res_units_cl(x: torch.Tensor, units: Sequence[dict],
                  dilations: Sequence[int] = (1, 3, 9), *,
                  zero_below=None) -> torch.Tensor:
@@ -191,9 +197,15 @@ def res_units_cl(x: torch.Tensor, units: Sequence[dict],
     units: {snake1 (1,C,1), conv1 {w (O,I,7), b}, snake2, conv2 {w (O,I,1),
     b}} per unit. zero_below: None, an int, or (B,) ints. CPU tensors take
     the plain version; CUDA tensors launch the kernel (two launches per
-    unit) or raise."""
+    unit) or raise. The kernel writes its output outside autograd, so with
+    grad mode on it refuses inputs that require grad."""
     if x.device.type == "cpu":
         return res_chain_plain(x, units, dilations, zero_below)
+    if torch.is_grad_enabled() and (x.requires_grad or any(
+            w.requires_grad for u in units for w in _leaves(u))):
+        raise RuntimeError("res_units_cl: kernel K2 has no backward (the JAX package's "
+                           "Pallas chain has none either); call it under torch.no_grad() "
+                           "with inputs that do not require grad")
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     return _res_chain_cuda(x, units, dilations, zero_below)

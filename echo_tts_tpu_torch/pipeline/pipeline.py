@@ -32,7 +32,8 @@ from echo_tts_tpu_torch.sampling.euler_cfg import (
 @dataclasses.dataclass
 class EchoTTS:
     """The three weight sets plus configs, on one device (default cuda;
-    raises when CUDA is absent and the CPU was not asked for)."""
+    raises when CUDA is absent and the CPU was not asked for, and when the
+    PCA state or any DiT/AE weight lies on another device)."""
 
     dit_params: dict
     dit_cfg: DiTConfig
@@ -45,6 +46,25 @@ class EchoTTS:
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
+        want = self.device
+        if want.type == "cuda" and want.index is None:
+            want = torch.device("cuda", torch.cuda.current_device())
+        named = [("pca.components", self.pca.components), ("pca.mean", self.pca.mean)]
+        named += _named_leaves("dit_params", self.dit_params)
+        named += _named_leaves("ae_params", self.ae_params)
+        for name, leaf in named:
+            if leaf.device != want:
+                raise ValueError(f"{name} is on {leaf.device}, but this EchoTTS runs on "
+                                 f"{want}: build every weight set on the same device")
+
+
+def _named_leaves(prefix: str, tree):
+    """(dotted name, tensor) for every tensor leaf of nested dicts/lists."""
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items() for x in _named_leaves(f"{prefix}.{k}", v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree) for x in _named_leaves(f"{prefix}.{i}", v)]
+    return [(prefix, tree)] if isinstance(tree, torch.Tensor) else []
 
 
 @torch.no_grad()

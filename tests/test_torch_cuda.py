@@ -1,6 +1,7 @@
-"""The port's CUDA kernels on the card, each against its plain PyTorch version
-in fp32 on the same bf16 inputs (rel-L2 < 2e-2: bf16 rounding gives ~1e-3, a
-wrong kernel O(1)). Every test needs a CUDA card and skips without one. The
+"""The port's CUDA kernels on the card (K1 joint attention and its log-sum-exp,
+K2 residual units, K3 the attention backward), each against its plain
+PyTorch version in fp32 on the same bf16 inputs (rel-L2 < 2e-2: bf16
+rounding gives ~1e-3, a wrong kernel O(1)). Every test needs a CUDA card and skips without one. The
 file imports no JAX, so it runs on a GPU machine without it:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
@@ -109,3 +110,72 @@ def test_wrappers_refuse_bad_inputs(cuda_device):
     with pytest.raises(ValueError):
         trc.res_units_cl(x.transpose(1, 2), [])
     assert (tja.joint_attention.launches, trc.res_units_cl.launches) == (k1, k2)
+
+
+def _k3_inputs(dev, g, b, s, h, seg_lens, scales, seed, all_masked=()):
+    q, ks, vs, segs = _k1_inputs(dev, g, b, s, h, seg_lens, seed, scales)
+    do = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal(
+        q.shape).astype(np.float32)).to(dev, torch.bfloat16)
+    segs = [(k, v, torch.zeros_like(m) if i in all_masked else m, sc)
+            for i, (k, v, m, sc) in enumerate(segs)]
+    return q, ks, vs, do, segs
+
+
+def test_joint_attention_lse_matches_plain(cuda_device):
+    """K1's optional output: each row's base-2 log-sum-exp of the logits."""
+    q, ks, vs, segs = _k1_inputs(cuda_device, 2, 2, 100, 2, (200, 1), 5, (None, 1.5))
+    lse = torch.empty((2, 2, 2, 100), dtype=torch.float32, device=cuda_device)
+    tja._joint_attention_cuda(q, ks, vs, segs, "sm", None, None, lse)
+    qh, kh = q.float().transpose(2, 3), ks.float().transpose(2, 3)
+    logits = [torch.einsum("gbhsd,gbhtd->gbhst", qh, kh) / np.sqrt(128)]
+    for k, _, m, sc in segs:
+        l_seg = torch.einsum("gbhsd,bhtd->gbhst", qh, k.float()) / np.sqrt(128) * (sc or 1.0)
+        logits.append(l_seg.masked_fill(~m[:, :, None, None, :], -1e30))
+    ref = torch.logsumexp(torch.cat(logits, -1), -1) / np.log(2.0)
+    assert float((lse - ref).abs().max()) < 2e-2
+
+
+def test_joint_attention_bwd_kernel_matches_plain(cuda_device):
+    """K3: G=3, B=2, unaligned S, a T=1 all-masked segment and a speaker
+    scale; every gradient against the fp32 plain backward."""
+    q, ks, vs, do, segs = _k3_inputs(cuda_device, 3, 2, 100, 2, (200, 1), (None, 1.5), 17,
+                                     all_masked=(1,))
+    lse = torch.empty((3, 2, 2, 100), dtype=torch.float32, device=cuda_device)
+    out = tja._joint_attention_cuda(q, ks, vs, segs, "sm", None, None, lse)
+    before = tja.joint_attention_bwd.launches
+    got = tja.joint_attention_bwd(q, ks, vs, segs, do, "sm", out=out, lse=lse)
+    assert tja.joint_attention_bwd.launches == before + 1
+    ref = tja.joint_attention_bwd_plain(q.float(), ks.float(), vs.float(), _f32(segs),
+                                        do.float(), "sm")
+    for g_, r_ in zip([*got[:3], got[3][0], got[3][1]], [*ref[:3], ref[3][0], ref[3][1]]):
+        assert _rel(g_, r_) < 2e-2
+    assert not got[3][2].any() and not got[3][3].any()  # the all-masked segment
+
+
+def test_trainable_attention_on_the_card(cuda_device):
+    """autograd through joint_attention_trainable: K1 forward, K3 backward,
+    one launch each, gradients of every input against the plain backward."""
+    q, ks, vs, do, segs = _k3_inputs(cuda_device, 1, 2, 72, 2, (96, 20), (None, 1.5), 23)
+    inputs = [x.clone().requires_grad_() for x in (q, ks, vs, segs[0][0], segs[0][1],
+                                                    segs[1][0], segs[1][1])]
+    k1, k3 = tja.joint_attention.launches, tja.joint_attention_bwd.launches
+    out = tja.joint_attention_trainable(
+        inputs[0], inputs[1], inputs[2],
+        [(inputs[3], inputs[4], segs[0][2], None), (inputs[5], inputs[6], segs[1][2], 1.5)],
+        layout="sm")
+    grads = torch.autograd.grad(out, inputs, grad_outputs=do)
+    assert (tja.joint_attention.launches, tja.joint_attention_bwd.launches) == (k1 + 1, k3 + 1)
+    ref = tja.joint_attention_bwd_plain(q.float(), ks.float(), vs.float(), _f32(segs),
+                                        do.float(), "sm")
+    for g_, r_ in zip(grads, [*ref[:3], *ref[3]]):
+        assert _rel(g_, r_) < 2e-2
+
+
+def test_inference_kernels_refuse_grad_on_the_card(cuda_device):
+    q = torch.zeros(1, 1, 64, 2, 128, device=cuda_device, dtype=torch.bfloat16,
+                    requires_grad=True)
+    with pytest.raises(RuntimeError, match="joint_attention_trainable"):
+        tja.joint_attention(q, q, q, [], layout="sm")
+    x = torch.zeros(1, 64, 96, device=cuda_device, dtype=torch.bfloat16, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        trc.res_units_cl(x, [])

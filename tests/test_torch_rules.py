@@ -4,12 +4,13 @@
 * its entry points run on CUDA unless the caller asks for the CPU, and raise
   where CUDA is absent instead of falling back quietly;
 * the kernel wrappers take the plain version only for CPU tensors and
-  refuse what the kernels do not take.
+  refuse what the kernels do not take, inputs that require grad included.
 """
 import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -78,3 +79,61 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         trc.res_units_cl(torch.zeros(1, 8, 32, device="meta"), [])
 
+
+
+def test_pca_defaults_to_cuda():
+    """PCAState.random/from_arrays resolve their device like every entry
+    point: None means cuda, and a missing card raises."""
+    comp, mean = np.eye(8, 16, dtype=np.float32), np.zeros(16, np.float32)
+    if torch.cuda.is_available():
+        assert PCAState.random(0, 64).components.device.type == "cuda"
+        assert PCAState.from_arrays(comp, mean, 1.0).mean.device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        PCAState.random(0, 64)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        PCAState.from_arrays(comp, mean, 1.0)
+    assert PCAState.from_arrays(comp, mean, 1.0, device="cpu").components.device.type == "cpu"
+
+
+def test_echo_tts_refuses_weights_on_another_device():
+    """EchoTTS checks that the PCA state and every DiT/AE weight lie on its
+    device (a CPU PCA state would send the speaker encode to the CPU)."""
+    tiny = DiTConfig(has_latent_modules=False).tiny()
+    pca_cpu = PCAState.random(0, 64, device="cpu")
+    pca_meta = PCAState(pca_cpu.components.to("meta"), pca_cpu.mean, 1.0)
+    with pytest.raises(ValueError, match="pca.components is on meta"):
+        EchoTTS({}, tiny, {}, AEConfig().tiny(), pca_meta, device="cpu")
+    dit = {"blocks": {"attention": {"wq": torch.zeros(2, 4, 4, device="meta")}}}
+    with pytest.raises(ValueError, match="dit_params.blocks.attention.wq is on meta"):
+        EchoTTS(dit, tiny, {}, AEConfig().tiny(), pca_cpu, device="cpu")
+    ae = {"decoder": {"blocks": [{"w": torch.zeros(3)}, {"w": torch.zeros(3, device="meta")}]}}
+    with pytest.raises(ValueError, match="ae_params.decoder.blocks.1.w is on meta"):
+        EchoTTS({}, tiny, ae, AEConfig().tiny(), pca_cpu, device="cpu")
+
+
+def test_inference_wrappers_refuse_inputs_that_require_grad():
+    """Off the CPU, K1 and K2 write outside autograd: with grad mode on they
+    refuse inputs that require grad (the check comes before the device's,
+    so meta tensors reach it here); under no_grad they get as far as the
+    device check."""
+    q = torch.zeros(1, 1, 8, 2, 128, device="meta", requires_grad=True)
+    with pytest.raises(RuntimeError, match="joint_attention_trainable"):
+        tja.joint_attention(q, q, q, [], layout="sm")
+    k = torch.zeros(1, 2, 4, 128, device="meta", requires_grad=True)
+    qd = q.detach()
+    with pytest.raises(RuntimeError, match="joint_attention_trainable"):
+        tja.joint_attention(qd, qd, qd, [(k, k.detach(), torch.ones(1, 1, 4, dtype=torch.bool,
+                                                                    device="meta"), None)],
+                            layout="sm")
+    x = torch.zeros(1, 8, 32, device="meta", requires_grad=True)
+    with pytest.raises(RuntimeError, match="K2 has no backward"):
+        trc.res_units_cl(x, [])
+    w = torch.zeros(32, 32, 7, device="meta", requires_grad=True)
+    with pytest.raises(RuntimeError, match="K2 has no backward"):
+        trc.res_units_cl(x.detach(), [{"conv1": {"w": w}}])
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="unsupported device"):
+            tja.joint_attention(q, q, q, [], layout="sm")
+        with pytest.raises(ValueError, match="unsupported device"):
+            trc.res_units_cl(x, [])
