@@ -11,6 +11,10 @@ Phases, in order; any failure exits non-zero:
   4. each kernel against its plain PyTorch version at main-path shapes, bf16
      inputs, rel-L2 < 2e-2 (bf16 rounding gives ~1e-3, a wrong kernel O(1)):
      K1 forward, K2 residual units, K3 attention backward (each gradient);
+     then every instance of the measurement variants that the bench entry
+     points use (K1v attention_var, K2v-cl res_chain, K2v-cf res_chain_cf,
+     K2s res_chain_snake) at the full shapes and at a ragged one, K2v-cf
+     against K2v-cl on the transposed input, and K2s poly against exact;
   5. the one-shot slice at the full width of DiTConfig(has_latent_modules=
      False) and AEConfig() in bf16, random weights from a seed: one CFG
      forward and one decode through the kernels against the plain versions;
@@ -22,10 +26,17 @@ Phases, in order; any failure exits non-zero:
      three timed, with exact launch counts; a torch.profiler pass over one
      more step; the LoRA gradient at B=1 through K1+K3 against the plain
      attention under autograd;
-  7. kernel times (CUDA events, median of 7 after warm-up) beside the plain
-     version, one library call where one exists, and the bound.
+  7. the measurement path: the entry points of echo_tts_tpu_torch/bench/
+     (attention_variants, conv_kernel_variants, conv_variants, attention,
+     profile_breakdown) at their full shapes, each printing its JSON line,
+     with the launch counts set to 0 before each and read after it;
+  8. kernel times (CUDA events, median of 7 after warm-up) beside the plain
+     version, one library call where one exists, and the bound, for K1, K2,
+     K3, K1v, K2v-cl, K2v-cf and K2s.
 The line before the last is the kernel JSON; the last line is
-{"ok": true, "device": {...}}. Imports nothing of JAX.
+{"ok": true, "device": {...}}. Imports nothing of JAX. The whole script takes
+about four minutes on an H100 (the build of the six sources, in parallel,
+about half a minute of it), so the earlier slices keep their depth.
 """
 from __future__ import annotations
 
@@ -55,29 +66,14 @@ def log(msg: str) -> None:
 
 
 def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
-    a, b = a.float(), b.float()
+    # float64: the `dots` probe under an additive mask carries values near
+    # 1e21, whose squares overflow float32
+    a, b = a.double(), b.double()
     return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b).clamp_min(1e-30))
 
 
 def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).abs().max())
-
-
-def cuda_ms(fn, reps: int = 7, warmup: int = 2) -> float:
-    """Median of `reps` CUDA-event timings of fn()."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def bound(flops: float, nbytes: float):
@@ -240,13 +236,7 @@ def phase_kernel_checks(dev) -> dict:
 
     # K2 at every decoder width and one encoder width, non-zero biases
     def units(c):
-        def w(*shape, s):
-            return (torch.randn(*shape, generator=gen, device=dev) * s).to(torch.bfloat16)
-        return [{"snake1": (0.2 + 1.3 * torch.rand(1, c, 1, generator=gen, device=dev)).to(torch.bfloat16),
-                 "snake2": (0.2 + 1.3 * torch.rand(1, c, 1, generator=gen, device=dev)).to(torch.bfloat16),
-                 "conv1": {"w": w(c, c, 7, s=1.0 / math.sqrt(7 * c)), "b": w(c, s=0.3)},
-                 "conv2": {"w": w(c, c, 1, s=1.0 / math.sqrt(c)), "b": w(c, s=0.3)}}
-                for _ in range(3)]
+        return variant_units(gen, c, dev)
 
     for c, t, zb in ((768, 2048, None), (384, 3000, 80), (192, 4096, None),
                      (96, 4100, [80, 13]), (64, 4096, [0, 80])):
@@ -315,7 +305,143 @@ def phase_kernel_checks(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 7: kernel times
+# phase 4b: the measurement-variant kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def variant_units(gen, c, dev, bias=0.3):
+    """Three residual units with non-zero biases, bf16."""
+    def w(*shape, s):
+        return (torch.randn(*shape, generator=gen, device=dev) * s).to(torch.bfloat16)
+
+    def alpha():
+        return (0.2 + 1.3 * torch.rand(1, c, 1, generator=gen, device=dev)).to(torch.bfloat16)
+
+    return [{"snake1": alpha(), "snake2": alpha(),
+             "conv1": {"w": w(c, c, 7, s=1.0 / math.sqrt(7 * c)), "b": w(c, s=bias)},
+             "conv2": {"w": w(c, c, 1, s=1.0 / math.sqrt(c)), "b": w(c, s=bias)}}
+            for _ in range(3)]
+
+
+def phase_variant_checks(dev) -> dict:
+    """Every instance the measurement entry points use, at their full shapes
+    and at one ragged shape, against its plain version in fp32 on the same
+    bf16 inputs; K2v-cf against K2v-cl; K2s poly against exact. Returns each
+    kernel's largest absolute error against its plain version (the `dots`
+    probe apart, whose output has no scale)."""
+    from echo_tts_tpu_torch.bench import attention_variants as bav
+    from echo_tts_tpu_torch.bench import conv_kernel_variants as bcv
+    from echo_tts_tpu_torch.ops import attention_variants as av
+    from echo_tts_tpu_torch.ops import res_chain_variants as rv
+
+    failures = []
+    errs = {"attention_var": 0.0, "res_chain_var": 0.0, "res_chain_cf": 0.0,
+            "res_chain_snake": 0.0}
+
+    def check(kernel, case, got, ref, against_plain=True):
+        torch.cuda.synchronize()
+        r, e = rel_l2(got, ref), max_abs(got, ref)
+        finite = bool(torch.isfinite(got.float()).all())
+        log(f"# check {kernel} [{case}]: rel-L2 {r:.3e}, max|err| {e:.3e}")
+        if against_plain and "dots" not in case.lower():
+            errs[kernel] = max(errs[kernel], e)
+        if not (finite and r < REL_L2_BOUND):
+            failures.append(f"{kernel} [{case}] rel-L2 {r:.3e} finite={finite}")
+
+    # K1v: every named variant at the full shape, then at a ragged one
+    # (S and T no multiples of a tile, a T=1 segment; noav needs 128 keys)
+    ragged = dict(g=3, b=2, h=4, s=200, d=128, t_text=300, t_spk=1)
+    ragged_noav = dict(ragged, t_spk=130)
+    def f32(inp):
+        return {k: ([tuple(a.float() if a.dtype == torch.bfloat16 else a for a in sg)
+                     for sg in v] if isinstance(v, list) else v.float()) for k, v in inp.items()}
+
+    for shape_name, shape in (("full", bav.FULL_SHAPE), ("ragged", ragged)):
+        inp = bav.make_inputs(dev, seed=11, **shape)
+        inp_noav = bav.make_inputs(dev, seed=11, **ragged_noav) if shape is ragged else inp
+        inp32, inp32_noav = f32(inp), f32(inp_noav)
+        for name, nseg, flags in bav.VARIANTS:
+            use, use32 = ((inp_noav, inp32_noav) if flags.get("probe") == "noav"
+                          else (inp, inp32))
+            got = bav.variant_call(use, nseg, flags)()
+            ref = av.attention_var_plain(*_variant_args(use32, nseg, flags), **flags)
+            check("attention_var", f"{shape_name}: {name}", got, ref)
+            if flags.get("probe") == "dots" and flags["mask_mode"] != "none":
+                # under the additive mask the masked branches (near 1e21)
+                # carry the relative error: the unmasked product is held here
+                bare = dict(flags, mask_mode="none")
+                check("attention_var", f"{shape_name}: {name}, mask_mode=none",
+                      bav.variant_call(use, nseg, bare)(),
+                      av.attention_var_plain(*_variant_args(use32, nseg, bare), **bare))
+        del inp, inp32, inp_noav, inp32_noav
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    # K2v-cl, K2v-cf, K2s: every row of the entry points at its full shape,
+    # then at a ragged length (no multiple of any tile) at B=2
+    for c, lens in ((192, ((1, 655360), (2, 1000))), (96, ((1, 1310720), (2, 1003)))):
+        us = variant_units(gen, c, dev)
+        us32 = f32_units(us)
+        for bsz, t in lens:
+            x = torch.randn(bsz, t, c, generator=gen, device=dev).to(torch.bfloat16)
+            for name, kw in bcv.cl_rows(c):
+                check("res_chain_var", f"C={c} B={bsz} T={t}: {name}", rv.res_chain(x, us, **kw),
+                      rv.res_chain_plain(x.float(), us32, **kw))
+            xcf = x.transpose(1, 2).contiguous()
+            cl = rv.res_chain(x, us, live_mode="mult")
+            for name, kw in bcv.cf_rows(c):
+                got = rv.res_chain_cf(xcf, us, **kw)
+                check("res_chain_cf", f"C={c} B={bsz} T={t}: {name}", got,
+                      rv.res_chain_cf_plain(xcf.float(), us32, **kw))
+                if kw.get("use_sin", True):
+                    check("res_chain_cf", f"C={c} B={bsz} T={t}: {name} vs K2v-cl transposed",
+                          got.transpose(1, 2), cl, against_plain=False)
+            outs = {}
+            for mode in rv.SNAKE_MODES:
+                outs[mode] = rv.res_chain_snake(x, us, mode)
+                check("res_chain_snake", f"C={c} B={bsz} T={t}: snake={mode}", outs[mode],
+                      rv.res_chain_snake_plain(x.float(), us32, mode))
+            check("res_chain_snake", f"C={c} B={bsz} T={t}: poly vs exact", outs["poly"],
+                  outs["exact"], against_plain=False)
+
+    # the wrappers refuse what the kernels do not take
+    x = torch.zeros(1, 64, 96, device=dev, dtype=torch.bfloat16)
+    us = variant_units(gen, 96, dev)
+    q = torch.zeros(1, 1, 2, 64, 128, device=dev, dtype=torch.bfloat16)
+    for what, call, exc in (
+            ("attention_var dtype", lambda: av.attention_var(q.float(), q, q, [], tq=64), TypeError),
+            ("attention_var tq", lambda: av.attention_var(q, q, q, [], tq=320), ValueError),
+            ("attention_var stride", lambda: av.attention_var(q.transpose(3, 4), q, q, [], tq=64),
+             ValueError),
+            ("res_chain dtype", lambda: rv.res_chain(x.float(), us), TypeError),
+            ("res_chain width", lambda: rv.res_chain(x[..., :64].contiguous(), us), ValueError),
+            ("res_chain tile", lambda: rv.res_chain(x, us, tile_t=4096), ValueError),
+            ("res_chain_cf stride", lambda: rv.res_chain_cf(x.transpose(1, 2), us), ValueError),
+            ("res_chain_snake mode", lambda: rv.res_chain_snake(x, us, "cubic"), ValueError)):
+        try:
+            call()
+        except exc as e:
+            log(f"# {what} refused: {type(e).__name__}")
+        else:
+            failures.append(f"{what} was accepted")
+    if failures:
+        raise SystemExit("variant kernel checks failed: " + "; ".join(failures))
+    return errs
+
+
+def _variant_args(inp, nseg, flags):
+    """(q, k_self, v_self, segments) of one variant for the plain version:
+    keys transposed under k_t, bool masks."""
+    k_t = flags.get("k_t", False)
+
+    def key(k):
+        return k.transpose(-1, -2) if k_t else k
+
+    return (inp["q"], key(inp["k_self"]), inp["v_self"],
+            [(key(k), v, m) for k, v, m in inp[f"segs{nseg}"]])
+
+
+# ---------------------------------------------------------------------------
+# phase 8: kernel times
 # ---------------------------------------------------------------------------
 
 
@@ -327,6 +453,7 @@ def phase_kernel_times(dev, errs: dict, launches: dict) -> list:
     """launches: {path: {kernel: count}} from the one-shot and training runs;
     a row's `launches` is the count on the path that introduced the kernel,
     and `launches_by_path` has every path's."""
+    from echo_tts_tpu_torch.bench.timing import cuda_ms
     from echo_tts_tpu_torch.ops import joint_attention as ja
     from echo_tts_tpu_torch.ops import res_chain as rc
 
@@ -402,7 +529,7 @@ def phase_kernel_times(dev, errs: dict, launches: dict) -> list:
         f"{rows[0]['plain_ms']:.3f} ms, sdpa {rows[0]['library_ms']:.3f} ms, "
         f"bound {rows[0]['bound_ms']:.4f} ms ({rows[0]['bound_by']})")
     rows.append(k3_times(dev, gen, errs, launches))
-    return rows
+    return rows + variant_times(dev, errs, launches)
 
 
 def k3_times(dev, gen, errs: dict, launches: dict) -> dict:
@@ -411,6 +538,7 @@ def k3_times(dev, gen, errs: dict, launches: dict) -> dict:
     backward on the same bf16 inputs; the yardstick is the backward of one
     SDPA call over [k_self | k_text | k_spk*s] with the concatenated bias
     (timed only; the port never calls it)."""
+    from echo_tts_tpu_torch.bench.timing import cuda_ms
     from echo_tts_tpu_torch.ops import joint_attention as ja
 
     g, b, s, h, d, t_text, t_spk = 1, TRAIN_B, 640, 16, 128, 768, 160
@@ -446,6 +574,130 @@ def k3_times(dev, gen, errs: dict, launches: dict) -> dict:
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
             "shape": f"G={g} B={b} S={s} H={h} D={d} self {s} + text {t_text} + "
                      f"speaker {t_spk} (scale 1.5)"}
+
+
+def variant_times(dev, errs: dict, launches: dict) -> list:
+    """K1v, K2v-cl, K2v-cf and K2s at the shapes their entry points time, the
+    instance each entry point calls "(prod)" or its default: kernel, plain
+    version on the same bf16 inputs, bound, and for K1v one SDPA call."""
+    from echo_tts_tpu_torch.bench import attention_variants as bav
+    from echo_tts_tpu_torch.bench import conv_kernel_variants as bcv
+    from echo_tts_tpu_torch.bench import conv_variants as bsv
+    from echo_tts_tpu_torch.bench.timing import cuda_ms
+    from echo_tts_tpu_torch.ops import attention_variants as av
+    from echo_tts_tpu_torch.ops import res_chain_variants as rv
+
+    measured = launches.get("measurement", {})
+    rows = []
+    with torch.no_grad():
+        # K1v: the two-pass exact softmax, q tile 128, additive bias, exp2
+        shp = bav.FULL_SHAPE
+        g, b, h, s, d, t_text, t_spk = (shp[k] for k in ("g", "b", "h", "s", "d", "t_text",
+                                                          "t_spk"))
+        inp = bav.make_inputs(dev, seed=2, **shp)
+        flags = dict(tq=128, mask_mode="bias", use_exp2=True)
+        ms = cuda_ms(bav.variant_call(inp, 2, flags))
+        plain_ms = cuda_ms(lambda: av.attention_var_plain(*_variant_args(inp, 2, flags), **flags))
+        lib_ms = cuda_ms(bav.reference_calls(inp)[1][1])
+        flops = 4.0 * g * b * h * s * (s + t_text + t_spk) * d
+        nbytes = (2 * 4 * g * b * h * s * d + 2 * 2 * b * h * (t_text + t_spk) * d
+                  + 4 * g * b * (t_text + t_spk))
+        b_ms, b_by = bound(flops, nbytes)
+        log(f"# time attention_var: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, sdpa "
+            f"{lib_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+        rows.append({"name": "attention_var", "route": "cuda",
+                     "source": "echo_tts_tpu_torch/csrc/joint_attention_variants.cu",
+                     "replaces": "scripts/bench_attention_variants.py:65",
+                     "launches": measured.get("attention_var", 0),
+                     "max_abs_err": errs["attention_var"], "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+                     "shape": f"G={g} B={b} H={h} S={s} D={d} self {s} + text {t_text} + speaker "
+                              f"{t_spk}; probe full, tq 128, bias, exp2"})
+        del inp
+
+        # the chains at C=192, T=655,360: one read and one write of x, the
+        # weights once, 3 units of a K=7 and a K=1 product
+        c, t = bsv.FULL_SHAPE
+        gen = torch.Generator(device=dev).manual_seed(3)
+        x = torch.randn(1, t, c, generator=gen, device=dev).to(torch.bfloat16)
+        xcf = x.transpose(1, 2).contiguous()
+        units = bsv.make_units(gen, c, dev)
+        flops = 3 * 2.0 * t * c * c * 8
+        nbytes = 2 * 2 * t * c + 3 * 2 * (8 * c * c) + 3 * 4 * 4 * c
+        b_ms, b_by = bound(flops, nbytes)
+        for name, key, source, replaces, what, fn, plain in (
+                ("res_chain_var", "res_chain_var", "res_chain_variants.cu",
+                 "scripts/bench_conv_kernel_variants.py:36", "sin² polynomial, seven taps",
+                 lambda: rv.res_chain(x, units, use_sin="poly"),
+                 lambda: rv.res_chain_plain(x, units, use_sin="poly")),
+                ("res_chain_cf", "res_chain_cf", "res_chain_cf.cu",
+                 "scripts/bench_conv_kernel_variants.py:99", "channels first, sin",
+                 lambda: rv.res_chain_cf(xcf, units),
+                 lambda: rv.res_chain_cf_plain(xcf, units)),
+                ("res_chain_snake", "res_chain_snake", "res_chain_variants.cu",
+                 "scripts/bench_conv_variants.py:56", "snake exact",
+                 lambda: rv.res_chain_snake(x, units, "exact"),
+                 lambda: rv.res_chain_snake_plain(x, units, "exact"))):
+            ms = cuda_ms(fn, reps=5)
+            plain_ms = cuda_ms(plain, reps=3, warmup=1)
+            log(f"# time {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+                f"bound {b_ms:.3f} ms ({b_by})")
+            rows.append({"name": name, "route": "cuda",
+                         "source": f"echo_tts_tpu_torch/csrc/{source}", "replaces": replaces,
+                         "launches": measured.get(key, 0), "max_abs_err": errs[key], "ms": ms,
+                         "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                         # no single PyTorch call computes the three-unit chain
+                         "library_ms": None,
+                         "shape": f"three-unit chain, B=1 C={c} T={t}; {what}"})
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the measurement path
+# ---------------------------------------------------------------------------
+
+
+def phase_measurement(dev) -> dict:
+    """The entry points of echo_tts_tpu_torch/bench/ at their full shapes, as
+    `python -m echo_tts_tpu_torch.bench.<name>` runs them: each prints its
+    table to stderr and its JSON line to stdout. Every launch count is set
+    to 0 before an entry point and read after it; an entry point that did
+    not go through its kernels, or reports a time that is not positive and
+    finite, fails the run. Returns the launches summed over the path."""
+    import importlib
+
+    from echo_tts_tpu_torch.ops.attention_variants import attention_var
+    from echo_tts_tpu_torch.ops.joint_attention import joint_attention
+    from echo_tts_tpu_torch.ops.res_chain import res_units_cl
+    from echo_tts_tpu_torch.ops.res_chain_variants import res_chain, res_chain_cf, res_chain_snake
+
+    wrappers = {"joint_attention": joint_attention, "res_chain": res_units_cl,
+                "attention_var": attention_var, "res_chain_var": res_chain,
+                "res_chain_cf": res_chain_cf, "res_chain_snake": res_chain_snake}
+    path = (("attention_variants", ("attention_var", "joint_attention")),
+            ("conv_kernel_variants", ("res_chain_var", "res_chain_cf", "res_chain")),
+            ("conv_variants", ("res_chain_snake", "res_chain")),
+            ("attention", ("joint_attention",)),
+            ("profile_breakdown", ("joint_attention", "res_chain")))
+    totals = {k: 0 for k in wrappers}
+    for name, through in path:
+        mod = importlib.import_module(f"echo_tts_tpu_torch.bench.{name}")
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        res = mod.main([])
+        torch.cuda.synchronize()
+        counts = {k: w.launches for k, w in wrappers.items() if w.launches}
+        log(f"# entry point bench.{name}: {time.perf_counter() - t0:.1f} s, launches {counts}")
+        missing = [k for k in through if not counts.get(k)]
+        bad = {k: v for k, v in res["ms"].items() if not (math.isfinite(v) and v > 0)}
+        if missing or bad or res["device"] != torch.cuda.get_device_name(0):
+            raise SystemExit(f"bench.{name}: kernels never launched {missing}, bad times {bad}, "
+                             f"device {res['device']!r}")
+        for k, v in counts.items():
+            totals[k] += v
+    log(f"# launches on the measurement path: {totals}")
+    return totals
 
 
 # ---------------------------------------------------------------------------
@@ -642,6 +894,8 @@ def profile_families(what: str, run) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from echo_tts_tpu_torch.utils.profiling import device_time_by_family
+
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     run()
@@ -655,31 +909,14 @@ def profile_families(what: str, run) -> None:
         prof_wall_ms = (time.perf_counter() - t0) * 1e3
     # device-side events only: CPU ops also carry their kernels' device time
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    total = sum(e.device_time_total for e in kernels) / 1e3
-
-    def family(name: str) -> str:
-        if "dq_kernel" in name or "dkdv_kernel" in name or "rowdot_kernel" in name:
-            return "K3 joint_attention_bwd"
-        if "joint_attention" in name:
-            return "K1 joint_attention"
-        if "res_unit" in name:
-            return "K2 res_chain"
-        if any(k in name for k in ("gemm", "xmma", "cutlass", "gemv", "nvjet")):
-            return "GEMM (cuBLAS)"
-        if "conv" in name.lower() or "cudnn" in name.lower():
-            return "conv (cuDNN)"
-        return "other (elementwise, norms, copies)"
-
-    fam = {}
-    for e in kernels:
-        f = family(e.key)
-        n, ms = fam.get(f, (0, 0.0))
-        fam[f] = (n + e.count, ms + e.device_time_total / 1e3)
+    fam = device_time_by_family(prof)
+    total = sum(v["ms"] for v in fam.values())
     log(f"# profile, {what}: wall {wall_ms:.1f} ms unprofiled, "
         f"{prof_wall_ms:.1f} ms profiled; device busy {total:.1f} ms = "
         f"{total / wall_ms:.1%} of the unprofiled wall")
-    for f, (n, ms) in sorted(fam.items(), key=lambda kv: -kv[1][1]):
-        log(f"#   {f}: {ms:.1f} ms in {n} launches ({ms / total:.1%} of device time)")
+    for f, v in sorted(fam.items(), key=lambda kv: -kv[1]["ms"]):
+        log(f"#   {f}: {v['ms']:.1f} ms in {v['launches']} launches "
+            f"({v['ms'] / total:.1%} of device time)")
     for e in sorted(kernels, key=lambda e: -e.device_time_total)[:8]:
         log(f"#   top kernel {e.key[:70]}: {e.device_time_total / 1e3:.1f} ms, {e.count} launches")
 
@@ -848,6 +1085,7 @@ def main(argv) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     errs = phase_kernel_checks(dev)
+    errs.update(phase_variant_checks(dev))
 
     from echo_tts_tpu_torch.ops.joint_attention import joint_attention, joint_attention_bwd
     from echo_tts_tpu_torch.ops.res_chain import res_units_cl
@@ -861,6 +1099,8 @@ def main(argv) -> int:
                                                       "joint_attention_bwd": joint_attention_bwd,
                                                       "res_chain": res_units_cl})
         del tts
+        torch.cuda.empty_cache()
+        launches["measurement"] = phase_measurement(dev)
     rows = phase_kernel_times(dev, errs, launches)
     log(f"# {smi}")
     print(json.dumps({"kernels": rows}))

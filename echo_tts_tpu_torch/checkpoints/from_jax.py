@@ -65,6 +65,19 @@ def ae_params_from_numpy(tree: dict, cfg: AEConfig, device=None,
     return p
 
 
+def res_units_from_numpy(units, device=None, dtype: Optional[torch.dtype] = None) -> list:
+    """The measurement scripts' residual units (a list of {snake1 (1, C, 1),
+    conv1 {w (C, C, 7), b}, snake2, conv2 {w (C, C, 1), b}}) -> the port's,
+    on `device` (default cuda)."""
+    us = _convert(list(units), resolve_device(device), dtype)
+    for i, u in enumerate(us):
+        c = u["snake1"].numel()
+        _expect(f"units[{i}].conv1.w", u["conv1"]["w"], (c, c, 7))
+        _expect(f"units[{i}].conv2.w", u["conv2"]["w"], (c, c, 1))
+        _expect(f"units[{i}].snake2", u["snake2"], (1, c, 1))
+    return us
+
+
 def lora_from_numpy(tree: dict, device=None) -> dict:
     """A JAX LoRA side-car ({target: {"a": (L, in, r), "b": (L, r, out)}},
     echo_tts_tpu/train/lora.py:init_lora) -> the port's, fp32 on `device`

@@ -43,23 +43,23 @@ from echo_tts_tpu_torch.ops.joint_attention import joint_attention, joint_attent
 _NEG = -1e30
 
 
-def _layers(tree) -> list:
+def layer_slices(tree) -> list:
     """The per-layer slices of a pytree whose leaves are stacked on a leading
     L axis. One unbind per leaf, so a leaf that requires grad gets one
     backward node that stacks the layers' gradients, not one full-size zero
     stack per layer. A LoRA-adapted leaf slices itself the same way."""
     if isinstance(tree, dict):
-        per = {k: _layers(v) for k, v in tree.items()}
+        per = {k: layer_slices(v) for k, v in tree.items()}
         n = len(next(iter(per.values())))
         return [{k: v[l] for k, v in per.items()} for l in range(n)]
     return list(tree.unbind(0))
 
 
-def _weights(tree):
+def layer_weights(tree):
     """Tensors of a (per-layer or stacked) pytree: a LoRA-adapted leaf
     becomes its merged weight w + s·a@b here."""
     if isinstance(tree, dict):
-        return {k: _weights(v) for k, v in tree.items()}
+        return {k: layer_weights(v) for k, v in tree.items()}
     return tree if isinstance(tree, torch.Tensor) else tree.weight()
 
 
@@ -74,8 +74,8 @@ def encoder_forward(blocks: dict, x: torch.Tensor, mask: Optional[torch.Tensor],
     """Stack of encoder transformer blocks; blocks are stacked over layers."""
     b, s, d = x.shape
     hd = d // num_heads
-    for p in _layers(blocks):
-        p = _weights(p)
+    for p in layer_slices(blocks):
+        p = layer_weights(p)
         a = p["attention"]
         h = rms_norm(x, p["attention_norm"], eps)
         q, k, v, gate = quant.proj_shared(h, [a["wq"], a["wk"], a["wv"], a["gate"]])
@@ -128,8 +128,8 @@ def _project_kv(blocks_attn: dict, state: torch.Tensor, wk_name: str, wv_name: s
     (L, B, H, S, Dh); k_norm on the keys, no RoPE."""
     b, s, _ = state.shape
     ks, vs = [], []
-    for p in _layers({n: blocks_attn[n] for n in (wk_name, wv_name, "k_norm")}):
-        p = _weights(p)
+    for p in layer_slices({n: blocks_attn[n] for n in (wk_name, wv_name, "k_norm")}):
+        p = layer_weights(p)
         hd = p[wk_name].shape[-1] // num_heads
         k, v = quant.proj_shared(state, [p[wk_name], p[wv_name]])
         k = rms_norm(k.reshape(b, s, num_heads, hd), p["k_norm"], eps)
@@ -233,16 +233,16 @@ def _dit_forward_grouped(
 
     x = x @ params["in_proj"]["w"] + params["in_proj"]["b"]
     blocks = params["blocks"]
-    a_shift, a_scale, a_gate = precompute_adaln(cond, _weights(blocks["attention_adaln"]))
-    m_shift, m_scale, m_gate = precompute_adaln(cond, _weights(blocks["mlp_adaln"]))
+    a_shift, a_scale, a_gate = precompute_adaln(cond, layer_weights(blocks["attention_adaln"]))
+    m_shift, m_scale, m_gate = precompute_adaln(cond, layer_weights(blocks["mlp_adaln"]))
     text_bias, spk_bias = _mask_bias(text_mask), _mask_bias(spk_mask)
-    per = zip(_layers({"attention": blocks["attention"], "mlp": blocks["mlp"]}),
+    per = zip(layer_slices({"attention": blocks["attention"], "mlp": blocks["mlp"]}),
               *(stack.unbind(0) for stack in (*kv_text, *kv_speaker, a_shift, a_scale,
                                               a_gate, m_shift, m_scale, m_gate)))
 
     def layer(x, p, kt_k, kt_v, ks_k, ks_v, a_shift, a_scale, a_gate, m_shift, m_scale,
               m_gate, skv):
-        p = _weights(p)
+        p = layer_weights(p)
         a = p["attention"]
         h = modulate_rms(x, a_shift, a_scale, eps)
         q, k_self, v_self, gate = quant.proj_shared(h, [a["wq"], a["wk"], a["wv"], a["gate"]])

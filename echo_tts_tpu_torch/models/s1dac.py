@@ -23,7 +23,7 @@ import torch.nn.functional as F
 
 from echo_tts_tpu_torch.core.config import AEConfig
 from echo_tts_tpu_torch.ops.res_chain import (
-    _sin2,
+    sin2_poly,
     causal_conv_shifted_cl,
     res_units_cl,
     snake_cl,
@@ -75,7 +75,7 @@ def snake(x, alpha):
     the polynomial sin² in fp32, the result in x's dtype."""
     xf = x.float()
     af = alpha.float()
-    return (xf + (1.0 / (af + 1e-9)) * _sin2(af * xf)).to(x.dtype)
+    return (xf + (1.0 / (af + 1e-9)) * sin2_poly(af * xf)).to(x.dtype)
 
 
 def _layer_norm(x, w, b, eps=1e-6):
@@ -288,7 +288,7 @@ def _downsample(params, cfg: AEConfig, z):
     return z
 
 
-def _upsample(params, cfg: AEConfig, z):
+def quantizer_upsample(params, cfg: AEConfig, z):
     for i, factor in enumerate(reversed(cfg.downsample_factor)):
         st = params["quantizer"]["upsample"][i]
         z = causal_tconv(z, st["conv"], kernel_size=factor, stride=factor)
@@ -296,7 +296,7 @@ def _upsample(params, cfg: AEConfig, z):
     return z
 
 
-def _q_transformer(params, cfg: AEConfig, which: str, z):
+def quantizer_transformer(params, cfg: AEConfig, which: str, z):
     return window_transformer(z, params["quantizer"][which], n_head=cfg.q_n_head,
                               head_dim=cfg.q_head_dim, window_size=cfg.q_window_size,
                               norm_eps=cfg.norm_eps)
@@ -311,7 +311,7 @@ def encode_latents(params: dict, cfg: AEConfig, audio: torch.Tensor) -> torch.Te
         audio = F.pad(audio, (0, right_pad))
     z = encoder_forward(params, cfg, audio.to(params_dtype(params)))
     z = _downsample(params, cfg, z)
-    return _q_transformer(params, cfg, "pre_module", z)
+    return quantizer_transformer(params, cfg, "pre_module", z)
 
 
 def encode_codes(params: dict, cfg: AEConfig, audio: torch.Tensor) -> torch.Tensor:
@@ -335,6 +335,6 @@ def encode_zq(params: dict, cfg: AEConfig, audio: torch.Tensor) -> torch.Tensor:
 
 def decode_zq(params: dict, cfg: AEConfig, z_q: torch.Tensor) -> torch.Tensor:
     """z_q (B, latent_dim, T) -> waveform: post_module -> upsample -> decoder."""
-    z = _q_transformer(params, cfg, "post_module", z_q)
-    z = _upsample(params, cfg, z)
+    z = quantizer_transformer(params, cfg, "post_module", z_q)
+    z = quantizer_upsample(params, cfg, z)
     return decoder_forward(params, cfg, z)

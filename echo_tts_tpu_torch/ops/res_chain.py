@@ -30,11 +30,11 @@ _SIN2_P = (9.869604400158666, -32.469696645585955, 42.72838511692447,
            0.7419801209608292)
 
 
-def _round_up(x: int, m: int) -> int:
+def round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def _sin2(t: torch.Tensor) -> torch.Tensor:
+def sin2_poly(t: torch.Tensor) -> torch.Tensor:
     """fp32 sin² by the polynomial; torch.round rounds half to even, as
     jnp.round does."""
     r = t * _INV_PI
@@ -50,7 +50,7 @@ def snake_cl(x_cl: torch.Tensor, alpha_flat: torch.Tensor) -> torch.Tensor:
     """Channels-last snake x + sin²(αx)/(α+1e-9): fp32 inside, x's dtype out."""
     xf = x_cl.float()
     af = alpha_flat.float()
-    return (xf + (1.0 / (af + 1e-9)) * _sin2(af * xf)).to(x_cl.dtype)
+    return (xf + (1.0 / (af + 1e-9)) * sin2_poly(af * xf)).to(x_cl.dtype)
 
 
 def causal_conv_shifted_cl(x_cl: torch.Tensor, w: torch.Tensor, b, *,
@@ -90,7 +90,7 @@ def residual_unit_cl(x_cl: torch.Tensor, p: dict, *, dilation: int) -> torch.Ten
 def chain_ctx(dilations: Sequence[int] = (1, 3, 9), kernel_size: int = 7) -> int:
     """Left-context rows a residual-unit chain needs for exact streaming
     (the Pallas kernel's halo: receptive extent rounded up to 16)."""
-    return _round_up(sum((kernel_size - 1) * d for d in dilations), 16)
+    return round_up(sum((kernel_size - 1) * d for d in dilations), 16)
 
 
 def _zero_below_rows(zero_below, b: int, device) -> Optional[torch.Tensor]:
@@ -184,9 +184,9 @@ def _res_chain_cuda(x, units, dilations, zero_below):
     return x
 
 
-def _leaves(tree):
+def tensor_leaves(tree):
     if isinstance(tree, dict):
-        return [x for v in tree.values() for x in _leaves(v)]
+        return [x for v in tree.values() for x in tensor_leaves(v)]
     return [tree] if isinstance(tree, torch.Tensor) else []
 
 
@@ -202,7 +202,7 @@ def res_units_cl(x: torch.Tensor, units: Sequence[dict],
     if x.device.type == "cpu":
         return res_chain_plain(x, units, dilations, zero_below)
     if torch.is_grad_enabled() and (x.requires_grad or any(
-            w.requires_grad for u in units for w in _leaves(u))):
+            w.requires_grad for u in units for w in tensor_leaves(u))):
         raise RuntimeError("res_units_cl: kernel K2 has no backward (the JAX package's "
                            "Pallas chain has none either); call it under torch.no_grad() "
                            "with inputs that do not require grad")

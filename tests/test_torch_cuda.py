@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card (K1 joint attention and its log-sum-exp,
-K2 residual units, K3 the attention backward), each against its plain
+K2 residual units, K3 the attention backward, and the measurement variants
+K1v, K2v-cl, K2v-cf, K2s), each against its plain
 PyTorch version in fp32 on the same bf16 inputs (rel-L2 < 2e-2: bf16
 rounding gives ~1e-3, a wrong kernel O(1)). Every test needs a CUDA card and skips without one. The
 file imports no JAX, so it runs on a GPU machine without it:
@@ -11,8 +12,10 @@ import pytest
 import torch
 
 from echo_tts_tpu_torch.models import dit as tdit
+from echo_tts_tpu_torch.ops import attention_variants as tav
 from echo_tts_tpu_torch.ops import joint_attention as tja
 from echo_tts_tpu_torch.ops import res_chain as trc
+from echo_tts_tpu_torch.ops import res_chain_variants as trv
 
 from torch_parity import cuda_device  # noqa: F401
 
@@ -179,3 +182,150 @@ def test_inference_kernels_refuse_grad_on_the_card(cuda_device):
     x = torch.zeros(1, 64, 96, device=cuda_device, dtype=torch.bfloat16, requires_grad=True)
     with pytest.raises(RuntimeError, match="no backward"):
         trc.res_units_cl(x, [])
+
+
+# ---------------------------------------------------------------------------
+# the measurement variants
+# ---------------------------------------------------------------------------
+
+
+def _var_inputs(dev, g, b, h, s, seg_lens, seed, all_masked=()):
+    """Head-major q/k/v (G, B, H, S, 128) and segments with bool masks."""
+    rng = np.random.default_rng(seed)
+
+    def bf(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
+            dev, torch.bfloat16)
+
+    q, ks, vs = bf(g, b, h, s, 128), bf(g, b, h, s, 128), bf(g, b, h, s, 128)
+    segs = []
+    for i, t in enumerate(seg_lens):
+        mask = torch.from_numpy(rng.random((g, b, t)) < 0.8).to(dev)
+        segs.append((bf(b, h, t, 128), bf(b, h, t, 128),
+                     torch.zeros_like(mask) if i in all_masked else mask))
+    return q, ks, vs, segs
+
+
+@pytest.mark.parametrize("flags", [
+    dict(tq=64, mask_mode="where"),
+    dict(tq=128, mask_mode="bias", use_exp2=True),
+    dict(tq=64, mask_mode="arith", hg=2, block_order="g_outer"),
+    dict(tq=64, mask_mode="bias", k_t=True),
+    dict(tq=128, mask_mode="bias", use_exp2=True, probe="fold"),
+    dict(tq=64, mask_mode="none", probe="dots"),
+], ids=["where", "bias-exp2-tq128", "arith-hg2-g_outer", "k_t", "fold", "dots-none"])
+def test_attention_var_kernel_matches_plain(cuda_device, flags):
+    """Ragged: S and T no multiples of a tile, a T=1 all-masked segment."""
+    q, ks, vs, segs = _var_inputs(cuda_device, 3, 2, 4, 200, (300, 1), 31, all_masked=(1,))
+    k_t = flags.get("k_t", False)
+
+    def key(k):
+        return k.transpose(-1, -2).contiguous() if k_t else k
+
+    before = tav.attention_var.launches
+    got = tav.attention_var(q, key(ks), vs, [(key(k), v, m) for k, v, m in segs], **flags)
+    assert tav.attention_var.launches == before + 1
+    ref = tav.attention_var_plain(q.float(), key(ks).float(), vs.float(),
+                                  [(key(k).float(), v.float(), m) for k, v, m in segs], **flags)
+    assert _rel(got, ref) < 2e-2
+    if flags.get("probe", "full") != "dots" and flags["mask_mode"] != "none":
+        # the all-masked segment carries exactly zero weight
+        without = tav.attention_var(q, key(ks), vs, [(key(k), v, m) for k, v, m in segs[:1]],
+                                    **flags)
+        assert torch.equal(got, without)
+
+
+def test_attention_var_noav_kernel_matches_plain(cuda_device):
+    """The noav probe needs 128 keys in every block."""
+    q, ks, vs, segs = _var_inputs(cuda_device, 2, 1, 2, 200, (300, 130), 37)
+    got = tav.attention_var(q, ks, vs, segs, tq=64, mask_mode="bias", probe="noav")
+    ref = tav.attention_var_plain(q.float(), ks.float(), vs.float(),
+                                  [(k.float(), v.float(), m) for k, v, m in segs], tq=64,
+                                  mask_mode="bias", probe="noav")
+    assert _rel(got, ref) < 2e-2
+    with pytest.raises(ValueError, match="needs at least"):
+        tav.attention_var(q, ks, vs, [(k[:, :, :100], v[:, :, :100], m[..., :100])
+                                      for k, v, m in segs], tq=64, probe="noav")
+
+
+def _chain_units(dev, c, seed):
+    rng = np.random.default_rng(seed)
+
+    def bf(*shape, s=1.0, lo=None):
+        a = rng.uniform(lo, 1.5, shape) if lo is not None else rng.standard_normal(shape) * s
+        return torch.from_numpy(a.astype(np.float32)).to(dev, torch.bfloat16)
+
+    units = [{"snake1": bf(1, c, 1, lo=0.2), "snake2": bf(1, c, 1, lo=0.2),
+              "conv1": {"w": bf(c, c, 7, s=(7 * c) ** -0.5), "b": bf(c, s=0.3)},
+              "conv2": {"w": bf(c, c, 1, s=c ** -0.5), "b": bf(c, s=0.3)}} for _ in range(3)]
+    f32 = [{k: ({kk: vv.float() for kk, vv in v.items()} if isinstance(v, dict) else v.float())
+            for k, v in u.items()} for u in units]
+    return units, f32, bf(2, 1003, c)
+
+
+@pytest.mark.parametrize("c,flags", [
+    (96, dict(use_sin="poly")),
+    (192, dict(use_sin=True, live_mode="mult")),
+    (96, dict(use_sin="poly", pack_taps=True)),
+    (192, dict(use_sin=False, live_mode="off", tile_t=48)),
+    (96, dict(use_sin=True, snake_dtype=torch.bfloat16)),
+    (96, dict(use_sin="poly", tap_offsets=False)),
+], ids=["poly", "sin-mult-c192", "packed", "off-no-sin-tile48-c192", "bf16-snake", "taps-at-0"])
+def test_res_chain_variant_kernel_matches_plain(cuda_device, c, flags):
+    """K2v-cl at B=2 and a length that is no multiple of any tile."""
+    units, f32, x = _chain_units(cuda_device, c, c)
+    before = trv.res_chain.launches
+    got = trv.res_chain(x, units, **flags)
+    assert trv.res_chain.launches == before + 1
+    assert _rel(got, trv.res_chain_plain(x.float(), f32, **flags)) < 2e-2
+
+
+@pytest.mark.parametrize("c", [96, 192])
+def test_res_chain_cf_kernel_matches_plain_and_channels_last(cuda_device, c):
+    units, f32, x = _chain_units(cuda_device, c, c + 1)
+    xcf = x.transpose(1, 2).contiguous()
+    before = trv.res_chain_cf.launches
+    got = trv.res_chain_cf(xcf, units)
+    assert trv.res_chain_cf.launches == before + 1
+    assert _rel(got, trv.res_chain_cf_plain(xcf.float(), f32)) < 2e-2
+    assert _rel(got.transpose(1, 2), trv.res_chain(x, units, live_mode="mult")) < 2e-2
+
+
+@pytest.mark.parametrize("mode", ["exact", "none", "poly"])
+def test_res_chain_snake_kernel_matches_plain(cuda_device, mode):
+    units, f32, x = _chain_units(cuda_device, 192, 5)
+    before = trv.res_chain_snake.launches
+    got = trv.res_chain_snake(x, units, mode)
+    assert trv.res_chain_snake.launches == before + 1
+    assert _rel(got, trv.res_chain_snake_plain(x.float(), f32, mode)) < 2e-2
+    if mode == "poly":  # the Taylor cosine is the exact snake to fp32 rounding
+        assert _rel(got, trv.res_chain_snake(x, units, "exact")) < 2e-2
+
+
+def test_variant_wrappers_refuse_bad_inputs(cuda_device):
+    """Wrong dtype, stride, width, tile or grad raises and launches nothing."""
+    q = torch.zeros(1, 1, 2, 64, 128, device=cuda_device, dtype=torch.bfloat16)
+    units, _, x = _chain_units(cuda_device, 96, 1)
+    wrappers = (tav.attention_var, trv.res_chain, trv.res_chain_cf, trv.res_chain_snake)
+    before = [w.launches for w in wrappers]
+    with pytest.raises(TypeError):
+        tav.attention_var(q.float(), q, q, [], tq=64)
+    with pytest.raises(ValueError):
+        tav.attention_var(q.transpose(3, 4), q, q, [], tq=64)
+    with pytest.raises(ValueError):
+        tav.attention_var(q, q, q, [], tq=320)
+    with pytest.raises(RuntimeError, match="no backward"):
+        tav.attention_var(q.clone().requires_grad_(), q, q, [], tq=64)
+    for call in (lambda v: trv.res_chain(v, units), lambda v: trv.res_chain_cf(v, units),
+                 lambda v: trv.res_chain_snake(v, units, "exact")):
+        with pytest.raises(TypeError):
+            call(x.float())
+        with pytest.raises(ValueError):
+            call(x.transpose(1, 2))
+        with pytest.raises(RuntimeError, match="no backward"):
+            call(x.clone().requires_grad_())
+    with pytest.raises(ValueError):
+        trv.res_chain(x[..., :64].contiguous(), units)
+    with pytest.raises(ValueError):
+        trv.res_chain(x, units, tile_t=4096)
+    assert [w.launches for w in wrappers] == before

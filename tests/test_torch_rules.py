@@ -1,11 +1,17 @@
 """Ground rules of the PyTorch port (echo_tts_tpu_torch):
 
-* it imports no JAX and nothing of the JAX package, nor does chip_smoke.py;
+* it imports no JAX, nothing of the JAX package and nothing of scripts/, nor
+  does chip_smoke.py;
 * its entry points run on CUDA unless the caller asks for the CPU, and raise
-  where CUDA is absent instead of falling back quietly;
+  where CUDA is absent instead of falling back quietly; the measurement
+  entry points (echo_tts_tpu_torch/bench/) rehearse end to end with --cpu
+  at a tiny size through the plain versions;
 * the kernel wrappers take the plain version only for CPU tensors and
   refuse what the kernels do not take, inputs that require grad included.
 """
+import importlib
+import json
+import math
 import os
 import subprocess
 import sys
@@ -34,10 +40,15 @@ for name in names:
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
-             or m == "echo_tts_tpu" or m.startswith("echo_tts_tpu."))
+             or m == "echo_tts_tpu" or m.startswith("echo_tts_tpu.")
+             or m == "scripts" or m.startswith("scripts."))
 print(len(names), bad)
 assert not bad, bad
 assert len(names) >= 20, names
+for new in ("bench.attention", "bench.attention_variants", "bench.conv_kernel_variants",
+            "bench.conv_variants", "bench.profile_breakdown", "bench.timing",
+            "ops.attention_variants", "ops.res_chain_variants", "utils.profiling"):
+    assert "echo_tts_tpu_torch." + new in names, new
 """
 
 
@@ -65,6 +76,27 @@ def test_entry_points_default_to_cuda():
     tts = EchoTTS({}, tiny, {}, AEConfig().tiny(), PCAState.random(0, 64, device="cpu"),
                   device="cpu")
     assert tts.device.type == "cpu"
+
+
+BENCH_ENTRY_POINTS = ("attention_variants", "conv_kernel_variants", "conv_variants", "attention",
+                      "profile_breakdown")
+
+
+@pytest.mark.parametrize("name", BENCH_ENTRY_POINTS)
+def test_bench_entry_point_needs_a_card_or_cpu_flag(name, capsys):
+    """Without a card and without --cpu a measurement entry point raises;
+    with --cpu --tiny it runs end to end through the plain versions, names
+    the CPU as its device and launches no kernel."""
+    mod = importlib.import_module(f"echo_tts_tpu_torch.bench.{name}")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            mod.main([])
+    res = mod.main(["--cpu", "--tiny"])
+    out = capsys.readouterr().out.strip().splitlines()
+    assert json.loads(out[-1])["bench"] == name == res["bench"]
+    assert res["device"].startswith("cpu") and res["card"] == "cpu"
+    assert res["ms"] and all(math.isfinite(v) and v > 0 for v in res["ms"].values())
+    assert not any(res["launches"].values())
 
 
 def test_init_refuses_unported_latent_encoder():
