@@ -3,14 +3,19 @@
 
     python3 chip_smoke.py                 # every phase
     python3 chip_smoke.py --kernels-only  # build + kernel checks + kernel times
+    python3 chip_smoke.py --slices-only   # phases 1, 5 and 6 only (K1, K2, K3 built)
 
 Phases, in order; any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi), torch/CUDA/nvcc versions;
-  2. build every CUDA kernel from csrc/ (one nvcc per source, in parallel);
-  3. TF32 off for the comparisons;
+  2. build every CUDA kernel from csrc/ (one nvcc per source, in parallel),
+     with each source's build seconds;
+  3. TF32 off for the comparisons; the attention kernels' shared wgmma core
+     (csrc/attention_core.cuh) on one bare tile against torch.matmul, keys
+     as (T, D) and as (D, T);
   4. each kernel against its plain PyTorch version at main-path shapes, bf16
      inputs, rel-L2 < 2e-2 (bf16 rounding gives ~1e-3, a wrong kernel O(1)):
-     K1 forward, K2 residual units, K3 attention backward (each gradient);
+     K1 forward (full and ragged shapes, both q tiles, its log-sum-exp), K2
+     residual units, K3 attention backward (each gradient);
      then every instance of the measurement variants that the bench entry
      points use (K1v attention_var, K2v-cl res_chain, K2v-cf res_chain_cf,
      K2s res_chain_snake) at the full shapes and at a ragged one, K2v-cf
@@ -30,12 +35,18 @@ Phases, in order; any failure exits non-zero:
      (attention_variants, conv_kernel_variants, conv_variants, attention,
      profile_breakdown) at their full shapes, each printing its JSON line,
      with the launch counts set to 0 before each and read after it;
-  8. kernel times (CUDA events, median of 7 after warm-up) beside the plain
-     version, one library call where one exists, and the bound, for K1, K2,
-     K3, K1v, K2v-cl, K2v-cf and K2s.
+  8. kernel times (CUDA events, median of 7 after warm-up; for the attention
+     kernels over replays of a CUDA graph of 20 launches) beside the plain
+     version, one library call where one exists, and the bound, for K1 (at
+     the one-branch, the three-branch and the training shape, with both q
+     tiles, and the wrapper's host microseconds per launch), K2, K3, K1v,
+     K2v-cl, K2v-cf and K2s.
 The line before the last is the kernel JSON; the last line is
-{"ok": true, "device": {...}}. Imports nothing of JAX. The whole script takes
-about four minutes on an H100 (the build of the six sources, in parallel,
+{"ok": true, "device": {...}}. Imports nothing of JAX. --slices-only is for
+comparing two trees end to end in one call on one card (run them in turns:
+the host's clock moves more between calls than a kernel change moves it); it
+prints no kernel JSON. The whole script takes
+about four minutes on an H100 (the build of the seven sources, in parallel,
 about half a minute of it), so the earlier slices keep their depth.
 """
 from __future__ import annotations
@@ -100,18 +111,53 @@ def phase_environment():
     return smi
 
 
-def phase_build():
+def phase_build(names=None):
     from echo_tts_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    paths = _build.build_all()
-    log(f"# built {sorted(paths)} in {time.perf_counter() - t0:.1f} s")
+    paths = _build.build_all(_build.KERNELS if names is None else names)
+    log(f"# built {sorted(paths)} in {time.perf_counter() - t0:.1f} s; nvcc seconds per source: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in sorted(_build.BUILD_SECONDS.items())))
     for name in paths:
         ptxas = _build.BUILD_DIR / f"{name}.ptxas.txt"
         if ptxas.exists():
             for line in ptxas.read_text().splitlines():
-                if "registers" in line or "spill" in line:
+                if any(w in line for w in ("registers", "spill", "warning", "Performance Loss")):
                     log(f"#   {name}: {line.strip()}")
+
+
+def phase_core_check(dev) -> None:
+    """The shared core of K1 and K1v on one bare tile, before anything is
+    built on it: s = a.b^T (fp32 sums of exact bf16 products: rel-L2 < 1e-5
+    against torch.matmul) and o = bf16(s * c).v through the register A
+    operand (rel-L2 < 5e-3: a weight on a bf16 rounding edge may round the
+    other way), with b as (64, 128) and as its transpose (128, 64), a from
+    shared memory and from registers; then an identity v, which returns the
+    weights where the fragment layout puts them."""
+    from echo_tts_tpu_torch.ops import attention_core as ac
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    a, b, v = (torch.randn(64, 128, generator=gen, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    eye = torch.zeros(64, 128, device=dev, dtype=torch.bfloat16)
+    eye[:, :64] = torch.eye(64, device=dev)
+    failures = []
+    for b_transposed in (False, True):
+        bb = b.t().contiguous() if b_transposed else b
+        for a_regs in (False, True):
+            for what, vv in (("random v", v), ("identity v", eye)):
+                got_s, got_o = ac.core_products(a, bb, vv, 0.05, b_transposed, a_regs)
+                torch.cuda.synchronize()
+                ref_s, ref_o = ac.core_products_plain(a, bb, vv, 0.05, b_transposed)
+                rs, ro = rel_l2(got_s, ref_s), rel_l2(got_o, ref_o)
+                log(f"# check attention_core [b {'(D, T)' if b_transposed else '(T, D)'}, a from "
+                    f"{'registers' if a_regs else 'shared memory'}, {what}]: "
+                    f"q.k^T rel-L2 {rs:.3e}, p.v rel-L2 {ro:.3e}")
+                if not (rs < 1e-5 and ro < 5e-3):
+                    failures.append(f"b_transposed={b_transposed} a_regs={a_regs} {what}: "
+                                    f"{rs:.3e}, {ro:.3e}")
+    if failures:
+        raise SystemExit("the wgmma core disagrees with torch.matmul: " + "; ".join(failures))
 
 
 # ---------------------------------------------------------------------------
@@ -119,20 +165,35 @@ def phase_build():
 # ---------------------------------------------------------------------------
 
 
-def _k1_inputs(gen, g, s, h, seg_lens, dev, spk_scale=1.5, all_masked=()):
-    """seq-major q/k/v (G, 1, S, H, 128) and head-major segments, bf16."""
+def _k1_inputs(gen, g, s, h, seg_lens, dev, spk_scale=1.5, all_masked=(), b=1):
+    """seq-major q/k/v (G, B, S, H, 128) and head-major segments, bf16."""
     def rnd(*shape):
         return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
 
-    q, k, v = (rnd(g, 1, s, h, 128) for _ in range(3))
+    q, k, v = (rnd(g, b, s, h, 128) for _ in range(3))
     segs = []
     for i, t in enumerate(seg_lens):
-        mask = torch.rand(g, 1, t, generator=gen, device=dev) < 0.8
+        mask = torch.rand(g, b, t, generator=gen, device=dev) < 0.8
         if i in all_masked:
             mask = torch.zeros_like(mask)
         scale = spk_scale if i == len(seg_lens) - 1 else None
-        segs.append((rnd(1, h, t, 128), rnd(1, h, t, 128), mask, scale))
+        segs.append((rnd(b, h, t, 128), rnd(b, h, t, 128), mask, scale))
     return q, k, v, segs
+
+
+def k1_lse_plain(q, k, v, segs, layout, self_len=None):
+    """Each query row's base-2 log-sum-exp of K1's logits, fp32 (G, B, H, S)."""
+    qh, kh = ((x.transpose(2, 3) if layout == "sm" else x).float() for x in (q, k))
+    c = 1.0 / math.sqrt(qh.shape[-1])
+    l_self = torch.einsum("gbhsd,gbhtd->gbhst", qh, kh) * c
+    if self_len is not None:
+        keep = torch.arange(kh.shape[3], device=q.device)[None] < self_len[:, None]
+        l_self = l_self + torch.where(keep, 0.0, -1e30)[None, :, None, None, :]
+    logits = [l_self]
+    for kk, _, m, sc in segs:
+        l_seg = torch.einsum("gbhsd,bhtd->gbhst", qh, kk.float()) * c * (1.0 if sc is None else sc)
+        logits.append(l_seg + torch.where(m, 0.0, -1e30)[:, :, None, None, :])
+    return torch.logsumexp(torch.cat(logits, -1), -1) * math.log2(math.e)
 
 
 def f32_segments(segs):
@@ -233,6 +294,47 @@ def phase_kernel_checks(dev) -> dict:
           ja._joint_attention_cuda(qb, kb, vb, [(kt2, vt2, mt2, None)], "sm", sl, None),
           ja.joint_attention_plain(qb.float(), kb.float(), vb.float(),
                                    f32_segments([(kt2, vt2, mt2, None)]), "sm", sl))
+
+    # K1 at ragged shapes and through every way the port calls it, with one
+    # and with two consumer warpgroups a block: an out= view of a larger
+    # buffer, the log-sum-exp K3 reads (max |err| < 2e-2, as the card's tests
+    # hold it), then branch by branch on q[i:i+1] slices into out[i:i+1]
+    def k1_case(case, g, b, s, h, seg_lens, layout="sm", all_masked=(), self_len=None):
+        q, k, v, segs = _k1_inputs(gen, g, s, h, seg_lens, dev, all_masked=all_masked, b=b)
+        if layout == "hm":
+            q, k, v = (x.transpose(2, 3).contiguous() for x in (q, k, v))
+        sl = None if self_len is None else torch.tensor(self_len, dtype=torch.int32, device=dev)
+        ref = ja.joint_attention_plain(q.float(), k.float(), v.float(), f32_segments(segs),
+                                       layout, sl)
+        ref_lse = k1_lse_plain(q, k, v, segs, layout, sl)
+        for tq in (64, 128):
+            buf = torch.full((g + 2, *q.shape[1:]), 7.0, dtype=torch.bfloat16, device=dev)
+            lse = torch.empty((g, b, h, s), dtype=torch.float32, device=dev)
+            ja._joint_attention_cuda(q, k, v, segs, layout, sl, buf[1:g + 1], lse, tq)
+            check("joint_attention", f"{case}, {layout}, tq {tq}, out= view", buf[1:g + 1], ref)
+            lse_err = max_abs(lse, ref_lse)
+            if not (lse_err < 2e-2 and bool((buf[0] == 7.0).all()) and bool((buf[-1] == 7.0).all())):
+                failures.append(f"joint_attention [{case}, tq {tq}] lse max|err| {lse_err:.3e} "
+                                f"or a write outside the out= view")
+            split = torch.empty_like(q)
+            for i in range(g):
+                ja._joint_attention_cuda(q[i:i + 1], k[i:i + 1], v[i:i + 1],
+                                         [(kk, vv, m[i:i + 1], sc) for kk, vv, m, sc in segs],
+                                         layout, sl, split[i:i + 1], None, tq)
+            if g > 1:
+                check("joint_attention", f"{case}, {layout}, tq {tq}, branch slices", split, ref)
+        log(f"# check joint_attention [{case}] log-sum-exp max|err| {lse_err:.3e}")
+
+    k1_case("S=200 G=3 B=2 H=16, T=700 + T=1 all-masked", 3, 2, 200, 16, (700, 1),
+            all_masked=(1,))
+    k1_case("S=200 G=3 B=2 H=16, T=700 + T=1 all-masked", 3, 2, 200, 16, (700, 1), layout="hm",
+            all_masked=(1,))
+    k1_case("training shape G=1 B=8 S=640 H=16, text 768 + speaker 160", 1, 8, 640, 16,
+            (768, 160))
+    k1_case("self_len (200, 77) inside a tile, S=200 B=2 H=16, T=160", 1, 2, 200, 16, (160,),
+            self_len=(200, 77))
+    k1_case("three segments S=200 G=2 H=16, T=300 + 52 + 7", 2, 1, 200, 16, (300, 52, 7),
+            layout="hm")
 
     # K2 at every decoder width and one encoder width, non-zero biases
     def units(c):
@@ -460,36 +562,21 @@ def phase_kernel_times(dev, errs: dict, launches: dict) -> list:
     gen = torch.Generator(device=dev).manual_seed(1)
     rows = []
 
-    # K1: one main-path launch: a single-branch step over text 768 and the
-    # 640-latent speaker bucket (160 patches), seq-major, speaker scale 1.5
-    s, h, d, t_text, t_spk = 640, 16, 128, 768, 160
-    q, k, v, segs = _k1_inputs(gen, 1, s, h, (t_text, t_spk), dev)
-    segs = [(kk, vv, torch.where(m, 0.0, -1e30).float(), sc) for kk, vv, m, sc in segs]
-    out = torch.empty_like(q)
-    ms = cuda_ms(lambda: ja._joint_attention_cuda(q, k, v, segs, "sm", None, out))
-    plain_ms = cuda_ms(lambda: ja.joint_attention_plain(q, k, v, segs, "sm"))
-    # library yardstick: SDPA over [k_self | k_text | k_spk*s] with the
-    # concatenated additive bias (timed only; the port never calls it)
-    (kt, vt, bt, _), (ksp, vsp, bsp, ssp) = segs
-    qh = q[0].transpose(1, 2)
-    kc = torch.cat([k[0].transpose(1, 2), kt, ksp * ssp], dim=2)
-    vc = torch.cat([v[0].transpose(1, 2), vt, vsp * ssp], dim=2)
-    bias = torch.cat([torch.zeros(1, s, device=dev), bt[0], bsp[0]], dim=-1)
-    bias = bias[:, None, None, :].to(torch.bfloat16)
-    lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qh, kc, vc, attn_mask=bias))
-    t_all = s + t_text + t_spk
-    flops = 4.0 * h * s * t_all * d
-    nbytes = 2 * (4 * s * h * d + 2 * h * (t_text + t_spk) * d) + 4 * (t_text + t_spk)
-    b_ms, b_by = bound(flops, nbytes)
+    # K1 at three shapes of the main paths: one launch of a single-branch
+    # step (text 768, the 640-latent speaker bucket of 160 patches), of the
+    # three-branch CFG group (speaker 1600), and of a LoRA step at B=8
+    k1 = [k1_times(dev, gen, *shape) for shape in K1_SHAPES]
+    host_us = k1_host_us(dev, gen)
+    from echo_tts_tpu_torch.ops import _build
+
     rows.append({"name": "joint_attention", "route": "cuda",
                  "source": "echo_tts_tpu_torch/csrc/joint_attention.cu",
                  "replaces": "echo_tts_tpu/ops/pallas_attention.py:49",
                  "launches": launches["one_shot"]["joint_attention"],
                  "launches_by_path": by_path(launches, "joint_attention"),
-                 "max_abs_err": errs["joint_attention"], "ms": ms, "plain_ms": plain_ms,
-                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-                 "shape": f"G=1 B=1 S={s} H={h} D={d} self {s} + text {t_text} + speaker {t_spk}"})
+                 "max_abs_err": errs["joint_attention"], **k1[0], "other_shapes": k1[1:],
+                 "host_us_per_launch": host_us,
+                 "build_seconds": {k: round(v, 1) for k, v in _build.BUILD_SECONDS.items()}})
 
     # K2: one residual-unit chain (3 units) at each decoder width, at the
     # row counts a 640-latent decode gives it; the JSON row is the sum
@@ -525,11 +612,80 @@ def phase_kernel_times(dev, errs: dict, launches: dict) -> list:
                  # no single PyTorch call computes a snake/conv7/snake/1x1 unit
                  "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
                  "shape": "decoder chains C=768/384/192/96 at T=20480/163840/655360/1310720, summed"})
-    log(f"# time joint_attention: kernel {rows[0]['ms']:.3f} ms, plain "
-        f"{rows[0]['plain_ms']:.3f} ms, sdpa {rows[0]['library_ms']:.3f} ms, "
-        f"bound {rows[0]['bound_ms']:.4f} ms ({rows[0]['bound_by']})")
     rows.append(k3_times(dev, gen, errs, launches))
     return rows + variant_times(dev, errs, launches)
+
+
+K1_SHAPES = (("one branch", 1, 1, (768, 160)), ("three branches", 3, 1, (768, 1600)),
+             ("training", 1, 8, (768, 160)))
+GRAPH_ITERS = 20  # calls per timed CUDA-graph replay, for kernels shorter than their launch
+
+
+def k1_times(dev, gen, what, g, b, seg_lens) -> dict:
+    """K1 at S=640, H=16, D=128, seq-major, speaker scale 1.5, fp32 biases:
+    device ms (CUDA-graph replays of 20 launches: the kernel is shorter than
+    the wrapper's host time) with 64 and with 128 query rows a block, the
+    plain version, the bound, and the library yardstick: one SDPA call over
+    [k_self | k_text | k_spk*s] with the concatenated additive bias (timed
+    only; the port never calls it)."""
+    from echo_tts_tpu_torch.bench.timing import cuda_ms
+    from echo_tts_tpu_torch.ops import joint_attention as ja
+
+    s, h, d = 640, 16, 128
+    q, k, v, segs = _k1_inputs(gen, g, s, h, seg_lens, dev, b=b)
+    segs = [(kk, vv, torch.where(m, 0.0, -1e30).float(), sc) for kk, vv, m, sc in segs]
+    out = torch.empty_like(q)
+    with torch.no_grad():
+        by_tq = {tq: cuda_ms(lambda: ja._joint_attention_cuda(q, k, v, segs, "sm", None, out,
+                                                              None, tq), graph_iters=GRAPH_ITERS)
+                 for tq in (64, 128)}
+        plain_ms = cuda_ms(lambda: ja.joint_attention_plain(q, k, v, segs, "sm"), reps=3)
+        scaled = [(kk if sc is None else kk * sc, vv if sc is None else vv * sc)
+                  for kk, vv, _, sc in segs]
+        kc = torch.cat([k.transpose(2, 3)] + [kk[None].expand(g, *kk.shape) for kk, _ in scaled], 3)
+        vc = torch.cat([v.transpose(2, 3)] + [vv[None].expand(g, *vv.shape) for _, vv in scaled], 3)
+        bias = torch.cat([torch.zeros(g, b, s, device=dev)] + [m for _, _, m, _ in segs], -1)
+        q4, k4, v4 = (x.reshape(g * b, h, -1, d) for x in (q.transpose(2, 3), kc, vc))
+        bias4 = bias.reshape(g * b, 1, 1, -1).to(torch.bfloat16)
+        lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=bias4), graph_iters=GRAPH_ITERS)
+    t_seg = sum(seg_lens)
+    flops = 4.0 * g * b * h * s * (s + t_seg) * d
+    nbytes = 2 * (4 * g * b * s * h * d + 2 * b * h * t_seg * d) + 4 * g * b * t_seg
+    b_ms, b_by = bound(flops, nbytes)
+    ms = by_tq[ja.TQ]
+    log(f"# time joint_attention, {what} (G={g} B={b}): kernel {ms:.4f} ms at tq {ja.TQ} "
+        f"(tq 64: {by_tq[64]:.4f}, tq 128: {by_tq[128]:.4f}; {flops / ms / 1e9:.0f} TFLOP/s), "
+        f"plain {plain_ms:.3f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib_ms, "tq": ja.TQ, "ms_tq64": by_tq[64], "ms_tq128": by_tq[128],
+            "shape": f"{what}: G={g} B={b} S={s} H={h} D={d} self {s} + text {seg_lens[0]} + "
+                     f"speaker {seg_lens[1]} (scale 1.5)"}
+
+
+def k1_host_us(dev, gen, launches: int = 400) -> float:
+    """What one launch of K1 costs the host: `launches` calls of the public
+    wrapper as the sampler makes them (seq-major views, fp32 biases, out=)
+    timed on the host's clock up to the last call's return, one synchronize
+    after it. The shape is the one-branch one, whose kernel is shorter than
+    this, so the queue never fills and the loop never waits for the card."""
+    from echo_tts_tpu_torch.ops.joint_attention import joint_attention
+
+    q, k, v, segs = _k1_inputs(gen, 1, 640, 16, (768, 160), dev)
+    segs = [(kk, vv, torch.where(m, 0.0, -1e30).float(), sc) for kk, vv, m, sc in segs]
+    out = torch.empty_like(q)
+    with torch.no_grad():
+        for _ in range(20):
+            joint_attention(q, k, v, segs, "sm", out=out)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(launches):
+            joint_attention(q, k, v, segs, "sm", out=out)
+        host = (time.perf_counter() - t0) / launches * 1e6
+        torch.cuda.synchronize()
+    log(f"# joint_attention wrapper: {host:.1f} us of host time per launch "
+        f"({launches} launches, one synchronize at the end)")
+    return host
 
 
 def k3_times(dev, gen, errs: dict, launches: dict) -> dict:
@@ -596,9 +752,9 @@ def variant_times(dev, errs: dict, launches: dict) -> list:
                                                           "t_spk"))
         inp = bav.make_inputs(dev, seed=2, **shp)
         flags = dict(tq=128, mask_mode="bias", use_exp2=True)
-        ms = cuda_ms(bav.variant_call(inp, 2, flags))
+        ms = cuda_ms(bav.variant_call(inp, 2, flags), graph_iters=GRAPH_ITERS)
         plain_ms = cuda_ms(lambda: av.attention_var_plain(*_variant_args(inp, 2, flags), **flags))
-        lib_ms = cuda_ms(bav.reference_calls(inp)[1][1])
+        lib_ms = cuda_ms(bav.reference_calls(inp)[1][1], graph_iters=GRAPH_ITERS)
         flops = 4.0 * g * b * h * s * (s + t_text + t_spk) * d
         nbytes = (2 * 4 * g * b * h * s * d + 2 * 2 * b * h * (t_text + t_spk) * d
                   + 4 * g * b * (t_text + t_spk))
@@ -1078,32 +1234,38 @@ def main(argv) -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a GPU",
               file=sys.stderr)
         return 2
-    kernels_only = "--kernels-only" in argv
+    kernels_only, slices_only = "--kernels-only" in argv, "--slices-only" in argv
     dev = torch.device("cuda", 0)
     smi = phase_environment()
-    phase_build()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    errs = phase_kernel_checks(dev)
-    errs.update(phase_variant_checks(dev))
 
     from echo_tts_tpu_torch.ops.joint_attention import joint_attention, joint_attention_bwd
     from echo_tts_tpu_torch.ops.res_chain import res_units_cl
 
-    launches = {"one_shot": {"joint_attention": 0, "res_chain": 0},
-                "training": {"joint_attention": 0, "joint_attention_bwd": 0, "res_chain": 0}}
-    if not kernels_only:
-        tts, launches["one_shot"] = phase_slice(dev, {"joint_attention": joint_attention,
-                                                      "res_chain": res_units_cl})
-        launches["training"] = phase_train(tts, dev, {"joint_attention": joint_attention,
-                                                      "joint_attention_bwd": joint_attention_bwd,
-                                                      "res_chain": res_units_cl})
-        del tts
-        torch.cuda.empty_cache()
-        launches["measurement"] = phase_measurement(dev)
-    rows = phase_kernel_times(dev, errs, launches)
+    slice_wrappers = {"joint_attention": joint_attention, "res_chain": res_units_cl}
+    train_wrappers = {**slice_wrappers, "joint_attention_bwd": joint_attention_bwd}
+    if slices_only:
+        phase_build(("joint_attention", "joint_attention_bwd", "res_chain"))
+        tts, _ = phase_slice(dev, slice_wrappers)
+        phase_train(tts, dev, train_wrappers)
+    else:
+        phase_build()
+        phase_core_check(dev)
+        errs = phase_kernel_checks(dev)
+        errs.update(phase_variant_checks(dev))
+        launches = {"one_shot": {"joint_attention": 0, "res_chain": 0},
+                    "training": {"joint_attention": 0, "joint_attention_bwd": 0, "res_chain": 0}}
+        if not kernels_only:
+            tts, launches["one_shot"] = phase_slice(dev, slice_wrappers)
+            launches["training"] = phase_train(tts, dev, train_wrappers)
+            del tts
+            torch.cuda.empty_cache()
+            launches["measurement"] = phase_measurement(dev)
+        rows = phase_kernel_times(dev, errs, launches)
     log(f"# {smi}")
-    print(json.dumps({"kernels": rows}))
+    if not slices_only:
+        print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -26,6 +26,7 @@ import torch
 
 from echo_tts_tpu_torch.bench.attention_variants import (
     FULL_SHAPE,
+    GRAPH_ITERS,
     TINY_SHAPE,
     make_inputs,
     reference_calls,
@@ -59,7 +60,7 @@ def run(device, shape: Optional[dict] = None, *, file=sys.stderr) -> dict:
             sdpa]
     before = joint_attention.launches
     print(f"# joint attention on {card_line(device)}; shape {shape}", file=file)
-    res = bench_rows(rows, unit="ms/layer", device=device, file=file)
+    res = bench_rows(rows, unit="ms/layer", device=device, file=file, graph_iters=GRAPH_ITERS)
     return {"bench": "attention", "device": timing_device(device), "card": card_line(device),
             "shape": shape, "ms": {k: round(v["ms"], 4) for k, v in res.items()},
             "spread_ms": {k: [round(v["min_ms"], 4), round(v["max_ms"], 4)]

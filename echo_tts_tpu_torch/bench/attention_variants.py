@@ -14,8 +14,9 @@ here and used nowhere in the port).
 
 It needs a CUDA card unless `--cpu` is given (a rehearsal through the plain
 versions on the host's clock; `--tiny` shrinks the shapes for it). A table
-goes to stderr, one JSON line to stdout. Times are CUDA-event medians
-(`bench/timing.py`), written beside the card's name and power limit.
+goes to stderr, one JSON line to stdout. Times are CUDA-event medians over
+replays of a CUDA graph of ten calls (`bench/timing.py`: device time, free of
+the wrapper's host time), written beside the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -31,6 +32,9 @@ from echo_tts_tpu_torch.ops.attention_variants import attention_var, mask_operan
 from echo_tts_tpu_torch.ops.joint_attention import joint_attention
 
 FULL_SHAPE = dict(g=3, b=1, h=16, s=640, d=128, t_text=768, t_spk=1600)
+# calls per timed CUDA-graph replay: a variant runs 0.1-0.3 ms on the card,
+# about what its wrapper costs the host, so single calls would time the host
+GRAPH_ITERS = 10
 TINY_SHAPE = dict(g=3, b=1, h=2, s=32, d=16, t_text=48, t_spk=64)
 
 # (name, segments, flags): the script's fourteen, then the port's own rows
@@ -132,7 +136,7 @@ def run(device, *, only: Optional[str] = None, shape: Optional[dict] = None,
         rows += reference_calls(inp)
     print(f"# attention variants on {card_line(device)}; shape {shape}", file=file)
     before = attention_var.launches
-    res = bench_rows(rows, unit="ms/layer", device=device, file=file)
+    res = bench_rows(rows, unit="ms/layer", device=device, file=file, graph_iters=GRAPH_ITERS)
     return {"bench": "attention_variants", "device": timing_device(device),
             "card": card_line(device), "shape": shape,
             "ms": {k: round(v["ms"], 4) for k, v in res.items()},

@@ -7,6 +7,12 @@ events are recorded on the stream itself, before and after the launches, so
 the fixed cost never enters: `cuda_times` reports the median of `reps` event
 timings of one call each, with the spread beside it.
 
+That holds while the kernel outlasts the host's work to launch it. A call that
+is shorter on the card than in Python (the attention kernels: tens of
+microseconds against the wrapper's checks and ctypes call) would read the
+host, so with `graph_iters` > 0 the calls are captured once into a CUDA graph
+and the events time its replays: device time per call, whatever the host costs.
+
 On the CPU (a rehearsal of an entry point, never a measurement) the same
 function times on the host's clock; `timing_device` names which it was, and
 the entry points write it into their result.
@@ -28,23 +34,34 @@ def timing_device(device) -> str:
 
 
 def cuda_times(fn: Callable[[], object], *, reps: int = 7, warmup: int = 2,
-               device="cuda") -> Dict[str, float]:
+               device="cuda", graph_iters: int = 0) -> Dict[str, float]:
     """{"ms": median, "min_ms", "max_ms", "reps"} of fn(), in ms per call:
-    `warmup` untimed calls, then `reps` timed ones."""
+    `warmup` untimed calls, then `reps` timed ones. With `graph_iters` > 0 on
+    a CUDA device each timed unit is one replay of a CUDA graph that holds
+    that many calls (fn must then neither synchronise nor read results back)."""
     device = torch.device(device)
     for _ in range(warmup):
         fn()
     times = []
     if device.type == "cuda":
+        run, per = fn, 1
+        if graph_iters > 0:
+            torch.cuda.synchronize(device)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                for _ in range(graph_iters):
+                    fn()
+            run, per = graph.replay, graph_iters
+            run()
         torch.cuda.synchronize(device)
         for _ in range(reps):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            fn()
+            run()
             end.record()
             end.synchronize()
-            times.append(start.elapsed_time(end))
+            times.append(start.elapsed_time(end) / per)
     else:
         for _ in range(reps):
             t0 = time.perf_counter()
@@ -54,9 +71,10 @@ def cuda_times(fn: Callable[[], object], *, reps: int = 7, warmup: int = 2,
             "reps": reps}
 
 
-def cuda_ms(fn: Callable[[], object], reps: int = 7, warmup: int = 2) -> float:
-    """Median of `reps` CUDA-event timings of fn(), in ms."""
-    return cuda_times(fn, reps=reps, warmup=warmup)["ms"]
+def cuda_ms(fn: Callable[[], object], reps: int = 7, warmup: int = 2,
+            graph_iters: int = 0) -> float:
+    """Median of `reps` CUDA-event timings of fn(), in ms per call."""
+    return cuda_times(fn, reps=reps, warmup=warmup, graph_iters=graph_iters)["ms"]
 
 
 def card_line(device) -> str:
@@ -80,13 +98,13 @@ def entry_device(cpu: bool) -> torch.device:
     return resolve_device("cpu" if cpu else None)
 
 
-def bench_rows(rows, *, unit: str, device, file) -> Dict[str, dict]:
+def bench_rows(rows, *, unit: str, device, file, graph_iters: int = 0) -> Dict[str, dict]:
     """Time each (name, fn) of `rows`, print one table line per row to `file`
     and return {name: cuda_times(fn)}."""
     out = {}
     for name, fn in rows:
         with torch.no_grad():
-            r = cuda_times(fn, device=device)
+            r = cuda_times(fn, device=device, graph_iters=graph_iters)
         out[name] = r
         print(f"{name:46s} {r['ms']:9.3f} {unit}   [{r['min_ms']:.3f} .. {r['max_ms']:.3f}]",
               file=file, flush=True)

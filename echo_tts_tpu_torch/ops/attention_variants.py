@@ -25,8 +25,10 @@ Flags that change the function:
   (B, H, D, T).
 
 Flags that only choose the schedule of the CUDA kernel
-(`csrc/joint_attention_variants.cu`): `tq`, query rows per block, 64 or 128
-(the script's 320 and 640 do not fit 227 KB of shared memory); `hg`, heads a
+(`csrc/joint_attention_variants.cu`, on the `wgmma` core it shares with K1,
+`csrc/attention_core.cuh`): `tq`, query rows per block, 64 or 128 = one or two
+consumer warpgroups beside the producer warpgroup (the script's 320 and 640
+do not fit a block's registers and 227 KB of shared memory); `hg`, heads a
 block walks through, any divisor of H; `use_exp2`, the base of the exponent
 (results agree to rounding); `block_order`, "g_inner" (consecutive blocks
 differ in the branch and share segment K/V, the TPU grid's order) or

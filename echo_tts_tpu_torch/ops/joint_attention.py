@@ -14,9 +14,11 @@ context segment keeps its own K, V (B, H, T, D), mask (G, B, T) and scalar
 scale (the "force speaker" multiplier; None = 1). Every branch shares the
 segment KV.
 
-`joint_attention` runs the hand-written CUDA kernel (`csrc/joint_attention.cu`)
-for CUDA tensors and the plain PyTorch version for CPU tensors; anything the
-kernel does not take raises. `joint_attention.launches` counts kernel
+`joint_attention` runs the hand-written CUDA kernel (`csrc/joint_attention.cu`,
+on the Hopper core `csrc/attention_core.cuh`: `wgmma` products with register
+accumulators over a `cp.async`/`mbarrier` ring of K/V tiles) for CUDA tensors
+and the plain PyTorch version for CPU tensors; anything the kernel does not
+take raises. `joint_attention.launches` counts kernel
 launches. It writes outside autograd, so on CUDA it refuses inputs that
 require grad while grad mode is on.
 
@@ -40,6 +42,11 @@ _NEG = -1e30
 _LOG2E = 1.4426950408889634
 HEAD_DIM = 128      # the kernel's head width
 MAX_SEGMENTS = 3
+# query rows a block of K1 takes: 64 = one consumer warpgroup and two blocks
+# on an SM, 128 = two consumer warpgroups that share each K/V tile. 128 read
+# 5-9 % faster at the one-branch, the three-branch and the training shape
+# (chip_smoke.py phase 8 times both on an H100).
+TQ = 128
 
 
 def _to_head_major(x: torch.Tensor, layout: str) -> torch.Tensor:
@@ -128,23 +135,43 @@ def _fn():
         strides = ctypes.c_longlong * 4
         f.argtypes = [vp, vp, vp, vp, strides, strides, strides, strides,
                       vp, vp, i, i, i, i, i, ctypes.POINTER(_Seg), i,
-                      ctypes.c_float, vp]
+                      ctypes.c_float, i, vp]
         f.restype = i
         _FN = f
     return _FN
 
 
-def _check_bf16_rows(name: str, x: torch.Tensor, device) -> None:
+def _check_bf16_rows(name: str, x: torch.Tensor, device, ndim: Optional[int] = None):
+    """What the kernels ask of a bf16 operand; returns its (shape, strides).
+    On the hot path of every launch: it reads each property once."""
     if x.device != device:
         raise ValueError(f"{name} is on {x.device}, expected {device}")
     if x.dtype != torch.bfloat16:
         raise TypeError(f"{name} must be bfloat16 for the CUDA kernel, got {x.dtype}")
-    if x.shape[-1] != HEAD_DIM or x.stride(-1) != 1:
+    shape, strides = x.shape, x.stride()
+    if ndim is not None and len(shape) != ndim:
+        raise ValueError(f"{name} must be {ndim}-D, got shape {tuple(shape)}")
+    if shape[-1] != HEAD_DIM or strides[-1] != 1:
         raise ValueError(f"{name} needs a contiguous last axis of {HEAD_DIM}, "
-                         f"got shape {tuple(x.shape)} strides {x.stride()}")
-    if x.data_ptr() % 16 or any(s % 8 for s in x.stride()[:-1]):
+                         f"got shape {tuple(shape)} strides {strides}")
+    outer = 0
+    for st in strides[:-1]:
+        outer |= st
+    if x.data_ptr() % 16 or outer % 8:
         raise ValueError(f"{name} must be 16-byte aligned with strides that "
                          f"are multiples of 8 elements")
+    return shape, strides
+
+
+def _head_major_meta(name: str, x: torch.Tensor, layout: str, device):
+    """Shape and element strides of x seen as (G, B, H, S, D), without making
+    the view: seq-major swaps axes 2 and 3."""
+    shape, st = _check_bf16_rows(name, x, device, 5)
+    if layout == "sm":
+        return (shape[0], shape[1], shape[3], shape[2], shape[4]), (st[0], st[1], st[3], st[2])
+    if layout != "hm":
+        raise ValueError(f"layout must be 'hm' or 'sm', got {layout!r}")
+    return tuple(shape), st[:4]
 
 
 def _bias_of(mask: torch.Tensor) -> torch.Tensor:
@@ -155,49 +182,47 @@ def _bias_of(mask: torch.Tensor) -> torch.Tensor:
     return mask
 
 
-def _joint_attention_cuda(q, k_self, v_self, segments, layout, self_len, out, lse=None):
+def _joint_attention_cuda(q, k_self, v_self, segments, layout, self_len, out, lse=None,
+                          tq=None):
     """K1. `lse`, when given, receives each query row's base-2 log-sum-exp
-    as fp32 (G, B, H, S) contiguous."""
+    as fp32 (G, B, H, S) contiguous. `tq` (64 or 128, default `TQ`) only
+    chooses the schedule."""
     dev = q.device
-    qh, kh, vh = (_to_head_major(x, layout) for x in (q, k_self, v_self))
-    for name, x in (("q", qh), ("k_self", kh), ("v_self", vh)):
-        if x.dim() != 5:
-            raise ValueError(f"{name} must be 5-D, got shape {tuple(x.shape)}")
-        _check_bf16_rows(name, x, dev)
-    g, b, h, s, _ = qh.shape
-    s_kv = kh.shape[3]
-    if kh.shape[:3] != (g, b, h) or vh.shape != kh.shape:
-        raise ValueError(f"k_self/v_self shapes {tuple(kh.shape)}/{tuple(vh.shape)} "
-                         f"do not match q {tuple(qh.shape)}")
+    q_shape, q_st = _head_major_meta("q", q, layout, dev)
+    k_shape, k_st = _head_major_meta("k_self", k_self, layout, dev)
+    v_shape, v_st = _head_major_meta("v_self", v_self, layout, dev)
+    g, b, h, s, _ = q_shape
+    s_kv = k_shape[3]
+    if k_shape[:3] != (g, b, h) or v_shape != k_shape:
+        raise ValueError(f"k_self/v_self shapes {k_shape}/{v_shape} (head-major) "
+                         f"do not match q {q_shape}")
     if len(segments) > MAX_SEGMENTS:
         raise ValueError(f"at most {MAX_SEGMENTS} segments, got {len(segments)}")
     if out is None:
         out = torch.empty_like(q)
-    oh = _to_head_major(out, layout)
-    if oh.shape != qh.shape:
+    o_shape, o_st = _head_major_meta("out", out, layout, dev)
+    if o_shape != q_shape:
         raise ValueError(f"out shape {tuple(out.shape)} does not match q {tuple(q.shape)}")
-    _check_bf16_rows("out", oh, dev)
 
     segs = (_Seg * MAX_SEGMENTS)()
     keep = []  # tensors that must outlive the launch
     for i, (k, v, mask, scale) in enumerate(segments):
-        _check_bf16_rows(f"segment {i} k", k, dev)
-        _check_bf16_rows(f"segment {i} v", v, dev)
-        t = k.shape[2]
-        if k.dim() != 4 or k.shape[:2] != (b, h) or v.shape != k.shape:
+        ks, kst = _check_bf16_rows(f"segment {i} k", k, dev)
+        vs, vst = _check_bf16_rows(f"segment {i} v", v, dev)
+        if len(ks) != 4 or ks[:2] != (b, h) or vs != ks:
             raise ValueError(f"segment {i} k/v must be (B, H, T, {HEAD_DIM}), "
-                             f"got {tuple(k.shape)}/{tuple(v.shape)}")
+                             f"got {tuple(ks)}/{tuple(vs)}")
+        t = ks[2]
         if t < 1:
             raise ValueError(f"segment {i} is empty")
         bias = _bias_of(mask)
-        if bias.shape != (g, b, t) or bias.device != dev or bias.stride(-1) != 1:
+        bst = bias.stride()
+        if bias.shape != (g, b, t) or bias.device != dev or bst[-1] != 1:
             raise ValueError(f"segment {i} mask must be ({g}, {b}, {t}) on {dev} "
                              f"with a contiguous last axis, got {tuple(bias.shape)}")
         keep.append(bias)
-        segs[i] = _Seg(k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-                       k.stride(0), k.stride(1), k.stride(2),
-                       v.stride(0), v.stride(1), v.stride(2),
-                       bias.stride(0), bias.stride(1),
+        segs[i] = _Seg(k.data_ptr(), v.data_ptr(), bias.data_ptr(), kst[0], kst[1], kst[2],
+                       vst[0], vst[1], vst[2], bst[0], bst[1],
                        t, 1.0 if scale is None else float(scale))
     sl_ptr = None
     if self_len is not None:
@@ -210,13 +235,11 @@ def _joint_attention_cuda(q, k_self, v_self, segments, layout, self_len, out, ls
                             or lse.shape != (g, b, h, s) or not lse.is_contiguous()):
         raise ValueError(f"lse must be contiguous float32 ({g}, {b}, {h}, {s}) on {dev}")
 
-    def st(x):
-        return (ctypes.c_longlong * 4)(*x.stride()[:4])
-
-    err = _fn()(qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), oh.data_ptr(),
-                st(qh), st(kh), st(vh), st(oh), sl_ptr,
+    strides = ctypes.c_longlong * 4
+    err = _fn()(q.data_ptr(), k_self.data_ptr(), v_self.data_ptr(), out.data_ptr(),
+                strides(*q_st), strides(*k_st), strides(*v_st), strides(*o_st), sl_ptr,
                 None if lse is None else lse.data_ptr(), g, b, h, s, s_kv, segs, len(segments),
-                _LOG2E / math.sqrt(HEAD_DIM),
+                _LOG2E / math.sqrt(HEAD_DIM), TQ if tq is None else int(tq),
                 torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"joint_attention kernel launch failed: CUDA error {err}")

@@ -74,6 +74,71 @@ def test_branch_split_on_the_card(cuda_device):
     assert _rel(got, ref) < 2e-2
 
 
+def test_attention_core_products_match_matmul(cuda_device):
+    """The shared core's two wgmma products on one tile, keys as (T, D) and
+    as (D, T), against torch.matmul."""
+    from echo_tts_tpu_torch.ops import attention_core as tac
+
+    rng = np.random.default_rng(3)
+    a, b, v = (torch.from_numpy(rng.standard_normal((64, 128)).astype(np.float32)).to(
+        cuda_device, torch.bfloat16) for _ in range(3))
+    for b_transposed in (False, True):
+        bb = b.t().contiguous() if b_transposed else b
+        s_ref, o_ref = tac.core_products_plain(a, bb, v, 0.05, b_transposed)
+        for a_from_registers in (False, True):
+            s, o = tac.core_products(a, bb, v, 0.05, b_transposed, a_from_registers)
+            assert _rel(s, s_ref) < 1e-5      # fp32 sums of exact bf16 products
+            assert _rel(o, o_ref) < 5e-3      # a weight on a bf16 rounding edge may differ
+
+
+K1_RAGGED = {
+    # g, b, s, h, segment lengths, scales, all-masked segments, self_len
+    "s200_t700_t1": (3, 2, 200, 4, (700, 1), (None, 1.5), (1,), None),
+    "self_len_inside_a_tile": (1, 2, 200, 4, (160,), (None,), (), (200, 77)),
+    "s200_three_segments": (2, 1, 200, 4, (300, 52, 7), (None, 1.5, 0.5), (), None),
+    "training_shape_b8": (1, 8, 640, 16, (768, 160), (None, 1.5), (), None),
+}
+
+
+@pytest.mark.parametrize("tq", [64, 128])
+@pytest.mark.parametrize("layout", ["sm", "hm"])
+@pytest.mark.parametrize("case", sorted(K1_RAGGED))
+def test_joint_attention_kernel_at_ragged_shapes(cuda_device, case, layout, tq):
+    """K1 with one and with two consumer warpgroups, seq-major and
+    head-major, writing into a view of a larger buffer, with its
+    log-sum-exp; then branch by branch on q[i:i+1] slices into out[i:i+1]."""
+    g, b, s, h, seg_lens, scales, masked, sl = K1_RAGGED[case]
+    q, ks, vs, segs = _k1_inputs(cuda_device, g, b, s, h, seg_lens, 41, scales)
+    segs = [(k, v, torch.zeros_like(m) if i in masked else m, sc)
+            for i, (k, v, m, sc) in enumerate(segs)]
+    if layout == "hm":
+        q, ks, vs = (x.transpose(2, 3).contiguous() for x in (q, ks, vs))
+    if sl is not None:
+        sl = torch.tensor(sl, dtype=torch.int32, device=cuda_device)
+    ref = tja.joint_attention_plain(q.float(), ks.float(), vs.float(), _f32(segs), layout, sl)
+    buf = torch.full((g + 2, *q.shape[1:]), 7.0, dtype=torch.bfloat16, device=cuda_device)
+    lse = torch.empty((g, b, h, s), dtype=torch.float32, device=cuda_device)
+    tja._joint_attention_cuda(q, ks, vs, segs, layout, sl, buf[1:g + 1], lse, tq)
+    assert _rel(buf[1:g + 1], ref) < 2e-2
+    assert (buf[0] == 7.0).all() and (buf[-1] == 7.0).all()
+    qh, kh = (x.float().transpose(2, 3) if layout == "sm" else x.float() for x in (q, ks))
+    l_self = torch.einsum("gbhsd,gbhtd->gbhst", qh, kh) / np.sqrt(128)
+    if sl is not None:
+        keep = torch.arange(s, device=cuda_device)[None] < sl[:, None]
+        l_self = l_self.masked_fill(~keep[None, :, None, None, :], -1e30)
+    logits = [l_self]
+    for k, _, m, sc in segs:
+        l_seg = torch.einsum("gbhsd,bhtd->gbhst", qh, k.float()) / np.sqrt(128) * (sc or 1.0)
+        logits.append(l_seg.masked_fill(~m[:, :, None, None, :], -1e30))
+    assert float((lse - torch.logsumexp(torch.cat(logits, -1), -1) / np.log(2.0)).abs().max()) < 2e-2
+    split = torch.empty_like(q)
+    for i in range(g):
+        tja._joint_attention_cuda(q[i:i + 1], ks[i:i + 1], vs[i:i + 1],
+                                  [(k, v, m[i:i + 1], sc) for k, v, m, sc in segs], layout, sl,
+                                  split[i:i + 1], None, tq)
+    assert _rel(split, ref) < 2e-2
+
+
 @pytest.mark.parametrize("c,zero_below", [(96, [80, 7]), (64, 80)])
 def test_res_chain_kernel_matches_plain(cuda_device, c, zero_below):
     rng = np.random.default_rng(c)
@@ -233,6 +298,30 @@ def test_attention_var_kernel_matches_plain(cuda_device, flags):
         without = tav.attention_var(q, key(ks), vs, [(key(k), v, m) for k, v, m in segs[:1]],
                                     **flags)
         assert torch.equal(got, without)
+
+
+@pytest.mark.parametrize("tq", [64, 128])
+@pytest.mark.parametrize("flags", [
+    dict(mask_mode="bias", use_exp2=True),
+    dict(mask_mode="where", probe="fold"),
+    dict(mask_mode="arith", k_t=True),
+    dict(mask_mode="none", probe="dots"),
+    dict(mask_mode="where", k_t=True, probe="fold", hg=2),
+], ids=["full-bias-exp2", "fold-where", "k_t-arith", "dots-none", "k_t-fold-hg2"])
+def test_attention_var_kernel_at_the_ragged_shape(cuda_device, flags, tq):
+    """The CPU tests' ragged shape with a T=700 segment (transposed keys
+    whose rows are not 16-byte aligned) and the T=1 all-masked one."""
+    q, ks, vs, segs = _var_inputs(cuda_device, 3, 2, 4, 200, (700, 1), 43, all_masked=(1,))
+    k_t = flags.get("k_t", False)
+
+    def key(k):
+        return k.transpose(-1, -2).contiguous() if k_t else k
+
+    got = tav.attention_var(q, key(ks), vs, [(key(k), v, m) for k, v, m in segs], tq=tq, **flags)
+    ref = tav.attention_var_plain(q.float(), key(ks).float(), vs.float(),
+                                  [(key(k).float(), v.float(), m) for k, v, m in segs], tq=tq,
+                                  **flags)
+    assert torch.isfinite(got.float()).all() and _rel(got, ref) < 2e-2
 
 
 def test_attention_var_noav_kernel_matches_plain(cuda_device):

@@ -122,3 +122,69 @@ def test_fully_masked_context_is_finite():
     assert torch.isfinite(got).all()
     assert_close(got, ref)
 
+
+def _ragged_case(case):
+    """(q, ks, vs, segments, self_len) of one ragged shape the kernel is
+    checked at on the card: S no multiple of a 64- or 128-row tile, segment
+    lengths no multiples of a 64-key tile, a T=1 all-masked segment, a
+    self_len that ends inside a tile."""
+    if case == "s200_t700_t1":
+        q, ks, vs, segs = _mk(3, 2, 200, 2, 128, (700, 1), seed=21, scales=[None, 1.5])
+        k, v, m, s = segs[1]
+        return q, ks, vs, [segs[0], (k, v, np.zeros_like(m), s)], None
+    if case == "self_len_inside_a_tile":
+        q, ks, vs, segs = _mk(1, 2, 200, 2, 128, (160,), seed=22)
+        return q, ks, vs, segs, np.array([200, 77], np.int32)
+    if case == "s200_three_segments":
+        q, ks, vs, segs = _mk(2, 1, 200, 2, 128, (300, 52, 7), seed=23, scales=[None, 1.5, 0.5])
+        return q, ks, vs, segs, None
+    raise ValueError(case)
+
+
+RAGGED_CASES = ("s200_t700_t1", "self_len_inside_a_tile", "s200_three_segments")
+
+
+@pytest.mark.parametrize("case", RAGGED_CASES)
+def test_plain_at_ragged_shapes_matches_pallas_and_xla(case):
+    """fp32 on the CPU against the Pallas kernel in interpret mode and the
+    XLA einsum path, atol 1e-5 / rtol 1e-4 plus 2e-5 absolute for the longer
+    sums of 700 keys."""
+    q, ks, vs, segs, sl = _ragged_case(case)
+    jq, jk, jv = jnp.asarray(q), jnp.asarray(ks), jnp.asarray(vs)
+    jsl = None if sl is None else jnp.asarray(sl)
+    ref_xla = jdit._joint_attention_grouped(jq, jk, jv, _jax(segs), self_len=jsl)
+    ref_pl = joint_attention_grouped_pallas(jq, jk, jv, _jax(segs), interpret=True, self_len=jsl)
+    got = tja.joint_attention(t(q), t(ks), t(vs), _torch(segs),
+                              self_len=None if sl is None else t(sl))
+    assert torch.isfinite(got).all()
+    assert_close(got, ref_xla, atol=2e-5)
+    assert_close(got, ref_pl, atol=2e-5)
+
+
+@pytest.mark.parametrize("layout", ["hm", "sm"])
+@pytest.mark.parametrize("case", RAGGED_CASES[:2])
+def test_out_view_and_sliced_branches_match_the_grouped_call(case, layout):
+    """`out=` a view of a larger buffer, and one call per branch on q[i:i+1]
+    slices that write into out[i:i+1] (what the branch split passes), give
+    the grouped answer and touch nothing else."""
+    q, ks, vs, segs, sl = _ragged_case(case)
+    jq, jk, jv = jnp.asarray(q), jnp.asarray(ks), jnp.asarray(vs)
+    ref = jdit._joint_attention_grouped(jq, jk, jv, _jax(segs),
+                                        self_len=None if sl is None else jnp.asarray(sl))
+    tq, tk, tv = (t(x).transpose(2, 3).contiguous() if layout == "sm" else t(x)
+                  for x in (q, ks, vs))
+    tsl = None if sl is None else t(sl)
+    g = tq.shape[0]
+    buf = torch.full((g + 2, *tq.shape[1:]), 7.0)
+    out = buf[1:g + 1]
+    res = tja.joint_attention(tq, tk, tv, _torch(segs), layout=layout, self_len=tsl, out=out)
+    assert res.data_ptr() == out.data_ptr()
+    assert (buf[0] == 7.0).all() and (buf[-1] == 7.0).all()
+    as_hm = (lambda x: x.transpose(2, 3)) if layout == "sm" else (lambda x: x)
+    assert_close(as_hm(out), ref, atol=2e-5)
+    split = torch.empty_like(tq)
+    for i in range(g):
+        tja.joint_attention(tq[i:i + 1], tk[i:i + 1], tv[i:i + 1],
+                            [(k, v, m[i:i + 1], s) for k, v, m, s in _torch(segs)],
+                            layout=layout, self_len=tsl, out=split[i:i + 1])
+    assert_close(as_hm(split), ref, atol=2e-5)

@@ -143,6 +143,55 @@ def test_attention_var_mask_forms_agree():
                                                for k, v, m in segs], tq=S, probe="noav")
 
 
+RAGGED = dict(g=3, b=2, h=2, s=200, d=128)  # the card's ragged check, two heads of its four
+
+RAGGED_ATTENTION_CASES = [
+    # id, segment lengths, fully masked segments, flags
+    ("full-bias-exp2", (300, 1), (1,), dict(mask_mode="bias", use_exp2=True)),
+    ("fold-where", (300, 1), (1,), dict(mask_mode="where", probe="fold")),
+    ("k_t-arith", (300, 1), (1,), dict(mask_mode="arith", k_t=True)),
+    ("dots-none", (300, 1), (), dict(mask_mode="none", probe="dots")),
+    ("noav-bias", (300, 130), (), dict(mask_mode="bias", probe="noav")),
+]
+
+
+@pytest.mark.parametrize("seg_lens,masked,flags", [c[1:] for c in RAGGED_ATTENTION_CASES],
+                         ids=[c[0] for c in RAGGED_ATTENTION_CASES])
+def test_attention_var_plain_matches_pallas_at_the_ragged_shape(interpret, seg_lens, masked,
+                                                                flags):
+    """S = 200 and T = 300 are no multiples of the CUDA kernel's 64-key and
+    64- or 128-row tiles, and T = 1 is the absent-speaker segment: the shape
+    at which the card's checks hold every variant against this plain version.
+    The script's kernel takes the 200 rows as one tile."""
+    jav = _script("bench_attention_variants")
+    g, b, h, s, d = (RAGGED[k] for k in "gbhsd")
+    rng = np.random.default_rng(41)
+
+    def f(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    q, ks, vs = f(g, b, h, s, d), f(g, b, h, s, d), f(g, b, h, s, d)
+    segs = []
+    for i, n in enumerate(seg_lens):
+        mask = rng.random((g, b, n)) < 0.7
+        if i in masked:
+            mask[:] = False
+        segs.append((f(b, h, n, d), f(b, h, n, d), mask))
+    flags = dict(tq=s, **flags)
+    ref = jav.attention_var(jnp.asarray(q), jnp.asarray(ks), jnp.asarray(vs),
+                            [tuple(jnp.asarray(a) for a in sg) for sg in segs], **flags)
+    k_t = flags.get("k_t", False)
+
+    def key(k):
+        return t(k).transpose(-1, -2).contiguous() if k_t else t(k)
+
+    got = tav.attention_var(t(q), key(ks), t(vs), [(key(k), t(v), t(m)) for k, v, m in segs],
+                            **flags)
+    assert torch.isfinite(got).all()
+    scale = float(np.abs(np.asarray(ref)).max()) if flags.get("probe") == "dots" else 1.0
+    assert_close(got / scale, np.asarray(ref) / scale, **TOL)
+
+
 # ---------------------------------------------------------------------------
 # K2v-cl, K2v-cf, K2s
 # ---------------------------------------------------------------------------
