@@ -8,14 +8,16 @@
 Phases, in order; any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi), torch/CUDA/nvcc versions;
   2. build every CUDA kernel from csrc/ (one nvcc per source, in parallel),
-     with each source's build seconds;
+     with each source's build seconds and ptxas' registers and spills; a
+     kernel whose wgmma ptxas serialised (C7512/C7514) is flagged;
   3. TF32 off for the comparisons; the attention kernels' shared wgmma core
      (csrc/attention_core.cuh) on one bare tile against torch.matmul, keys
      as (T, D) and as (D, T);
   4. each kernel against its plain PyTorch version at main-path shapes, bf16
      inputs, rel-L2 < 2e-2 (bf16 rounding gives ~1e-3, a wrong kernel O(1)):
      K1 forward (full and ragged shapes, both q tiles, its log-sum-exp), K2
-     residual units, K3 attention backward (each gradient);
+     residual units, K3 attention backward (each gradient, at the training
+     shape and one past its tiles' edges, both layouts, through autograd);
      then every instance of the measurement variants that the bench entry
      points use (K1v attention_var, K2v-cl res_chain, K2v-cf res_chain_cf,
      K2s res_chain_snake) at the full shapes and at a ragged one, K2v-cf
@@ -36,7 +38,8 @@ Phases, in order; any failure exits non-zero:
      profile_breakdown) at their full shapes, each printing its JSON line,
      with the launch counts set to 0 before each and read after it;
   8. kernel times (CUDA events, median of 7 after warm-up; for the attention
-     kernels over replays of a CUDA graph of 20 launches) beside the plain
+     kernels, K3 and its SDPA-backward yardstick included, over replays of a
+     CUDA graph of 20 launches) beside the plain
      version, one library call where one exists, and the bound, for K1 (at
      the one-branch, the three-branch and the training shape, with both q
      tiles, and the wrapper's host microseconds per launch), K2, K3, K1v,
@@ -54,6 +57,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -111,6 +115,40 @@ def phase_environment():
     return smi
 
 
+PTXAS: dict = {}  # source -> kernel -> registers, spill bytes, wgmma serialized (phase 2)
+SERIALIZED = ("C7512", "C7514")  # ptxas: "wgmma.mma_async instructions are serialized"
+
+
+def _kernel_name(mangled: str) -> str:
+    m = re.search(r"\d+([a-z][a-z_]*_kernel)(?:ILi(\d+)E)?", mangled)
+    if m is None:
+        return mangled
+    return m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+
+
+def parse_ptxas(text: str) -> dict:
+    """{kernel: {"registers", "spill_stores", "spill_loads", "serialized"}}
+    from the `-Xptxas -v` output of one source."""
+    out, cur = {}, None
+    for line in text.splitlines():
+        quoted = re.search(r"'(_Z\w+)'", line) or re.search(r"properties for (_Z\w+)", line)
+        if quoted:
+            name = _kernel_name(quoted.group(1))
+            out.setdefault(name, {"registers": None, "spill_stores": 0, "spill_loads": 0,
+                                  "serialized": False})
+            if any(c in line for c in SERIALIZED):
+                out[name]["serialized"] = True
+            else:
+                cur = name
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and cur:
+            out[cur]["spill_stores"], out[cur]["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            out[cur]["registers"] = int(m.group(1))
+    return out
+
+
 def phase_build(names=None):
     from echo_tts_tpu_torch.ops import _build
 
@@ -121,9 +159,16 @@ def phase_build(names=None):
     for name in paths:
         ptxas = _build.BUILD_DIR / f"{name}.ptxas.txt"
         if ptxas.exists():
-            for line in ptxas.read_text().splitlines():
+            text = ptxas.read_text()
+            for line in text.splitlines():
                 if any(w in line for w in ("registers", "spill", "warning", "Performance Loss")):
                     log(f"#   {name}: {line.strip()}")
+            PTXAS[name] = parse_ptxas(text)
+            for kernel, info in PTXAS[name].items():
+                if info["serialized"]:
+                    log(f"# FLAG {name}: ptxas serialised the wgmma of {kernel} "
+                        f"({'/'.join(SERIALIZED)}): the kernel lost its overlap; fix it before "
+                        f"timing anything")
 
 
 def phase_core_check(dev) -> None:
@@ -222,15 +267,18 @@ def _k3_inputs(gen, g, b, s, h, seg_lens, scales, dev, all_masked=()):
     return q, k, v, do, segs
 
 
-def k3_check(ja, q, k, v, do, segs):
+def k3_check(ja, q, k, v, do, segs, layout="sm"):
     """K1 (with its log-sum-exp) then K3 on bf16 inputs, and the plain
-    backward in fp32 on the same inputs: [(name, got, ref)] per gradient."""
+    backward in fp32 on the same inputs: [(name, got, ref)] per gradient.
+    q, k, v, do come seq-major; layout "hm" runs them head-major."""
     g, b, s, h, _ = q.shape
+    if layout == "hm":
+        q, k, v, do = (x.transpose(2, 3).contiguous() for x in (q, k, v, do))
     lse = torch.empty((g, b, h, s), dtype=torch.float32, device=q.device)
-    out = ja._joint_attention_cuda(q, k, v, segs, "sm", None, None, lse)
-    got = ja._joint_attention_bwd_cuda(q, k, v, segs, out, lse, do, "sm")
+    out = ja._joint_attention_cuda(q, k, v, segs, layout, None, None, lse)
+    got = ja._joint_attention_bwd_cuda(q, k, v, segs, out, lse, do, layout)
     ref = ja.joint_attention_bwd_plain(q.float(), k.float(), v.float(), f32_segments(segs),
-                                       do.float(), "sm")
+                                       do.float(), layout)
     names = ["dq", "dk_self", "dv_self"] + [f"{x}_seg{i}" for i in range(len(segs))
                                             for x in ("dk", "dv")]
     return list(zip(names, [*got[:3], *got[3]], [*ref[:3], *ref[3]]))
@@ -350,16 +398,30 @@ def phase_kernel_checks(dev) -> dict:
               rc.res_chain_plain(x.float(), f32_units(us), (1, 3, 9), zb))
 
     # K3 at the training shape (G=1, B=8, S=640, text 768 + speaker 160,
-    # speaker scale 1.5), then G=3, B=2 with a T=1 all-masked segment and an
-    # unaligned T=700 one; every gradient against the fp32 plain backward
-    for case, args in (("training shape G=1 B=8 S=640 H=16, text 768 + speaker 160, scale 1.5",
-                        (1, 8, 640, 16, (768, 160), (None, 1.5))),
-                       ("G=3 B=2 S=640 H=16, T=700 + T=1 all-masked, scale 1.5",
-                        (3, 2, 640, 16, (700, 1), (None, 1.5)))):
-        q3, k3, v3, do3, segs3 = _k3_inputs(gen, *args, dev, all_masked=(1,) if "T=1" in case
-                                            else ())
-        for name, got, ref in k3_check(ja, q3, k3, v3, do3, segs3):
-            check("joint_attention_bwd", f"{case}: {name}", got, ref)
+    # speaker scale 1.5), then at the edges of its tiles: G=3, B=2 with an
+    # unaligned T=700 segment and a T=1 all-masked one (whose dk/dv must be
+    # exactly 0), and S=130 with a T=129 segment (one past a 128-row q tile
+    # of pass A and a 128-key tile of pass B), seq-major and head-major;
+    # every gradient against the fp32 plain backward
+    for case, args, masked, layouts in (
+            ("training shape G=1 B=8 S=640 H=16, text 768 + speaker 160, scale 1.5",
+             (1, 8, 640, 16, (768, 160), (None, 1.5)), (), ("sm",)),
+            ("G=3 B=2 S=640 H=16, T=700 + T=1 all-masked, scale 1.5",
+             (3, 2, 640, 16, (700, 1), (None, 1.5)), (1,), ("sm", "hm")),
+            ("G=1 B=2 S=130 H=16, T=129 at scale 1.5", (1, 2, 130, 16, (129,), (1.5,)), (),
+             ("sm", "hm"))):
+        q3, k3, v3, do3, segs3 = _k3_inputs(gen, *args, dev, all_masked=masked)
+        for layout in layouts:
+            for name, got, ref in k3_check(ja, q3, k3, v3, do3, segs3, layout):
+                if name[-1].isdigit() and int(name[-1]) in masked:
+                    torch.cuda.synchronize()
+                    zero = not bool(got.any())
+                    log(f"# check joint_attention_bwd [{case}, {layout}: {name}]: exactly 0: {zero}")
+                    if not zero:
+                        failures.append(f"joint_attention_bwd [{case}, {layout}] {name} of the "
+                                        f"all-masked segment is not 0")
+                else:
+                    check("joint_attention_bwd", f"{case}, {layout}: {name}", got, ref)
         del q3, k3, v3, do3, segs3
     # K3 through the autograd Function (layout "sm", bool masks), under
     # torch.autograd.grad, against the plain backward
@@ -690,10 +752,14 @@ def k1_host_us(dev, gen, launches: int = 400) -> float:
 
 def k3_times(dev, gen, errs: dict, launches: dict) -> dict:
     """K3 at the training shape (G=1, B=8, S=640, H=16, text 768, speaker 160
-    at scale 1.5), with K1's out and lse of the same inputs; the plain
-    backward on the same bf16 inputs; the yardstick is the backward of one
-    SDPA call over [k_self | k_text | k_spk*s] with the concatenated bias
-    (timed only; the port never calls it)."""
+    at scale 1.5), with K1's out and lse of the same inputs: device ms over
+    CUDA-graph replays of 20 calls (two kernels each), TFLOP/s on the 10*S*T*D
+    of the five products; the plain backward on the same bf16 inputs; the
+    yardstick is the backward of one SDPA call over [k_self | k_text |
+    k_spk*s] with the concatenated bias (timed only; the port never calls
+    it), over graph replays too: its forward runs on a side stream, so that
+    torch.autograd.grad, whose kernels run on the forward's stream, is
+    captured there."""
     from echo_tts_tpu_torch.bench.timing import cuda_ms
     from echo_tts_tpu_torch.ops import joint_attention as ja
 
@@ -701,17 +767,23 @@ def k3_times(dev, gen, errs: dict, launches: dict) -> dict:
     q, k, v, do, segs = _k3_inputs(gen, g, b, s, h, (t_text, t_spk), (None, 1.5), dev)
     lse = torch.empty((g, b, h, s), dtype=torch.float32, device=dev)
     out = ja._joint_attention_cuda(q, k, v, segs, "sm", None, None, lse)
-    ms = cuda_ms(lambda: ja._joint_attention_bwd_cuda(q, k, v, segs, out, lse, do, "sm"))
+    ms = cuda_ms(lambda: ja._joint_attention_bwd_cuda(q, k, v, segs, out, lse, do, "sm"),
+                 graph_iters=GRAPH_ITERS)
     plain_ms = cuda_ms(lambda: ja.joint_attention_bwd_plain(q, k, v, segs, do, "sm"), reps=3)
     (kt, vt, bt, _), (ksp, vsp, bsp, ssp) = segs
-    qh = q[0].transpose(1, 2).detach().requires_grad_()
-    kc = torch.cat([k[0].transpose(1, 2), kt, ksp * ssp], dim=2).detach().requires_grad_()
-    vc = torch.cat([v[0].transpose(1, 2), vt, vsp * ssp], dim=2).detach().requires_grad_()
-    bias = torch.cat([torch.zeros(b, s, device=dev), bt[0], bsp[0]], dim=-1)
-    bias = bias[:, None, None, :].to(torch.bfloat16)
-    o_lib = torch.nn.functional.scaled_dot_product_attention(qh, kc, vc, attn_mask=bias)
-    do_lib = do[0].transpose(1, 2)
-    lib_ms = cuda_ms(lambda: torch.autograd.grad(o_lib, (qh, kc, vc), do_lib, retain_graph=True))
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        qh = q[0].transpose(1, 2).detach().requires_grad_()
+        kc = torch.cat([k[0].transpose(1, 2), kt, ksp * ssp], dim=2).detach().requires_grad_()
+        vc = torch.cat([v[0].transpose(1, 2), vt, vsp * ssp], dim=2).detach().requires_grad_()
+        bias = torch.cat([torch.zeros(b, s, device=dev), bt[0], bsp[0]], dim=-1)
+        bias = bias[:, None, None, :].to(torch.bfloat16)
+        o_lib = torch.nn.functional.scaled_dot_product_attention(qh, kc, vc, attn_mask=bias)
+        do_lib = do[0].transpose(1, 2)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    lib_ms = cuda_ms(lambda: torch.autograd.grad(o_lib, (qh, kc, vc), do_lib, retain_graph=True),
+                     graph_iters=GRAPH_ITERS, stream=side)
     t_all = s + t_text + t_spk
     flops = 10.0 * g * b * h * s * t_all * d
     # q, k_self, v_self, out, dO read and dq, dk_self, dv_self written (bf16);
@@ -719,8 +791,9 @@ def k3_times(dev, gen, errs: dict, launches: dict) -> dict:
     nbytes = (2 * 8 * g * b * s * h * d + 2 * 4 * b * h * (t_text + t_spk) * d
               + 4 * g * b * h * s + 4 * g * b * (t_text + t_spk))
     b_ms, b_by = bound(flops, nbytes)
-    log(f"# time joint_attention_bwd: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-        f"sdpa backward {lib_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+    log(f"# time joint_attention_bwd: kernel {ms:.4f} ms over graph replays "
+        f"({flops / ms / 1e9:.0f} TFLOP/s of 10*S*T*D), plain {plain_ms:.3f} ms, "
+        f"sdpa backward {lib_ms:.4f} ms over graph replays, bound {b_ms:.4f} ms ({b_by})")
     return {"name": "joint_attention_bwd", "route": "cuda",
             "source": "echo_tts_tpu_torch/csrc/joint_attention_bwd.cu",
             "replaces": "echo_tts_tpu/ops/pallas_attention.py:379",
@@ -728,6 +801,7 @@ def k3_times(dev, gen, errs: dict, launches: dict) -> dict:
             "launches_by_path": by_path(launches, "joint_attention_bwd"),
             "max_abs_err": errs["joint_attention_bwd"], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            "tflops": flops / ms / 1e9, "ptxas": PTXAS.get("joint_attention_bwd", {}),
             "shape": f"G={g} B={b} S={s} H={h} D={d} self {s} + text {t_text} + "
                      f"speaker {t_spk} (scale 1.5)"}
 
@@ -1050,7 +1124,7 @@ def profile_families(what: str, run) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from echo_tts_tpu_torch.utils.profiling import device_time_by_family
+    from echo_tts_tpu_torch.utils.profiling import device_time_by_family, kernel_family
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1075,6 +1149,12 @@ def profile_families(what: str, run) -> None:
             f"({v['ms'] / total:.1%} of device time)")
     for e in sorted(kernels, key=lambda e: -e.device_time_total)[:8]:
         log(f"#   top kernel {e.key[:70]}: {e.device_time_total / 1e3:.1f} ms, {e.count} launches")
+    # each kernel of the port's own families on its own line (K3's two passes)
+    for e in sorted(kernels, key=lambda e: -e.device_time_total):
+        if kernel_family(e.key).startswith("K"):
+            name = re.search(r"::(\w+(?:<\d+>)?)", e.key)
+            log(f"#   port kernel {name.group(1) if name else e.key[:60]}: "
+                f"{e.device_time_total / 1e3:.2f} ms in {e.count} launches")
 
 
 # ---------------------------------------------------------------------------

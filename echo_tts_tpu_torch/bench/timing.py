@@ -19,6 +19,7 @@ the entry points write it into their result.
 """
 from __future__ import annotations
 
+import contextlib
 import statistics
 import time
 from typing import Callable, Dict
@@ -34,21 +35,27 @@ def timing_device(device) -> str:
 
 
 def cuda_times(fn: Callable[[], object], *, reps: int = 7, warmup: int = 2,
-               device="cuda", graph_iters: int = 0) -> Dict[str, float]:
+               device="cuda", graph_iters: int = 0, stream=None) -> Dict[str, float]:
     """{"ms": median, "min_ms", "max_ms", "reps"} of fn(), in ms per call:
     `warmup` untimed calls, then `reps` timed ones. With `graph_iters` > 0 on
     a CUDA device each timed unit is one replay of a CUDA graph that holds
-    that many calls (fn must then neither synchronise nor read results back)."""
+    that many calls (fn must then neither synchronise nor read results back).
+    `stream` (graphs only) is the stream the warm-up runs and the capture
+    takes place on: a backward through autograd runs on the stream of its
+    forward, so it is captured on the stream its forward ran on."""
     device = torch.device(device)
-    for _ in range(warmup):
-        fn()
+    if stream is not None and graph_iters <= 0:
+        raise ValueError("a capture stream needs graph_iters > 0")
+    with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
+        for _ in range(warmup):
+            fn()
     times = []
     if device.type == "cuda":
         run, per = fn, 1
         if graph_iters > 0:
             torch.cuda.synchronize(device)
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
+            with torch.cuda.graph(graph, stream=stream):
                 for _ in range(graph_iters):
                     fn()
             run, per = graph.replay, graph_iters
@@ -72,9 +79,10 @@ def cuda_times(fn: Callable[[], object], *, reps: int = 7, warmup: int = 2,
 
 
 def cuda_ms(fn: Callable[[], object], reps: int = 7, warmup: int = 2,
-            graph_iters: int = 0) -> float:
+            graph_iters: int = 0, stream=None) -> float:
     """Median of `reps` CUDA-event timings of fn(), in ms per call."""
-    return cuda_times(fn, reps=reps, warmup=warmup, graph_iters=graph_iters)["ms"]
+    return cuda_times(fn, reps=reps, warmup=warmup, graph_iters=graph_iters,
+                      stream=stream)["ms"]
 
 
 def card_line(device) -> str:

@@ -14,45 +14,66 @@
 //
 // bf16 in and out, fp32 softmax and accumulation; dl and p are rounded to
 // bf16 before their products, as the Pallas kernel does (here with c*s_seg
-// folded into dl before the rounding).
+// folded into dl before the rounding). Every output tile has one owner, so
+// there are no atomics, and a segment's dk/dv is summed over the branches
+// inside one block, as the Pallas kernel's seg_acc sums it.
 //
 // Bound. The five products cost 10*S*T*D FLOPs per (g, b, h) (T = all keys);
 // at the training shape (G=1, B=8, H=16, S=640, T=640+768+160, D=128) that
 // is 164 GFLOP against ~60 MB of inputs and outputs: ~2.7k FLOP per byte,
 // far above the H100's ~295 FLOP/byte ridge, so it is bound by tensor-core
-// operations (989 TFLOP/s bf16: ~0.166 ms). This design recomputes q.k^T
-// and dO.v^T once in each of its two passes, 14*S*T*D in all.
+// operations (989 TFLOP/s bf16: ~0.166 ms), which only wgmma reaches.
 //
-// Design. The Pallas kernel holds the S x T logits of every branch in VMEM,
-// one program per (b, h); that does not fit 227 KB of shared memory. This
-// is the flash-attention-2 backward instead, split so that every output
-// tile has exactly one owner and no atomics are needed:
-//   0. a pre-pass, one warp per query row, computes r = rowsum(dO*O) from
-//      the forward output O (equal to sum(dp*p) up to O's bf16 rounding);
-//      the per-row log-sum-exp comes from kernel K1's optional output, so
-//      p = exp2(l*log2(e) - lse2) needs no second softmax pass;
-//   1. dq pass: one block of 8 warps per (g, b, h, 64-row q tile); the q and
-//      dO tiles stay in shared memory while 64-key tiles of K and V stream
-//      through, self keys first, then each segment from its own K/V/bias;
-//      dq accumulates in WMMA fragments held in registers;
-//   2. dk/dv pass: one block per (b, h, 64-key tile) of the self keys of
-//      each branch and of each segment; a self-key block loops over the q
-//      tiles of its own branch, a segment-key block over every branch and
-//      every q tile, so the sum over branches stays inside one block; dk and
-//      dv accumulate in register fragments.
-// Keys past a segment's end (T=1, T=700) and query rows past S are masked
-// inside the kernel; nothing is padded on the host. Products use WMMA bf16
-// 16x16x16 tiles with fp32 accumulation; wgmma/TMA and pipelining are left
-// for the kernel redesign. Shared memory: 110.5 KiB (dq pass, two blocks
-// fit on an SM) and 119.5 KiB (dk/dv pass, one block per SM) of dynamic
-// shared memory; the fp32 score tile doubles as the output staging tile.
+// Design (on attention_core.cuh, the core of K1). The Pallas kernel holds the
+// S x T logits of every branch in VMEM, one program per (b, h); that does not
+// fit 227 KB of shared memory. Two launches instead, each a block of two
+// consumer warpgroups (64 rows each) and one producer warpgroup that streams
+// 64-row tiles through the ring of K1 (Ring<2>: four stages of two tiles,
+// 16-byte cp.async copies completed on mbarriers, 128-byte swizzle):
+//   A. dq pass, one block per (g, b, h, 128 query rows). A consumer holds
+//      its rows of q and dO as wgmma A fragments in registers for the whole
+//      pass; its prologue computes r = rowsum(dO*O) from the forward output O
+//      (equal to sum(dp*p) up to O's bf16 rounding) and writes it for pass B.
+//      K/V tiles stream as in K1, self keys first, then each segment from its
+//      own K/V/bias. Per tile: S = Q.K^T; p = exp2(S*c2 + bias - lse) with
+//      lse, K1's base-2 log-sum-exp, so no second softmax pass; dP = dO.V^T;
+//      dS = p*(dP*s - r)*c*s as bf16 A fragments; dq += dS.K with K read
+//      MN-major (the P.V form of K1). dq stays in registers.
+//   B. dk/dv pass, one block per (b, h, 128 keys) of one source: the self
+//      keys of branch g, or a segment. The K and V rows of the block stay in
+//      shared memory as A operands; the producer streams (q, dO) tile pairs
+//      of 64 query rows, the branch's own for self keys, every branch's for a
+//      segment (the sum over g stays in the block). Everything is computed
+//      transposed, keys as rows: S^T = K.q^T and dP^T = V.dO^T (the q.k^T form
+//      with A from shared memory), P^T and dS^T from those accumulators with
+//      lse and r per column (one load a warp, handed out by shuffles) and the
+//      key's bias per row; then dV += P^T.dO and dK += dS^T.q, both in the
+//      P.V form, so no tile is ever stored transposed and no new wgmma form
+//      is needed. dk and dv stay in registers (64 + 64 a thread); dv is scaled
+//      by s_seg at the store.
+// Each trip of a pass overlaps the exponentials of tile i+1 with the
+// accumulating product(s) of tile i: S(i+1) is issued, then the products of
+// tile i, and p(i+1) is computed while those run; dP(i+1) follows once they
+// are done. A consumer thus keeps at most 192 registers of fragments and
+// accumulators live (q 32, dO 32, S 32, dP 32, dq 64 in pass A; dk 64, dv 64,
+// S 32, dP 32 in pass B) under its 240 (setmaxnreg; the producers keep 24).
+// In both passes the whole consumer body, from zeroing the accumulators to
+// storing them, sits under a loop over a block's heads (hg, 1 at run time),
+// as in K1: with only its inner loops under one, pass B spilled kilobytes and
+// ptxas serialised its wgmma (C7512), several times slower. Both passes
+// recompute q.k^T and dO.v^T: 14*S*T*D of tensor work against the bound's
+// 10*S*T*D.
+//
+// Keys past a source's end (T=1, T=700) get p = 0 in pass A and are not
+// written in pass B; query rows past S get p = 0 in pass B and are not
+// written in pass A. Nothing is padded on the host.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <math.h>
 
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
+#include "attention_core.cuh"
+
+using namespace attn_core;
 
 // one context segment with its gradient outputs, as the wrapper passes it
 struct SegB {
@@ -72,24 +93,14 @@ struct SegB {
 
 namespace {
 
-constexpr int D = 128;
-constexpr int BQ = 64;
-constexpr int BK = 64;
-constexpr int NW = 8;
-constexpr int NT = NW * 32;
-constexpr int LDH = D + 8;   // bf16 row stride of the Q, dO, K, V tiles
-constexpr int LDS = BK + 4;  // fp32 scores / dp
-constexpr int LDP = BK + 8;  // bf16 p and ds
-constexpr int LDO = D + 4;   // fp32 staging of a 64 x D output tile
 constexpr int MAX_SEG = 3;
-constexpr int EPT = BQ * BK / NT;  // score elements per thread (16)
-
-constexpr size_t TILE_H = sizeof(bf16) * BQ * LDH;
-constexpr size_t TILE_P = sizeof(bf16) * BQ * LDP;
-constexpr size_t STAGE = sizeof(float) * BQ * LDO;
-constexpr size_t ROWS = sizeof(float) * 2 * BQ;
-constexpr size_t SMEM_DQ = 4 * TILE_H + TILE_P + STAGE + ROWS;
-constexpr size_t SMEM_DKDV = 4 * TILE_H + 2 * TILE_P + STAGE + ROWS;
+constexpr int NWG = 2;  // consumer warpgroups a block
+using R = Ring<NWG>;
+constexpr int STAGES = R::STAGES;
+constexpr int BLOCK_ROWS = NWG * 64;  // query rows (pass A) or keys (pass B) of a block
+constexpr int RES_BYTES = NWG * 2 * TILE_BYTES;  // pass B: the block's K and V tiles
+constexpr int SMEM_A = R::SMEM_BYTES;
+constexpr int SMEM_B = R::SMEM_BYTES + RES_BYTES + 16;  // + the K/V barriers
 
 struct Params {
   const bf16* q;
@@ -98,7 +109,7 @@ struct Params {
   const bf16* dout;
   const bf16* o;
   const float* lse;  // (G, B, H, S) base-2 log-sum-exp from kernel K1
-  float* r;          // (G, B, H, S) rowsum(dO*O), written by the pre-pass
+  float* r;          // (G, B, H, S) rowsum(dO*O), written by pass A
   bf16* dq;
   bf16* dks;
   bf16* dvs;
@@ -106,6 +117,7 @@ struct Params {
   // dk_self, dv_self
   long long st[8][4];
   int G, B, H, S, S_kv, nseg;
+  int hg;        // heads a block walks through, one after the other (a divisor of H)
   float scale2;  // log2(e)/sqrt(D), K1's base-2 logit scale
   float scale;   // 1/sqrt(D)
   SegB seg[MAX_SEG];
@@ -113,107 +125,8 @@ struct Params {
 
 enum { Q = 0, KS, VS, DO, O, DQ, DKS, DVS };
 
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> Acc;
-
 __device__ __forceinline__ long long row_off(const long long* s, int g, int b, int h) {
   return g * s[0] + b * s[1] + h * s[2];
-}
-
-// rows [0, n) of a 64 x D tile from global rows `stride` elements apart;
-// rows >= n are zero
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, long long stride, int n) {
-  constexpr int VEC = D / 8;  // 16-byte vectors per row
-  for (int i = threadIdx.x; i < BQ * VEC; i += NT) {
-    const int r = i / VEC, c = (i % VEC) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (r < n) val = *reinterpret_cast<const uint4*>(src + r * stride + c);
-    *reinterpret_cast<uint4*>(dst + r * LDH + c) = val;
-  }
-}
-
-// lse and r of rows [row0, row0 + n) of one (g, b, h); zero past n
-__device__ __forceinline__ void load_rows(float* lse_s, float* r_s, const Params& p,
-                                          long long row0, int n) {
-  if (threadIdx.x < BQ) {
-    const int i = threadIdx.x;
-    lse_s[i] = i < n ? p.lse[row0 + i] : 0.f;
-    r_s[i] = i < n ? p.r[row0 + i] : 0.f;
-  }
-}
-
-// C (64 x 64 fp32, ld LDS) = A . Bm^T for 64 x D bf16 tiles; each warp does
-// two of the sixteen 16 x 16 output tiles
-__device__ __forceinline__ void mm_abt(float* C, const bf16* A, const bf16* Bm) {
-  const int warp = threadIdx.x / 32;
-  for (int t = 2 * warp; t < 2 * warp + 2; ++t) {
-    const int i = t / 4, j = t % 4;
-    Acc acc;
-    wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-      wmma::load_matrix_sync(fa, A + i * 16 * LDH + kk * 16, LDH);
-      wmma::load_matrix_sync(fb, Bm + j * 16 * LDH + kk * 16, LDH);
-      wmma::mma_sync(acc, fa, fb, acc);
-    }
-    wmma::store_matrix_sync(C + i * 16 * LDS + j * 16, acc, LDS, wmma::mem_row_major);
-  }
-}
-
-// p for this thread's 16 scores (row tid/4, columns (tid%4)*16 ...): zero
-// past the valid rows/keys; the bias of key k0+col is added in base 2 as
-// kernel K1 adds it
-__device__ __forceinline__ void softmax_p(float* pv, const float* Sf, const float* lse_s,
-                                          const float* bias, int k0, int nq, int nk,
-                                          float lscale) {
-  const int row = threadIdx.x / 4, c0 = (threadIdx.x % 4) * EPT;
-  const float lse = lse_s[row];
-#pragma unroll
-  for (int c = 0; c < EPT; ++c) {
-    const int col = c0 + c;
-    float v = 0.f;
-    if (row < nq && col < nk) {
-      float l = Sf[row * LDS + col] * lscale;
-      if (bias) l += bias[k0 + col];
-      v = exp2f(l - lse);
-    }
-    pv[c] = v;
-  }
-}
-
-// ds = p * (dp*vscale - r) * dscale into DS (bf16), dp read from Sf
-__device__ __forceinline__ void grad_logits(bf16* DS, const float* pv, const float* Sf,
-                                            const float* r_s, float vscale, float dscale) {
-  const int row = threadIdx.x / 4, c0 = (threadIdx.x % 4) * EPT;
-  const float r = r_s[row];
-#pragma unroll
-  for (int c = 0; c < EPT; ++c) {
-    const int col = c0 + c;
-    const float dp = Sf[row * LDS + col] * vscale;
-    DS[row * LDP + col] = __float2bfloat16(pv[c] * (dp - r) * dscale);
-  }
-}
-
-// write 4 accumulator fragments per warp (warp w: rows (w%4)*16, columns
-// (w/4)*64 ...) times `mul` as bf16 rows [0, n) at dst (row stride `stride`)
-__device__ __forceinline__ void store_out(float* stage, Acc* acc, bf16* dst, long long stride,
-                                          int n, float mul) {
-  const int warp = threadIdx.x / 32;
-  const int i = warp % 4, j0 = (warp / 4) * 4;
-#pragma unroll
-  for (int jj = 0; jj < 4; ++jj)
-    wmma::store_matrix_sync(stage + i * 16 * LDO + (j0 + jj) * 16, acc[jj], LDO,
-                            wmma::mem_row_major);
-  __syncthreads();
-  for (int e = threadIdx.x; e < BQ * D / 2; e += NT) {
-    const int r = e / (D / 2), c = (e % (D / 2)) * 2;
-    if (r < n) {
-      *reinterpret_cast<__nv_bfloat162*>(dst + r * stride + c) =
-          __floats2bfloat162_rn(stage[r * LDO + c] * mul, stage[r * LDO + c + 1] * mul);
-    }
-  }
-  __syncthreads();
 }
 
 // one key source of a (g, b, h): self keys (src 0) or segment src-1
@@ -253,114 +166,334 @@ __device__ __forceinline__ Src source(const Params& p, int src, int g, int b, in
   return s;
 }
 
-// pre-pass: r = rowsum(dO * O), one warp per (g, b, h, s) row
-__global__ void __launch_bounds__(NT) rowdot_kernel(const Params p) {
-  const long long row = (long long)blockIdx.x * NW + threadIdx.x / 32;
-  const long long rows = (long long)p.G * p.B * p.H * p.S;
-  if (row >= rows) return;
-  const int s = (int)(row % p.S);
-  long long rest = row / p.S;
-  const int h = (int)(rest % p.H);
-  rest /= p.H;
-  const int b = (int)(rest % p.B);
-  const int g = (int)(rest / p.B);
-  const int lane = threadIdx.x % 32;
-  const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(
-      p.dout + row_off(p.st[DO], g, b, h) + s * p.st[DO][3] + lane * 4);
-  const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(
-      p.o + row_off(p.st[O], g, b, h) + s * p.st[O][3] + lane * 4);
-  float acc = 0.f;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const float2 a = __bfloat1622float2(d2[i]);
-    const float2 c = __bfloat1622float2(o2[i]);
-    acc += a.x * c.x + a.y * c.y;
-  }
-  for (int off = 16; off; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) p.r[row] = acc;
+__device__ __forceinline__ long long lse_row0(const Params& p, int g, int b, int h) {
+  return (((long long)g * p.B + b) * p.H + h) * p.S;
 }
 
-__global__ void __launch_bounds__(NT) dq_kernel(const Params p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* dOs = Qs + BQ * LDH;
-  bf16* Ks = dOs + BQ * LDH;
-  bf16* Vs = Ks + BK * LDH;
-  bf16* DSb = Vs + BK * LDH;
-  float* Sf = reinterpret_cast<float*>(DSb + BQ * LDP);
-  float* lse_s = Sf + BQ * LDO;
-  float* r_s = lse_s + BQ;
+// x[i0 + lane] and x[i0 + 32 + lane], zero at or past n: a per-tile vector
+// as tile_vec_at hands it out
+__device__ __forceinline__ void load_vec(float (&v)[2], const float* x, int i0, int n, int lane) {
+  v[0] = i0 + lane < n ? x[i0 + lane] : 0.f;
+  v[1] = i0 + 32 + lane < n ? x[i0 + 32 + lane] : 0.f;
+}
 
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int g = blockIdx.z / p.B;
-  const int b = blockIdx.z % p.B;
-  const int nq = min(BQ, p.S - q0);
-  const int warp = threadIdx.x / 32;
-  const int wi = warp % 4, wj0 = (warp / 4) * 4;
+// an address the assembler cannot see through: the shared-memory
+// descriptors of a resident tile, built from it inside a loop, are otherwise
+// hoisted out of the loop and hold 32 registers for its whole length (pass B
+// then spills about four times the bytes)
+__device__ __forceinline__ uint32_t opaque(uint32_t x) {
+  asm volatile("" : "+r"(x));
+  return x;
+}
 
-  load_tile(Qs, p.q + row_off(p.st[Q], g, b, h) + q0 * p.st[Q][3], p.st[Q][3], nq);
-  load_tile(dOs, p.dout + row_off(p.st[DO], g, b, h) + q0 * p.st[DO][3], p.st[DO][3], nq);
-  load_rows(lse_s, r_s, p, (((long long)g * p.B + b) * p.H + h) * p.S + q0, nq);
+__device__ __forceinline__ float dot_bf16x2(uint32_t a, uint32_t b) {
+  const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&a));
+  const float2 y = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&b));
+  return fmaf(x.x, y.x, x.y * y.y);
+}
 
-  Acc acc[4];
+// r = rowsum(dO*O) of this thread's two rows: dof holds its share of dO as A
+// fragments (load_q_frags), O is read at the same columns; the four threads
+// of a row hold its 128 columns between them
+__device__ __forceinline__ void row_dot(const uint32_t (&dof)[32], const bf16* o, long long stride,
+                                        int n_rows, int row, int lane, float& r_lo, float& r_hi) {
+  const uint32_t* lo = reinterpret_cast<const uint32_t*>(o + row * stride) + (lane & 3);
+  const uint32_t* hi = reinterpret_cast<const uint32_t*>(o + (row + 8) * stride) + (lane & 3);
+  float a = 0.f, c = 0.f;
+  if (row < n_rows) {
 #pragma unroll
-  for (int jj = 0; jj < 4; ++jj) wmma::fill_fragment(acc[jj], 0.f);
-  float pv[EPT];
-
-  for (int src = 0; src <= p.nseg; ++src) {
-    const Src s = source(p, src, g, b, h);
-    for (int k0 = 0; k0 < s.t; k0 += BK) {
-      const int nk = min(BK, s.t - k0);
-      load_tile(Ks, s.k + k0 * s.kst, s.kst, nk);
-      load_tile(Vs, s.v + k0 * s.vst, s.vst, nk);
-      __syncthreads();
-      mm_abt(Sf, Qs, Ks);
-      __syncthreads();
-      softmax_p(pv, Sf, lse_s, s.bias, k0, nq, nk, s.lscale);
-      __syncthreads();
-      mm_abt(Sf, dOs, Vs);
-      __syncthreads();
-      grad_logits(DSb, pv, Sf, r_s, s.vscale, s.dscale);
-      __syncthreads();
-      // dq += ds . K for this warp's 16 rows x 64 columns
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-#pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-          wmma::load_matrix_sync(fa, DSb + wi * 16 * LDP + kk * 16, LDP);
-          wmma::load_matrix_sync(fb, Ks + kk * 16 * LDH + (wj0 + jj) * 16, LDH);
-          wmma::mma_sync(acc[jj], fa, fb, acc[jj]);
-        }
-      }
-      __syncthreads();  // K/V and DS are overwritten next
+    for (int kk = 0; kk < HEAD_D / 16; ++kk) {
+      a += dot_bf16x2(dof[4 * kk], lo[8 * kk]);
+      a += dot_bf16x2(dof[4 * kk + 2], lo[8 * kk + 4]);
     }
   }
-  store_out(Sf, acc, p.dq + row_off(p.st[DQ], g, b, h) + q0 * p.st[DQ][3], p.st[DQ][3], nq, 1.f);
+  if (row + 8 < n_rows) {
+#pragma unroll
+    for (int kk = 0; kk < HEAD_D / 16; ++kk) {
+      c += dot_bf16x2(dof[4 * kk + 1], hi[8 * kk]);
+      c += dot_bf16x2(dof[4 * kk + 3], hi[8 * kk + 4]);
+    }
+  }
+  r_lo = quad_sum(a);
+  r_hi = quad_sum(c);
 }
 
-__global__ void __launch_bounds__(NT) dkdv_kernel(const Params p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + BK * LDH;
-  bf16* Qs = Vs + BK * LDH;
-  bf16* dOs = Qs + BQ * LDH;
-  bf16* Pb = dOs + BQ * LDH;
-  bf16* DSb = Pb + BQ * LDP;
-  float* Sf = reinterpret_cast<float*>(DSb + BQ * LDP);
-  float* lse_s = Sf + BQ * LDO;
-  float* r_s = lse_s + BQ;
+// ------------------------------------------------------------------ pass A
 
-  const int h = blockIdx.y;
+// the scores of one tile (rows: queries, columns: keys) become p =
+// exp2(s*lscale + bias - lse); keys at or past nk get 0
+__device__ __forceinline__ void probs_rows(float (&sc)[32], const Src& s, const float (&bias)[2],
+                                           float nl_lo, float nl_hi, int nk, int lane) {
+  if (s.bias != nullptr) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float add = tile_vec_at(bias[0], bias[1], j, e, lane);
+        sc[4 * j + e] = fast_exp2(fmaf(sc[4 * j + e], s.lscale, add + nl_lo));
+        sc[4 * j + 2 + e] = fast_exp2(fmaf(sc[4 * j + 2 + e], s.lscale, add + nl_hi));
+      }
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      sc[4 * j] = fast_exp2(fmaf(sc[4 * j], s.lscale, nl_lo));
+      sc[4 * j + 1] = fast_exp2(fmaf(sc[4 * j + 1], s.lscale, nl_lo));
+      sc[4 * j + 2] = fast_exp2(fmaf(sc[4 * j + 2], s.lscale, nl_hi));
+      sc[4 * j + 3] = fast_exp2(fmaf(sc[4 * j + 3], s.lscale, nl_hi));
+    }
+  }
+  if (nk < TILE_KEYS) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (8 * j + 2 * (lane & 3) + e >= nk) sc[4 * j + e] = sc[4 * j + 2 + e] = 0.f;
+      }
+    }
+  }
+}
+
+// p becomes dS = p * (dP*vscale - r) * dscale, r per row
+__device__ __forceinline__ void grads_rows(float (&sc)[32], const float (&dp)[32], const Src& s,
+                                           float r_lo, float r_hi) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      sc[4 * j + e] *= fmaf(dp[4 * j + e], s.vscale, -r_lo) * s.dscale;
+      sc[4 * j + 2 + e] *= fmaf(dp[4 * j + 2 + e], s.vscale, -r_hi) * s.dscale;
+    }
+  }
+}
+
+// acc += A (bf16 fragments) . B, B a (64 x 128) two-half tile read MN-major
+// (the P.V form); issued and committed, wgmma_wait follows
+__device__ __forceinline__ void acc_start(float (&acc)[64], uint32_t (&a)[16], uint32_t b) {
+  fence_regs(a);
+  fence_regs(acc);
+  pv_product(acc, a, b);
+  wgmma_commit();
+}
+
+__global__ void __launch_bounds__(R::THREADS, 1) dq_kernel(const __grid_constant__ Params p) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t stage0 = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t full_k = stage0 + R::BAR_OFFSET;  // [STAGES]
+  const uint32_t full_v = full_k + 8 * STAGES;     // [STAGES]
+  const uint32_t empty = full_v + 8 * STAGES;      // [STAGES]
+
+  const int q0 = blockIdx.x * BLOCK_ROWS;
+  const int h0 = blockIdx.y * p.hg;
+  const int g = blockIdx.z / p.B;
+  const int b = blockIdx.z % p.B;
+  const int wg = threadIdx.x / WG_THREADS;
+
+  if (threadIdx.x == 0) ring_init<NWG>(full_k);
+  __syncthreads();
+
+  if (wg == NWG) {
+    // ------------------------------------------------------------ producer
+    reg_dealloc<R::PRODUCER_REGS>();
+    const int tid = threadIdx.x - NWG * WG_THREADS;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int hj = 0; hj < p.hg; ++hj) {
+      for (int src = 0; src <= p.nseg; ++src) {
+        const Src s = source(p, src, g, b, h0 + hj);
+        for (int k0 = 0; k0 < s.t; k0 += TILE_KEYS) {
+          const int nk = min(TILE_KEYS, s.t - k0);
+          const uint32_t k_smem = stage0 + stage * R::STAGE_BYTES;
+          mbar_wait(empty + 8 * stage, phase ^ 1);
+          load_rows_async<TILE_KEYS, WG_THREADS>(k_smem, s.k + k0 * s.kst, s.kst, nk, tid);
+          cp_async_arrive(full_k + 8 * stage);
+          load_rows_async<TILE_KEYS, WG_THREADS>(k_smem + TILE_BYTES, s.v + k0 * s.vst, s.vst, nk,
+                                                 tid);
+          cp_async_arrive(full_v + 8 * stage);
+          ring_advance<STAGES>(stage, phase);
+        }
+      }
+    }
+    cp_async_wait_all();
+  } else {
+    // ------------------------------------------------------------ consumer
+    reg_alloc<R::CONSUMER_REGS>();
+    const int lane = threadIdx.x % 32;
+    const int warp = (threadIdx.x % WG_THREADS) / 32;
+    const int row = 16 * warp + lane / 4;  // and row + 8, of this group's 64
+    const int s0 = q0 + wg * 64;           // this group's first query row
+    const int n_rows = p.S - s0;           // rows of it that exist (may be <= 0)
+    int n_tiles = (p.S_kv + TILE_KEYS - 1) / TILE_KEYS;
+    for (int i = 0; i < p.nseg; ++i) n_tiles += (p.seg[i].t + TILE_KEYS - 1) / TILE_KEYS;
+
+    // the loop over a block's heads (the wrapper passes one) keeps the body
+    // under a loop whose trip count the assembler cannot see, as in K1: as
+    // straight-line code such a body spilled and serialised its wgmma
+    Walk w = {0, 0, 0, 0u};  // the ring runs on across heads
+    for (int hj = 0; hj < p.hg; ++hj) {
+      const int h = h0 + hj;
+      uint32_t qf[32], dof[32], da[16];
+      float sc[32], dp[32], dq[64];
+      load_q_frags(qf, p.q + row_off(p.st[Q], g, b, h) + s0 * p.st[Q][3], p.st[Q][3], n_rows, row,
+                   lane);
+      load_q_frags(dof, p.dout + row_off(p.st[DO], g, b, h) + s0 * p.st[DO][3], p.st[DO][3],
+                   n_rows, row, lane);
+      float r_lo, r_hi;
+      row_dot(dof, p.o + row_off(p.st[O], g, b, h) + s0 * p.st[O][3], p.st[O][3], n_rows, row,
+              lane, r_lo, r_hi);
+      const long long rows0 = lse_row0(p, g, b, h) + s0;
+      if ((lane & 3) == 0) {
+        if (row < n_rows) p.r[rows0 + row] = r_lo;
+        if (row + 8 < n_rows) p.r[rows0 + row + 8] = r_hi;
+      }
+      const float nl_lo = row < n_rows ? -p.lse[rows0 + row] : 0.f;
+      const float nl_hi = row + 8 < n_rows ? -p.lse[rows0 + row + 8] : 0.f;
+      fence_regs(qf);
+      fence_regs(dof);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) dq[i] = 0.f;
+
+      // tile 0: p, dP, dS
+      w.src = 0;
+      w.k0 = 0;
+      Src s = source(p, 0, g, b, h);
+      qk_start<false>(sc, qf, stage0 + w.stage * R::STAGE_BYTES, full_k + 8 * w.stage, w.phase);
+      wgmma_wait<0>();
+      fence_regs(sc);
+      const float no_bias[2] = {0.f, 0.f};
+      probs_rows(sc, s, no_bias, nl_lo, nl_hi, min(TILE_KEYS, s.t), lane);
+      qk_start<false>(dp, dof, stage0 + w.stage * R::STAGE_BYTES + TILE_BYTES, full_v + 8 * w.stage,
+                      w.phase);
+      wgmma_wait<0>();
+      fence_regs(dp);
+      grads_rows(sc, dp, s, r_lo, r_hi);
+      // Each trip: S(i+1) = Q.K(i+1)^T and dq += dS(i).K(i) are issued, p(i+1)
+      // is made while dq's product runs, then dP(i+1) = dO.V(i+1)^T and
+      // dS(i+1). Every trip issues the same wgmma groups (the last tile is
+      // peeled off).
+      for (int it = 1; it < n_tiles; ++it) {
+        pack_weights(da, sc);
+        Walk n = w;  // the next tile
+        n.k0 += TILE_KEYS;
+        if (n.k0 >= s.t) {
+          ++n.src;
+          n.k0 = 0;
+          s = source(p, n.src, g, b, h);
+        }
+        ring_advance<STAGES>(n.stage, n.phase);
+        const int nk = min(TILE_KEYS, s.t - n.k0);
+        float bias[2] = {0.f, 0.f};  // in flight during the products
+        if (s.bias != nullptr) load_vec(bias, s.bias + n.k0, 0, nk, lane);
+        const uint32_t k_next = stage0 + n.stage * R::STAGE_BYTES;
+        qk_start<false>(sc, qf, k_next, full_k + 8 * n.stage, n.phase);
+        acc_start(dq, da, stage0 + w.stage * R::STAGE_BYTES);
+        wgmma_wait<1>();  // the scores are there; dq's product may still run
+        fence_regs(sc);
+        probs_rows(sc, s, bias, nl_lo, nl_hi, nk, lane);
+        wgmma_wait<0>();
+        fence_regs(dq);
+        if (lane == 0) mbar_arrive(empty + 8 * w.stage);
+        qk_start<false>(dp, dof, k_next + TILE_BYTES, full_v + 8 * n.stage, n.phase);
+        wgmma_wait<0>();
+        fence_regs(dp);
+        grads_rows(sc, dp, s, r_lo, r_hi);
+        w = n;
+      }
+      pack_weights(da, sc);
+      acc_start(dq, da, stage0 + w.stage * R::STAGE_BYTES);
+      wgmma_wait<0>();
+      fence_regs(dq);
+      if (lane == 0) mbar_arrive(empty + 8 * w.stage);
+      ring_advance<STAGES>(w.stage, w.phase);
+
+      store_rows(p.dq + row_off(p.st[DQ], g, b, h) + s0 * p.st[DQ][3], p.st[DQ][3], dq, 1.f, 1.f,
+                 row, n_rows, lane);
+    }
+  }
+}
+
+// ------------------------------------------------------------------ pass B
+
+// S^T of one tile (rows: keys, columns: queries) becomes P^T =
+// exp2(s*lscale + bias_row - lse_col), lse per column as tile_vec_at hands
+// it out; query columns at or past nq get 0
+__device__ __forceinline__ void probs_cols(float (&st)[32], float lscale, float bias_lo,
+                                           float bias_hi, const float (&lse)[2], int nq,
+                                           int lane) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float l = tile_vec_at(lse[0], lse[1], j, e, lane);
+      st[4 * j + e] = fast_exp2(fmaf(st[4 * j + e], lscale, bias_lo - l));
+      st[4 * j + 2 + e] = fast_exp2(fmaf(st[4 * j + 2 + e], lscale, bias_hi - l));
+    }
+  }
+  if (nq < 64) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (8 * j + 2 * (lane & 3) + e >= nq) st[4 * j + e] = st[4 * j + 2 + e] = 0.f;
+      }
+    }
+  }
+}
+
+// dP^T becomes dS^T = P^T * (dP^T*vscale - r_col) * dscale
+__device__ __forceinline__ void grads_cols(float (&dpt)[32], const float (&pt)[32], const Src& s,
+                                           const float (&rv)[2], int lane) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float r = tile_vec_at(rv[0], rv[1], j, e, lane);
+      dpt[4 * j + e] = pt[4 * j + e] * (fmaf(dpt[4 * j + e], s.vscale, -r) * s.dscale);
+      dpt[4 * j + 2 + e] = pt[4 * j + 2 + e] * (fmaf(dpt[4 * j + 2 + e], s.vscale, -r) * s.dscale);
+    }
+  }
+}
+
+// waits for the tile behind `full` and starts s = A.B^T with A this group's
+// resident (64 x 128) K or V tile and B a (64 x 128) q or dO tile of the ring
+__device__ __forceinline__ void kq_start(float (&s)[32], uint32_t a, uint32_t b, uint32_t full,
+                                         uint32_t phase) {
+  mbar_wait(full, phase);
+  fence_proxy_async();
+  qk_product_ss<false>(s, a, HALF_TILE_BYTES, b);
+  wgmma_commit();
+}
+
+// dV += P^T.dO and dK += dS^T.q on the ring stage at `qd` (q tile, then dO
+// tile), as one wgmma group
+__device__ __forceinline__ void dkdv_start(float (&dv)[64], uint32_t (&pa)[16], float (&dk)[64],
+                                           uint32_t (&da)[16], uint32_t qd) {
+  fence_regs(pa);
+  fence_regs(da);
+  fence_regs(dv);
+  fence_regs(dk);
+  pv_product(dv, pa, qd + TILE_BYTES);
+  pv_product(dk, da, qd);
+  wgmma_commit();
+}
+
+__global__ void __launch_bounds__(R::THREADS, 1) dkdv_kernel(const __grid_constant__ Params p) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t res = (smem_u32(smem_raw) + 1023u) & ~1023u;  // [NWG] x (K tile, V tile)
+  const uint32_t stage0 = res + RES_BYTES;                       // the ring: (q tile, dO tile)
+  const uint32_t full_q = stage0 + R::BAR_OFFSET;                // [STAGES]
+  const uint32_t full_do = full_q + 8 * STAGES;                  // [STAGES]
+  const uint32_t empty = full_do + 8 * STAGES;                   // [STAGES]
+  const uint32_t full_kv = empty + 8 * STAGES;  // the K/V tiles have landed
+  const uint32_t empty_kv = full_kv + 8;         // and are done with
+
+  const int h0 = blockIdx.y * p.hg;
   const int b = blockIdx.z;
-  const int warp = threadIdx.x / 32;
-  const int wi = warp % 4, wj0 = (warp / 4) * 4;
+  const int wg = threadIdx.x / WG_THREADS;
 
   // which key tile: [self tiles of branch 0 | ... | branch G-1 | segment 0 | ...]
   int tile = blockIdx.x;
-  const int n_self = (p.S_kv + BK - 1) / BK;
+  const int n_self = (p.S_kv + BLOCK_ROWS - 1) / BLOCK_ROWS;
   int src = 0, g_lo, g_hi;
   if (tile < p.G * n_self) {
     g_lo = tile / n_self;
@@ -369,89 +502,168 @@ __global__ void __launch_bounds__(NT) dkdv_kernel(const Params p) {
   } else {
     tile -= p.G * n_self;
     src = 1;
-    while (src < p.nseg && tile >= (p.seg[src - 1].t + BK - 1) / BK) {
-      tile -= (p.seg[src - 1].t + BK - 1) / BK;
+    while (src < p.nseg && tile >= (p.seg[src - 1].t + BLOCK_ROWS - 1) / BLOCK_ROWS) {
+      tile -= (p.seg[src - 1].t + BLOCK_ROWS - 1) / BLOCK_ROWS;
       ++src;
     }
     g_lo = 0;
     g_hi = p.G;
   }
-  const int k0 = tile * BK;
-  const Src s0 = source(p, src, g_lo, b, h);
-  const int nk = min(BK, s0.t - k0);
-  if (nk <= 0) return;
-  load_tile(Ks, s0.k + k0 * s0.kst, s0.kst, nk);
-  load_tile(Vs, s0.v + k0 * s0.vst, s0.vst, nk);
+  const int k0 = tile * BLOCK_ROWS;
+  const int t_src = src == 0 ? p.S_kv : p.seg[src - 1].t;
+  const int n_q = (p.S + 63) / 64;
 
-  Acc dk[4], dv[4];
-#pragma unroll
-  for (int jj = 0; jj < 4; ++jj) {
-    wmma::fill_fragment(dk[jj], 0.f);
-    wmma::fill_fragment(dv[jj], 0.f);
+  if (threadIdx.x == 0) {
+    ring_init<NWG>(full_q);
+    mbar_init(full_kv, WG_THREADS);
+    mbar_init(empty_kv, NWG * 4);
+    mbar_init_fence();
   }
-  float pv[EPT];
+  __syncthreads();
 
-  for (int g = g_lo; g < g_hi; ++g) {
-    const Src s = source(p, src, g, b, h);
-    for (int q0 = 0; q0 < p.S; q0 += BQ) {
-      const int nq = min(BQ, p.S - q0);
-      load_tile(Qs, p.q + row_off(p.st[Q], g, b, h) + q0 * p.st[Q][3], p.st[Q][3], nq);
-      load_tile(dOs, p.dout + row_off(p.st[DO], g, b, h) + q0 * p.st[DO][3], p.st[DO][3], nq);
-      load_rows(lse_s, r_s, p, (((long long)g * p.B + b) * p.H + h) * p.S + q0, nq);
-      __syncthreads();
-      mm_abt(Sf, Qs, Ks);
-      __syncthreads();
-      softmax_p(pv, Sf, lse_s, s.bias, k0, nq, nk, s.lscale);
-      {
-        const int row = threadIdx.x / 4, c0 = (threadIdx.x % 4) * EPT;
+  if (wg == NWG) {
+    // ------------------------------------------------------------ producer
+    reg_dealloc<R::PRODUCER_REGS>();
+    const int tid = threadIdx.x - NWG * WG_THREADS;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int hj = 0; hj < p.hg; ++hj) {
+      const int h = h0 + hj;
+      const Src s0 = source(p, src, g_lo, b, h);
+      mbar_wait(empty_kv, (hj & 1) ^ 1);  // the previous head's K/V are done with
 #pragma unroll
-        for (int c = 0; c < EPT; ++c) Pb[row * LDP + c0 + c] = __float2bfloat16(pv[c]);
+      for (int i = 0; i < NWG; ++i) {
+        const int n = s0.t - (k0 + 64 * i);  // a group past the end gets zero rows
+        const int kr = n > 0 ? k0 + 64 * i : 0;
+        const uint32_t kv = res + i * 2 * TILE_BYTES;
+        load_rows_async<64, WG_THREADS>(kv, s0.k + kr * s0.kst, s0.kst, n, tid);
+        load_rows_async<64, WG_THREADS>(kv + TILE_BYTES, s0.v + kr * s0.vst, s0.vst, n, tid);
       }
-      __syncthreads();
-      mm_abt(Sf, dOs, Vs);
-      __syncthreads();
-      grad_logits(DSb, pv, Sf, r_s, s.vscale, s.dscale);
-      __syncthreads();
-      // dv += p^T . dO and dk += ds^T . q for this warp's 16 keys x 64
-      // columns (p and ds read transposed: col_major A)
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-#pragma unroll
-        for (int kk = 0; kk < BQ / 16; ++kk) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> fa;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-          wmma::load_matrix_sync(fa, Pb + kk * 16 * LDP + wi * 16, LDP);
-          wmma::load_matrix_sync(fb, dOs + kk * 16 * LDH + (wj0 + jj) * 16, LDH);
-          wmma::mma_sync(dv[jj], fa, fb, dv[jj]);
-          wmma::load_matrix_sync(fa, DSb + kk * 16 * LDP + wi * 16, LDP);
-          wmma::load_matrix_sync(fb, Qs + kk * 16 * LDH + (wj0 + jj) * 16, LDH);
-          wmma::mma_sync(dk[jj], fa, fb, dk[jj]);
+      cp_async_arrive(full_kv);
+      for (int g = g_lo; g < g_hi; ++g) {
+        const bf16* qg = p.q + row_off(p.st[Q], g, b, h);
+        const bf16* dog = p.dout + row_off(p.st[DO], g, b, h);
+        for (int q0 = 0; q0 < p.S; q0 += 64) {
+          const int nq = min(64, p.S - q0);
+          const uint32_t q_smem = stage0 + stage * R::STAGE_BYTES;
+          mbar_wait(empty + 8 * stage, phase ^ 1);
+          load_rows_async<64, WG_THREADS>(q_smem, qg + q0 * p.st[Q][3], p.st[Q][3], nq, tid);
+          cp_async_arrive(full_q + 8 * stage);
+          load_rows_async<64, WG_THREADS>(q_smem + TILE_BYTES, dog + q0 * p.st[DO][3],
+                                          p.st[DO][3], nq, tid);
+          cp_async_arrive(full_do + 8 * stage);
+          ring_advance<STAGES>(stage, phase);
         }
       }
-      __syncthreads();  // Q, dO, P and DS are overwritten next
+    }
+    cp_async_wait_all();
+  } else {
+    // ------------------------------------------------------------ consumer
+    reg_alloc<R::CONSUMER_REGS>();
+    const int lane = threadIdx.x % 32;
+    const int warp = (threadIdx.x % WG_THREADS) / 32;
+    const int row = 16 * warp + lane / 4;  // key rows row and row + 8 of this group's 64
+    const int kw = k0 + 64 * wg;           // this group's first key
+    const int n_keys = t_src - kw;         // keys of it that exist (may be <= 0)
+    const uint32_t kt = res + wg * 2 * TILE_BYTES, vt = kt + TILE_BYTES;
+    int stage = 0;
+    uint32_t phase = 0;
+    // A block walks through p.hg heads (the wrapper passes 1); as in pass A,
+    // the loop keeps the whole body, from the accumulators' zeroing to their
+    // store, under a loop whose trip count the assembler cannot see
+    for (int hj = 0; hj < p.hg; ++hj) {
+      const int h = h0 + hj;
+      float dk[64], dv[64];
+#pragma unroll
+      for (int i = 0; i < 64; ++i) dk[i] = dv[i] = 0.f;
+      mbar_wait(full_kv, hj & 1);
+      fence_proxy_async();
+      // a segment's keys walk every branch, self keys only their own
+      for (int g = g_lo; g < g_hi; ++g) {
+        const Src s = source(p, src, g, b, h);
+        const float bias_lo = s.bias != nullptr && row < n_keys ? s.bias[kw + row] : 0.f;
+        const float bias_hi = s.bias != nullptr && row + 8 < n_keys ? s.bias[kw + row + 8] : 0.f;
+        const float* lse = p.lse + lse_row0(p, g, b, h);
+        const float* rr = p.r + lse_row0(p, g, b, h);
+        uint32_t pa[16], da[16];
+        float st[32], dpt[32];
+        float lv[2], rv[2];  // lse and r of the q tile's 64 rows
+
+        // q tile 0: P^T, dP^T, dS^T
+        load_vec(lv, lse, 0, p.S, lane);
+        load_vec(rv, rr, 0, p.S, lane);
+        kq_start(st, opaque(kt), stage0 + stage * R::STAGE_BYTES, full_q + 8 * stage, phase);
+        wgmma_wait<0>();
+        fence_regs(st);
+        probs_cols(st, s.lscale, bias_lo, bias_hi, lv, min(64, p.S), lane);
+        kq_start(dpt, opaque(vt), stage0 + stage * R::STAGE_BYTES + TILE_BYTES,
+                 full_do + 8 * stage, phase);
+        wgmma_wait<0>();
+        fence_regs(dpt);
+        grads_cols(dpt, st, s, rv, lane);
+        // Each trip: S^T(i+1) = K.q(i+1)^T, then dV += P^T(i).dO(i) and dK +=
+        // dS^T(i).q(i) are issued, P^T(i+1) is made while the two accumulate,
+        // then dP^T(i+1) = V.dO(i+1)^T and dS^T(i+1)
+        for (int qt = 1; qt < n_q; ++qt) {
+          pack_weights(pa, st);
+          pack_weights(da, dpt);
+          const int cur = stage;
+          ring_advance<STAGES>(stage, phase);
+          const int q0 = 64 * qt;
+          load_vec(lv, lse, q0, p.S, lane);  // in flight during the products
+          load_vec(rv, rr, q0, p.S, lane);
+          const uint32_t cur_q = stage0 + cur * R::STAGE_BYTES;
+          const uint32_t next_q = stage0 + stage * R::STAGE_BYTES;
+          kq_start(st, opaque(kt), next_q, full_q + 8 * stage, phase);
+          dkdv_start(dv, pa, dk, da, cur_q);
+          wgmma_wait<1>();  // S^T is there; dV and dK may still run
+          fence_regs(st);
+          probs_cols(st, s.lscale, bias_lo, bias_hi, lv, min(64, p.S - q0), lane);
+          wgmma_wait<0>();
+          fence_regs(dv);
+          fence_regs(dk);
+          if (lane == 0) mbar_arrive(empty + 8 * cur);
+          kq_start(dpt, opaque(vt), next_q + TILE_BYTES, full_do + 8 * stage, phase);
+          wgmma_wait<0>();
+          fence_regs(dpt);
+          grads_cols(dpt, st, s, rv, lane);
+        }
+        pack_weights(pa, st);
+        pack_weights(da, dpt);
+        dkdv_start(dv, pa, dk, da, stage0 + stage * R::STAGE_BYTES);
+        wgmma_wait<0>();
+        fence_regs(dv);
+        fence_regs(dk);
+        if (lane == 0) mbar_arrive(empty + 8 * stage);
+        ring_advance<STAGES>(stage, phase);
+      }
+      if (lane == 0) mbar_arrive(empty_kv);  // this head's K/V are done with
+
+      bf16 *dkp, *dvp;
+      long long dkst, dvst;
+      float vscale = 1.f;
+      if (src == 0) {
+        dkp = p.dks + row_off(p.st[DKS], g_lo, b, h);
+        dvp = p.dvs + row_off(p.st[DVS], g_lo, b, h);
+        dkst = p.st[DKS][3];
+        dvst = p.st[DVS][3];
+      } else {
+        const SegB& sg = p.seg[src - 1];
+        dkp = sg.dk + b * sg.dk_sb + h * sg.dk_sh;
+        dvp = sg.dv + b * sg.dv_sb + h * sg.dv_sh;
+        dkst = sg.dk_st;
+        dvst = sg.dv_st;
+        vscale = sg.scale;
+      }
+      store_rows(dkp + kw * dkst, dkst, dk, 1.f, 1.f, row, n_keys, lane);
+      store_rows(dvp + kw * dvst, dvst, dv, vscale, vscale, row, n_keys, lane);
     }
   }
-
-  bf16 *dkp, *dvp;
-  long long dkst, dvst;
-  if (src == 0) {
-    dkp = p.dks + row_off(p.st[DKS], g_lo, b, h);
-    dvp = p.dvs + row_off(p.st[DVS], g_lo, b, h);
-    dkst = p.st[DKS][3];
-    dvst = p.st[DVS][3];
-  } else {
-    const SegB& sg = p.seg[src - 1];
-    dkp = sg.dk + b * sg.dk_sb + h * sg.dk_sh;
-    dvp = sg.dv + b * sg.dv_sb + h * sg.dv_sh;
-    dkst = sg.dk_st;
-    dvst = sg.dv_st;
-  }
-  store_out(Sf, dk, dkp + k0 * dkst, dkst, nk, 1.f);
-  store_out(Sf, dv, dvp + k0 * dvst, dvst, nk, s0.vscale);
 }
 
-cudaError_t configure(const void* fn, size_t bytes) {
-  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+template <typename K>
+cudaError_t configure(K kernel, int bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
 }  // namespace
@@ -477,31 +689,29 @@ extern "C" int joint_attention_bwd(
   for (int i = 0; i < 8; ++i)
     for (int j = 0; j < 4; ++j) p.st[i][j] = strides[4 * i + j];
   p.G = G; p.B = B; p.H = H; p.S = S; p.S_kv = S_kv; p.nseg = nseg;
+  p.hg = 1;
   p.scale2 = scale2;
   p.scale = scale;
-  int n_tiles = G * ((S_kv + BK - 1) / BK);
+  int n_tiles = G * ((S_kv + BLOCK_ROWS - 1) / BLOCK_ROWS);
   for (int i = 0; i < MAX_SEG; ++i) {
     p.seg[i] = i < nseg ? segs[i] : SegB{};
     if (i < nseg) {
       if (segs[i].t < 1) return (int)cudaErrorInvalidValue;
-      n_tiles += (segs[i].t + BK - 1) / BK;
+      n_tiles += (segs[i].t + BLOCK_ROWS - 1) / BLOCK_ROWS;
     }
   }
   static bool configured = false;
   if (!configured) {
-    cudaError_t e = configure((const void*)dq_kernel, SMEM_DQ);
-    if (e == cudaSuccess) e = configure((const void*)dkdv_kernel, SMEM_DKDV);
+    cudaError_t e = configure(dq_kernel, SMEM_A);
+    if (e == cudaSuccess) e = configure(dkdv_kernel, SMEM_B);
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long rows = (long long)G * B * H * S;
-  rowdot_kernel<<<(unsigned)((rows + NW - 1) / NW), NT, 0, st>>>(p);
+  dq_kernel<<<dim3((S + BLOCK_ROWS - 1) / BLOCK_ROWS, H / p.hg, G * B), R::THREADS, SMEM_A, st>>>(
+      p);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  dq_kernel<<<dim3((S + BQ - 1) / BQ, H, G * B), NT, SMEM_DQ, st>>>(p);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  dkdv_kernel<<<dim3(n_tiles, H, B), NT, SMEM_DKDV, st>>>(p);
+  dkdv_kernel<<<dim3(n_tiles, H / p.hg, B), R::THREADS, SMEM_B, st>>>(p);
   return (int)cudaGetLastError();
 }

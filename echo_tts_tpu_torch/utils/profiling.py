@@ -76,7 +76,7 @@ def kernel_family(name: str) -> str:
     """The family of a device kernel by its name: the port's own kernels by
     id, the library's GEMMs and convolutions, and everything else."""
     low = name.lower()
-    if "dq_kernel" in name or "dkdv_kernel" in name or "rowdot_kernel" in name:
+    if "dq_kernel" in name or "dkdv_kernel" in name:
         return "K3 joint_attention_bwd"
     if "attention_var" in name:
         return "K1v attention_var"

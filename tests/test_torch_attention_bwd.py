@@ -79,6 +79,47 @@ def test_bwd_plain_matches_pallas_and_vjp(case):
         assert_close(g_, xla_, **TOL)
 
 
+def _pallas_row_sums(q, ks, vs, do, segs):
+    """sum_t dp*p of every query row as the JAX Pallas backward kernel
+    (interpret mode) computes it. r itself is internal to the kernel, but the
+    kernel is linear in dO: with dO zero except on one row (g, s), its dv
+    outputs give sum_t dv_t.v_t = sum_t p_st*dp_st for that row (dp_seg
+    carries s_seg, as dv_seg does). Every (b, g, s) gets its own copy of
+    batch row b, so one call reads every row. Returns (G, B, H, S)."""
+    g, b, h, s, _ = q.shape
+    n = g * s
+    bi, gi, si = (x.ravel() for x in np.meshgrid(range(b), range(g), range(s), indexing="ij"))
+    rep = bi * n + gi * s + si  # the copy of (b, g, s)
+    do_r = np.zeros((g, b * n) + q.shape[2:], np.float32)
+    do_r[gi, rep, :, si, :] = do[gi, bi, :, si, :]
+    segs_r = [(np.repeat(k, n, 0), np.repeat(v, n, 0), np.repeat(bias, n, 1), sc)
+              for k, v, bias, sc in segs]
+    q_r, ks_r, vs_r = (np.repeat(x, n, 1) for x in (q, ks, vs))
+    _, _, dvs, dsegs = joint_attention_grouped_pallas_bwd(
+        *(jnp.asarray(x) for x in (q_r, ks_r, vs_r)), _jax_flat(segs_r), jnp.asarray(do_r),
+        interpret=True)
+    sums = np.einsum("gihtd,gihtd->ih", np.asarray(dvs), vs_r)
+    for i, (_, v, _, _) in enumerate(segs_r):
+        sums += np.einsum("ihtd,ihtd->ih", np.asarray(dsegs[2 * i + 1]), v)
+    return sums.reshape(b, g, s, h).transpose(1, 0, 3, 2)
+
+
+@pytest.mark.parametrize("case", CASES[:2])
+def test_row_dot_matches_pallas_row_sums(case):
+    """Pass A of kernel K3 takes r = rowsum(dO*O) from the forward output O
+    in place of the Pallas kernel's sum_t dp*p. The two agree: to 1e-5 with
+    O in fp32, and within O's bf16 rounding (|err| <= 2^-8 * sum|dO*O|, the
+    bf16 unit roundoff) with O rounded to bf16, as kernel K1 writes it."""
+    q, ks, vs, do, segs = _mk(*case, seed=11)
+    ref = _pallas_row_sums(q, ks, vs, do, segs)
+    out = tja.joint_attention_plain(t(q), t(ks), t(vs), _torch_segs(segs)).numpy()
+    assert_close(np.sum(do * out, -1), ref, atol=1e-5, rtol=1e-4)
+    out_bf16 = t(out).to(torch.bfloat16).float().numpy()
+    err = np.abs(np.sum(do * out_bf16, -1) - ref)
+    assert (err <= 2.0 ** -8 * np.sum(np.abs(do * out), -1) + 1e-5).all()
+    assert err.max() > 0  # the rounding is there to bound
+
+
 @pytest.mark.parametrize("layout", ["hm", "sm"])
 def test_trainable_autograd_matches_vjp(layout):
     """torch.autograd.grad through the trainable Function (plain forward,

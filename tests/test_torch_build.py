@@ -48,6 +48,7 @@ def test_every_quoted_include_exists(name):
 
 
 def test_attention_kernels_share_the_core_header():
-    for name in ("joint_attention", "joint_attention_variants", "attention_core_check"):
+    for name in ("joint_attention", "joint_attention_bwd", "joint_attention_variants",
+                 "attention_core_check"):
         assert _build.CSRC / "attention_core.cuh" in _build.source_files(name)
     assert sorted(p.stem for p in _build.CSRC.glob("*.cu")) == sorted(_build.KERNELS)

@@ -203,21 +203,39 @@ def test_joint_attention_lse_matches_plain(cuda_device):
     assert float((lse - ref).abs().max()) < 2e-2
 
 
-def test_joint_attention_bwd_kernel_matches_plain(cuda_device):
-    """K3: G=3, B=2, unaligned S, a T=1 all-masked segment and a speaker
-    scale; every gradient against the fp32 plain backward."""
-    q, ks, vs, do, segs = _k3_inputs(cuda_device, 3, 2, 100, 2, (200, 1), (None, 1.5), 17,
-                                     all_masked=(1,))
-    lse = torch.empty((3, 2, 2, 100), dtype=torch.float32, device=cuda_device)
-    out = tja._joint_attention_cuda(q, ks, vs, segs, "sm", None, None, lse)
+K3_RAGGED = {
+    # g, b, s, h, segment lengths, scales, all-masked segments
+    "s100_t200_t1": (3, 2, 100, 2, (200, 1), (None, 1.5), (1,)),
+    "g3_t700_t1": (3, 2, 200, 2, (700, 1), (None, 1.5), (1,)),
+    # one past a 128-row q tile of pass A and a 128-key tile of pass B
+    "s130_t129": (1, 2, 130, 2, (129,), (1.5,), ()),
+    "training_shape_b8": (1, 8, 640, 16, (768, 160), (None, 1.5), ()),
+}
+
+
+@pytest.mark.parametrize("layout", ["sm", "hm"])
+@pytest.mark.parametrize("case", sorted(K3_RAGGED))
+def test_joint_attention_bwd_kernel_matches_plain(cuda_device, case, layout):
+    """K3 at the edges of its tiles (unaligned S and T, T=1 all-masked, a
+    speaker scale), seq-major and head-major; every gradient against the
+    fp32 plain backward, the all-masked segment's dk/dv exactly zero."""
+    g, b, s, h, seg_lens, scales, masked = K3_RAGGED[case]
+    q, ks, vs, do, segs = _k3_inputs(cuda_device, g, b, s, h, seg_lens, scales, 17,
+                                     all_masked=masked)
+    if layout == "hm":
+        q, ks, vs, do = (x.transpose(2, 3).contiguous() for x in (q, ks, vs, do))
+    lse = torch.empty((g, b, h, s), dtype=torch.float32, device=cuda_device)
+    out = tja._joint_attention_cuda(q, ks, vs, segs, layout, None, None, lse)
     before = tja.joint_attention_bwd.launches
-    got = tja.joint_attention_bwd(q, ks, vs, segs, do, "sm", out=out, lse=lse)
+    got = tja.joint_attention_bwd(q, ks, vs, segs, do, layout, out=out, lse=lse)
     assert tja.joint_attention_bwd.launches == before + 1
     ref = tja.joint_attention_bwd_plain(q.float(), ks.float(), vs.float(), _f32(segs),
-                                        do.float(), "sm")
-    for g_, r_ in zip([*got[:3], got[3][0], got[3][1]], [*ref[:3], ref[3][0], ref[3][1]]):
-        assert _rel(g_, r_) < 2e-2
-    assert not got[3][2].any() and not got[3][3].any()  # the all-masked segment
+                                        do.float(), layout)
+    for i, (g_, r_) in enumerate(zip([*got[:3], *got[3]], [*ref[:3], *ref[3]])):
+        if i >= 3 and (i - 3) // 2 in masked:
+            assert not g_.any()  # the all-masked segment
+        else:
+            assert _rel(g_, r_) < 2e-2
 
 
 def test_trainable_attention_on_the_card(cuda_device):
