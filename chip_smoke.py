@@ -12,11 +12,14 @@ Phases, in order; any failure exits non-zero:
      kernel whose wgmma ptxas serialised (C7512/C7514) is flagged;
   3. TF32 off for the comparisons; the attention kernels' shared wgmma core
      (csrc/attention_core.cuh) on one bare tile against torch.matmul, keys
-     as (T, D) and as (D, T);
+     as (T, D) and as (D, T); the residual-unit kernels' conv core
+     (csrc/conv_core.cuh) on one bare tile, the tap-shifted product at
+     d = 1, 3, 9 and row offsets that are no multiple of 8;
   4. each kernel against its plain PyTorch version at main-path shapes, bf16
      inputs, rel-L2 < 2e-2 (bf16 rounding gives ~1e-3, a wrong kernel O(1)):
      K1 forward (full and ragged shapes, both q tiles, its log-sum-exp), K2
-     residual units, K3 attention backward (each gradient, at the training
+     residual units at all eight widths of the S1-DAC stacks (ragged T,
+     zero_below scalar and per row), K3 attention backward (each gradient, at the training
      shape and one past its tiles' edges, both layouts, through autograd);
      then every instance of the measurement variants that the bench entry
      points use (K1v attention_var, K2v-cl res_chain, K2v-cf res_chain_cf,
@@ -26,9 +29,12 @@ Phases, in order; any failure exits non-zero:
      False) and AEConfig() in bf16, random weights from a seed: one CFG
      forward and one decode through the kernels against the plain versions;
      sample_pipeline on three requests, with per-stage wall times and
-     launch counts of each kernel; a torch.profiler pass over one more;
+     launch counts of each kernel (K2 exactly one a unit); torch.profiler
+     passes over one more request and over the 20 s prompt's speaker
+     encode; the host cost of the seeded noise draw;
   6. the training slice on the same weights: 16 synthetic 29.72 s clips
-     written to WAV, pre-encoded by EchoTTSDataset (K2), LoRA r16/alpha32
+     written to WAV, pre-encoded by EchoTTSDataset (K2; a torch.profiler
+     pass over the pre-encode once more), LoRA r16/alpha32
      steps at B=8 (K1 forward and recompute, K3 backward), one warm-up and
      three timed, with exact launch counts; a torch.profiler pass over one
      more step; the LoRA gradient at B=1 through K1+K3 against the plain
@@ -42,15 +48,15 @@ Phases, in order; any failure exits non-zero:
      CUDA graph of 20 launches) beside the plain
      version, one library call where one exists, and the bound, for K1 (at
      the one-branch, the three-branch and the training shape, with both q
-     tiles, and the wrapper's host microseconds per launch), K2, K3, K1v,
-     K2v-cl, K2v-cf and K2s.
+     tiles, and the wrapper's host microseconds per launch), K2 (a chain at
+     each decoder and encoder width, beside the cuDNN composition of the
+     same chain), K3, K1v, K2v-cl, K2v-cf and K2s.
 The line before the last is the kernel JSON; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX. --slices-only is for
 comparing two trees end to end in one call on one card (run them in turns:
 the host's clock moves more between calls than a kernel change moves it); it
-prints no kernel JSON. The whole script takes
-about four minutes on an H100 (the build of the seven sources, in parallel,
-about half a minute of it), so the earlier slices keep their depth.
+prints no kernel JSON. The build of the nine sources runs in parallel;
+ptxas serialising a wgmma of K2 or K2v-cl (C7512/C7514) fails the run.
 """
 from __future__ import annotations
 
@@ -117,13 +123,16 @@ def phase_environment():
 
 PTXAS: dict = {}  # source -> kernel -> registers, spill bytes, wgmma serialized (phase 2)
 SERIALIZED = ("C7512", "C7514")  # ptxas: "wgmma.mma_async instructions are serialized"
+SERIAL_FREE = ("res_chain", "res_chain_variants")  # must show none: the run fails
 
 
 def _kernel_name(mangled: str) -> str:
-    m = re.search(r"\d+([a-z][a-z_]*_kernel)(?:ILi(\d+)E)?", mangled)
+    """kernel<first integer template argument>: joint_attention_kernel<2>,
+    res_unit_kernel<768> (the width of its Cfg), dq_kernel."""
+    m = re.search(r"\d+([a-z][a-z_]*_kernel)(I\w*?Li(\d+)E)?", mangled)
     if m is None:
         return mangled
-    return m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+    return m.group(1) + (f"<{m.group(3)}>" if m.group(3) else "")
 
 
 def parse_ptxas(text: str) -> dict:
@@ -169,6 +178,8 @@ def phase_build(names=None):
                     log(f"# FLAG {name}: ptxas serialised the wgmma of {kernel} "
                         f"({'/'.join(SERIALIZED)}): the kernel lost its overlap; fix it before "
                         f"timing anything")
+                    if name in SERIAL_FREE:
+                        raise SystemExit(f"{name}.cu: ptxas serialised the wgmma of {kernel}")
 
 
 def phase_core_check(dev) -> None:
@@ -203,6 +214,35 @@ def phase_core_check(dev) -> None:
                                     f"{rs:.3e}, {ro:.3e}")
     if failures:
         raise SystemExit("the wgmma core disagrees with torch.matmul: " + "; ".join(failures))
+
+
+def phase_conv_core_check(dev) -> None:
+    """The conv core of K2 and K2v-cl on one bare tile, before either is
+    checked or timed: sum_j y[row0 + j d : row0 + j d + 64] . W[j] from the
+    strip window, the bulk-copied weight ring and the shifted descriptors,
+    at every product width the core has, d = 1, 3, 9 and row offsets 0, 5
+    and 13 (no multiple of 8), against torch.matmul: fp32 sums of exact bf16
+    products, rel-L2 < 1e-5."""
+    from echo_tts_tpu_torch.ops import conv_core as cc
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    worst, failures = 0.0, []
+    for n in cc.CHECK_N:
+        for d in (1, 3, 9):
+            for row0 in (0, 5, 13):
+                y = torch.randn(row0 + 64 + 6 * d + 3, cc.CHECK_K, generator=gen,
+                                device=dev).to(torch.bfloat16)
+                w = torch.randn(7, cc.CHECK_K, n, generator=gen, device=dev).to(torch.bfloat16)
+                got = cc.tap_product(y, w, row0, d)
+                torch.cuda.synchronize()
+                r = rel_l2(got, cc.tap_product_plain(y, w, row0, d))
+                worst = max(worst, r)
+                if not r < 1e-5:
+                    failures.append(f"N={n} d={d} row0={row0}: {r:.3e}")
+    log(f"# check conv_core [tap-shifted product, N {cc.CHECK_N}, d 1/3/9, row offsets 0/5/13]: "
+        f"worst rel-L2 {worst:.3e}")
+    if failures:
+        raise SystemExit("the conv core disagrees with torch.matmul: " + "; ".join(failures))
 
 
 # ---------------------------------------------------------------------------
@@ -384,17 +424,24 @@ def phase_kernel_checks(dev) -> dict:
     k1_case("three segments S=200 G=2 H=16, T=300 + 52 + 7", 2, 1, 200, 16, (300, 52, 7),
             layout="hm")
 
-    # K2 at every decoder width and one encoder width, non-zero biases
+    # K2 at every width of the S1-DAC stacks (decoder 768/384/192/96, encoder
+    # 64/128/256/512), non-zero biases, ragged lengths, B=2, zero_below
+    # scalar and per row; one launch a unit
     def units(c):
         return variant_units(gen, c, dev)
 
     for c, t, zb in ((768, 2048, None), (384, 3000, 80), (192, 4096, None),
-                     (96, 4100, [80, 13]), (64, 4096, [0, 80])):
+                     (96, 4100, [80, 13]), (64, 4096, [0, 80]), (128, 1003, [7, 300]),
+                     (256, 2050, 41), (512, 777, [80, 0])):
         bsz = 1 if zb is None or isinstance(zb, int) else len(zb)
         x = torch.randn(bsz, t, c, generator=gen, device=dev).to(torch.bfloat16)
         us = units(c)
-        check("res_chain", f"C={c} T={t} B={bsz} zero_below={zb}",
-              rc._res_chain_cuda(x, us, (1, 3, 9), zb),
+        before = rc.res_units_cl.launches
+        got = rc._res_chain_cuda(x, us, (1, 3, 9), zb)
+        if rc.res_units_cl.launches - before != 3:
+            failures.append(f"res_chain C={c}: {rc.res_units_cl.launches - before} launches, "
+                            f"expected 3")
+        check("res_chain", f"C={c} T={t} B={bsz} zero_below={zb}", got,
               rc.res_chain_plain(x.float(), f32_units(us), (1, 3, 9), zb))
 
     # K3 at the training shape (G=1, B=8, S=640, text 768 + speaker 160,
@@ -617,10 +664,6 @@ def phase_kernel_times(dev, errs: dict, launches: dict) -> list:
     """launches: {path: {kernel: count}} from the one-shot and training runs;
     a row's `launches` is the count on the path that introduced the kernel,
     and `launches_by_path` has every path's."""
-    from echo_tts_tpu_torch.bench.timing import cuda_ms
-    from echo_tts_tpu_torch.ops import joint_attention as ja
-    from echo_tts_tpu_torch.ops import res_chain as rc
-
     gen = torch.Generator(device=dev).manual_seed(1)
     rows = []
 
@@ -640,42 +683,91 @@ def phase_kernel_times(dev, errs: dict, launches: dict) -> list:
                  "host_us_per_launch": host_us,
                  "build_seconds": {k: round(v, 1) for k, v in _build.BUILD_SECONDS.items()}})
 
-    # K2: one residual-unit chain (3 units) at each decoder width, at the
-    # row counts a 640-latent decode gives it; the JSON row is the sum
-    c_t = ((768, 20480), (384, 163840), (192, 655360), (96, 1310720))
-    tot = {"ms": 0.0, "plain": 0.0, "bound": 0.0, "flops": 0.0, "bytes": 0.0}
-    for c, t in c_t:
-        x = torch.randn(1, t, c, generator=gen, device=dev).to(torch.bfloat16)
-        us = [{"snake1": torch.ones(1, c, 1, device=dev, dtype=torch.bfloat16),
-               "snake2": torch.ones(1, c, 1, device=dev, dtype=torch.bfloat16),
-               "conv1": {"w": (torch.randn(c, c, 7, generator=gen, device=dev) * 0.02).to(torch.bfloat16),
-                         "b": (torch.randn(c, generator=gen, device=dev) * 0.1).to(torch.bfloat16)},
-               "conv2": {"w": (torch.randn(c, c, 1, generator=gen, device=dev) * 0.02).to(torch.bfloat16),
-                         "b": (torch.randn(c, generator=gen, device=dev) * 0.1).to(torch.bfloat16)}}
-              for _ in range(3)]
-        k_ms = cuda_ms(lambda: rc._res_chain_cuda(x, us, (1, 3, 9), None), reps=5)
-        p_ms = cuda_ms(lambda: rc.res_chain_plain(x, us, (1, 3, 9), None), reps=5)
-        flops = 3 * 2.0 * t * c * c * 8
-        nbytes = 2 * 2 * t * c + 3 * 2 * (8 * c * c) + 3 * 4 * 4 * c
-        b_ms, _ = bound(flops, nbytes)
-        log(f"# time res_chain C={c} T={t}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
-            f"bound {b_ms:.3f} ms")
-        tot["ms"] += k_ms
-        tot["plain"] += p_ms
-        tot["flops"] += flops
-        tot["bytes"] += nbytes
-    b_ms, b_by = bound(tot["flops"], tot["bytes"])
-    rows.append({"name": "res_chain", "route": "cuda",
-                 "source": "echo_tts_tpu_torch/csrc/res_chain.cu",
-                 "replaces": "echo_tts_tpu/ops/pallas_conv.py:60",
-                 "launches": launches["one_shot"]["res_chain"],
-                 "launches_by_path": by_path(launches, "res_chain"),
-                 "max_abs_err": errs["res_chain"], "ms": tot["ms"], "plain_ms": tot["plain"],
-                 # no single PyTorch call computes a snake/conv7/snake/1x1 unit
-                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-                 "shape": "decoder chains C=768/384/192/96 at T=20480/163840/655360/1310720, summed"})
+    rows.append(k2_times(dev, gen, errs, launches))
     rows.append(k3_times(dev, gen, errs, launches))
     return rows + variant_times(dev, errs, launches)
+
+
+# the chains of one 640-latent decode and of one 640-latent encode (B=1)
+K2_DECODER = ((768, 20480), (384, 163840), (192, 655360), (96, 1310720))
+K2_ENCODER = ((64, 1310720), (128, 655360), (256, 163840), (512, 20480))
+
+
+def library_chain(x_cf, units, dilations=(1, 3, 9)):
+    """K2's library yardstick, timed only (the port never calls it): the
+    chain as cuDNN and eager PyTorch compose it on channels-first bf16
+    (B, C, T): per unit the snake in bf16 ops, F.conv1d with the dilation
+    after a causal left pad, the snake, the 1x1 F.conv1d, the residual."""
+    import torch.nn.functional as F
+
+    def snk(v, a):
+        return v + torch.sin(a * v).square() / (a + 1e-9)
+
+    for u, d in zip(units, dilations):
+        y = F.conv1d(F.pad(snk(x_cf, u["snake1"]), (6 * d, 0)), u["conv1"]["w"],
+                     u["conv1"]["b"], dilation=d)
+        x_cf = x_cf + F.conv1d(snk(y, u["snake2"]), u["conv2"]["w"], u["conv2"]["b"])
+    return x_cf
+
+
+def k2_times(dev, gen, errs: dict, launches: dict) -> dict:
+    """K2, one three-unit chain at each decoder and each encoder width at
+    the row counts a 640-latent decode and encode give it: kernel, plain
+    version, the cuDNN composition (library_chain), bound. The JSON row's
+    times are the decoder chains summed; `widths` has each."""
+    from echo_tts_tpu_torch.bench.timing import cuda_ms
+    from echo_tts_tpu_torch.ops import res_chain as rc
+
+    widths, tot = [], {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "flops": 0.0, "bytes": 0.0}
+    with torch.no_grad():
+        for stack, shapes in (("decoder", K2_DECODER), ("encoder", K2_ENCODER)):
+            for c, t in shapes:
+                x = torch.randn(1, t, c, generator=gen, device=dev).to(torch.bfloat16)
+                us = [{"snake1": torch.ones(1, c, 1, device=dev, dtype=torch.bfloat16),
+                       "snake2": torch.ones(1, c, 1, device=dev, dtype=torch.bfloat16),
+                       "conv1": {"w": (torch.randn(c, c, 7, generator=gen, device=dev) * 0.02
+                                       ).to(torch.bfloat16),
+                                 "b": (torch.randn(c, generator=gen, device=dev) * 0.1
+                                       ).to(torch.bfloat16)},
+                       "conv2": {"w": (torch.randn(c, c, 1, generator=gen, device=dev) * 0.02
+                                       ).to(torch.bfloat16),
+                                 "b": (torch.randn(c, generator=gen, device=dev) * 0.1
+                                       ).to(torch.bfloat16)}}
+                      for _ in range(3)]
+                k_ms = cuda_ms(lambda: rc._res_chain_cuda(x, us, (1, 3, 9), None), reps=5)
+                p_ms = cuda_ms(lambda: rc.res_chain_plain(x, us, (1, 3, 9), None), reps=3,
+                               warmup=1)
+                x_cf = x.transpose(1, 2).contiguous()
+                l_ms = cuda_ms(lambda: library_chain(x_cf, us), reps=5)
+                del x_cf
+                flops = 3 * 2.0 * t * c * c * 8
+                nbytes = 2 * 2 * t * c + 3 * 2 * (8 * c * c) + 3 * 4 * 4 * c
+                b_ms, b_by = bound(flops, nbytes)
+                log(f"# time res_chain {stack} C={c} T={t}: kernel {k_ms:.3f} ms "
+                    f"({k_ms / b_ms:.2f}x its bound, {flops / k_ms / 1e9:.0f} TFLOP/s), plain "
+                    f"{p_ms:.3f} ms, cuDNN composition {l_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
+                widths.append({"stack": stack, "C": c, "T": t, "ms": k_ms, "plain_ms": p_ms,
+                               "library_ms": l_ms, "bound_ms": b_ms})
+                if stack == "decoder":
+                    for k, v in (("ms", k_ms), ("plain_ms", p_ms), ("library_ms", l_ms),
+                                 ("flops", flops), ("bytes", nbytes)):
+                        tot[k] += v
+                del x
+    b_ms, b_by = bound(tot["flops"], tot["bytes"])
+    log(f"# time res_chain, the four decoder chains of a decode: kernel {tot['ms']:.3f} ms, "
+        f"cuDNN composition {tot['library_ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms, "
+        f"bound {b_ms:.3f} ms")
+    return {"name": "res_chain", "route": "cuda",
+            "source": "echo_tts_tpu_torch/csrc/res_chain.cu",
+            "replaces": "echo_tts_tpu/ops/pallas_conv.py:60",
+            "launches": launches["one_shot"]["res_chain"],
+            "launches_by_path": by_path(launches, "res_chain"),
+            "max_abs_err": errs["res_chain"], "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": tot["library_ms"],
+            "library": "cuDNN composition: bf16 F.conv1d (dilated, causal pad) + eager snakes "
+                       "+ 1x1 F.conv1d",
+            "widths": widths, "ptxas": PTXAS.get("res_chain", {}),
+            "shape": "decoder chains C=768/384/192/96 at T=20480/163840/655360/1310720, summed"}
 
 
 K1_SHAPES = (("one branch", 1, 1, (768, 160)), ("three branches", 3, 1, (768, 1600)),
@@ -864,7 +956,7 @@ def variant_times(dev, errs: dict, launches: dict) -> list:
                  "scripts/bench_conv_kernel_variants.py:99", "channels first, sin",
                  lambda: rv.res_chain_cf(xcf, units),
                  lambda: rv.res_chain_cf_plain(xcf, units)),
-                ("res_chain_snake", "res_chain_snake", "res_chain_variants.cu",
+                ("res_chain_snake", "res_chain_snake", "res_chain_snake.cu",
                  "scripts/bench_conv_variants.py:56", "snake exact",
                  lambda: rv.res_chain_snake(x, units, "exact"),
                  lambda: rv.res_chain_snake_plain(x, units, "exact"))):
@@ -878,6 +970,7 @@ def variant_times(dev, errs: dict, launches: dict) -> list:
                          "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                          # no single PyTorch call computes the three-unit chain
                          "library_ms": None,
+                         "ptxas": PTXAS.get(source[:-3], {}),
                          "shape": f"three-unit chain, B=1 C={c} T={t}; {what}"})
     return rows
 
@@ -978,6 +1071,7 @@ def phase_slice(dev, wrappers: dict) -> dict:
     from echo_tts_tpu_torch.models.dit import init_dit_params
     from echo_tts_tpu_torch.models.pca import PCAState
     from echo_tts_tpu_torch.pipeline.pipeline import EchoTTS, sample_pipeline
+    from echo_tts_tpu_torch.pipeline.speaker import get_speaker_latent_and_mask
 
     dit_cfg = DiTConfig(has_latent_modules=False)
     ae_cfg = AEConfig()
@@ -1034,13 +1128,47 @@ def phase_slice(dev, wrappers: dict) -> dict:
     if deltas[0]["joint_attention"] != k1_expected:
         raise SystemExit(f"joint_attention launched {deltas[0]['joint_attention']} times on "
                          f"request i, expected {k1_expected}")
-    if deltas[1]["res_chain"] <= deltas[0]["res_chain"]:
-        raise SystemExit("the speaker prompt did not run the encoder's residual chains")
+    # K2: one launch a unit, three units a stack block; a prompt is encoded
+    # in 640-latent chunks
+    spk_audio = requests[1][2]
+    chunks = math.ceil(spk_audio.shape[-1] / (tts.pipe_cfg.audio_chunk_latents
+                                              * ae_cfg.frame_length))
+    k2_decode, k2_chunk = 3 * len(ae_cfg.decoder_rates), 3 * len(ae_cfg.encoder_rates)
+    if (deltas[0]["res_chain"] != k2_decode
+            or deltas[1]["res_chain"] != k2_decode + chunks * k2_chunk):
+        raise SystemExit(f"res_chain launched {deltas[0]['res_chain']} / "
+                         f"{deltas[1]['res_chain']} times on requests i / ii, expected "
+                         f"{k2_decode} / {k2_decode + chunks * k2_chunk}")
     totals = {k: w.launches for k, w in wrappers.items()}
     log(f"# launches over the three requests: {totals}")
     profile_families("request i again", lambda: sample_pipeline(tts, SHORT_TEXT, None,
                                                                 rng_seed=5, sc=sc))
+    profile_families(f"speaker encode of the 20 s prompt ({chunks} chunk of "
+                     f"{tts.pipe_cfg.audio_chunk_latents} latents)",
+                     lambda: get_speaker_latent_and_mask(
+                         tts.ae_params, ae_cfg, tts.pca, spk_audio,
+                         audio_chunk_latents=tts.pipe_cfg.audio_chunk_latents))
+    for k, w in wrappers.items():  # the profiles' launches are not the path's
+        w.launches = totals[k]
+    noise_host_us(dev)
     return tts, totals
+
+
+def noise_host_us(dev, reps: int = 20) -> float:
+    """F4: the host cost of the seeded (1, 640, 80) draw the sampler starts
+    from (jax.random.normal's numbers, on the host, then to the card)."""
+    from echo_tts_tpu_torch.sampling.euler_cfg import draw_noise
+
+    draw_noise(0, (1, 640, 80), dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(reps):
+        draw_noise(i, (1, 640, 80), dev)
+    torch.cuda.synchronize()
+    us = (time.perf_counter() - t0) / reps * 1e6
+    log(f"# seeded noise draw (1, 640, 80) as jax.random.normal gives it: {us:.1f} us a draw "
+        f"on the host, the copy to the card included")
+    return us
 
 
 def phase_path_check(tts, dev) -> None:
@@ -1198,13 +1326,17 @@ def phase_train(tts, dev, wrappers: dict) -> dict:
         ds = EchoTTSDataset(samples, tts.ae_params, ae_cfg, tts.pca)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-    k2 = wrappers["res_chain"].launches
-    log(f"# training data: {len(samples)} clips of {CLIP_LATENTS} latents written in "
-        f"{(t1 - t0) * 1e3:.1f} ms, pre-encoded in {(t2 - t1) * 1e3:.1f} ms "
-        f"({k2} K2 launches)")
-    if len(ds) != TRAIN_CLIPS or k2 <= 0:
-        raise SystemExit(f"the dataset encode did not run through K2 ({k2} launches, "
-                         f"{len(ds)} samples)")
+        k2 = wrappers["res_chain"].launches
+        log(f"# training data: {len(samples)} clips of {CLIP_LATENTS} latents written in "
+            f"{(t1 - t0) * 1e3:.1f} ms, pre-encoded in {(t2 - t1) * 1e3:.1f} ms "
+            f"({k2} K2 launches)")
+        profile_families(f"pre-encode of the {TRAIN_CLIPS} clips again",
+                         lambda: EchoTTSDataset(samples, tts.ae_params, ae_cfg, tts.pca))
+        wrappers["res_chain"].launches = k2  # the profile's launches are not the path's
+    # one launch a unit, three units a block of the encoder, whole chunks
+    if len(ds) != TRAIN_CLIPS or k2 <= 0 or k2 % (3 * len(ae_cfg.encoder_rates)):
+        raise SystemExit(f"the dataset encode did not run through K2 as expected ({k2} "
+                         f"launches, {len(ds)} samples)")
     lat_shapes = {v.shape for v in ds.latent_cache.values()}
     if lat_shapes != {(CLIP_LATENTS, cfg.latent_size)}:
         raise SystemExit(f"unexpected latent shapes {lat_shapes}")
@@ -1332,6 +1464,7 @@ def main(argv) -> int:
     else:
         phase_build()
         phase_core_check(dev)
+        phase_conv_core_check(dev)
         errs = phase_kernel_checks(dev)
         errs.update(phase_variant_checks(dev))
         launches = {"one_shot": {"joint_attention": 0, "res_chain": 0},

@@ -7,7 +7,7 @@ two rows, "poly 7-dots (prod)" and "poly packed-taps", come first; then the
 rows its functions support and its history used: the snake (sin, the sin²
 polynomial, none, bf16 arithmetic), `live_mode`, `tap_offsets`, the time
 tile, the channels-first chain, and beside them kernel K2 (`res_units_cl`,
-six launches with a scratch in device memory) on the same input.
+one launch a unit) on the same input.
 
     python -m echo_tts_tpu_torch.bench.conv_kernel_variants [--c192 | --c96]
     python -m echo_tts_tpu_torch.bench.conv_kernel_variants --cpu --tiny
@@ -82,7 +82,7 @@ def run(device, shapes=FULL_SHAPES, *, file=sys.stderr) -> dict:
                 for name, kw in cl_rows(c)]
         rows += [(f"c{c} {name}", lambda kw=kw: res_chain_cf(xcf, units, **kw))
                  for name, kw in cf_rows(c)]
-        rows.append((f"c{c} K2 res_units_cl (6 launches)", lambda: res_units_cl(x, units)))
+        rows.append((f"c{c} K2 res_units_cl (3 launches)", lambda: res_units_cl(x, units)))
         out = bench_rows(rows, unit="ms/chain", device=device, file=file)
         res.update({k: round(v["ms"], 4) for k, v in out.items()})
         spread.update({k: [round(v["min_ms"], 4), round(v["max_ms"], 4)] for k, v in out.items()})

@@ -62,7 +62,7 @@ def run(device, shape=FULL_SHAPE, *, file=sys.stderr) -> dict:
     print(f"# snake variants on {card_line(device)}; C={c} T={t}", file=file)
     rows = [(f"res chain C={c} snake={mode}", lambda mode=mode: res_chain_snake(x, units, mode))
             for mode in SNAKE_MODES]
-    rows.append((f"res chain C={c} K2 res_units_cl (6 launches)", lambda: res_units_cl(x, units)))
+    rows.append((f"res chain C={c} K2 res_units_cl (3 launches)", lambda: res_units_cl(x, units)))
     out = bench_rows(rows, unit="ms", device=device, file=file)
     err = poly_error(device)
     print(f"poly snake max abs err on [-20,20], a=1.3: {err:.3e}", file=file)

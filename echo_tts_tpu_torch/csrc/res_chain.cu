@@ -1,197 +1,354 @@
-// Kernel K2: one causal residual unit of the S1-DAC conv stacks, sm_90a,
-// channels-last (B, T, C) bf16.
+// Kernel K2: one causal residual unit of the S1-DAC conv stacks in one
+// launch, sm_90a, channels-last (B, T, C) bf16, on conv_core.cuh.
 //
 // Replaces echo_tts_tpu/ops/pallas_conv.py:_res_chain_kernel (called from
 // fused_res_chain_cl / res_units_cl). A unit is
-//     x + conv1x1(snake2(conv7_dilated_causal(snake1(x)) + b7)) + b1,
-// snake(v) = v + sin^2(a v)/(a + 1e-9) with sin^2 from the same range-reduced
-// degree-6 polynomial as the Pallas kernel (_sin2), computed in fp32. Rows
-// t < zero_below[b] are re-zeroed after the unit: they stand for the causal
-// zero pad (streaming callers pass a carried tail's length). A chain is one
-// unit after another, each with its own zero_below re-zero, exactly as the
-// Pallas kernel re-zeroes after every unit.
+//     y = bf16(snake1(x))
+//     acc = b7 + sum_j shift_{(6-j) d}(y) . W7[j]            (fp32)
+//     z = bf16(snake2(acc))
+//     out = bf16(x + z . W1 + b1), rows t < zero_below[b] set to 0,
+// snake(v) = v + sin^2(a v)/(a + 1e-9) in fp32 with the Pallas kernel's
+// sin^2 polynomial, y zero before row 0 (the causal pad: snake(0) = 0). These
+// are the Pallas kernel's rounding points. A chain is one launch a unit.
 //
-// Bound. Per unit, 2*T*C*C*8 FLOPs (seven conv7 taps plus the 1x1) against
-// ~4 reads/writes of T*C bf16: ~4*C FLOP per byte, i.e. 384..3072 at
-// C = 96..768. Above the H100's ~295 FLOP/byte ridge at every width, so the
-// bound is tensor core operations.
+// Bound. 16 T C^2 FLOPs a unit (seven conv7 taps and the 1x1) over one read
+// of x and one write of out, 2 T C bf16 each: 4 C FLOP per byte, 256..3072
+// at C = 64..768. From C = 96 on that is above the card's ~295 FLOP/byte
+// ridge: tensor-core operations bound the unit.
 //
-// Design. A whole-C time tile at C=768 with a 54-row halo does not fit in
-// shared memory, so each unit is two launches of one tiled GEMM kernel:
-//   phase a: y = snake2(sum_j shift_j(snake1(x)) @ W7[j] + b7) -> bf16 scratch,
-//            the 7 taps read x at rows t - (6-j)*d (zero before row 0, the
-//            causal pad) and apply snake1 while staging the tile;
-//   phase b: out = x + y @ W1 + b1, rows t < zero_below zeroed.
-// Each block computes a 64-row x 32-channel output tile with WMMA bf16
-// 16x16x16 products and fp32 accumulation; the K loop walks taps x 32-wide
-// input-channel chunks through shared memory. No halo bookkeeping: phase a
-// reads its left context straight from global memory. Fusing a chain for
-// small C, pipelined loads and wgmma are left for later versions.
+// Design. A persistent block walks tiles of BM time rows. Two consumer
+// warpgroups and a producer (a warpgroup whose registers go to the
+// consumers through setmaxnreg; a single warp at C = 64, where two blocks
+// share an SM):
+//   * the consumers stage the tile's window, rows t0 - 6d .. t0 + BM - 1 of
+//     snake1(x) over all C channels, in the strip layout: snake1 runs once
+//     per (row, channel) and tile, and each of the seven taps reads the same
+//     window through a descriptor moved down j d rows (any d, no copy);
+//   * the conv7 weights stream from L2 through a ring of (KC x NB) strip
+//     tiles, pre-packed by the wrapper and copied by one producer thread
+//     with cp.async.bulk; both consumer warpgroups read every tile, so a
+//     pass over the weights serves BM = 128 rows (BM = 64 at C >= 384, where
+//     the window takes the shared memory: there the two warpgroups split the
+//     columns instead of the rows);
+//   * the products are wgmma m64nNk16 with both operands in shared memory
+//     and fp32 accumulators in registers; snake2 runs on the accumulator and
+//     z goes as bf16 into a strip tile in shared memory, the A operand of the
+//     1x1 product, whose epilogue adds bias and residual and re-zeroes the
+//     rows below zero_below; the residual rows come in (from L2, where the
+//     window fill left them) and the out tile leaves as 16-byte rows through
+//     a strip tile in the window's place. x goes through device memory twice
+//     a unit (in, out) instead of five times (x, scratch y out and in, x,
+//     out);
+//   * at C = 768 window and z do not fit together: z goes to a (B, T, C)
+//     scratch in device memory (31.5 MB at T = 20,480) and comes back into
+//     the window's place for the 1x1: still one launch;
+//   * the consumer body sits under the tile loop, the shape in which the
+//     assembler keeps wgmma asynchronous (no C7512/C7514), and the
+//     epilogues' addresses are made opaque inside it (hoisted out of the
+//     loop they held registers through the products: spills, and C7512).
+// Per width (rows BM, columns a pass NB, weight tile KC x NB, ring stages,
+// blocks an SM), each the fastest of the tilings timed on an H100:
+//   C  64: 128,  64, 64 x  64, 4, 2     C 256: 128, 128, 64 x 128, 3, 1
+//   C  96: 128,  96, 96 x  96, 4, 1     C 384:  64, 384, 32 x 384, 3, 1
+//   C 128: 128, 128, 64 x 128, 4, 1     C 512:  64, 256, 16 x 256, 4, 1
+//   C 192: 128, 192, 64 x 192, 3, 1     C 768:  64, 256, 16 x 256, 5, 1 (z in device memory)
+// What holds it back (PERF.md): at BM = 64 a tile reads 64 FLOP per byte of
+// weights from L2; at C <= 128 the window fill and the snakes on the CUDA
+// cores run between the products, not under them.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
+#include <algorithm>
+
+#include "conv_core.cuh"
+
+using namespace conv_core;
 
 namespace {
 
-constexpr int BM = 64;       // time rows per block
-constexpr int BN = 32;       // output channels per block
-constexpr int BKC = 32;      // input channels per K step
-constexpr int NTHREADS = 128;
-constexpr int LDA = BKC + 8;
-constexpr int LDB = BN + 8;
-constexpr int LDC = BN + 4;
+constexpr int SMEM_LIMIT = 232448;
 
-__device__ __forceinline__ float sin2(float t) {
-  // sin^2(t) = z P(z), z = f^2, f = t/pi - round(t/pi) (round half to even)
-  const float r = t * 0.3183098861837907f;
-  const float f = r - rintf(r);
-  const float z = f * f;
-  float p = 0.7419801209608292f;
-  p = p * z + -3.9130777124895926f;
-  p = p * z + 13.206610352068088f;
-  p = p * z + -30.12175436025362f;
-  p = p * z + 42.72838511692447f;
-  p = p * z + -32.469696645585955f;
-  p = p * z + 9.869604400158666f;
-  return z * p;
-}
+struct UnitParams {
+  const bf16* x;
+  bf16* out;
+  bf16* z;          // (B, T, C) scratch at C = 768, else null
+  const bf16* w7;   // strip tiles [pass][tap][k chunk]
+  const bf16* w1;   // strip tiles [pass][k chunk]
+  const float* b7;  // (C,) each
+  const float* a1;
+  const float* inv1;
+  const float* a2;
+  const float* inv2;
+  const float* b1;
+  const int* zero_below;  // (B,) or null
+  int T, d, tiles_per_b, n_tiles;
+};
 
-__device__ __forceinline__ float snake(float v, float a, float inv) {
-  return v + inv * sin2(a * v);
-}
-
-// PHASE_A: in = x, taps = 7, out = snake2(conv + b) -> y
-// !PHASE_A: in = y, taps = 1, out = res + in @ W + b, zero rows < zero_below
-template <bool PHASE_A>
-__global__ void __launch_bounds__(NTHREADS)
-res_unit_kernel(const bf16* __restrict__ in, const bf16* __restrict__ w,
-                const float* __restrict__ bias, const float* __restrict__ a_in,
-                const float* __restrict__ inv_in, const float* __restrict__ a_out,
-                const float* __restrict__ inv_out, const bf16* __restrict__ res,
-                const int* __restrict__ zero_below, bf16* __restrict__ out,
-                int T, int C, int dilation) {
-  __shared__ __align__(32) bf16 As[BM * LDA];
-  __shared__ __align__(32) bf16 Bs[BKC * LDB];
-  __shared__ __align__(32) float Cs[BM * LDC];
-
-  constexpr int TAPS = PHASE_A ? 7 : 1;
-  const int t0 = blockIdx.x * BM;
-  const int o0 = blockIdx.y * BN;
-  const int b = blockIdx.z;
-  const int warp = threadIdx.x / 32;
-  const bf16* xin = in + (long long)b * T * C;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
-  wmma::fill_fragment(acc[0], 0.f);
-  wmma::fill_fragment(acc[1], 0.f);
-
-  // staging roles: A is 64 rows x 32 channels (16 per thread), B 32 x 32 (8)
-  const int ar = threadIdx.x / 2, ac = (threadIdx.x & 1) * 16;
-  const int br = threadIdx.x / 4, bc = (threadIdx.x & 3) * 8;
-
-  for (int j = 0; j < TAPS; ++j) {
-    const int shift = (TAPS - 1 - j) * dilation;
-    for (int ci = 0; ci < C; ci += BKC) {
-      {
-        const int t = t0 + ar - shift;
-        bf16* dst = As + ar * LDA + ac;
-        if (t >= 0 && t < T) {
-          const bf16* s = xin + (long long)t * C + ci + ac;
-          uint4 v0 = *reinterpret_cast<const uint4*>(s);
-          uint4 v1 = *reinterpret_cast<const uint4*>(s + 8);
-          if (PHASE_A) {
-            bf16 tmp[16];
-            *reinterpret_cast<uint4*>(tmp) = v0;
-            *reinterpret_cast<uint4*>(tmp + 8) = v1;
-#pragma unroll
-            for (int e = 0; e < 16; ++e) {
-              const int ch = ci + ac + e;
-              tmp[e] = __float2bfloat16(snake(__bfloat162float(tmp[e]), a_in[ch], inv_in[ch]));
-            }
-            v0 = *reinterpret_cast<uint4*>(tmp);
-            v1 = *reinterpret_cast<uint4*>(tmp + 8);
-          }
-          *reinterpret_cast<uint4*>(dst) = v0;
-          *reinterpret_cast<uint4*>(dst + 8) = v1;
-        } else {
-          *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
-          *reinterpret_cast<uint4*>(dst + 8) = make_uint4(0, 0, 0, 0);
-        }
-      }
-      {
-        const bf16* s = w + ((long long)j * C + ci + br) * C + o0 + bc;
-        *reinterpret_cast<uint4*>(Bs + br * LDB + bc) = *reinterpret_cast<const uint4*>(s);
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < BKC / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::load_matrix_sync(fa, As + warp * 16 * LDA + kk * 16, LDA);
-#pragma unroll
-        for (int n = 0; n < 2; ++n) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-          wmma::load_matrix_sync(fb, Bs + kk * 16 * LDB + n * 16, LDB);
-          wmma::mma_sync(acc[n], fa, fb, acc[n]);
-        }
-      }
-      __syncthreads();
-    }
+template <int C_, int WG_M_, int NCH_, int KC_, int STAGES_, bool Z_GLOBAL_, int MIN_BLOCKS_>
+struct Cfg {
+  static constexpr int C = C_, WG_M = WG_M_, WG_N = 2 / WG_M_, NCH = NCH_, KC = KC_;
+  static constexpr int STAGES = STAGES_, MIN_BLOCKS = MIN_BLOCKS_;
+  static constexpr bool Z_GLOBAL = Z_GLOBAL_;
+  static constexpr int BM = 64 * WG_M;       // rows a tile
+  static constexpr int NB = NCH * WG_N;      // columns a pass
+  static constexpr int PASSES = C / NB;
+  static constexpr int KCH = C / KC;         // k chunks of one tap
+  static constexpr int STAGE_BYTES = KC * NB * 2;
+  static constexpr int ZR = BM + 1;          // rows of the z strip tile (odd)
+  // one block an SM: a producer warpgroup that gives its registers to the
+  // consumers (setmaxnreg: 128 x 24 + 256 x 240 = the 168 a thread the block
+  // has at entry); two: a producer warp, and no rebalancing (112 a thread)
+  static constexpr bool REBALANCE = MIN_BLOCKS == 1;
+  static constexpr int THREADS = 2 * WG_THREADS + (REBALANCE ? WG_THREADS : 32);
+  static constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
+  static_assert(C % NB == 0 && C % KC == 0 && KC % 16 == 0 && NCH % 8 == 0, "tiling");
+  using Ring = WeightRing<STAGES, STAGE_BYTES>;
+  static int win_rows(int d) { return (BM + 6 * d) | 1; }
+  static int smem_bytes(int d) {
+    return 128 + Ring::BYTES + win_rows(d) * C * 2 + (Z_GLOBAL ? 0 : ZR * C * 2);
   }
-  wmma::store_matrix_sync(Cs + warp * 16 * LDC, acc[0], LDC, wmma::mem_row_major);
-  wmma::store_matrix_sync(Cs + warp * 16 * LDC + 16, acc[1], LDC, wmma::mem_row_major);
+};
+
+__device__ __forceinline__ float2 ldg2(const float* p) {
+  return __ldg(reinterpret_cast<const float2*>(p));
+}
+
+template <class K>
+__global__ void __launch_bounds__(K::THREADS, K::MIN_BLOCKS)
+res_unit_kernel(const __grid_constant__ UnitParams p) {
+  constexpr int C = K::C, BM = K::BM, NCH = K::NCH, NB = K::NB, KC = K::KC, KCH = K::KCH;
+  constexpr int PASSES = K::PASSES, STAGES = K::STAGES, SB = K::STAGE_BYTES, ZR = K::ZR;
+  constexpr int XR = BM + 1;  // rows of the residual/out strip tile (odd)
+  constexpr int CONSUMERS = 2 * WG_THREADS;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t ring = (smem_u32(smem_raw) + 127u) & ~127u;
+  const uint32_t bars = ring + K::Ring::BAR_OFFSET;
+  const uint32_t win = ring + K::Ring::BYTES;
+  const int d = p.d;
+  const int wr = (BM + 6 * d) | 1;
+  const uint32_t zs = K::Z_GLOBAL ? win : win + wr * C * 2;
+  if (threadIdx.x == 0) weight_ring_init<STAGES>(bars, CONSUMERS / 32);
   __syncthreads();
 
-  // epilogue: row ar, channels [ac, ac + 16) of the tile
-  const int t = t0 + ar;
-  if (t >= T) return;
-  const long long off = ((long long)b * T + t) * C + o0 + ac;
-  const bool dead = !PHASE_A && zero_below != nullptr && t < zero_below[b];
-  bf16 vals[16];
-  if (!PHASE_A) {
-    *reinterpret_cast<uint4*>(vals) = *reinterpret_cast<const uint4*>(res + off);
-    *reinterpret_cast<uint4*>(vals + 8) = *reinterpret_cast<const uint4*>(res + off + 8);
+  const int wg = threadIdx.x / WG_THREADS;
+  if (wg == 2) {
+    // ------------------------------------------------------------ producer
+    if (K::REBALANCE) reg_dealloc<K::PRODUCER_REGS>();
+    if (threadIdx.x == 2 * WG_THREADS) {
+      RingPos pos = {0, 0u};
+      for (int tile = blockIdx.x; tile < p.n_tiles; tile += gridDim.x) {
+        for (int it = 0; it < PASSES * 7 * KCH; ++it)
+          ring_fill<STAGES, SB>(ring, bars, pos, p.w7 + static_cast<long long>(it) * (SB / 2));
+        for (int it = 0; it < PASSES * KCH; ++it)
+          ring_fill<STAGES, SB>(ring, bars, pos, p.w1 + static_cast<long long>(it) * (SB / 2));
+      }
+    }
+    return;
   }
+  // -------------------------------------------------------------- consumers
+  if (K::REBALANCE) reg_alloc<K::CONSUMER_REGS>();
+  const int tid = threadIdx.x, lane = tid % 32, warp = (tid / 32) % 4;
+  const int wm = wg / K::WG_N, wn = wg % K::WG_N;
+  const int r0 = 64 * wm;  // this warpgroup's rows of a tile
+  RingPos pos = {0, 0u};
+  for (int tile = blockIdx.x; tile < p.n_tiles; tile += gridDim.x) {
+    const int b = tile / p.tiles_per_b;
+    const int t0 = (tile - b * p.tiles_per_b) * BM;
+    const long long xb = static_cast<long long>(b) * p.T * C;
+    named_sync(1, CONSUMERS);  // the last tile's window and z are read
+    fill_window<C>(
+        win, wr, p.x + xb, p.T, t0 - 6 * d, BM + 6 * d,
+        [&](float (&v)[8], int c0) {
 #pragma unroll
-  for (int e = 0; e < 16; ++e) {
-    const int ch = o0 + ac + e;
-    const float v = Cs[ar * LDC + ac + e] + bias[ch];
-    float o;
-    if (PHASE_A) o = snake(v, a_out[ch], inv_out[ch]);
-    else o = dead ? 0.f : __bfloat162float(vals[e]) + v;
-    vals[e] = __float2bfloat16(o);
+          for (int h = 0; h < 2; ++h) {
+            const float4 a = __ldg(reinterpret_cast<const float4*>(p.a1 + c0) + h);
+            const float4 iv = __ldg(reinterpret_cast<const float4*>(p.inv1 + c0) + h);
+            v[4 * h] = snake(v[4 * h], a.x, iv.x);
+            v[4 * h + 1] = snake(v[4 * h + 1], a.y, iv.y);
+            v[4 * h + 2] = snake(v[4 * h + 2], a.z, iv.z);
+            v[4 * h + 3] = snake(v[4 * h + 3], a.w, iv.w);
+          }
+        },
+        tid, CONSUMERS);
+    fence_proxy_async();
+    named_sync(1, CONSUMERS);
+
+    // conv7 and snake2, pass by pass over the output columns
+    for (int pass = 0; pass < PASSES; ++pass) {
+      float acc[NCH / 2];
+      ring_product<KC, NB, STAGES, SB>(
+          acc, 7 * KCH,
+          [&](int it, int kk) {
+            const int j = it / KCH;
+            return strip_desc(win + strip_off(wr, r0 + j * d, (it - j * KCH) * KC + 16 * kk),
+                              wr * CORE_ROW);
+          },
+          ring, bars, wn * NCH, pos, lane);
+      // opaque: the epilogue's addresses are made here, not hoisted out of
+      // the tile loop to hold registers through the products
+      const int col0 = opaque(pass * NB + wn * NCH + frag_col(lane, 0, 0));
+#pragma unroll
+      for (int j = 0; j < NCH / 8; ++j) {
+        const int col = col0 + 8 * j;
+        const float2 bb = ldg2(p.b7 + col), aa = ldg2(p.a2 + col), iv = ldg2(p.inv2 + col);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = r0 + frag_row(warp, lane, 2 * h);
+          const uint32_t zz = pack_bf16(snake(acc[4 * j + 2 * h] + bb.x, aa.x, iv.x),
+                                        snake(acc[4 * j + 2 * h + 1] + bb.y, aa.y, iv.y));
+          if (K::Z_GLOBAL) {
+            if (t0 + row < p.T)
+              *reinterpret_cast<uint32_t*>(p.z + xb + static_cast<long long>(t0 + row) * C +
+                                           col) = zz;
+          } else {
+            st_shared_b32(zs + strip_off(ZR, row, col), zz);
+          }
+        }
+      }
+    }
+    if (K::Z_GLOBAL) {
+      named_sync(1, CONSUMERS);  // z written, the window no longer read
+      fill_window<C>(zs, ZR, p.z + xb, p.T, t0, BM, [](float (&)[8], int) {}, tid, CONSUMERS);
+    }
+    fence_proxy_async();
+    named_sync(1, CONSUMERS);  // z whole (both warpgroups' columns), the window read
+    if (!K::Z_GLOBAL) {
+      // the residual, rows t0 .. t0 + BM - 1 of x, read coalesced into the
+      // window's place: the epilogue adds it there and the tile leaves in
+      // 16-byte rows (C = 768 has no room: there the epilogue reads x and
+      // writes out from and to device memory directly)
+      fill_window<C>(win, XR, p.x + xb, p.T, t0, BM, [](float (&)[8], int) {}, tid, CONSUMERS);
+      named_sync(1, CONSUMERS);
+    }
+
+    // 1x1, bias, residual, re-zero
+    const int zb = p.zero_below != nullptr ? p.zero_below[b] : 0;
+    for (int pass = 0; pass < PASSES; ++pass) {
+      float acc[NCH / 2];
+      ring_product<KC, NB, STAGES, SB>(
+          acc, KCH,
+          [&](int kc, int kk) {
+            return strip_desc(zs + strip_off(ZR, r0, kc * KC + 16 * kk), ZR * CORE_ROW);
+          },
+          ring, bars, wn * NCH, pos, lane);
+      const int col0 = opaque(pass * NB + wn * NCH + frag_col(lane, 0, 0));
+#pragma unroll
+      for (int j = 0; j < NCH / 8; ++j) {
+        const int col = col0 + 8 * j;
+        const float2 bb = ldg2(p.b1 + col);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = r0 + frag_row(warp, lane, 2 * h), t = t0 + row;
+          const bool dead = t < zb;
+          if (K::Z_GLOBAL) {
+            if (t < p.T) {
+              const long long off = xb + static_cast<long long>(t) * C + col;
+              const float2 xr =
+                  __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p.x + off));
+              *reinterpret_cast<uint32_t*>(p.out + off) =
+                  pack_bf16(dead ? 0.f : xr.x + (acc[4 * j + 2 * h] + bb.x),
+                            dead ? 0.f : xr.y + (acc[4 * j + 2 * h + 1] + bb.y));
+            }
+          } else {
+            const uint32_t a = win + strip_off(XR, row, col);
+            uint32_t xv = ld_shared_b32(a);
+            const float2 xr = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&xv));
+            st_shared_b32(a, pack_bf16(dead ? 0.f : xr.x + (acc[4 * j + 2 * h] + bb.x),
+                                       dead ? 0.f : xr.y + (acc[4 * j + 2 * h + 1] + bb.y)));
+          }
+        }
+      }
+    }
+    if (!K::Z_GLOBAL) {
+      named_sync(1, CONSUMERS);  // the out tile is whole
+      for (int i = tid; i < BM * (C / 8); i += CONSUMERS) {
+        const int r = i / (C / 8), c0 = 8 * (i - r * (C / 8));
+        if (t0 + r < p.T)
+          *reinterpret_cast<uint4*>(p.out + xb + static_cast<long long>(t0 + r) * C + c0) =
+              ld_shared_v4(win + strip_off(XR, r, c0));
+      }
+    }
   }
-  *reinterpret_cast<uint4*>(out + off) = *reinterpret_cast<uint4*>(vals);
-  *reinterpret_cast<uint4*>(out + off + 8) = *reinterpret_cast<uint4*>(vals + 8);
+}
+
+template <class K>
+int launch(UnitParams p, int B, cudaStream_t s) {
+  static bool configured = false;
+  static int sms = 0;
+  auto kernel = res_unit_kernel<K>;
+  if (!configured) {
+    cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
+    if (e != cudaSuccess) return (int)e;
+    int dev;
+    if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+    if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+      return (int)e;
+    configured = true;
+  }
+  const int smem = K::smem_bytes(p.d);
+  if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  int per_sm = 0;
+  cudaError_t e =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, K::THREADS, smem);
+  if (e != cudaSuccess) return (int)e;
+  p.tiles_per_b = (p.T + K::BM - 1) / K::BM;
+  p.n_tiles = B * p.tiles_per_b;
+  const int grid = std::min(p.n_tiles, sms * std::max(per_sm, 1));
+  kernel<<<grid, K::THREADS, smem, s>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// the tiling of width C: k chunk, columns a pass, z in device memory
+template <class K>
+bool tiles_are(int kc, int nb, int z_scratch) {
+  return kc == K::KC && nb == K::NB && (z_scratch != 0) == K::Z_GLOBAL;
 }
 
 }  // namespace
 
-// x, y, out: (B, T, C) bf16 contiguous; w7: (7, C, C) bf16 as [tap][in][out];
-// w1: (C, C) bf16 as [in][out]; b7, b1, a1, inv1, a2, inv2: (C,) fp32;
-// zero_below: (B,) int32 or null. y is scratch of x's shape. C % 32 == 0.
-extern "C" int res_unit_fwd(const void* x, const void* w7, const void* b7,
-                            const void* a1, const void* inv1, const void* a2,
-                            const void* inv2, const void* w1, const void* b1,
-                            const void* zero_below, void* y, void* out,
-                            int B, int T, int C, int dilation, void* stream) {
-  if (C % BN || C % BKC || T < 1 || B < 1) return (int)cudaErrorInvalidValue;
+// x, out: (B, T, C) bf16 contiguous, 16-byte aligned; w7: the conv7 weights
+// (7, C, C) as [tap][in][out] cut into (kc x nb) strip tiles in the order
+// [pass][tap][k chunk], w1: the 1x1 weights (1, C, C) cut the same way
+// (ops/conv_core.py:pack_tiles); b7, a1, inv1, a2, inv2, b1: (C,) fp32;
+// zero_below: (B,) int32 or null; z: (B, T, C) bf16 scratch where the width
+// takes it (z_scratch), else null. kc, nb and z_scratch must be the width's
+// tiling (ops/res_chain.py:UNIT_TILES). C in {64, 96, 128, 192, 256, 384,
+// 512, 768}.
+extern "C" int res_unit_fwd(const void* x, const void* w7, const void* b7, const void* a1,
+                            const void* inv1, const void* a2, const void* inv2, const void* w1,
+                            const void* b1, const void* zero_below, void* z, void* out, int B,
+                            int T, int C, int dilation, int kc, int nb, int z_scratch,
+                            void* stream) {
+  if (T < 1 || B < 1 || dilation < 1 || (z_scratch != 0) != (z != nullptr))
+    return (int)cudaErrorInvalidValue;
+  UnitParams p;
+  p.x = static_cast<const bf16*>(x);
+  p.out = static_cast<bf16*>(out);
+  p.z = static_cast<bf16*>(z);
+  p.w7 = static_cast<const bf16*>(w7);
+  p.w1 = static_cast<const bf16*>(w1);
+  p.b7 = static_cast<const float*>(b7);
+  p.a1 = static_cast<const float*>(a1);
+  p.inv1 = static_cast<const float*>(inv1);
+  p.a2 = static_cast<const float*>(a2);
+  p.inv2 = static_cast<const float*>(inv2);
+  p.b1 = static_cast<const float*>(b1);
+  p.zero_below = static_cast<const int*>(zero_below);
+  p.T = T;
+  p.d = dilation;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dim3 grid((T + BM - 1) / BM, C / BN, B);
-  res_unit_kernel<true><<<grid, NTHREADS, 0, s>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w7),
-      static_cast<const float*>(b7), static_cast<const float*>(a1),
-      static_cast<const float*>(inv1), static_cast<const float*>(a2),
-      static_cast<const float*>(inv2), nullptr, nullptr, static_cast<bf16*>(y),
-      T, C, dilation);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  res_unit_kernel<false><<<grid, NTHREADS, 0, s>>>(
-      static_cast<const bf16*>(y), static_cast<const bf16*>(w1),
-      static_cast<const float*>(b1), nullptr, nullptr, nullptr, nullptr,
-      static_cast<const bf16*>(x), static_cast<const int*>(zero_below),
-      static_cast<bf16*>(out), T, C, 1);
-  return (int)cudaGetLastError();
+#define K2_TILING(c, ...)                                                  \
+  if (C == c && tiles_are<Cfg<c, __VA_ARGS__>>(kc, nb, z_scratch))         \
+    return launch<Cfg<c, __VA_ARGS__>>(p, B, s);
+  K2_TILING(64, 2, 64, 64, 4, false, 2)
+  K2_TILING(96, 2, 96, 96, 4, false, 1)
+  K2_TILING(128, 2, 128, 64, 4, false, 1)
+  K2_TILING(192, 2, 192, 64, 3, false, 1)
+  K2_TILING(256, 2, 128, 64, 3, false, 1)
+  K2_TILING(384, 1, 192, 32, 3, false, 1)
+  K2_TILING(512, 1, 128, 16, 4, false, 1)
+  K2_TILING(768, 1, 128, 16, 5, true, 1)
+#undef K2_TILING
+  return (int)cudaErrorInvalidValue;
 }

@@ -1,117 +1,100 @@
-// Kernels K2v-cl and K2s: the fused three-unit residual chain of the S1-DAC
-// decoder tail in one launch, channels-last (B, T, C) bf16, sm_90a.
+// Kernel K2v-cl: the fused three-unit residual chain of the S1-DAC decoder
+// tail in one launch, channels-last (B, T, C) bf16, C = 96 or 192, sm_90a,
+// on conv_core.cuh (the wgmma core of K2, res_chain.cu).
 //
-// K2v-cl replaces scripts/bench_conv_kernel_variants.py:_kernel (called from
-// res_chain); K2s replaces the three bodies of
-// scripts/bench_conv_variants.py:make_kernel (which the script runs through
-// echo_tts_tpu/ops/pallas_conv.py:fused_res_chain_cl). Both are the chain
+// Replaces scripts/bench_conv_kernel_variants.py:_kernel (called from
+// res_chain). It is the chain
 //     x <- x + conv1x1(snake(conv7_dilated_causal(snake(x)) + b7)) + b1
 // for dilations (1, 3, 9), rows before the sequence start standing for each
-// conv's causal zero pad. One kernel template serves both families; they
-// differ in the snake (K2v: sinf, the sin^2 polynomial of K2, or the stand-in
-// z*a, in fp32 or with bf16 rounding after every operation; K2s: sinf,
-// identity, or the range-reduced Taylor cosine of _snake_poly) and K2v adds
-// live_mode (re-zero the pad rows by select, by multiply, or not at all),
-// tap_offsets (every tap at offset 0: wrong math, aligned reads), pack_taps
-// and tile_t.
+// conv's causal zero pad, with the measurement flags: the snake (sinf, K2's
+// sin^2 polynomial, or the stand-in z*a; in fp32 or with bf16 rounding after
+// every operation), live_mode (re-zero the pad rows by select, by multiply,
+// or not at all), tap_offsets (every tap at offset 0: wrong math, one row
+// offset for all taps), pack_taps and tile_t.
 //
-// Bound. 3 * 2*T*C*C*8 FLOPs over one read and one write of T*C bf16: 12*C
+// Bound. 3 * 16*T*C*C FLOPs over one read and one write of T*C bf16: 12*C
 // FLOP per byte, 1152 at C=96 and 2304 at C=192, above the 295 FLOP/byte
-// ridge: tensor-core operations. K2 (res_chain.cu) moves each unit's input,
-// scratch and output through device memory in six launches; this kernel is
-// the fused chain: one read of a time tile plus an 80-row halo, three units
-// in shared memory, one write.
+// ridge: tensor-core operations.
 //
-// Design and its cost. A block of six warps holds the window (tile_t + 80
-// rows) twice in shared memory, x and y = snake1(x), with 64 zero rows above
-// y for the causal pad, so a tap shift is a row offset of the A operand (rows
-// are padded to C + 16 elements to keep every shifted row 32-byte aligned for
-// WMMA, at the price of 4-way bank conflicts). Each warp owns C/6 output
-// channels and walks the window in groups of 16*MG rows, accumulators in
-// register fragments; the conv7 weights (1.55 MB for three units at C=192)
-// cannot stay in shared memory and every group streams them from L2 as WMMA B
-// operands. snake2 goes through a per-warp fp32 patch into a bf16 z group in
-// shared memory, the 1x1 product reads it, and its epilogue adds bias and
-// residual into x in place. Shared memory bounds the tile: at C=192 x and y
-// take 416 bytes a row, so tile_t <= 96 (64 gives a 144-row window: the halo
-// is recomputed 2.25 times); at C=96 tile_t up to 320. Rows that no output
-// row depends on are skipped (unit u starts at the first 16-row strip its
-// successors need), which changes no result. pack_taps stages the seven
-// shifted 16*MG-row groups side by side (MG=2) and runs one product of depth
-// 7*C: on this card the MMA depth is 16 either way, so packing only costs a
-// copy and the shared memory the tile would have used (tile_t <= 48 at C=192).
+// Design. A persistent block (one an SM) walks time tiles of tile_t rows.
+// Its window is the tile plus an 80-row halo (the chain's receptive extent,
+// 78, rounded up), held in shared memory as a strip tile x, updated in place
+// unit by unit; y = snake1(x) over the window is staged once a unit as a
+// second strip tile with 8 zero rows above it (the causal pad the first
+// rows need). Two consumer warpgroups take each 64-row m-tile of a unit
+// together, each half of the output columns (m64n96 at C=192, m64n48 at
+// C=96); a tap is the y window's descriptor moved to its row (conv_core.cuh:
+// no staged copy); the weights of the three units stream as pre-packed strip
+// tiles through one ring (cp.async.bulk, one producer thread); snake2 goes
+// from the accumulator into a 64-row z strip tile, the 1x1 product reads it,
+// and its epilogue adds bias and residual into x. A unit starts at the first
+// 16-row strip any later unit needs (rows no output depends on are skipped,
+// which changes no result) and computes whole 64-row m-tiles from there.
+// pack_taps keeps its meaning, the seven shifted row groups of a 32-channel
+// chunk staged side by side and multiplied as one product of depth 7*32:
+// on this core that is only a copy more. Shared memory bounds the tile:
+// tile_t <= 96 at C=192 (48 with pack_taps), <= 384 at C=96 (304).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <math.h>
 
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
+#include <algorithm>
 
-enum { SNAKE_SIN = 0, SNAKE_SIN2 = 1, SNAKE_LINEAR = 2, SNAKE_IDENTITY = 3, SNAKE_COS = 4 };
+#include "conv_core.cuh"
+
+using namespace conv_core;
+
+enum { SNAKE_SIN = 0, SNAKE_SIN2 = 1, SNAKE_LINEAR = 2 };
 enum { LIVE_WHERE = 0, LIVE_MULT = 1, LIVE_OFF = 2 };
 
 namespace {
 
-constexpr int NW = 6;         // warps per block; each owns C/6 output channels
-constexpr int NTHREADS = NW * 32;
-constexpr int HALO = 80;      // receptive extent 6*(1+3+9) = 78, rounded to 16
-constexpr int PADR = 64;      // zero rows above y (largest tap shift is 54)
 constexpr int NU = 3;
+constexpr int HALO = 80;  // receptive extent 6*(1+3+9) = 78, rounded to 16
+constexpr int PADR = 8;   // zero rows above y: unit u reads down to first[u] - 6 d_u >= -6
+constexpr int KC = 32;    // input channels a weight tile
+constexpr int ZR = 65;    // rows of the z strip tile (64, odd)
+constexpr int PR = 65;    // rows of the packed-taps tile
 constexpr int SMEM_LIMIT = 232448;
 
 struct ChainParams {
   const bf16* x;
   bf16* out;
-  const bf16* w7;    // (3, 7, C, C) as [unit][tap][in][out]
-  const bf16* w1;    // (3, C, C) as [unit][in][out]
-  const float* a1;   // (3, C) each: snake alphas, their 1/(a + 1e-9), biases
+  const bf16* w;  // per unit: 7 * C/KC conv7 tiles [tap][k chunk], then C/KC 1x1 tiles
+  const float* a1;  // (3, C) each: snake alphas, their 1/(a + 1e-9), biases
   const float* inv1;
   const float* a2;
   const float* inv2;
   const float* b7;
   const float* b1;
-  int B, T, tile_t, snake, snake_bf16, live_mode, tap_offsets;
+  int T, tile_t, snake, snake_bf16, live_mode, tap_offsets, pack, tiles_per_b, n_tiles;
   int dil[NU], first[NU];
+};
+
+template <int C_>
+struct ChainCfg {
+  static constexpr int C = C_;
+  static constexpr int NCH = C / 2;  // columns a warpgroup
+  static constexpr int KCH = C / KC;
+  static constexpr int STAGES = C == 192 ? 3 : 4;
+  static constexpr int STAGE_BYTES = KC * C * 2;
+  static constexpr int TILE_ELEMS = KC * C;
+  static constexpr int UNIT_TILES = 8 * KCH;  // 7 KCH conv7 + KCH 1x1
+  static constexpr int THREADS = 3 * WG_THREADS;
+  using Ring = WeightRing<STAGES, STAGE_BYTES>;
+  static __host__ __device__ int rows_x(int tile_t) { return (tile_t + HALO) | 1; }
+  static __host__ __device__ int rows_y(int tile_t) { return (PADR + tile_t + HALO + 64) | 1; }
+  static int smem_bytes(int tile_t, bool pack) {
+    return 128 + Ring::BYTES + (rows_x(tile_t) + rows_y(tile_t) + ZR) * C * 2 +
+           (pack ? PR * 7 * KC * 2 : 0);
+  }
 };
 
 __device__ __forceinline__ float rb(float v) {  // round to bf16 and back
   return __bfloat162float(__float2bfloat16(v));
 }
 
-__device__ __forceinline__ float sin2_poly(float t) {
-  // sin^2(t) = z P(z), z = f^2, f = t/pi - round(t/pi) (round half to even)
-  const float r = t * 0.3183098861837907f;
-  const float f = r - rintf(r);
-  const float z = f * f;
-  float p = 0.7419801209608292f;
-  p = p * z + -3.9130777124895926f;
-  p = p * z + 13.206610352068088f;
-  p = p * z + -30.12175436025362f;
-  p = p * z + 42.72838511692447f;
-  p = p * z + -32.469696645585955f;
-  p = p * z + 9.869604400158666f;
-  return z * p;
-}
-
-__device__ __forceinline__ float snake_cos_poly(float v, float a) {
-  // v + (1 - cos(2 a v)) / (2 (a + 1e-9)), Taylor cosine after range reduction
-  const float z = (2.0f * a) * v;
-  const float n = rintf(z * 0.15915494309189535f);
-  const float r = z - n * 6.283185307179586f;
-  const float u = r * r;
-  float c = -1.0f / 87178291200.0f;
-  c = c * u + 1.0f / 479001600.0f;
-  c = c * u + -1.0f / 3628800.0f;
-  c = c * u + 1.0f / 40320.0f;
-  c = c * u + -1.0f / 720.0f;
-  c = c * u + 1.0f / 24.0f;
-  c = c * u + -0.5f;
-  const float cosr = c * u + 1.0f;
-  return v + (1.0f - cosr) * (0.5f / (a + 1e-9f));
-}
-
-__device__ __forceinline__ float snake(float v, float a, float inv, int mode, int b16) {
+__device__ __forceinline__ float var_snake(float v, float a, float inv, int mode, int b16) {
   switch (mode) {
     case SNAKE_SIN:
       if (b16) {  // every operation rounded to bf16, as bf16 arithmetic does
@@ -123,255 +106,240 @@ __device__ __forceinline__ float snake(float v, float a, float inv, int mode, in
         return v + inv * (s * s);
       }
     case SNAKE_SIN2:
-      return v + inv * sin2_poly(a * v);
-    case SNAKE_LINEAR:
-      return b16 ? rb(rb(v) * a) : v * a;
-    case SNAKE_COS:
-      return snake_cos_poly(v, a);
+      return snake(v, a, inv);
     default:
-      return v;
+      return b16 ? rb(rb(v) * a) : v * a;
   }
 }
 
-inline int chain_smem_bytes(int c, int tile_t, bool pack) {
-  const int ld = c + 16, w = tile_t + HALO, g = 16 * (pack ? 2 : 8);
-  const int zp = pack ? g * (7 * c + 16) : g * ld;
-  return 2 * (w * ld + (PADR + w) * ld + zp) + NW * 256 * 4;
-}
-
-template <int C, int MG, bool PACK>
-__global__ void __launch_bounds__(NTHREADS)
-res_chain_cl_kernel(const ChainParams p) {
-  constexpr int LD = C + 16;     // bf16 row stride of x, y, z
-  constexpr int NF = C / 96;     // 16-channel fragments per warp
-  constexpr int CW = C / NW;     // channels per warp
-  constexpr int G = 16 * MG;     // rows per group
-  constexpr int LDPK = 7 * C + 16;
-  extern __shared__ __align__(128) unsigned char smem[];
+template <int C>
+__global__ void __launch_bounds__(ChainCfg<C>::THREADS, 1)
+res_chain_cl_kernel(const __grid_constant__ ChainParams p) {
+  using K = ChainCfg<C>;
+  constexpr int NCH = K::NCH, KCH = K::KCH, STAGES = K::STAGES, SB = K::STAGE_BYTES;
+  constexpr int CONSUMERS = 2 * WG_THREADS;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t ring = (smem_u32(smem_raw) + 127u) & ~127u;
+  const uint32_t bars = ring + K::Ring::BAR_OFFSET;
   const int W = p.tile_t + HALO;
-  bf16* X = reinterpret_cast<bf16*>(smem);
-  bf16* Y = X + W * LD;
-  bf16* ZP = Y + (PADR + W) * LD;  // z group; under PACK also the packed taps
-  float* patches = reinterpret_cast<float*>(ZP + (PACK ? G * LDPK : G * LD));
-
-  const int t0 = blockIdx.x * p.tile_t;
-  const int b = blockIdx.y;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int cbase = warp * CW;
-  float* patch = patches + warp * 256;
-  const int prow = lane / 2, pcol = (lane & 1) * 8;
-  const bf16* xin = p.x + (long long)b * p.T * C;
-  constexpr int VEC = C / 8;
-
-  // window rows: t = t0 - HALO + wr; rows outside [0, T) are zero
-  for (int i = threadIdx.x; i < W * VEC; i += NTHREADS) {
-    const int wr = i / VEC, c = (i % VEC) * 8, t = t0 - HALO + wr;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (t >= 0 && t < p.T) val = *reinterpret_cast<const uint4*>(xin + (long long)t * C + c);
-    *reinterpret_cast<uint4*>(X + wr * LD + c) = val;
-  }
-  for (int i = threadIdx.x; i < PADR * LD / 8; i += NTHREADS)
-    reinterpret_cast<uint4*>(Y)[i] = make_uint4(0, 0, 0, 0);
+  const int rx = K::rows_x(p.tile_t), ry = K::rows_y(p.tile_t);
+  const uint32_t X = ring + K::Ring::BYTES;
+  const uint32_t Y = X + rx * C * 2;
+  const uint32_t Z = Y + ry * C * 2;
+  const uint32_t P = Z + ZR * C * 2;  // packed taps (pack_taps only)
+  if (threadIdx.x == 0) weight_ring_init<STAGES>(bars, CONSUMERS / 32);
   __syncthreads();
 
-  for (int u = 0; u < NU; ++u) {
-    const int d = p.dil[u];
-    const float* a1 = p.a1 + u * C;
-    const float* inv1 = p.inv1 + u * C;
-    const float* a2 = p.a2 + u * C;
-    const float* inv2 = p.inv2 + u * C;
-    const float* b7 = p.b7 + u * C;
-    const float* b1 = p.b1 + u * C;
-    const bf16* w7 = p.w7 + (long long)u * 7 * C * C;
-    const bf16* w1 = p.w1 + (long long)u * C * C;
-
-    // y = snake1(x) over the whole window
-    for (int i = threadIdx.x; i < W * VEC; i += NTHREADS) {
-      const int wr = i / VEC, c = (i % VEC) * 8;
-      bf16 v[8];
-      *reinterpret_cast<uint4*>(v) = *reinterpret_cast<const uint4*>(X + wr * LD + c);
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        v[e] = __float2bfloat16(snake(__bfloat162float(v[e]), a1[c + e], inv1[c + e],
-                                      p.snake, p.snake_bf16));
-      *reinterpret_cast<uint4*>(Y + (PADR + wr) * LD + c) = *reinterpret_cast<uint4*>(v);
+  const int wg = threadIdx.x / WG_THREADS;
+  if (wg == 2) {
+    // ------------------------------------------------------------ producer
+    reg_dealloc<24>();
+    if (threadIdx.x == 2 * WG_THREADS) {
+      RingPos pos = {0, 0u};
+      for (int tile = blockIdx.x; tile < p.n_tiles; tile += gridDim.x) {
+        for (int u = 0; u < NU; ++u) {
+          const bf16* wu = p.w + static_cast<long long>(u) * K::UNIT_TILES * K::TILE_ELEMS;
+          for (int mt = 0; mt < (W - p.first[u] + 63) / 64; ++mt) {
+            for (int it = 0; it < 7 * KCH; ++it) {
+              // packed taps walk chunk by chunk, tap by tap
+              const int tile_i = p.pack ? (it % 7) * KCH + it / 7 : it;
+              ring_fill<STAGES, SB>(ring, bars, pos, wu + tile_i * K::TILE_ELEMS);
+            }
+            for (int kc = 0; kc < KCH; ++kc)
+              ring_fill<STAGES, SB>(ring, bars, pos, wu + (7 * KCH + kc) * K::TILE_ELEMS);
+          }
+        }
+      }
     }
-    __syncthreads();
-
-    for (int gs = p.first[u]; gs < W; gs += G) {
-      const int mg_now = min(MG, (W - gs) / 16);
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[MG][NF];
-#pragma unroll
-      for (int m = 0; m < MG; ++m)
-#pragma unroll
-        for (int n = 0; n < NF; ++n) wmma::fill_fragment(acc[m][n], 0.f);
-
-      if (PACK) {
-        // the seven shifted groups side by side: one product of depth 7*C
-        for (int i = threadIdx.x; i < G * 7 * VEC; i += NTHREADS) {
-          const int row = i / (7 * VEC), rest = i % (7 * VEC);
-          const int j = rest / VEC, c = (rest % VEC) * 8;
-          const int shift = (6 - j) * d;  // the packed form ignores tap_offsets
-          uint4 val = make_uint4(0, 0, 0, 0);
-          if (gs + row < W)
-            val = *reinterpret_cast<const uint4*>(Y + (PADR + gs + row - shift) * LD + c);
-          *reinterpret_cast<uint4*>(ZP + row * LDPK + j * C + c) = val;
-        }
-        __syncthreads();
-        for (int kk = 0; kk < 7 * C / 16; ++kk) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[NF];
-#pragma unroll
-          for (int n = 0; n < NF; ++n)
-            wmma::load_matrix_sync(fb[n], w7 + (long long)kk * 16 * C + cbase + n * 16, C);
-#pragma unroll
-          for (int m = 0; m < MG; ++m) {
-            if (m < mg_now) {
-              wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-              wmma::load_matrix_sync(fa, ZP + m * 16 * LDPK + kk * 16, LDPK);
-#pragma unroll
-              for (int n = 0; n < NF; ++n) wmma::mma_sync(acc[m][n], fa, fb[n], acc[m][n]);
-            }
-          }
-        }
-        __syncthreads();  // z overwrites the packed taps
-      } else {
-        for (int j = 0; j < 7; ++j) {
-          const int shift = p.tap_offsets ? (6 - j) * d : 6 * d;
-          const bf16* ybase = Y + (PADR + gs - shift) * LD;
-          const bf16* wj = w7 + (long long)j * C * C;
-          for (int kk = 0; kk < C / 16; ++kk) {
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[NF];
-#pragma unroll
-            for (int n = 0; n < NF; ++n)
-              wmma::load_matrix_sync(fb[n], wj + (long long)kk * 16 * C + cbase + n * 16, C);
-#pragma unroll
-            for (int m = 0; m < MG; ++m) {
-              if (m < mg_now) {
-                wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-                wmma::load_matrix_sync(fa, ybase + m * 16 * LD + kk * 16, LD);
-#pragma unroll
-                for (int n = 0; n < NF; ++n) wmma::mma_sync(acc[m][n], fa, fb[n], acc[m][n]);
-              }
-            }
-          }
-        }
-      }
-
-      // z = snake2(conv7 + b7) -> bf16, this warp's channels of the group
-#pragma unroll
-      for (int m = 0; m < MG; ++m) {
-        if (m < mg_now) {
-#pragma unroll
-          for (int n = 0; n < NF; ++n) {
-            wmma::store_matrix_sync(patch, acc[m][n], 16, wmma::mem_row_major);
-            __syncwarp();
-            const int ch = cbase + n * 16 + pcol;
-            bf16 v[8];
-#pragma unroll
-            for (int e = 0; e < 8; ++e)
-              v[e] = __float2bfloat16(snake(patch[prow * 16 + pcol + e] + b7[ch + e], a2[ch + e],
-                                            inv2[ch + e], p.snake, p.snake_bf16));
-            *reinterpret_cast<uint4*>(ZP + (m * 16 + prow) * LD + ch) =
-                *reinterpret_cast<uint4*>(v);
-            __syncwarp();
-          }
-        }
-      }
-      __syncthreads();
-
-      // 1x1 product, bias and residual into x
-#pragma unroll
-      for (int m = 0; m < MG; ++m)
-#pragma unroll
-        for (int n = 0; n < NF; ++n) wmma::fill_fragment(acc[m][n], 0.f);
-      for (int kk = 0; kk < C / 16; ++kk) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[NF];
-#pragma unroll
-        for (int n = 0; n < NF; ++n)
-          wmma::load_matrix_sync(fb[n], w1 + (long long)kk * 16 * C + cbase + n * 16, C);
-#pragma unroll
-        for (int m = 0; m < MG; ++m) {
-          if (m < mg_now) {
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-            wmma::load_matrix_sync(fa, ZP + m * 16 * LD + kk * 16, LD);
-#pragma unroll
-            for (int n = 0; n < NF; ++n) wmma::mma_sync(acc[m][n], fa, fb[n], acc[m][n]);
-          }
-        }
-      }
-#pragma unroll
-      for (int m = 0; m < MG; ++m) {
-        if (m < mg_now) {
-#pragma unroll
-          for (int n = 0; n < NF; ++n) {
-            wmma::store_matrix_sync(patch, acc[m][n], 16, wmma::mem_row_major);
-            __syncwarp();
-            const int ch = cbase + n * 16 + pcol;
-            const int wr = gs + m * 16 + prow;
-            const bool live = t0 - HALO + wr >= 0;  // rows before the sequence are the pad
-            bf16* xp = X + wr * LD + ch;
-            bf16 v[8];
-            *reinterpret_cast<uint4*>(v) = *reinterpret_cast<const uint4*>(xp);
-#pragma unroll
-            for (int e = 0; e < 8; ++e) {
-              bf16 o = __float2bfloat16(__bfloat162float(v[e]) + (patch[prow * 16 + pcol + e] +
-                                                                  b1[ch + e]));
-              if (p.live_mode == LIVE_WHERE) o = live ? o : __float2bfloat16(0.f);
-              else if (p.live_mode == LIVE_MULT)
-                o = __float2bfloat16(__bfloat162float(o) * (live ? 1.f : 0.f));
-              v[e] = o;
-            }
-            *reinterpret_cast<uint4*>(xp) = *reinterpret_cast<uint4*>(v);
-            __syncwarp();
-          }
-        }
-      }
-      __syncthreads();
-    }
+    return;
   }
+  // -------------------------------------------------------------- consumers
+  reg_alloc<240>();  // 128 x 24 + 256 x 240: the 168 a thread of one block an SM
+  const int tid = threadIdx.x, lane = tid % 32, warp = (tid / 32) % 4;
+  constexpr int V = C / 8;
+  for (int i = tid; i < PADR * V; i += CONSUMERS)
+    st_shared_v4(Y + strip_off(ry, i / V, 8 * (i % V)), make_uint4(0, 0, 0, 0));
+  RingPos pos = {0, 0u};
+  for (int tile = blockIdx.x; tile < p.n_tiles; tile += gridDim.x) {
+    const int b = tile / p.tiles_per_b;
+    const int t0 = (tile - b * p.tiles_per_b) * p.tile_t;
+    const int tw = t0 - HALO;  // time of window row 0
+    const long long xb = static_cast<long long>(b) * p.T * C;
+    named_sync(1, CONSUMERS);  // the last tile's x is written out
+    fill_window<C>(X, rx, p.x + xb, p.T, tw, W, [](float (&)[8], int) {}, tid, CONSUMERS);
+    for (int u = 0; u < NU; ++u) {
+      const int d = p.dil[u];
+      const float* a1 = p.a1 + u * C;
+      const float* inv1 = p.inv1 + u * C;
+      const float* a2 = p.a2 + u * C;
+      const float* inv2 = p.inv2 + u * C;
+      const float* b7 = p.b7 + u * C;
+      const float* b1 = p.b1 + u * C;
+      named_sync(1, CONSUMERS);  // x is whole
+      // y = snake1(x) over the window
+      for (int i = tid; i < W * V; i += CONSUMERS) {
+        const int r = i / V, c0 = 8 * (i - r * V);
+        float v[8];
+        unpack8(ld_shared_v4(X + strip_off(rx, r, c0)), v);
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          v[e] = var_snake(v[e], __ldg(a1 + c0 + e), __ldg(inv1 + c0 + e), p.snake, p.snake_bf16);
+        st_shared_v4(Y + strip_off(ry, PADR + r, c0), pack8(v));
+      }
+      fence_proxy_async();
+      named_sync(1, CONSUMERS);
 
-  bf16* xout = p.out + (long long)b * p.T * C;
-  for (int i = threadIdx.x; i < p.tile_t * VEC; i += NTHREADS) {
-    const int tr = i / VEC, c = (i % VEC) * 8, t = t0 + tr;
-    if (t < p.T)
-      *reinterpret_cast<uint4*>(xout + (long long)t * C + c) =
-          *reinterpret_cast<const uint4*>(X + (HALO + tr) * LD + c);
+      for (int mt = 0; mt < (W - p.first[u] + 63) / 64; ++mt) {  // 64-row m-tiles
+        const int r0 = p.first[u] + 64 * mt;  // window row of the m-tile's row 0
+        const int ylo = PADR + r0 - 6 * d;   // y row of tap 0 (offset 0)
+        float acc[NCH / 2];
+        if (p.pack) {
+          for (int kc = 0; kc < KCH; ++kc) {
+            named_sync(1, CONSUMERS);  // the last chunk's products are done
+            for (int i = tid; i < 64 * 7 * (KC / 8); i += CONSUMERS) {
+              const int r = i / (7 * (KC / 8)), s = i - r * (7 * (KC / 8));
+              const int j = s / (KC / 8), c = kc * KC + 8 * (s - j * (KC / 8));
+              st_shared_v4(P + strip_off(PR, r, 8 * s),
+                           ld_shared_v4(Y + strip_off(ry, ylo + r + j * d, c)));
+            }
+            fence_proxy_async();
+            named_sync(1, CONSUMERS);
+            ring_product<KC, C, STAGES, SB>(
+                acc, 7,
+                [&](int j, int kk) {
+                  return strip_desc(P + strip_off(PR, 0, j * KC + 16 * kk), PR * CORE_ROW);
+                },
+                ring, bars, wg * NCH, pos, lane, kc == 0);
+          }
+        } else {
+          const int step = p.tap_offsets ? d : 0;
+          ring_product<KC, C, STAGES, SB>(
+              acc, 7 * KCH,
+              [&](int it, int kk) {
+                const int j = it / KCH;
+                return strip_desc(Y + strip_off(ry, ylo + j * step, (it - j * KCH) * KC + 16 * kk),
+                                  ry * CORE_ROW);
+              },
+              ring, bars, wg * NCH, pos, lane);
+        }
+        // z = snake2(conv7 + b7) -> bf16; opaque: the epilogue's addresses
+        // are made here, not hoisted to hold registers through the products
+        const int col0 = opaque(wg * NCH + frag_col(lane, 0, 0));
+#pragma unroll
+        for (int j = 0; j < NCH / 8; ++j) {
+          const int col = col0 + 8 * j;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float z[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              z[e] = var_snake(acc[4 * j + 2 * h + e] + __ldg(b7 + col + e), __ldg(a2 + col + e),
+                               __ldg(inv2 + col + e), p.snake, p.snake_bf16);
+            st_shared_b32(Z + strip_off(ZR, frag_row(warp, lane, 2 * h), col),
+                          pack_bf16(z[0], z[1]));
+          }
+        }
+        fence_proxy_async();
+        named_sync(1, CONSUMERS);  // z has both warpgroups' columns
+        ring_product<KC, C, STAGES, SB>(
+            acc, KCH,
+            [&](int kc, int kk) {
+              return strip_desc(Z + strip_off(ZR, 0, kc * KC + 16 * kk), ZR * CORE_ROW);
+            },
+            ring, bars, wg * NCH, pos, lane);
+        // x += z . W1 + b1, pad rows re-zeroed as live_mode says
+        const int col1 = opaque(wg * NCH + frag_col(lane, 0, 0));
+#pragma unroll
+        for (int j = 0; j < NCH / 8; ++j) {
+          const int col = col1 + 8 * j;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int wr = r0 + frag_row(warp, lane, 2 * h);
+            if (wr < W) {
+              const uint32_t a = X + strip_off(rx, wr, col);
+              uint32_t old = ld_shared_b32(a);
+              const float2 xo = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&old));
+              const bool live = tw + wr >= 0;
+              float o[2] = {xo.x + (acc[4 * j + 2 * h] + __ldg(b1 + col)),
+                            xo.y + (acc[4 * j + 2 * h + 1] + __ldg(b1 + col + 1))};
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                if (p.live_mode == LIVE_WHERE) o[e] = live ? o[e] : 0.f;
+                else if (p.live_mode == LIVE_MULT) o[e] = rb(o[e]) * (live ? 1.f : 0.f);
+              }
+              st_shared_b32(a, pack_bf16(o[0], o[1]));
+            }
+          }
+        }
+        named_sync(1, CONSUMERS);  // z is read; the next m-tile may write it
+      }
+    }
+    named_sync(1, CONSUMERS);
+    bf16* xout = p.out + xb;
+    for (int i = tid; i < p.tile_t * V; i += CONSUMERS) {
+      const int r = i / V, c0 = 8 * (i - r * V), t = t0 + r;
+      if (t < p.T)
+        *reinterpret_cast<uint4*>(xout + static_cast<long long>(t) * C + c0) =
+            ld_shared_v4(X + strip_off(rx, HALO + r, c0));
+    }
   }
 }
 
-template <int C, int MG, bool PACK>
-int launch(const ChainParams& p, int smem, cudaStream_t s) {
-  auto kernel = res_chain_cl_kernel<C, MG, PACK>;
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       SMEM_LIMIT);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((p.T + p.tile_t - 1) / p.tile_t, p.B);
-  kernel<<<grid, NTHREADS, smem, s>>>(p);
+template <int C>
+int launch(ChainParams p, int B, cudaStream_t s) {
+  using K = ChainCfg<C>;
+  static bool configured = false;
+  static int sms = 0;
+  auto kernel = res_chain_cl_kernel<C>;
+  if (!configured) {
+    cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
+    if (e != cudaSuccess) return (int)e;
+    int dev;
+    if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+    if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+      return (int)e;
+    configured = true;
+  }
+  const int smem = K::smem_bytes(p.tile_t, p.pack != 0);
+  if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  p.tiles_per_b = (p.T + p.tile_t - 1) / p.tile_t;
+  p.n_tiles = B * p.tiles_per_b;
+  kernel<<<std::min(p.n_tiles, sms), K::THREADS, smem, s>>>(p);
   return (int)cudaGetLastError();
 }
 
-int run_chain(const void* x, void* out, const void* w7, const void* w1, const void* a1,
-              const void* inv1, const void* a2, const void* inv2, const void* b7,
-              const void* b1, int B, int T, int C, int tile_t, int snake, int snake_bf16,
-              int live_mode, int tap_offsets, int pack, void* stream) {
-  if ((C != 96 && C != 192) || B < 1 || T < 1 || tile_t < 16 || tile_t % 16 ||
-      snake < 0 || snake > SNAKE_COS || live_mode < 0 || live_mode > LIVE_OFF)
+int smem_bytes(int C, int tile_t, bool pack) {
+  return C == 192 ? ChainCfg<192>::smem_bytes(tile_t, pack) : ChainCfg<96>::smem_bytes(tile_t, pack);
+}
+
+}  // namespace
+
+// x, out: (B, T, C) bf16 contiguous, C in {96, 192}; w: per unit the seven
+// conv7 taps (7, C, C) as [tap][in][out] cut into (32 x C) strip tiles
+// [tap][k chunk], then the 1x1 weights (1, C, C) cut the same way
+// (ops/conv_core.py:pack_tiles), units one after another; a1, inv1, a2, inv2,
+// b7, b1: (3, C) fp32. tile_t: output rows per block, a multiple of 16.
+extern "C" int res_chain_var_fwd(const void* x, void* out, const void* w, const void* a1,
+                                 const void* inv1, const void* a2, const void* inv2,
+                                 const void* b7, const void* b1, int B, int T, int C, int tile_t,
+                                 int snake, int snake_bf16, int live_mode, int tap_offsets,
+                                 int pack, void* stream) {
+  if ((C != 96 && C != 192) || B < 1 || T < 1 || tile_t < 16 || tile_t % 16 || snake < 0 ||
+      snake > SNAKE_LINEAR || live_mode < 0 || live_mode > LIVE_OFF)
     return (int)cudaErrorInvalidValue;
-  const int smem = chain_smem_bytes(C, tile_t, pack != 0);
-  if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   ChainParams p;
   p.x = static_cast<const bf16*>(x);
   p.out = static_cast<bf16*>(out);
-  p.w7 = static_cast<const bf16*>(w7);
-  p.w1 = static_cast<const bf16*>(w1);
+  p.w = static_cast<const bf16*>(w);
   p.a1 = static_cast<const float*>(a1);
   p.inv1 = static_cast<const float*>(inv1);
   p.a2 = static_cast<const float*>(a2);
   p.inv2 = static_cast<const float*>(inv2);
   p.b7 = static_cast<const float*>(b7);
   p.b1 = static_cast<const float*>(b1);
-  p.B = B; p.T = T; p.tile_t = tile_t; p.snake = snake; p.snake_bf16 = snake_bf16;
-  p.live_mode = live_mode; p.tap_offsets = tap_offsets;
+  p.T = T; p.tile_t = tile_t; p.snake = snake; p.snake_bf16 = snake_bf16;
+  p.live_mode = live_mode; p.tap_offsets = tap_offsets; p.pack = pack;
   const int dil[NU] = {1, 3, 9};
   int need = HALO;  // first window row that unit u's successors read
   for (int u = NU - 1; u >= 0; --u) {
@@ -380,38 +348,9 @@ int run_chain(const void* x, void* out, const void* w7, const void* w1, const vo
     need -= 6 * dil[u];
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (C == 192) return pack ? launch<192, 2, true>(p, smem, s) : launch<192, 8, false>(p, smem, s);
-  return pack ? launch<96, 2, true>(p, smem, s) : launch<96, 8, false>(p, smem, s);
-}
-
-}  // namespace
-
-// x, out: (B, T, C) bf16 contiguous, C in {96, 192}; w7: (3, 7, C, C) bf16 as
-// [unit][tap][in][out]; w1: (3, C, C) bf16 as [unit][in][out]; a1, inv1, a2,
-// inv2, b7, b1: (3, C) fp32. tile_t: output rows per block, a multiple of 16.
-extern "C" int res_chain_var_fwd(const void* x, void* out, const void* w7, const void* w1,
-                                 const void* a1, const void* inv1, const void* a2,
-                                 const void* inv2, const void* b7, const void* b1, int B, int T,
-                                 int C, int tile_t, int snake, int snake_bf16, int live_mode,
-                                 int tap_offsets, int pack, void* stream) {
-  if (snake != SNAKE_SIN && snake != SNAKE_SIN2 && snake != SNAKE_LINEAR)
-    return (int)cudaErrorInvalidValue;
-  return run_chain(x, out, w7, w1, a1, inv1, a2, inv2, b7, b1, B, T, C, tile_t, snake,
-                   snake_bf16, live_mode, tap_offsets, pack, stream);
-}
-
-// K2s: K2's chain (pad rows re-zeroed by select, seven taps) with the snake
-// exact (sinf), none (identity) or poly (Taylor cosine); same operands.
-extern "C" int res_chain_snake_fwd(const void* x, void* out, const void* w7, const void* w1,
-                                   const void* a1, const void* inv1, const void* a2,
-                                   const void* inv2, const void* b7, const void* b1, int B,
-                                   int T, int C, int tile_t, int snake, void* stream) {
-  if (snake != SNAKE_SIN && snake != SNAKE_IDENTITY && snake != SNAKE_COS)
-    return (int)cudaErrorInvalidValue;
-  return run_chain(x, out, w7, w1, a1, inv1, a2, inv2, b7, b1, B, T, C, tile_t, snake, 0,
-                   LIVE_WHERE, 1, 0, stream);
+  return C == 192 ? launch<192>(p, B, s) : launch<96>(p, B, s);
 }
 
 extern "C" int res_chain_var_smem_bytes(int C, int tile_t, int pack) {
-  return chain_smem_bytes(C, tile_t, pack != 0);
+  return smem_bytes(C, tile_t, pack != 0);
 }

@@ -10,10 +10,11 @@ channels-last (B, T, C); a chain runs units with dilations (1, 3, 9). Rows
 `t < zero_below` (a scalar or one value per batch row) stand for the causal
 zero pad and are re-zeroed after every unit.
 
-`res_units_cl` runs the hand-written CUDA kernel (`csrc/res_chain.cu`, two
-launches per unit) for CUDA tensors and the plain PyTorch version for CPU
-tensors; anything the kernel does not take raises. `res_units_cl.launches`
-counts kernel launches.
+`res_units_cl` runs the hand-written CUDA kernel (`csrc/res_chain.cu` on
+`csrc/conv_core.cuh`, one launch per unit) for CUDA tensors and the plain
+PyTorch version for CPU tensors; anything the kernel does not take raises.
+`res_units_cl.launches` counts kernel launches. The wrapper cuts each unit's
+weights into the kernel's strip tiles (`unit_operands`, `UNIT_TILES`).
 """
 from __future__ import annotations
 
@@ -120,6 +121,12 @@ def res_chain_plain(x: torch.Tensor, units: Sequence[dict],
 # CUDA route
 # ---------------------------------------------------------------------------
 
+# Per width: (k chunk, columns a pass, z in a device-memory scratch), the
+# tiling `csrc/res_chain.cu` is compiled for (its C entry refuses any other).
+UNIT_TILES = {64: (64, 64, False), 96: (96, 96, False), 128: (64, 128, False),
+              192: (64, 192, False), 256: (64, 128, False), 384: (32, 384, False),
+              512: (16, 256, False), 768: (16, 256, True)}
+
 _FN = None
 
 
@@ -130,30 +137,36 @@ def _fn():
 
         f = _build.load("res_chain").res_unit_fwd
         vp, i = ctypes.c_void_p, ctypes.c_int
-        f.argtypes = [vp] * 12 + [i, i, i, i, vp]
+        f.argtypes = [vp] * 12 + [i] * 7 + [vp]
         f.restype = i
         _FN = f
     return _FN
 
 
-def _unit_operands(u: dict, c: int, device):
-    """Kernel-layout operands of one unit: conv7 (O, I, 7) -> (7, I, O) and
-    conv1x1 (O, I, 1) -> (I, O) in bf16; alphas, their 1/(α+1e-9) and the
-    biases in fp32."""
+def unit_operands(u: dict, c: int, device):
+    """Kernel-layout operands of one unit: conv7 (O, I, 7) and conv1x1
+    (O, I, 1) as [tap][in][out] cut into the width's strip tiles
+    (`conv_core.pack_tiles`), bf16; alphas, their 1/(α+1e-9) and the biases
+    in fp32. Returns (w7, b7, a1, inv1, a2, inv2, w1, b1)."""
+    from echo_tts_tpu_torch.ops.conv_core import pack_tiles
+
     w7 = u["conv1"]["w"]
     w1 = u["conv2"]["w"]
     if tuple(w7.shape) != (c, c, 7) or tuple(w1.shape) != (c, c, 1):
         raise ValueError(f"unit weights must be ({c}, {c}, 7) and ({c}, {c}, 1), "
                          f"got {tuple(w7.shape)} and {tuple(w1.shape)}")
+    kc, nb, _ = UNIT_TILES[c]
 
     def vec(t):
         t = torch.zeros(c, device=device) if t is None else t
         return t.reshape(-1).to(device=device, dtype=torch.float32).contiguous()
 
+    def tiles(w):
+        return pack_tiles(w.to(device=device, dtype=torch.bfloat16).permute(2, 1, 0), kc, nb)
+
     a1, a2 = vec(u["snake1"]), vec(u["snake2"])
-    return (w7.permute(2, 1, 0).to(torch.bfloat16).contiguous(),
-            vec(u["conv1"].get("b")), a1, 1.0 / (a1 + 1e-9), a2, 1.0 / (a2 + 1e-9),
-            w1[:, :, 0].t().to(torch.bfloat16).contiguous(), vec(u["conv2"].get("b")))
+    return (tiles(w7), vec(u["conv1"].get("b")), a1, 1.0 / (a1 + 1e-9), a2, 1.0 / (a2 + 1e-9),
+            tiles(w1), vec(u["conv2"].get("b")))
 
 
 def _res_chain_cuda(x, units, dilations, zero_below):
@@ -163,23 +176,24 @@ def _res_chain_cuda(x, units, dilations, zero_below):
         raise ValueError(f"x must be a contiguous (B, T, C), got shape "
                          f"{tuple(x.shape)} strides {x.stride()}")
     b, t, c = x.shape
-    if c % 32 or t < 1 or x.data_ptr() % 16:
-        raise ValueError(f"the kernel needs C % 32 == 0, T >= 1 and a 16-byte "
+    if c not in UNIT_TILES or t < 1 or b < 1 or x.data_ptr() % 16:
+        raise ValueError(f"the kernel takes C in {sorted(UNIT_TILES)}, T >= 1 and a 16-byte "
                          f"aligned x, got (B, T, C) = {tuple(x.shape)}")
+    kc, nb, z_scratch = UNIT_TILES[c]
     zb = _zero_below_rows(zero_below, b, x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    z = torch.empty_like(x) if z_scratch else None
     for u, d in zip(units, dilations, strict=True):
-        ops = _unit_operands(u, c, x.device)
-        y = torch.empty_like(x)
+        w7, b7, a1, inv1, a2, inv2, w1, b1 = unit_operands(u, c, x.device)
         out = torch.empty_like(x)
-        w7, b7, a1, inv1, a2, inv2, w1, b1 = ops
         err = _fn()(x.data_ptr(), w7.data_ptr(), b7.data_ptr(), a1.data_ptr(),
                     inv1.data_ptr(), a2.data_ptr(), inv2.data_ptr(), w1.data_ptr(),
                     b1.data_ptr(), None if zb is None else zb.data_ptr(),
-                    y.data_ptr(), out.data_ptr(), b, t, c, int(d), stream)
+                    None if z is None else z.data_ptr(), out.data_ptr(), b, t, c, int(d),
+                    kc, nb, int(z_scratch), stream)
         if err != 0:
             raise RuntimeError(f"res_chain kernel launch failed: CUDA error {err}")
-        res_units_cl.launches += 2
+        res_units_cl.launches += 1
         x = out
     return x
 
@@ -196,7 +210,7 @@ def res_units_cl(x: torch.Tensor, units: Sequence[dict],
     """Apply a chain of causal residual units to channels-last x (B, T, C).
     units: {snake1 (1,C,1), conv1 {w (O,I,7), b}, snake2, conv2 {w (O,I,1),
     b}} per unit. zero_below: None, an int, or (B,) ints. CPU tensors take
-    the plain version; CUDA tensors launch the kernel (two launches per
+    the plain version; CUDA tensors launch the kernel (one launch per
     unit) or raise. The kernel writes its output outside autograd, so with
     grad mode on it refuses inputs that require grad."""
     if x.device.type == "cpu":

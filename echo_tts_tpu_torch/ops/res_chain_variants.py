@@ -21,10 +21,11 @@ reads; ignored under pack_taps, as in the Pallas body); `live_mode="off"`
 skips the re-zero of the pad rows, which then evolve as the chain on zeros
 (the plain version prepends 80 zero rows and drops them). Flags that only choose the schedule: `live_mode` "where" or
 "mult" (select, or multiply by a 0/1 column); `pack_taps` (the seven shifted
-row groups staged side by side, one product of depth 7·C, against seven of
-depth C); `tile_t`, output rows per block, a multiple of 16 that shared
-memory bounds (C=192: up to 96, 48 with pack_taps; C=96: up to 320, 288 with
-pack_taps; the defaults are those largest values, the fastest measured).
+row groups of each 32-channel chunk staged side by side, one product of
+depth 7·32, against seven tap products read from the window in place);
+`tile_t`, output rows per block, a multiple of 16 that shared memory bounds
+(C=192: up to 96, 48 with pack_taps; C=96: up to 384, 304 with pack_taps;
+the defaults are those largest values).
 
 `res_chain_cf` (channels-first (B, C, T)): halo 128, pad columns re-zeroed by
 multiply, `use_sin` True or False, `tile_t` up to 96 at C=192 and 400 at
@@ -35,10 +36,11 @@ transposed input.
 "none" (identity) or "poly" (`snake_poly`, a range-reduced Taylor cosine,
 not K2's sin² polynomial).
 
-Each wrapper launches its CUDA kernel (`csrc/res_chain_variants.cu`,
-`csrc/res_chain_cf.cu`; bf16, C 96 or 192, one launch per chain) for CUDA
-tensors and runs its plain version for CPU tensors; anything the kernel does
-not take raises. `.launches` on each wrapper counts launches.
+Each wrapper launches its CUDA kernel (K2v-cl: `csrc/res_chain_variants.cu`
+on the `wgmma` conv core `csrc/conv_core.cuh`; K2s: `csrc/res_chain_snake.cu`;
+K2v-cf: `csrc/res_chain_cf.cu`; bf16, C 96 or 192, one launch per chain) for
+CUDA tensors and runs its plain version for CPU tensors; anything the kernel
+does not take raises. `.launches` on each wrapper counts launches.
 """
 from __future__ import annotations
 
@@ -203,6 +205,9 @@ def res_chain_cf_plain(x, units, *, use_sin: bool = True,
 # ---------------------------------------------------------------------------
 
 _FNS = None
+# the largest tile_t shared memory allows per C, without and with pack_taps
+# (csrc/res_chain_variants.cu): the defaults
+CL_TILE = {192: (96, 48), 96: (384, 304)}
 
 
 def _fns():
@@ -212,17 +217,21 @@ def _fns():
 
         vp, i = ctypes.c_void_p, ctypes.c_int
         cl = _build.load("res_chain_variants")
+        sn = _build.load("res_chain_snake")
         cf = _build.load("res_chain_cf")
-        cl.res_chain_var_fwd.argtypes = [vp] * 10 + [i] * 9 + [vp]
-        cl.res_chain_snake_fwd.argtypes = [vp] * 10 + [i] * 5 + [vp]
+        cl.res_chain_var_fwd.argtypes = [vp] * 9 + [i] * 9 + [vp]
+        sn.res_chain_snake_fwd.argtypes = [vp] * 10 + [i] * 5 + [vp]
         cf.res_chain_cf_fwd.argtypes = [vp] * 10 + [i] * 5 + [vp]
         cl.res_chain_var_smem_bytes.argtypes = [i, i, i]
+        sn.res_chain_snake_smem_bytes.argtypes = [i, i]
         cf.res_chain_cf_smem_bytes.argtypes = [i, i]
-        for f in (cl.res_chain_var_fwd, cl.res_chain_snake_fwd, cf.res_chain_cf_fwd,
-                  cl.res_chain_var_smem_bytes, cf.res_chain_cf_smem_bytes):
+        for f in (cl.res_chain_var_fwd, sn.res_chain_snake_fwd, cf.res_chain_cf_fwd,
+                  cl.res_chain_var_smem_bytes, sn.res_chain_snake_smem_bytes,
+                  cf.res_chain_cf_smem_bytes):
             f.restype = i
-        _FNS = {"var": cl.res_chain_var_fwd, "snake": cl.res_chain_snake_fwd,
+        _FNS = {"var": cl.res_chain_var_fwd, "snake": sn.res_chain_snake_fwd,
                 "cf": cf.res_chain_cf_fwd, "var_smem": cl.res_chain_var_smem_bytes,
+                "snake_smem": sn.res_chain_snake_smem_bytes,
                 "cf_smem": cf.res_chain_cf_smem_bytes}
     return _FNS
 
@@ -255,6 +264,18 @@ def _operands(units, c: int, device, snake_bf16: bool = False):
     return (w7.to(device=device, dtype=torch.bfloat16).contiguous(),
             w1.to(device=device, dtype=torch.bfloat16).contiguous(),
             a1, recip(a1), a2, recip(a2), vec(("conv1", "b")), vec(("conv2", "b")))
+
+
+def packed_weights(w7: torch.Tensor, w1: torch.Tensor) -> torch.Tensor:
+    """K2v-cl's weights: per unit the conv7 taps w7[u] (7, I, O) and the 1x1
+    w1[u] (I, O) cut into (32 × C) strip tiles (`conv_core.pack_tiles`),
+    units one after another, flat."""
+    from echo_tts_tpu_torch.ops.conv_core import pack_tiles
+
+    c = w7.shape[-1]
+    return torch.cat([torch.cat([pack_tiles(w7[u], 32, c).reshape(-1),
+                                 pack_tiles(w1[u][None], 32, c).reshape(-1)])
+                      for u in range(w7.shape[0])])
 
 
 def _check_x(x: torch.Tensor, c: int) -> None:
@@ -293,12 +314,12 @@ def _res_chain_cuda(x, units, live_mode, snake_dtype, tile_t, use_sin, tap_offse
     c = x.shape[-1]
     _check_x(x, c)
     if tile_t is None:
-        tile_t = (48 if pack_taps else 96) if c == 192 else (288 if pack_taps else 320)
+        tile_t = CL_TILE[c][1 if pack_taps else 0]
     fns = _fns()
     _check_tile(tile_t, fns["var_smem"](c, max(int(tile_t), 0), int(bool(pack_taps))))
     b16 = snake_dtype == torch.bfloat16
-    ops = _operands(units, c, x.device, snake_bf16=b16)
-    return _launch(res_chain, fns["var"], x, ops,
+    w7, w1, *vecs = _operands(units, c, x.device, snake_bf16=b16)
+    return _launch(res_chain, fns["var"], x, (packed_weights(w7, w1), *vecs),
                    (x.shape[0], x.shape[1], c, int(tile_t), _SNAKE_CODE[use_sin], int(b16),
                     LIVE_MODES.index(live_mode), int(bool(tap_offsets)), int(bool(pack_taps))))
 
@@ -339,7 +360,7 @@ def res_chain_snake(x, units: Sequence[dict], snake_mode: str, *,
     if tile_t is None:
         tile_t = 96 if c == 192 else 320
     fns = _fns()
-    _check_tile(tile_t, fns["var_smem"](c, max(int(tile_t), 0), 0))
+    _check_tile(tile_t, fns["snake_smem"](c, max(int(tile_t), 0)))
     code = _SNAKE_CODE["poly_cos" if snake_mode == "poly" else snake_mode]
     return _launch(res_chain_snake, fns["snake"], x, _operands(units, c, x.device),
                    (x.shape[0], x.shape[1], c, int(tile_t), code))

@@ -144,8 +144,8 @@ def sample_pipeline(
     timings holds the wall seconds of each stage (tokenize, speaker_encode,
     sample = sampler + decode, crop) and, for checks, the sample count and
     finiteness of the audio before the crop. `noise` (1, sequence_length,
-    latent) replaces the seeded draw (`draw_noise`, which does not
-    reproduce jax.random)."""
+    latent) replaces the seeded draw (`draw_noise`: the numbers
+    jax.random.normal gives the JAX package for the same seed)."""
     sc = sc or SamplerConfig()
     dev = tts.device
     (ids, text_mask, normalized, speaker_latent, speaker_mask,

@@ -10,7 +10,7 @@ uncond branch raise NotImplementedError.
 """
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -23,6 +23,7 @@ from echo_tts_tpu_torch.models.dit import (
     get_kv_cache_speaker,
     get_kv_cache_text,
 )
+from echo_tts_tpu_torch.sampling.jax_random import jax_normal
 
 
 def t_schedule(sc: SamplerConfig) -> np.ndarray:
@@ -104,12 +105,19 @@ def euler_cfg_scan(params: dict, cfg: DiTConfig, sc: SamplerConfig,
     return x_t
 
 
-def draw_noise(rng_seed: int, shape, device) -> torch.Tensor:
-    """Initial standard-normal noise from a seeded torch.Generator on the
-    device. It does not reproduce jax.random's numbers for the same seed;
-    tests inject the same numpy noise into both packages instead."""
-    gen = torch.Generator(device=device).manual_seed(rng_seed)
-    return torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
+def draw_noise(rng_seed: Union[int, Sequence[int]], shape, device) -> torch.Tensor:
+    """Initial standard-normal noise, fp32 on `device`: the numbers
+    `jax.random.normal(PRNGKey(rng_seed), shape)` gives the JAX package
+    (`sampling/jax_random.py`, drawn on the host). `rng_seed` may also be one
+    seed per row of `shape[0]`: row i is then the draw of rng_seed[i] at
+    shape[1:], as a batch of requests with their own seeds needs."""
+    if isinstance(rng_seed, (int, np.integer)):
+        noise = jax_normal(int(rng_seed), shape)
+    else:
+        if len(rng_seed) != shape[0]:
+            raise ValueError(f"{len(rng_seed)} seeds for {shape[0]} rows")
+        noise = jax_normal(rng_seed, shape[1:])
+    return torch.from_numpy(noise).to(device)
 
 
 def sample_euler_cfg_independent_guidances(

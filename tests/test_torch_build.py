@@ -52,3 +52,12 @@ def test_attention_kernels_share_the_core_header():
                  "attention_core_check"):
         assert _build.CSRC / "attention_core.cuh" in _build.source_files(name)
     assert sorted(p.stem for p in _build.CSRC.glob("*.cu")) == sorted(_build.KERNELS)
+
+
+@pytest.mark.parametrize("name", ["res_chain", "res_chain_variants", "conv_core_check"])
+def test_conv_kernels_share_the_conv_core_header(name):
+    """K2, K2v-cl and the conv core's bare check stand on conv_core.cuh,
+    which stands on attention_core.cuh: an edit of either rebuilds them."""
+    files = _build.source_files(name)
+    assert _build.CSRC / "conv_core.cuh" in files
+    assert _build.CSRC / "attention_core.cuh" in files

@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card (K1 joint attention and its log-sum-exp,
 K2 residual units, K3 the attention backward, and the measurement variants
-K1v, K2v-cl, K2v-cf, K2s), each against its plain
+K1v, K2v-cl, K2v-cf, K2s; the bare checks of the attention and conv cores),
+each against its plain
 PyTorch version in fp32 on the same bf16 inputs (rel-L2 < 2e-2: bf16
 rounding gives ~1e-3, a wrong kernel O(1)). Every test needs a CUDA card and skips without one. The
 file imports no JAX, so it runs on a GPU machine without it:
@@ -139,8 +140,31 @@ def test_joint_attention_kernel_at_ragged_shapes(cuda_device, case, layout, tq):
     assert _rel(split, ref) < 2e-2
 
 
-@pytest.mark.parametrize("c,zero_below", [(96, [80, 7]), (64, 80)])
+def test_conv_core_tap_product_matches_matmul(cuda_device):
+    """The conv core's shifted-descriptor product on one tile (the strip
+    window, the bulk-copied weight ring, every product width it has) at
+    d = 1, 3, 9 and row offsets that are no multiple of 8, against
+    torch.matmul: fp32 sums of exact bf16 products."""
+    from echo_tts_tpu_torch.ops import conv_core as tcc
+
+    rng = np.random.default_rng(5)
+    for n in tcc.CHECK_N:
+        for d in (1, 3, 9):
+            for row0 in (0, 5):
+                y, w = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
+                    cuda_device, torch.bfloat16)
+                    for shape in ((row0 + 64 + 6 * d + 3, 64), (7, 64, n)))
+                assert _rel(tcc.tap_product(y, w, row0, d),
+                            tcc.tap_product_plain(y, w, row0, d)) < 1e-5
+
+
+@pytest.mark.parametrize("c,zero_below", [(64, [0, 80]), (96, [80, 7]), (128, 13),
+                                          (192, [5, 300]), (256, 80), (384, [80, 0]),
+                                          (512, 41), (768, [13, 80])])
 def test_res_chain_kernel_matches_plain(cuda_device, c, zero_below):
+    """K2 at every width the S1-DAC stacks have, B=2, a length that is no
+    multiple of a tile, non-zero biases, zero_below scalar and per row: one
+    launch a unit."""
     rng = np.random.default_rng(c)
 
     def bf(*shape, s=1.0, lo=None):
@@ -150,10 +174,10 @@ def test_res_chain_kernel_matches_plain(cuda_device, c, zero_below):
     units = [{"snake1": bf(1, c, 1, lo=0.2), "snake2": bf(1, c, 1, lo=0.2),
               "conv1": {"w": bf(c, c, 7, s=(7 * c) ** -0.5), "b": bf(c, s=0.3)},
               "conv2": {"w": bf(c, c, 1, s=c ** -0.5), "b": bf(c, s=0.3)}} for _ in range(3)]
-    x = bf(2, 1000, c)
+    x = bf(2, 1003, c)
     before = trc.res_units_cl.launches
     got = trc.res_units_cl(x, units, zero_below=zero_below)
-    assert trc.res_units_cl.launches == before + 6
+    assert trc.res_units_cl.launches == before + 3
     f32 = [{k: ({kk: vv.float() for kk, vv in v.items()} if isinstance(v, dict) else v.float())
             for k, v in u.items()} for u in units]
     ref = trc.res_chain_plain(x.float(), f32, zero_below=zero_below)

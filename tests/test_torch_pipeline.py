@@ -64,6 +64,19 @@ def test_sample_pipeline_matches_jax(both, with_speaker):
     assert rel_l2(got, ref) <= 1e-4
 
 
+def test_sample_pipeline_seeded_noise_matches_jax(both):
+    """No injected noise: both packages draw it from rng_seed=3 (the port
+    reproduces jax.random.normal), so the audio agrees as with injected
+    noise."""
+    jtts, ttts = both
+    text = "Seeded noise, drawn by each package."
+    ref, _, _ = jpipe.sample_pipeline(jtts, text, None, 3, sc=jc.SamplerConfig(**SAMPLER))
+    got, _, _ = tpipe.sample_pipeline(ttts, text, None, 3, sc=tc.SamplerConfig(**SAMPLER))
+    ref = np.asarray(ref)
+    assert got.shape == ref.shape and got.shape[-1] > 0
+    assert rel_l2(got, ref) <= 1e-4
+
+
 def test_no_speaker_fallback_is_one_masked_patch(both):
     _, ttts = both
     ids, text_mask, _, spk, spk_mask, _ = tpipe._prepare_inputs(

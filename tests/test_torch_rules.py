@@ -47,7 +47,8 @@ assert not bad, bad
 assert len(names) >= 20, names
 for new in ("bench.attention", "bench.attention_variants", "bench.conv_kernel_variants",
             "bench.conv_variants", "bench.profile_breakdown", "bench.timing",
-            "ops.attention_variants", "ops.res_chain_variants", "utils.profiling"):
+            "ops.attention_variants", "ops.res_chain_variants", "utils.profiling",
+            "ops.conv_core", "sampling.jax_random"):
     assert "echo_tts_tpu_torch." + new in names, new
 """
 

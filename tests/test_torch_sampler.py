@@ -75,3 +75,25 @@ def test_unported_levers_raise(params, kw):
     sc = SamplerConfig(num_steps=2, sequence_length=SEQ, **kw)
     with pytest.raises(NotImplementedError):
         teu.euler_cfg_scan(tp, CFG, sc, None, None, None, None, None, None)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 12345])
+@pytest.mark.parametrize("shape", [(1, 640, 80), (2, 7, 5)])
+def test_noise_draw_matches_jax_random(seed, shape):
+    """The port's seeded draw against jax.random.normal(PRNGKey(seed)): XLA's
+    erfinv and the host polynomial may round the float32 log1p differently
+    in the last bit, so max |diff| <= 2e-6."""
+    ref = np.asarray(jax.random.normal(jax.random.PRNGKey(seed), shape, dtype=jnp.float32))
+    got = teu.draw_noise(seed, shape, "cpu")
+    assert got.dtype == torch.float32 and tuple(got.shape) == shape
+    assert float(np.abs(got.numpy() - ref).max()) <= 2e-6
+
+
+def test_noise_draw_one_seed_per_row():
+    seeds = [4, 9, 4]
+    got = teu.draw_noise(seeds, (3, 6, 80), "cpu").numpy()
+    for row, s in zip(got, seeds):
+        ref = np.asarray(jax.random.normal(jax.random.PRNGKey(s), (6, 80), dtype=jnp.float32))
+        assert float(np.abs(row - ref).max()) <= 2e-6
+    with pytest.raises(ValueError):
+        teu.draw_noise([1, 2], (3, 6, 80), "cpu")

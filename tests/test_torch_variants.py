@@ -313,6 +313,31 @@ def test_snake_poly_matches_script_and_exact_snake():
     assert np.abs(got - exact).max() < 2e-5
 
 
+@pytest.mark.parametrize("c", [96, 192])
+def test_res_chain_packed_weights_walked_as_the_kernel(c):
+    """K2v-cl's weight buffer, read tile by tile as csrc/res_chain_variants.cu
+    reads it (unit u: seven taps of C/32 chunks, then the 1x1's chunks; each
+    (32 × C) strip tile holding, per output column, 8 inputs a strip), gives
+    back every weight where it belongs."""
+    gen = torch.Generator().manual_seed(c)
+    w7 = torch.randn(3, 7, c, c, generator=gen).to(torch.bfloat16)
+    w1 = torch.randn(3, c, c, generator=gen).to(torch.bfloat16)
+    flat = trv.packed_weights(w7, w1)
+    kc, kch = 32, c // 32
+    assert flat.numel() == 3 * 8 * kch * kc * c
+    tiles = flat.reshape(3, 8 * kch, kc // 8, c, 8)
+
+    def matrix(tile):  # (kc/8, C, 8) strips -> (kc, C)
+        return tile.permute(0, 2, 1).reshape(kc, c)
+
+    for u in range(3):
+        for j in range(7):
+            for k in range(kch):
+                assert torch.equal(matrix(tiles[u, j * kch + k]), w7[u, j, k * kc:(k + 1) * kc])
+        for k in range(kch):
+            assert torch.equal(matrix(tiles[u, 7 * kch + k]), w1[u, k * kc:(k + 1) * kc])
+
+
 def test_wrappers_refuse_grad_and_other_devices():
     """Off the CPU the variant wrappers refuse inputs that require grad, then
     any device but CUDA (meta tensors reach both checks here)."""
