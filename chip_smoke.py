@@ -24,7 +24,8 @@ Phases, in order; any failure exits non-zero:
      then every instance of the measurement variants that the bench entry
      points use (K1v attention_var, K2v-cl res_chain, K2v-cf res_chain_cf,
      K2s res_chain_snake) at the full shapes and at a ragged one, K2v-cf
-     against K2v-cl on the transposed input, and K2s poly against exact;
+     against K2v-cl on the transposed input (at both widths, with T a
+     multiple of 8 and not), and K2s poly against exact;
   5. the one-shot slice at the full width of DiTConfig(has_latent_modules=
      False) and AEConfig() in bf16, random weights from a seed: one CFG
      forward and one decode through the kernels against the plain versions;
@@ -50,13 +51,17 @@ Phases, in order; any failure exits non-zero:
      the one-branch, the three-branch and the training shape, with both q
      tiles, and the wrapper's host microseconds per launch), K2 (a chain at
      each decoder and encoder width, beside the cuDNN composition of the
-     same chain), K3, K1v, K2v-cl, K2v-cf and K2s.
+     same chain), K3, K1v, K2v-cl, K2v-cf and K2s (over replays of a graph
+     of 3 chains, and call by call as well: the wrappers' host work to pack
+     the weights is then included, as in the readings before); and K2v-cf
+     against K2v-cl (sin) timed in turns at both widths of the entry point.
 The line before the last is the kernel JSON; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX. --slices-only is for
 comparing two trees end to end in one call on one card (run them in turns:
 the host's clock moves more between calls than a kernel change moves it); it
-prints no kernel JSON. The build of the nine sources runs in parallel;
-ptxas serialising a wgmma of K2 or K2v-cl (C7512/C7514) fails the run.
+prints no kernel JSON. The build of the seven sources runs in parallel;
+ptxas serialising a wgmma of K2 or of the chain kernel of K2v-cl, K2v-cf and
+K2s (C7512/C7514) fails the run.
 """
 from __future__ import annotations
 
@@ -127,12 +132,14 @@ SERIAL_FREE = ("res_chain", "res_chain_variants")  # must show none: the run fai
 
 
 def _kernel_name(mangled: str) -> str:
-    """kernel<first integer template argument>: joint_attention_kernel<2>,
-    res_unit_kernel<768> (the width of its Cfg), dq_kernel."""
-    m = re.search(r"\d+([a-z][a-z_]*_kernel)(I\w*?Li(\d+)E)?", mangled)
+    """kernel<its integer and bool template arguments>: joint_attention_kernel<2>,
+    res_chain_cl_kernel<192, 0> (width, snake code), dq_kernel."""
+    m = re.search(r"\d+([a-z][a-z_]*_kernel)", mangled)
     if m is None:
         return mangled
-    return m.group(1) + (f"<{m.group(3)}>" if m.group(3) else "")
+    rest = mangled[m.end():]
+    args = re.findall(r"L[ib](\d+)E", rest.split("Ev", 1)[0]) if rest.startswith("I") else []
+    return m.group(1) + (f"<{', '.join(args)}>" if args else "")
 
 
 def parse_ptxas(text: str) -> dict:
@@ -613,6 +620,21 @@ def phase_variant_checks(dev) -> dict:
                       rv.res_chain_snake_plain(x.float(), us32, mode))
             check("res_chain_snake", f"C={c} B={bsz} T={t}: poly vs exact", outs["poly"],
                   outs["exact"], against_plain=False)
+    # K2v-cf's channel rows 16-byte aligned (T % 8 == 0) or not, at both
+    # widths (the loop above has C=192 at T=1000 and C=96 at T=1003)
+    for c, t in ((192, 1003), (96, 1000)):
+        us = variant_units(gen, c, dev)
+        us32 = f32_units(us)
+        x = torch.randn(2, t, c, generator=gen, device=dev).to(torch.bfloat16)
+        xcf = x.transpose(1, 2).contiguous()
+        cl = rv.res_chain(x, us, live_mode="mult")
+        for name, kw in bcv.cf_rows(c):
+            got = rv.res_chain_cf(xcf, us, **kw)
+            check("res_chain_cf", f"C={c} B=2 T={t}: {name}", got,
+                  rv.res_chain_cf_plain(xcf.float(), us32, **kw))
+            if kw.get("use_sin", True):
+                check("res_chain_cf", f"C={c} B=2 T={t}: {name} vs K2v-cl transposed",
+                      got.transpose(1, 2), cl, against_plain=False)
 
     # the wrappers refuse what the kernels do not take
     x = torch.zeros(1, 64, 96, device=dev, dtype=torch.bfloat16)
@@ -905,7 +927,7 @@ def variant_times(dev, errs: dict, launches: dict) -> list:
     from echo_tts_tpu_torch.bench import attention_variants as bav
     from echo_tts_tpu_torch.bench import conv_kernel_variants as bcv
     from echo_tts_tpu_torch.bench import conv_variants as bsv
-    from echo_tts_tpu_torch.bench.timing import cuda_ms
+    from echo_tts_tpu_torch.bench.timing import cuda_ms, cuda_times
     from echo_tts_tpu_torch.ops import attention_variants as av
     from echo_tts_tpu_torch.ops import res_chain_variants as rv
 
@@ -947,32 +969,68 @@ def variant_times(dev, errs: dict, launches: dict) -> list:
         flops = 3 * 2.0 * t * c * c * 8
         nbytes = 2 * 2 * t * c + 3 * 2 * (8 * c * c) + 3 * 4 * 4 * c
         b_ms, b_by = bound(flops, nbytes)
-        for name, key, source, replaces, what, fn, plain in (
-                ("res_chain_var", "res_chain_var", "res_chain_variants.cu",
+        # one source, two kernel names: res_chain_cl_kernel<C, snake> (K2v-cl,
+        # K2s) and res_chain_cf_kernel<C, snake> (K2v-cf)
+        ptxas = PTXAS.get("res_chain_variants", {})
+        for name, key, kernel, replaces, what, fn, plain in (
+                ("res_chain_var", "res_chain_var", "res_chain_cl",
                  "scripts/bench_conv_kernel_variants.py:36", "sin² polynomial, seven taps",
                  lambda: rv.res_chain(x, units, use_sin="poly"),
                  lambda: rv.res_chain_plain(x, units, use_sin="poly")),
-                ("res_chain_cf", "res_chain_cf", "res_chain_cf.cu",
+                ("res_chain_cf", "res_chain_cf", "res_chain_cf",
                  "scripts/bench_conv_kernel_variants.py:99", "channels first, sin",
                  lambda: rv.res_chain_cf(xcf, units),
                  lambda: rv.res_chain_cf_plain(xcf, units)),
-                ("res_chain_snake", "res_chain_snake", "res_chain_snake.cu",
+                ("res_chain_snake", "res_chain_snake", "res_chain_cl",
                  "scripts/bench_conv_variants.py:56", "snake exact",
                  lambda: rv.res_chain_snake(x, units, "exact"),
                  lambda: rv.res_chain_snake_plain(x, units, "exact"))):
-            ms = cuda_ms(fn, reps=5)
+            # device time per call over graph replays; and one call at a time,
+            # as earlier readings were taken (the wrapper's host work to pack
+            # the weights included)
+            ms = cuda_ms(fn, reps=5, graph_iters=bcv.GRAPH_ITERS)
+            per_call = cuda_times(fn, reps=5)
             plain_ms = cuda_ms(plain, reps=3, warmup=1)
-            log(f"# time {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-                f"bound {b_ms:.3f} ms ({b_by})")
+            log(f"# time {name}: kernel {ms:.3f} ms ({per_call['ms']:.3f} ms timed call by "
+                f"call), plain {plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
             rows.append({"name": name, "route": "cuda",
-                         "source": f"echo_tts_tpu_torch/csrc/{source}", "replaces": replaces,
+                         "source": "echo_tts_tpu_torch/csrc/res_chain_variants.cu",
+                         "replaces": replaces,
                          "launches": measured.get(key, 0), "max_abs_err": errs[key], "ms": ms,
+                         "ms_call_by_call": per_call["ms"],
                          "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                          # no single PyTorch call computes the three-unit chain
                          "library_ms": None,
-                         "ptxas": PTXAS.get(source[:-3], {}),
+                         "ptxas": {k: v for k, v in ptxas.items() if k.startswith(kernel)},
                          "shape": f"three-unit chain, B=1 C={c} T={t}; {what}"})
+        del x, xcf
+        cf_row = next(r for r in rows if r["name"] == "res_chain_cf")
+        cf_row["in_turns"] = [layout_in_turns(dev, c, t) for c, t in bcv.FULL_SHAPES]
     return rows
+
+
+def layout_in_turns(dev, c, t) -> dict:
+    """K2v-cl and K2v-cf, both with the sin snake and the multiply re-zero
+    (one kernel body, the layout of x and out apart), timed in turns (cl, cf,
+    cf, cl) on the same input over graph replays: what channels first costs,
+    without the drift between rows that are timed one after another."""
+    from echo_tts_tpu_torch.bench import conv_kernel_variants as bcv
+    from echo_tts_tpu_torch.bench.timing import cuda_ms
+    from echo_tts_tpu_torch.ops import res_chain_variants as rv
+
+    gen = torch.Generator(device=dev).manual_seed(c)
+    units = bcv.make_units(gen, c, dev)
+    x = torch.randn(1, t, c, generator=gen, device=dev).to(torch.bfloat16)
+    xcf = x.transpose(1, 2).contiguous()
+    calls = {"cl": lambda: rv.res_chain(x, units, live_mode="mult"),
+             "cf": lambda: rv.res_chain_cf(xcf, units)}
+    ms = {"cl": [], "cf": []}
+    for k in ("cl", "cf", "cf", "cl"):
+        ms[k].append(cuda_ms(calls[k], reps=5, graph_iters=bcv.GRAPH_ITERS))
+    cl, cf = statistics.mean(ms["cl"]), statistics.mean(ms["cf"])
+    log(f"# time in turns C={c} T={t}: K2v-cl sin {ms['cl']} ms, K2v-cf sin {ms['cf']} ms, "
+        f"cf/cl {cf / cl:.3f}")
+    return {"C": c, "T": t, "cl_sin_ms": ms["cl"], "cf_sin_ms": ms["cf"], "cf_over_cl": cf / cl}
 
 
 # ---------------------------------------------------------------------------

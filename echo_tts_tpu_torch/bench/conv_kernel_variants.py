@@ -14,8 +14,11 @@ one launch a unit) on the same input.
 
 It needs a CUDA card unless `--cpu` is given (a rehearsal through the plain
 versions on the host's clock; `--tiny` shrinks T and C for it). A table goes
-to stderr, one JSON line to stdout. Times are CUDA-event medians
-(`bench/timing.py`), written beside the card's name and power limit.
+to stderr, one JSON line to stdout. Times are medians of CUDA-event
+timings of CUDA-graph replays (`bench/timing.py`), device time per call,
+written beside the card's name and power limit: the wrappers pack the
+units' weights on every call, and timed one call at a time the host's part
+of that would enter every reading.
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ from echo_tts_tpu_torch.ops.res_chain_variants import res_chain, res_chain_cf
 
 KS = 7
 FULL_SHAPES = ((192, 655360), (96, 1310720))
+GRAPH_ITERS = 3  # chain calls per timed CUDA-graph replay
 TINY_SHAPES = ((16, 600),)
 
 
@@ -83,7 +87,8 @@ def run(device, shapes=FULL_SHAPES, *, file=sys.stderr) -> dict:
         rows += [(f"c{c} {name}", lambda kw=kw: res_chain_cf(xcf, units, **kw))
                  for name, kw in cf_rows(c)]
         rows.append((f"c{c} K2 res_units_cl (3 launches)", lambda: res_units_cl(x, units)))
-        out = bench_rows(rows, unit="ms/chain", device=device, file=file)
+        out = bench_rows(rows, unit="ms/chain", device=device, file=file,
+                         graph_iters=GRAPH_ITERS)
         res.update({k: round(v["ms"], 4) for k, v in out.items()})
         spread.update({k: [round(v["min_ms"], 4), round(v["max_ms"], 4)] for k, v in out.items()})
     return {"bench": "conv_kernel_variants", "device": timing_device(device),

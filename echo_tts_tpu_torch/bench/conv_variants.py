@@ -1,18 +1,21 @@
 """What the snake costs in the fused residual chain (K2s).
 
-Counterpart of `scripts/bench_conv_variants.py:main`: the chain at C=192,
-T=655,360 (B=1, bf16, non-zero biases) with the snake exact (sin), none
-(identity: isolates the products and the copies) and poly (a range-reduced
-Taylor cosine, fused multiply-adds only), beside kernel K2 itself on the
-same input; and the largest error of the polynomial snake against the exact
-one on [-20, 20] at alpha 1.3.
+Counterpart of `scripts/bench_conv_variants.py:main`: the chain (B=1, bf16,
+non-zero biases) with the snake exact (sin), none (identity: isolates the
+products and the copies) and poly (a range-reduced Taylor cosine, fused
+multiply-adds only), beside kernel K2 itself on the same input; and the
+largest error of the polynomial snake against the exact one on [-20, 20] at
+alpha 1.3. The script times C=192, T=655,360; the C=96, T=1,310,720 stage of
+the same decoder tail follows it. K2s runs on the conv-core chain kernel of
+K2v-cl (`csrc/res_chain_variants.cu`).
 
     python -m echo_tts_tpu_torch.bench.conv_variants
     python -m echo_tts_tpu_torch.bench.conv_variants --cpu --tiny
 
 It needs a CUDA card unless `--cpu` is given (a rehearsal through the plain
 versions on the host's clock; `--tiny` shrinks T and C for it). A table goes
-to stderr, one JSON line to stdout.
+to stderr, one JSON line to stdout. Times are device time per call over
+CUDA-graph replays, as in `bench/conv_kernel_variants.py`.
 """
 from __future__ import annotations
 
@@ -23,12 +26,14 @@ from typing import Optional, Sequence
 
 import torch
 
+from echo_tts_tpu_torch.bench.conv_kernel_variants import GRAPH_ITERS
 from echo_tts_tpu_torch.bench.timing import bench_rows, card_line, entry_device, timing_device
 from echo_tts_tpu_torch.ops.res_chain import res_units_cl
 from echo_tts_tpu_torch.ops.res_chain_variants import SNAKE_MODES, res_chain_snake, snake_poly
 
-FULL_SHAPE = (192, 655360)
-TINY_SHAPE = (16, 600)
+FULL_SHAPE = (192, 655360)  # the script's shape
+FULL_SHAPES = (FULL_SHAPE, (96, 1310720))
+TINY_SHAPES = ((16, 600),)
 
 
 def make_units(gen, c: int, device, dtype=torch.bfloat16) -> list:
@@ -53,23 +58,25 @@ def poly_error(device) -> float:
     return float((snake_poly(xs, a) - exact).abs().max())
 
 
-def run(device, shape=FULL_SHAPE, *, file=sys.stderr) -> dict:
-    c, t = shape
-    gen = torch.Generator(device=device).manual_seed(0)
-    units = make_units(gen, c, device)
-    x = torch.randn(1, t, c, generator=gen, device=device).to(torch.bfloat16)
+def run(device, shapes=FULL_SHAPES, *, file=sys.stderr) -> dict:
+    res, spread = {}, {}
     before = res_chain_snake.launches
-    print(f"# snake variants on {card_line(device)}; C={c} T={t}", file=file)
-    rows = [(f"res chain C={c} snake={mode}", lambda mode=mode: res_chain_snake(x, units, mode))
-            for mode in SNAKE_MODES]
-    rows.append((f"res chain C={c} K2 res_units_cl (3 launches)", lambda: res_units_cl(x, units)))
-    out = bench_rows(rows, unit="ms", device=device, file=file)
+    print(f"# snake variants on {card_line(device)}", file=file)
+    for c, t in shapes:
+        gen = torch.Generator(device=device).manual_seed(0)
+        units = make_units(gen, c, device)
+        x = torch.randn(1, t, c, generator=gen, device=device).to(torch.bfloat16)
+        rows = [(f"res chain C={c} snake={mode}",
+                 lambda mode=mode: res_chain_snake(x, units, mode)) for mode in SNAKE_MODES]
+        rows.append((f"res chain C={c} K2 res_units_cl (3 launches)",
+                     lambda: res_units_cl(x, units)))
+        out = bench_rows(rows, unit="ms", device=device, file=file, graph_iters=GRAPH_ITERS)
+        res.update({k: round(v["ms"], 4) for k, v in out.items()})
+        spread.update({k: [round(v["min_ms"], 4), round(v["max_ms"], 4)] for k, v in out.items()})
     err = poly_error(device)
     print(f"poly snake max abs err on [-20,20], a=1.3: {err:.3e}", file=file)
     return {"bench": "conv_variants", "device": timing_device(device), "card": card_line(device),
-            "shape": list(shape), "ms": {k: round(v["ms"], 4) for k, v in out.items()},
-            "spread_ms": {k: [round(v["min_ms"], 4), round(v["max_ms"], 4)]
-                          for k, v in out.items()},
+            "shapes": [list(s) for s in shapes], "ms": res, "spread_ms": spread,
             "poly_err": err, "launches": {"res_chain_snake": res_chain_snake.launches - before}}
 
 
@@ -78,7 +85,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap.add_argument("--cpu", action="store_true", help="rehearse on the CPU (plain versions)")
     ap.add_argument("--tiny", action="store_true", help="small shapes, for a rehearsal")
     args = ap.parse_args(argv)
-    res = run(entry_device(args.cpu), TINY_SHAPE if args.tiny else FULL_SHAPE)
+    res = run(entry_device(args.cpu), TINY_SHAPES if args.tiny else FULL_SHAPES)
     print(json.dumps(res))
     return res
 

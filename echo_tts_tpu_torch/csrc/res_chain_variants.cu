@@ -1,16 +1,22 @@
-// Kernel K2v-cl: the fused three-unit residual chain of the S1-DAC decoder
-// tail in one launch, channels-last (B, T, C) bf16, C = 96 or 192, sm_90a,
-// on conv_core.cuh (the wgmma core of K2, res_chain.cu).
+// Kernels K2v-cl, K2v-cf and K2s: the fused three-unit residual chain of the
+// S1-DAC decoder tail in one launch, (B, T, C) channels-last or (B, C, T)
+// channels-first bf16, C = 96 or 192, sm_90a, on conv_core.cuh (the wgmma
+// core of K2, res_chain.cu).
 //
-// Replaces scripts/bench_conv_kernel_variants.py:_kernel (called from
-// res_chain). It is the chain
+// Replaces scripts/bench_conv_kernel_variants.py:_kernel (K2v-cl, called from
+// res_chain), :_kernel_cf (K2v-cf, called from res_chain_cf) and the three
+// bodies of scripts/bench_conv_variants.py:make_kernel (K2s). They are one
+// chain
 //     x <- x + conv1x1(snake(conv7_dilated_causal(snake(x)) + b7)) + b1
 // for dilations (1, 3, 9), rows before the sequence start standing for each
 // conv's causal zero pad, with the measurement flags: the snake (sinf, K2's
-// sin^2 polynomial, or the stand-in z*a; in fp32 or with bf16 rounding after
-// every operation), live_mode (re-zero the pad rows by select, by multiply,
-// or not at all), tap_offsets (every tap at offset 0: wrong math, one row
-// offset for all taps), pack_taps and tile_t.
+// sin^2 polynomial, the stand-in z*a, the identity, or the Taylor cosine of
+// bench_conv_variants.py:_snake_poly; sinf and z*a also with bf16 rounding
+// after every operation), live_mode (re-zero the pad rows by select, by
+// multiply, or not at all), tap_offsets (every tap at offset 0: wrong math,
+// one row offset for all taps), pack_taps, tile_t, and the layout of x and
+// out. K2v-cf is the channels-first layout with the snake sinf or z*a and
+// the multiply re-zero; K2s is channels-last with the select re-zero.
 //
 // Bound. 3 * 16*T*C*C FLOPs over one read and one write of T*C bf16: 12*C
 // FLOP per byte, 1152 at C=96 and 2304 at C=192, above the 295 FLOP/byte
@@ -33,7 +39,23 @@
 // pack_taps keeps its meaning, the seven shifted row groups of a 32-channel
 // chunk staged side by side and multiplied as one product of depth 7*32:
 // on this core that is only a copy more. Shared memory bounds the tile:
-// tile_t <= 96 at C=192 (48 with pack_taps), <= 384 at C=96 (304).
+// tile_t <= 96 at C=192 (48 with pack_taps), <= 384 at C=96 (304). The
+// snake is a template parameter: seven instantiations a width, every snake
+// channels-last, sin and z*a channels-first.
+//
+// Channels first. On the TPU a tap of the channels-first chain is a lane
+// shift; a wgmma operand kept time-major cannot take a shift of 1, 3 or 9
+// rows (its core matrix is 8 rows of 16 bytes, a descriptor moves in
+// 16-byte steps). So the layout is changed once on the way in and once on
+// the way out, and everything between is the channels-last chain: a thread
+// loads 8 channels x 8 time steps (eight 16-byte loads, one a channel row),
+// transposes them in registers (byte permutes) and writes eight strip rows
+// of the window, the same strip layout fill_window writes; the out tile goes
+// back the same way in reverse. The window starts at a multiple of 8, so
+// when T % 8 == 0 an 8-step group lies wholly inside or outside [0, T) and
+// every channel row is 16-byte aligned; otherwise (a row then starts at
+// c*T*2 bytes, no multiple of 4) the group is loaded and stored one bf16 at
+// a time.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -44,7 +66,7 @@
 
 using namespace conv_core;
 
-enum { SNAKE_SIN = 0, SNAKE_SIN2 = 1, SNAKE_LINEAR = 2 };
+enum { SNAKE_SIN = 0, SNAKE_SIN2 = 1, SNAKE_LINEAR = 2, SNAKE_IDENTITY = 3, SNAKE_COS = 4 };
 enum { LIVE_WHERE = 0, LIVE_MULT = 1, LIVE_OFF = 2 };
 
 namespace {
@@ -67,7 +89,7 @@ struct ChainParams {
   const float* inv2;
   const float* b7;
   const float* b1;
-  int T, tile_t, snake, snake_bf16, live_mode, tap_offsets, pack, tiles_per_b, n_tiles;
+  int T, tile_t, snake_bf16, live_mode, tap_offsets, pack, tiles_per_b, n_tiles;
   int dil[NU], first[NU];
 };
 
@@ -94,27 +116,154 @@ __device__ __forceinline__ float rb(float v) {  // round to bf16 and back
   return __bfloat162float(__float2bfloat16(v));
 }
 
-__device__ __forceinline__ float var_snake(float v, float a, float inv, int mode, int b16) {
-  switch (mode) {
-    case SNAKE_SIN:
-      if (b16) {  // every operation rounded to bf16, as bf16 arithmetic does
-        v = rb(v);
-        const float s = rb(sinf(rb(a * v)));
-        return rb(v + rb(inv * rb(s * s)));
-      } else {
-        const float s = sinf(a * v);
-        return v + inv * (s * s);
-      }
-    case SNAKE_SIN2:
-      return snake(v, a, inv);
-    default:
-      return b16 ? rb(rb(v) * a) : v * a;
+// x + (1 - cos(2 a x)) * (0.5 * inv) with the Taylor cosine of
+// scripts/bench_conv_variants.py:_snake_poly after its reduction of 2 a x to
+// [-pi, pi] (round half to even), fp32
+__device__ __forceinline__ float snake_cos(float v, float a, float inv) {
+  const float z = (2.0f * a) * v;
+  const float r = z - rintf(z * 0.15915494309189535f) * 6.283185307179586f;
+  const float u = r * r;
+  float c = -1.0f / 87178291200.0f;
+  c = c * u + 1.0f / 479001600.0f;
+  c = c * u + -1.0f / 3628800.0f;
+  c = c * u + 1.0f / 40320.0f;
+  c = c * u + -1.0f / 720.0f;
+  c = c * u + 1.0f / 24.0f;
+  c = c * u + -0.5f;
+  const float cosr = c * u + 1.0f;
+  return v + (1.0f - cosr) * (0.5f * inv);
+}
+
+// the snake of code S (a template parameter: a switch over the five codes in
+// the epilogues cost every mode 11-23 % of its time on the card)
+template <int S>
+__device__ __forceinline__ float var_snake(float v, float a, float inv, int b16) {
+  if constexpr (S == SNAKE_SIN) {
+    if (b16) {  // every operation rounded to bf16, as bf16 arithmetic does
+      v = rb(v);
+      const float s = rb(sinf(rb(a * v)));
+      return rb(v + rb(inv * rb(s * s)));
+    }
+    const float s = sinf(a * v);
+    return v + inv * (s * s);
+  } else if constexpr (S == SNAKE_SIN2) {
+    return snake(v, a, inv);
+  } else if constexpr (S == SNAKE_LINEAR) {
+    return b16 ? rb(rb(v) * a) : v * a;
+  } else if constexpr (S == SNAKE_COS) {
+    return snake_cos(v, a, inv);
+  } else {
+    return v;
   }
 }
 
+// 8 x 8 bf16 transposed: out[r] holds element r of in[0] .. in[7]
+__device__ __forceinline__ void transpose8(const uint4 (&in)[8], uint4 (&out)[8]) {
+  uint32_t a[8][4];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    a[k][0] = in[k].x;
+    a[k][1] = in[k].y;
+    a[k][2] = in[k].z;
+    a[k][3] = in[k].w;
+  }
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    uint32_t o[4];
+#pragma unroll
+    for (int w = 0; w < 4; ++w)
+      o[w] = __byte_perm(a[2 * w][r >> 1], a[2 * w + 1][r >> 1], (r & 1) ? 0x7632 : 0x5410);
+    out[r] = make_uint4(o[0], o[1], o[2], o[3]);
+  }
+}
+
+// elements t .. t + 7 of the bf16 row `row` (T long), zero outside [0, T),
+// one at a time (no alignment needed)
+__device__ __forceinline__ uint4 load8_narrow(const bf16* row, int t, int T) {
+  const unsigned short* h = reinterpret_cast<const unsigned short*>(row);
+  uint32_t w[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int ta = t + 2 * e, tb = ta + 1;
+    w[e] = (ta >= 0 && ta < T ? h[ta] : 0u) | (tb >= 0 && tb < T ? uint32_t(h[tb]) << 16 : 0u);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// v's 8 elements into row[t .. t + 7], those past T left out, one at a time
+__device__ __forceinline__ void store8_narrow(bf16* row, int t, int T, uint4 v) {
+  unsigned short* h = reinterpret_cast<unsigned short*>(row);
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+    if (t + e < T) h[t + e] = static_cast<unsigned short>(w[e >> 1] >> (16 * (e & 1)));
+}
+
+// Rows t_first .. t_first + n_rows - 1 of channels-first x (C rows of T bf16)
+// as the strip window at `win` (win_rows rows), rows outside [0, T) zero: what
+// fill_window writes from channels-last x. t_first and n_rows are multiples
+// of 8; a thread takes a group of 8 rows of one strip (8 channels), one
+// strip after another along the warp, so the eight 16-byte stores of a phase
+// land in eight strips, off each other's banks (win_rows odd).
 template <int C>
-__global__ void __launch_bounds__(ChainCfg<C>::THREADS, 1)
-res_chain_cl_kernel(const __grid_constant__ ChainParams p) {
+__device__ __forceinline__ void fill_window_cf(uint32_t win, int win_rows, const bf16* x, int T,
+                                               int t_first, int n_rows, int tid, int nt) {
+  constexpr int NS = C / 8;
+  const bool wide = T % 8 == 0;
+  for (int i = tid; i < n_rows / 8 * NS; i += nt) {
+    const int g = i / NS, s = i - g * NS, t = t_first + 8 * g;
+    const bf16* rows = x + static_cast<long long>(8 * s) * T;
+    uint4 in[8];
+    if (wide) {
+      const bool inside = t >= 0 && t < T;
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        in[k] = inside ? *reinterpret_cast<const uint4*>(rows + static_cast<long long>(k) * T + t)
+                       : make_uint4(0, 0, 0, 0);
+    } else {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) in[k] = load8_narrow(rows + static_cast<long long>(k) * T, t, T);
+    }
+    uint4 tr[8];
+    transpose8(in, tr);
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+      st_shared_v4(win + s * win_rows * CORE_ROW + (8 * g + r) * CORE_ROW, tr[r]);
+  }
+}
+
+// Window rows r0 .. r0 + n_rows - 1 (times t0 ..) of the strip window at
+// `win` into channels-first out (C rows of T), times from T on left out: the
+// reverse of fill_window_cf. n_rows and t0 are multiples of 8.
+template <int C>
+__device__ __forceinline__ void store_window_cf(bf16* out, int T, int t0, uint32_t win,
+                                                int win_rows, int r0, int n_rows, int tid,
+                                                int nt) {
+  constexpr int NS = C / 8;
+  const bool wide = T % 8 == 0;
+  for (int i = tid; i < n_rows / 8 * NS; i += nt) {
+    const int g = i / NS, s = i - g * NS, t = t0 + 8 * g;
+    if (t >= T) continue;
+    uint4 in[8];
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+      in[r] = ld_shared_v4(win + s * win_rows * CORE_ROW + (r0 + 8 * g + r) * CORE_ROW);
+    uint4 tr[8];
+    transpose8(in, tr);
+    bf16* rows = out + static_cast<long long>(8 * s) * T;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      if (wide)
+        *reinterpret_cast<uint4*>(rows + static_cast<long long>(k) * T + t) = tr[k];
+      else
+        store8_narrow(rows + static_cast<long long>(k) * T, t, T, tr[k]);
+    }
+  }
+}
+
+// the chain on x laid out channels-first (CF) or channels-last, snake S
+template <int C, bool CF, int S>
+__device__ __forceinline__ void chain_body(const ChainParams& p) {
   using K = ChainCfg<C>;
   constexpr int NCH = K::NCH, KCH = K::KCH, STAGES = K::STAGES, SB = K::STAGE_BYTES;
   constexpr int CONSUMERS = 2 * WG_THREADS;
@@ -166,7 +315,10 @@ res_chain_cl_kernel(const __grid_constant__ ChainParams p) {
     const int tw = t0 - HALO;  // time of window row 0
     const long long xb = static_cast<long long>(b) * p.T * C;
     named_sync(1, CONSUMERS);  // the last tile's x is written out
-    fill_window<C>(X, rx, p.x + xb, p.T, tw, W, [](float (&)[8], int) {}, tid, CONSUMERS);
+    if constexpr (CF)
+      fill_window_cf<C>(X, rx, p.x + xb, p.T, tw, W, tid, CONSUMERS);
+    else
+      fill_window<C>(X, rx, p.x + xb, p.T, tw, W, [](float (&)[8], int) {}, tid, CONSUMERS);
     for (int u = 0; u < NU; ++u) {
       const int d = p.dil[u];
       const float* a1 = p.a1 + u * C;
@@ -183,7 +335,7 @@ res_chain_cl_kernel(const __grid_constant__ ChainParams p) {
         unpack8(ld_shared_v4(X + strip_off(rx, r, c0)), v);
 #pragma unroll
         for (int e = 0; e < 8; ++e)
-          v[e] = var_snake(v[e], __ldg(a1 + c0 + e), __ldg(inv1 + c0 + e), p.snake, p.snake_bf16);
+          v[e] = var_snake<S>(v[e], __ldg(a1 + c0 + e), __ldg(inv1 + c0 + e), p.snake_bf16);
         st_shared_v4(Y + strip_off(ry, PADR + r, c0), pack8(v));
       }
       fence_proxy_async();
@@ -233,8 +385,8 @@ res_chain_cl_kernel(const __grid_constant__ ChainParams p) {
             float z[2];
 #pragma unroll
             for (int e = 0; e < 2; ++e)
-              z[e] = var_snake(acc[4 * j + 2 * h + e] + __ldg(b7 + col + e), __ldg(a2 + col + e),
-                               __ldg(inv2 + col + e), p.snake, p.snake_bf16);
+              z[e] = var_snake<S>(acc[4 * j + 2 * h + e] + __ldg(b7 + col + e),
+                                  __ldg(a2 + col + e), __ldg(inv2 + col + e), p.snake_bf16);
             st_shared_b32(Z + strip_off(ZR, frag_row(warp, lane, 2 * h), col),
                           pack_bf16(z[0], z[1]));
           }
@@ -276,21 +428,43 @@ res_chain_cl_kernel(const __grid_constant__ ChainParams p) {
     }
     named_sync(1, CONSUMERS);
     bf16* xout = p.out + xb;
-    for (int i = tid; i < p.tile_t * V; i += CONSUMERS) {
-      const int r = i / V, c0 = 8 * (i - r * V), t = t0 + r;
-      if (t < p.T)
-        *reinterpret_cast<uint4*>(xout + static_cast<long long>(t) * C + c0) =
-            ld_shared_v4(X + strip_off(rx, HALO + r, c0));
+    if constexpr (CF) {
+      store_window_cf<C>(xout, p.T, t0, X, rx, HALO, p.tile_t, tid, CONSUMERS);
+    } else {
+      for (int i = tid; i < p.tile_t * V; i += CONSUMERS) {
+        const int r = i / V, c0 = 8 * (i - r * V), t = t0 + r;
+        if (t < p.T)
+          *reinterpret_cast<uint4*>(xout + static_cast<long long>(t) * C + c0) =
+              ld_shared_v4(X + strip_off(rx, HALO + r, c0));
+      }
     }
   }
 }
 
-template <int C>
+// K2v-cl and K2s
+template <int C, int S>
+__global__ void __launch_bounds__(ChainCfg<C>::THREADS, 1)
+res_chain_cl_kernel(const __grid_constant__ ChainParams p) {
+  chain_body<C, false, S>(p);
+}
+
+// K2v-cf: its own name, so that a profile tells it apart
+template <int C, int S>
+__global__ void __launch_bounds__(ChainCfg<C>::THREADS, 1)
+res_chain_cf_kernel(const __grid_constant__ ChainParams p) {
+  chain_body<C, true, S>(p);
+}
+
+template <int C, bool CF, int S>
 int launch(ChainParams p, int B, cudaStream_t s) {
   using K = ChainCfg<C>;
   static bool configured = false;
   static int sms = 0;
-  auto kernel = res_chain_cl_kernel<C>;
+  void (*kernel)(ChainParams);
+  if constexpr (CF)
+    kernel = res_chain_cf_kernel<C, S>;
+  else
+    kernel = res_chain_cl_kernel<C, S>;
   if (!configured) {
     cudaError_t e =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
@@ -309,24 +483,45 @@ int launch(ChainParams p, int B, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
+// the instantiation of `snake`: every code channels-last, sin and z*a (all
+// that _kernel_cf offers) channels-first
+template <int C, bool CF>
+int launch_snake(ChainParams p, int B, int snake, cudaStream_t s) {
+  switch (snake) {
+    case SNAKE_SIN: return launch<C, CF, SNAKE_SIN>(p, B, s);
+    case SNAKE_LINEAR: return launch<C, CF, SNAKE_LINEAR>(p, B, s);
+  }
+  if constexpr (!CF) {
+    switch (snake) {
+      case SNAKE_SIN2: return launch<C, CF, SNAKE_SIN2>(p, B, s);
+      case SNAKE_IDENTITY: return launch<C, CF, SNAKE_IDENTITY>(p, B, s);
+      case SNAKE_COS: return launch<C, CF, SNAKE_COS>(p, B, s);
+    }
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 int smem_bytes(int C, int tile_t, bool pack) {
   return C == 192 ? ChainCfg<192>::smem_bytes(tile_t, pack) : ChainCfg<96>::smem_bytes(tile_t, pack);
 }
 
 }  // namespace
 
-// x, out: (B, T, C) bf16 contiguous, C in {96, 192}; w: per unit the seven
+// x, out: (B, T, C) bf16 contiguous, or (B, C, T) with channels_first; C in
+// {96, 192}; w: per unit the seven
 // conv7 taps (7, C, C) as [tap][in][out] cut into (32 x C) strip tiles
 // [tap][k chunk], then the 1x1 weights (1, C, C) cut the same way
 // (ops/conv_core.py:pack_tiles), units one after another; a1, inv1, a2, inv2,
 // b7, b1: (3, C) fp32. tile_t: output rows per block, a multiple of 16.
+// snake and live_mode: the codes of the enums above (channels first: snake
+// SNAKE_SIN or SNAKE_LINEAR).
 extern "C" int res_chain_var_fwd(const void* x, void* out, const void* w, const void* a1,
                                  const void* inv1, const void* a2, const void* inv2,
                                  const void* b7, const void* b1, int B, int T, int C, int tile_t,
                                  int snake, int snake_bf16, int live_mode, int tap_offsets,
-                                 int pack, void* stream) {
+                                 int pack, int channels_first, void* stream) {
   if ((C != 96 && C != 192) || B < 1 || T < 1 || tile_t < 16 || tile_t % 16 || snake < 0 ||
-      snake > SNAKE_LINEAR || live_mode < 0 || live_mode > LIVE_OFF)
+      snake > SNAKE_COS || live_mode < 0 || live_mode > LIVE_OFF)
     return (int)cudaErrorInvalidValue;
   ChainParams p;
   p.x = static_cast<const bf16*>(x);
@@ -338,7 +533,7 @@ extern "C" int res_chain_var_fwd(const void* x, void* out, const void* w, const 
   p.inv2 = static_cast<const float*>(inv2);
   p.b7 = static_cast<const float*>(b7);
   p.b1 = static_cast<const float*>(b1);
-  p.T = T; p.tile_t = tile_t; p.snake = snake; p.snake_bf16 = snake_bf16;
+  p.T = T; p.tile_t = tile_t; p.snake_bf16 = snake_bf16;
   p.live_mode = live_mode; p.tap_offsets = tap_offsets; p.pack = pack;
   const int dil[NU] = {1, 3, 9};
   int need = HALO;  // first window row that unit u's successors read
@@ -348,7 +543,11 @@ extern "C" int res_chain_var_fwd(const void* x, void* out, const void* w, const 
     need -= 6 * dil[u];
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return C == 192 ? launch<192>(p, B, s) : launch<96>(p, B, s);
+  if (channels_first)
+    return C == 192 ? launch_snake<192, true>(p, B, snake, s)
+                    : launch_snake<96, true>(p, B, snake, s);
+  return C == 192 ? launch_snake<192, false>(p, B, snake, s)
+                  : launch_snake<96, false>(p, B, snake, s);
 }
 
 extern "C" int res_chain_var_smem_bytes(int C, int tile_t, int pack) {

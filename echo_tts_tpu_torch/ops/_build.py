@@ -26,8 +26,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "echo_tts_tpu_torch"
 KERNELS = ("joint_attention", "joint_attention_bwd", "res_chain",
-           "joint_attention_variants", "res_chain_variants", "res_chain_cf",
-           "res_chain_snake", "attention_core_check", "conv_core_check")
+           "joint_attention_variants", "res_chain_variants", "attention_core_check",
+           "conv_core_check")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILD_SECONDS: Dict[str, float] = {}  # nvcc wall seconds per source built by this process

@@ -27,20 +27,21 @@ depth 7·32, against seven tap products read from the window in place);
 (C=192: up to 96, 48 with pack_taps; C=96: up to 384, 304 with pack_taps;
 the defaults are those largest values).
 
-`res_chain_cf` (channels-first (B, C, T)): halo 128, pad columns re-zeroed by
-multiply, `use_sin` True or False, `tile_t` up to 96 at C=192 and 400 at
-C=96 (default 96, the fastest measured at both). Equals `res_chain` on the
-transposed input.
+`res_chain_cf` (channels-first (B, C, T)): pad columns re-zeroed by
+multiply, `use_sin` True or False, `tile_t` as `res_chain` without
+pack_taps (default the largest). Equals `res_chain` on the transposed input
+(the Pallas body's 128-column halo gives the same result as the kernel's 80
+rows: the rows past the receptive extent feed no output).
 
 `res_chain_snake` (channels-last): K2's chain with the snake "exact" (sin),
 "none" (identity) or "poly" (`snake_poly`, a range-reduced Taylor cosine,
-not K2's sin² polynomial).
+not K2's sin² polynomial); `tile_t` as `res_chain_cf`.
 
-Each wrapper launches its CUDA kernel (K2v-cl: `csrc/res_chain_variants.cu`
-on the `wgmma` conv core `csrc/conv_core.cuh`; K2s: `csrc/res_chain_snake.cu`;
-K2v-cf: `csrc/res_chain_cf.cu`; bf16, C 96 or 192, one launch per chain) for
-CUDA tensors and runs its plain version for CPU tensors; anything the kernel
-does not take raises. `.launches` on each wrapper counts launches.
+All three launch one CUDA kernel, `csrc/res_chain_variants.cu` on the
+`wgmma` conv core `csrc/conv_core.cuh` (bf16, C 96 or 192, one launch per
+chain; K2v-cf under its own kernel name), for CUDA tensors and run their
+plain versions for CPU tensors; anything the kernel does not take raises.
+`.launches` on each wrapper counts launches.
 """
 from __future__ import annotations
 
@@ -56,11 +57,11 @@ from echo_tts_tpu_torch.ops.res_chain import tensor_leaves, round_up, sin2_poly
 KS = 7
 DILS = (1, 3, 9)
 HALO_CL = round_up(sum((KS - 1) * d for d in DILS), 16)    # 80
-HALO_CF = round_up(sum((KS - 1) * d for d in DILS), 128)   # 128
 LIVE_MODES = ("where", "mult", "off")
 SNAKE_MODES = ("exact", "none", "poly")
 SMEM_LIMIT = 232448  # bytes of shared memory a block may use on sm_90
-# the kernel's snake codes (res_chain_variants.cu)
+# the kernel's snake codes (res_chain_variants.cu: enum SNAKE_*); its live
+# codes are the positions in LIVE_MODES (enum LIVE_*)
 _SNAKE_CODE = {True: 0, "poly": 1, False: 2, "exact": 0, "none": 3, "poly_cos": 4}
 
 
@@ -216,23 +217,11 @@ def _fns():
         from echo_tts_tpu_torch.ops import _build
 
         vp, i = ctypes.c_void_p, ctypes.c_int
-        cl = _build.load("res_chain_variants")
-        sn = _build.load("res_chain_snake")
-        cf = _build.load("res_chain_cf")
-        cl.res_chain_var_fwd.argtypes = [vp] * 9 + [i] * 9 + [vp]
-        sn.res_chain_snake_fwd.argtypes = [vp] * 10 + [i] * 5 + [vp]
-        cf.res_chain_cf_fwd.argtypes = [vp] * 10 + [i] * 5 + [vp]
-        cl.res_chain_var_smem_bytes.argtypes = [i, i, i]
-        sn.res_chain_snake_smem_bytes.argtypes = [i, i]
-        cf.res_chain_cf_smem_bytes.argtypes = [i, i]
-        for f in (cl.res_chain_var_fwd, sn.res_chain_snake_fwd, cf.res_chain_cf_fwd,
-                  cl.res_chain_var_smem_bytes, sn.res_chain_snake_smem_bytes,
-                  cf.res_chain_cf_smem_bytes):
-            f.restype = i
-        _FNS = {"var": cl.res_chain_var_fwd, "snake": sn.res_chain_snake_fwd,
-                "cf": cf.res_chain_cf_fwd, "var_smem": cl.res_chain_var_smem_bytes,
-                "snake_smem": sn.res_chain_snake_smem_bytes,
-                "cf_smem": cf.res_chain_cf_smem_bytes}
+        lib = _build.load("res_chain_variants")
+        lib.res_chain_var_fwd.argtypes = [vp] * 9 + [i] * 10 + [vp]
+        lib.res_chain_var_smem_bytes.argtypes = [i, i, i]
+        lib.res_chain_var_fwd.restype = lib.res_chain_var_smem_bytes.restype = i
+        _FNS = {"fwd": lib.res_chain_var_fwd, "smem": lib.res_chain_var_smem_bytes}
     return _FNS
 
 
@@ -297,31 +286,29 @@ def _check_tile(tile_t: int, smem: int) -> None:
                          f"{SMEM_LIMIT} a block may use")
 
 
-def _launch(wrapper, fn, x, ops, ints):
+def _launch_chain(wrapper, x, units, *, tile_t, snake, snake_bf16: bool = False,
+                  live_mode: str = "where", tap_offsets: bool = True, pack_taps: bool = False,
+                  channels_first: bool = False) -> torch.Tensor:
+    """One launch of the chain kernel on x (B, T, C), or (B, C, T) with
+    channels_first; `snake` is a key of _SNAKE_CODE."""
+    c = (x.shape[1] if channels_first else x.shape[-1]) if x.dim() == 3 else -1
+    _check_x(x, c)
+    t = x.shape[2] if channels_first else x.shape[1]
+    if tile_t is None:
+        tile_t = CL_TILE[c][1 if pack_taps else 0]
+    fns = _fns()
+    _check_tile(tile_t, fns["smem"](c, max(int(tile_t), 0), int(bool(pack_taps))))
+    w7, w1, *vecs = _operands(units, c, x.device, snake_bf16=snake_bf16)
     out = torch.empty_like(x)
-    err = fn(x.data_ptr(), out.data_ptr(), *(o.data_ptr() for o in ops), *ints,
-             torch.cuda.current_stream(x.device).cuda_stream)
+    err = fns["fwd"](x.data_ptr(), out.data_ptr(), packed_weights(w7, w1).data_ptr(),
+                     *(v.data_ptr() for v in vecs), x.shape[0], t, c, int(tile_t),
+                     _SNAKE_CODE[snake], int(snake_bf16), LIVE_MODES.index(live_mode),
+                     int(bool(tap_offsets)), int(bool(pack_taps)), int(channels_first),
+                     torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{wrapper.__name__} kernel launch failed: CUDA error {err}")
     wrapper.launches += 1
     return out
-
-
-def _res_chain_cuda(x, units, live_mode, snake_dtype, tile_t, use_sin, tap_offsets, pack_taps):
-    if live_mode not in LIVE_MODES:
-        raise ValueError(f"live_mode must be one of {LIVE_MODES}, got {live_mode!r}")
-    _variant_snake(use_sin, snake_dtype)  # validates the pair
-    c = x.shape[-1]
-    _check_x(x, c)
-    if tile_t is None:
-        tile_t = CL_TILE[c][1 if pack_taps else 0]
-    fns = _fns()
-    _check_tile(tile_t, fns["var_smem"](c, max(int(tile_t), 0), int(bool(pack_taps))))
-    b16 = snake_dtype == torch.bfloat16
-    w7, w1, *vecs = _operands(units, c, x.device, snake_bf16=b16)
-    return _launch(res_chain, fns["var"], x, (packed_weights(w7, w1), *vecs),
-                   (x.shape[0], x.shape[1], c, int(tile_t), _SNAKE_CODE[use_sin], int(b16),
-                    LIVE_MODES.index(live_mode), int(bool(tap_offsets)), int(bool(pack_taps))))
 
 
 def _refuse_grad(name: str, x, units) -> None:
@@ -343,8 +330,12 @@ def res_chain(x, units: Sequence[dict], *, live_mode: str = "where",
                                tile_t=tile_t, use_sin=use_sin, tap_offsets=tap_offsets,
                                pack_taps=pack_taps)
     _refuse_grad("res_chain", x, units)
-    return _res_chain_cuda(x, units, live_mode, snake_dtype, tile_t, use_sin, tap_offsets,
-                           pack_taps)
+    if live_mode not in LIVE_MODES:
+        raise ValueError(f"live_mode must be one of {LIVE_MODES}, got {live_mode!r}")
+    _variant_snake(use_sin, snake_dtype)  # validates the pair
+    return _launch_chain(res_chain, x, units, tile_t=tile_t, snake=use_sin,
+                         snake_bf16=snake_dtype == torch.bfloat16, live_mode=live_mode,
+                         tap_offsets=tap_offsets, pack_taps=pack_taps)
 
 
 def res_chain_snake(x, units: Sequence[dict], snake_mode: str, *,
@@ -355,15 +346,8 @@ def res_chain_snake(x, units: Sequence[dict], snake_mode: str, *,
     _refuse_grad("res_chain_snake", x, units)
     if snake_mode not in SNAKE_MODES:
         raise ValueError(f"snake_mode must be one of {SNAKE_MODES}, got {snake_mode!r}")
-    c = x.shape[-1]
-    _check_x(x, c)
-    if tile_t is None:
-        tile_t = 96 if c == 192 else 320
-    fns = _fns()
-    _check_tile(tile_t, fns["snake_smem"](c, max(int(tile_t), 0)))
-    code = _SNAKE_CODE["poly_cos" if snake_mode == "poly" else snake_mode]
-    return _launch(res_chain_snake, fns["snake"], x, _operands(units, c, x.device),
-                   (x.shape[0], x.shape[1], c, int(tile_t), code))
+    return _launch_chain(res_chain_snake, x, units, tile_t=tile_t,
+                         snake="poly_cos" if snake_mode == "poly" else snake_mode)
 
 
 def res_chain_cf(x, units: Sequence[dict], *, use_sin: bool = True,
@@ -372,14 +356,8 @@ def res_chain_cf(x, units: Sequence[dict], *, use_sin: bool = True,
     if x.device.type == "cpu":
         return res_chain_cf_plain(x, units, use_sin=use_sin, tile_t=tile_t)
     _refuse_grad("res_chain_cf", x, units)
-    c = x.shape[1] if x.dim() == 3 else -1
-    _check_x(x, c)
-    if tile_t is None:
-        tile_t = 96
-    fns = _fns()
-    _check_tile(tile_t, fns["cf_smem"](c, max(int(tile_t), 0)))
-    return _launch(res_chain_cf, fns["cf"], x, _operands(units, c, x.device),
-                   (x.shape[0], x.shape[2], c, int(tile_t), int(bool(use_sin))))
+    return _launch_chain(res_chain_cf, x, units, tile_t=tile_t, snake=bool(use_sin),
+                         live_mode="mult", channels_first=True)
 
 
 res_chain.launches = 0

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from echo_tts_tpu_torch.bench import conv_kernel_variants as bcv
 from echo_tts_tpu_torch.models import dit as tdit
 from echo_tts_tpu_torch.ops import attention_variants as tav
 from echo_tts_tpu_torch.ops import joint_attention as tja
@@ -379,7 +380,7 @@ def test_attention_var_noav_kernel_matches_plain(cuda_device):
                                       for k, v, m in segs], tq=64, probe="noav")
 
 
-def _chain_units(dev, c, seed):
+def _chain_units(dev, c, seed, t=1003):
     rng = np.random.default_rng(seed)
 
     def bf(*shape, s=1.0, lo=None):
@@ -391,7 +392,7 @@ def _chain_units(dev, c, seed):
               "conv2": {"w": bf(c, c, 1, s=c ** -0.5), "b": bf(c, s=0.3)}} for _ in range(3)]
     f32 = [{k: ({kk: vv.float() for kk, vv in v.items()} if isinstance(v, dict) else v.float())
             for k, v in u.items()} for u in units]
-    return units, f32, bf(2, 1003, c)
+    return units, f32, bf(2, t, c)
 
 
 @pytest.mark.parametrize("c,flags", [
@@ -411,9 +412,12 @@ def test_res_chain_variant_kernel_matches_plain(cuda_device, c, flags):
     assert _rel(got, trv.res_chain_plain(x.float(), f32, **flags)) < 2e-2
 
 
+@pytest.mark.parametrize("t", [1003, 1000], ids=["T%8=3", "T%8=0"])
 @pytest.mark.parametrize("c", [96, 192])
-def test_res_chain_cf_kernel_matches_plain_and_channels_last(cuda_device, c):
-    units, f32, x = _chain_units(cuda_device, c, c + 1)
+def test_res_chain_cf_kernel_matches_plain_and_channels_last(cuda_device, c, t):
+    """K2v-cf at B=2 with channel rows that are not 16-byte aligned (T=1003:
+    loads and stores one bf16 at a time) and that are (T=1000)."""
+    units, f32, x = _chain_units(cuda_device, c, c + 1, t=t)
     xcf = x.transpose(1, 2).contiguous()
     before = trv.res_chain_cf.launches
     got = trv.res_chain_cf(xcf, units)
@@ -422,9 +426,23 @@ def test_res_chain_cf_kernel_matches_plain_and_channels_last(cuda_device, c):
     assert _rel(got.transpose(1, 2), trv.res_chain(x, units, live_mode="mult")) < 2e-2
 
 
+CF_ROWS = [(c, name, kw) for c in (192, 96) for name, kw in bcv.cf_rows(c)]
+
+
+@pytest.mark.parametrize("c,name,kw", CF_ROWS, ids=[f"c{c} {n}" for c, n, _ in CF_ROWS])
+def test_res_chain_cf_kernel_at_the_entry_points_rows(cuda_device, c, name, kw):
+    """Every row of bench/conv_kernel_variants.py:cf_rows, its time tiles
+    included, at B=2 and T=1003."""
+    units, f32, x = _chain_units(cuda_device, c, 7)
+    xcf = x.transpose(1, 2).contiguous()
+    got = trv.res_chain_cf(xcf, units, **kw)
+    assert _rel(got, trv.res_chain_cf_plain(xcf.float(), f32, **kw)) < 2e-2
+
+
+@pytest.mark.parametrize("c", [96, 192])
 @pytest.mark.parametrize("mode", ["exact", "none", "poly"])
-def test_res_chain_snake_kernel_matches_plain(cuda_device, mode):
-    units, f32, x = _chain_units(cuda_device, 192, 5)
+def test_res_chain_snake_kernel_matches_plain(cuda_device, mode, c):
+    units, f32, x = _chain_units(cuda_device, c, 5)
     before = trv.res_chain_snake.launches
     got = trv.res_chain_snake(x, units, mode)
     assert trv.res_chain_snake.launches == before + 1

@@ -14,6 +14,7 @@ tests/test_torch_cuda.py and chip_smoke.py.
 import functools
 import importlib.util
 import os
+import re
 
 import numpy as np
 import pytest
@@ -313,6 +314,51 @@ def test_snake_poly_matches_script_and_exact_snake():
     assert np.abs(got - exact).max() < 2e-5
 
 
+CHAIN_SRC = os.path.join(REPO, "echo_tts_tpu_torch", "csrc", "res_chain_variants.cu")
+
+
+def _kernel_enum(src, prefix):
+    """{name: value} of the `enum { <prefix>_... }` in the kernel source."""
+    body = re.search(r"enum\s*\{\s*(%s_[^}]*)\}" % prefix, src).group(1)
+    pairs = (item.split("=") for item in body.split(",") if item.strip())
+    return {k.strip()[len(prefix) + 1:]: int(v) for k, v in pairs}
+
+
+def test_wrapper_codes_equal_the_kernels_enums():
+    """K2v-cl, K2v-cf and K2s share one C entry point: each wrapper's snake and
+    live_mode code is the kernel's enum value of the same meaning, and the
+    entry point accepts codes up to the last of each enum."""
+    with open(CHAIN_SRC) as f:
+        src = f.read()
+    snake, live = _kernel_enum(src, "SNAKE"), _kernel_enum(src, "LIVE")
+    assert trv._SNAKE_CODE == {True: snake["SIN"], "exact": snake["SIN"], "poly": snake["SIN2"],
+                               False: snake["LINEAR"], "none": snake["IDENTITY"],
+                               "poly_cos": snake["COS"]}
+    assert {m: i for i, m in enumerate(trv.LIVE_MODES)} == {
+        "where": live["WHERE"], "mult": live["MULT"], "off": live["OFF"]}
+    assert max(snake.values()) == snake["COS"] and max(live.values()) == live["OFF"]
+    assert "snake > SNAKE_COS" in src and "live_mode > LIVE_OFF" in src
+
+
+@pytest.mark.parametrize("use_sin", [True, False])
+def test_res_chain_cf_plain_is_the_channels_last_chain_transposed(use_sin):
+    """The identity the shared kernel rests on: K2v-cf is K2v-cl with the
+    multiply re-zero on the transposed input (B=2, a length that is no
+    multiple of 8, non-zero biases)."""
+    units, x = _tunits(_units(11, bias=0.3)), t(_x(seed=12, b=2)[:, :293])
+    cf = trv.res_chain_cf_plain(x.transpose(1, 2).contiguous(), units, use_sin=use_sin)
+    cl = trv.res_chain_plain(x, units, live_mode="mult", use_sin=use_sin)
+    assert_close(cf.transpose(1, 2), cl.numpy(), **TOL)
+
+
+def test_res_chain_snake_exact_plain_is_the_variant_chain_with_sin():
+    """K2s "exact" is K2v-cl's chain with the sinf snake and the select
+    re-zero (what the shared kernel runs for it)."""
+    units, x = _tunits(_units(13, bias=0.3)), t(_x(seed=14, b=2))
+    assert_close(trv.res_chain_snake_plain(x, units, "exact"),
+                 trv.res_chain_plain(x, units, use_sin=True).numpy(), **TOL)
+
+
 @pytest.mark.parametrize("c", [96, 192])
 def test_res_chain_packed_weights_walked_as_the_kernel(c):
     """K2v-cl's weight buffer, read tile by tile as csrc/res_chain_variants.cu
@@ -416,8 +462,8 @@ def test_trace_writes_a_chrome_trace_and_families_are_named(tmp_path):
                          ("attention_var_kernel<true>", "K1v attention_var"),
                          ("dkdv_kernel", "K3 joint_attention_bwd"),
                          ("res_unit_conv7_kernel<192>", "K2 res_chain"),
-                         ("res_chain_cl_kernel<192, 8, false>", "K2v-cl/K2s res_chain"),
-                         ("res_chain_cf_kernel<96>", "K2v-cf res_chain_cf"),
+                         ("res_chain_cl_kernel<192, 4>", "K2v-cl/K2s res_chain"),
+                         ("res_chain_cf_kernel<96, 0>", "K2v-cf res_chain_cf"),
                          ("sm90_xmma_gemm_bf16", "GEMM (cuBLAS)"),
                          ("cudnn::engines::conv", "conv (cuDNN)"),
                          ("vectorized_elementwise_kernel", "other (elementwise, norms, copies)")):
