@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py                 # every phase
     python3 chip_smoke.py --kernels-only  # build + kernel checks + kernel times
-    python3 chip_smoke.py --slices-only   # phases 1, 5 and 6 only (K1, K2, K3 built)
+    python3 chip_smoke.py --slices-only   # phases 1, 5, 6 and 9 only (K1, K2, K3 built)
 
 Phases, in order; any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi), torch/CUDA/nvcc versions;
@@ -40,6 +40,19 @@ Phases, in order; any failure exits non-zero:
      three timed, with exact launch counts; a torch.profiler pass over one
      more step; the LoRA gradient at B=1 through K1+K3 against the plain
      attention under autograd;
+  9. (run after 6) the streaming slice at the full width of DiTConfig()
+     (latent modules) and AEConfig() in bf16: one block's CFG forward with
+     the latent segment [latent | text | speaker] through K1 against the
+     plain attention at start_pos 0 (all latent keys masked: the forward
+     must equal the one without the segment bit for bit) and 256, S = 64
+     and 192; the stateful decode of 640 z_q frames in blocks 64 + 192 x 3
+     and with 1- and 2-frame first chunks, each K2 call (zero_below 80, 48,
+     16, 0) against the plain chain and the audio against decode_zq, the
+     host cost of packing a step's weights; sample_pipeline_stream on the
+     (64, 192) schedule with the 20 s prompt, warm-up and timed (time to
+     first audio, block walls, audio-s/s, peak memory, exact K1 and K2
+     launch counts, one torch.profiler pass); stream_blocks_fused at
+     bench.py --blockwise's 160 x 4; a continuation from 5 s of audio;
   7. the measurement path: the entry points of echo_tts_tpu_torch/bench/
      (attention_variants, conv_kernel_variants, conv_variants, attention,
      profile_breakdown) at their full shapes, each printing its JSON line,
@@ -48,9 +61,10 @@ Phases, in order; any failure exits non-zero:
      kernels, K3 and its SDPA-backward yardstick included, over replays of a
      CUDA graph of 20 launches) beside the plain
      version, one library call where one exists, and the bound, for K1 (at
-     the one-branch, the three-branch and the training shape, with both q
-     tiles, and the wrapper's host microseconds per launch), K2 (a chain at
-     each decoder and encoder width, beside the cuDNN composition of the
+     the one-branch, the three-branch, the training and the streaming
+     shape, with both q tiles, and the wrapper's host microseconds per
+     launch), K2 (a chain at each decoder and encoder width and the four
+     chains of a 64-latent stream step, beside the cuDNN composition of the
      same chain), K3, K1v, K2v-cl, K2v-cf and K2s (over replays of a graph
      of 3 chains, and call by call as well: the wrappers' host work to pack
      the weights is then included, as in the readings before); and K2v-cf
@@ -65,6 +79,7 @@ K2s (C7512/C7514) fails the run.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -692,7 +707,7 @@ def phase_kernel_times(dev, errs: dict, launches: dict) -> list:
     # K1 at three shapes of the main paths: one launch of a single-branch
     # step (text 768, the 640-latent speaker bucket of 160 patches), of the
     # three-branch CFG group (speaker 1600), and of a LoRA step at B=8
-    k1 = [k1_times(dev, gen, *shape) for shape in K1_SHAPES]
+    k1 = [k1_times(dev, gen, *shape) for shape in K1_SHAPES + K1_STREAM]
     host_us = k1_host_us(dev, gen)
     from echo_tts_tpu_torch.ops import _build
 
@@ -732,53 +747,70 @@ def library_chain(x_cf, units, dilations=(1, 3, 9)):
     return x_cf
 
 
-def k2_times(dev, gen, errs: dict, launches: dict) -> dict:
-    """K2, one three-unit chain at each decoder and each encoder width at
-    the row counts a 640-latent decode and encode give it: kernel, plain
-    version, the cuDNN composition (library_chain), bound. The JSON row's
-    times are the decoder chains summed; `widths` has each."""
+def k2_chain_times(dev, gen, c, t, zero_below=None) -> dict:
+    """One three-unit chain of K2 at width c and T rows: kernel, plain
+    version, the cuDNN composition (library_chain), bound."""
     from echo_tts_tpu_torch.bench.timing import cuda_ms
     from echo_tts_tpu_torch.ops import res_chain as rc
 
-    widths, tot = [], {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "flops": 0.0, "bytes": 0.0}
+    x = torch.randn(1, t, c, generator=gen, device=dev).to(torch.bfloat16)
+    us = [{"snake1": torch.ones(1, c, 1, device=dev, dtype=torch.bfloat16),
+           "snake2": torch.ones(1, c, 1, device=dev, dtype=torch.bfloat16),
+           "conv1": {"w": (torch.randn(c, c, 7, generator=gen, device=dev) * 0.02
+                           ).to(torch.bfloat16),
+                     "b": (torch.randn(c, generator=gen, device=dev) * 0.1).to(torch.bfloat16)},
+           "conv2": {"w": (torch.randn(c, c, 1, generator=gen, device=dev) * 0.02
+                           ).to(torch.bfloat16),
+                     "b": (torch.randn(c, generator=gen, device=dev) * 0.1).to(torch.bfloat16)}}
+          for _ in range(3)]
     with torch.no_grad():
-        for stack, shapes in (("decoder", K2_DECODER), ("encoder", K2_ENCODER)):
-            for c, t in shapes:
-                x = torch.randn(1, t, c, generator=gen, device=dev).to(torch.bfloat16)
-                us = [{"snake1": torch.ones(1, c, 1, device=dev, dtype=torch.bfloat16),
-                       "snake2": torch.ones(1, c, 1, device=dev, dtype=torch.bfloat16),
-                       "conv1": {"w": (torch.randn(c, c, 7, generator=gen, device=dev) * 0.02
-                                       ).to(torch.bfloat16),
-                                 "b": (torch.randn(c, generator=gen, device=dev) * 0.1
-                                       ).to(torch.bfloat16)},
-                       "conv2": {"w": (torch.randn(c, c, 1, generator=gen, device=dev) * 0.02
-                                       ).to(torch.bfloat16),
-                                 "b": (torch.randn(c, generator=gen, device=dev) * 0.1
-                                       ).to(torch.bfloat16)}}
-                      for _ in range(3)]
-                k_ms = cuda_ms(lambda: rc._res_chain_cuda(x, us, (1, 3, 9), None), reps=5)
-                p_ms = cuda_ms(lambda: rc.res_chain_plain(x, us, (1, 3, 9), None), reps=3,
-                               warmup=1)
-                x_cf = x.transpose(1, 2).contiguous()
-                l_ms = cuda_ms(lambda: library_chain(x_cf, us), reps=5)
-                del x_cf
-                flops = 3 * 2.0 * t * c * c * 8
-                nbytes = 2 * 2 * t * c + 3 * 2 * (8 * c * c) + 3 * 4 * 4 * c
-                b_ms, b_by = bound(flops, nbytes)
-                log(f"# time res_chain {stack} C={c} T={t}: kernel {k_ms:.3f} ms "
-                    f"({k_ms / b_ms:.2f}x its bound, {flops / k_ms / 1e9:.0f} TFLOP/s), plain "
-                    f"{p_ms:.3f} ms, cuDNN composition {l_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
-                widths.append({"stack": stack, "C": c, "T": t, "ms": k_ms, "plain_ms": p_ms,
-                               "library_ms": l_ms, "bound_ms": b_ms})
-                if stack == "decoder":
-                    for k, v in (("ms", k_ms), ("plain_ms", p_ms), ("library_ms", l_ms),
-                                 ("flops", flops), ("bytes", nbytes)):
-                        tot[k] += v
-                del x
+        k_ms = cuda_ms(lambda: rc._res_chain_cuda(x, us, (1, 3, 9), zero_below), reps=5)
+        p_ms = cuda_ms(lambda: rc.res_chain_plain(x, us, (1, 3, 9), zero_below), reps=3,
+                       warmup=1)
+        x_cf = x.transpose(1, 2).contiguous()
+        l_ms = cuda_ms(lambda: library_chain(x_cf, us), reps=5)
+    flops = 3 * 2.0 * t * c * c * 8
+    nbytes = 2 * 2 * t * c + 3 * 2 * (8 * c * c) + 3 * 4 * 4 * c
+    b_ms, b_by = bound(flops, nbytes)
+    return {"C": c, "T": t, "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "flops": flops, "bytes": nbytes}
+
+
+def k2_times(dev, gen, errs: dict, launches: dict) -> dict:
+    """K2, one three-unit chain at each decoder and each encoder width at
+    the row counts a 640-latent decode and encode give it, and the four
+    chains of one streaming decode step of a 64-latent first block (rows +
+    chain_ctx, zero_below = chain_ctx): kernel, plain version, the cuDNN
+    composition (library_chain), bound. The JSON row's times are the
+    decoder chains summed; `widths` has each, `stream_step` the step's."""
+    from echo_tts_tpu_torch.ops.res_chain import chain_ctx
+
+    widths, tot = [], {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "flops": 0.0, "bytes": 0.0}
+    ctx = chain_ctx()
+    step = {k: 0.0 for k in tot}
+    stream = tuple((c, t // 10 + ctx) for c, t in K2_DECODER)  # 64 of 640 latents
+    for stack, shapes in (("decoder", K2_DECODER), ("encoder", K2_ENCODER),
+                          ("stream step", stream)):
+        for c, t in shapes:
+            r = k2_chain_times(dev, gen, c, t, ctx if stack == "stream step" else None)
+            log(f"# time res_chain {stack} C={c} T={t}: kernel {r['ms']:.3f} ms "
+                f"({r['ms'] / r['bound_ms']:.2f}x its bound, {r['flops'] / r['ms'] / 1e9:.0f} "
+                f"TFLOP/s), plain {r['plain_ms']:.3f} ms, cuDNN composition "
+                f"{r['library_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms ({r['bound_by']})")
+            widths.append({"stack": stack, **{k: r[k] for k in ("C", "T", "ms", "plain_ms",
+                                                                 "library_ms", "bound_ms")}})
+            acc = tot if stack == "decoder" else step if stack == "stream step" else None
+            if acc is not None:
+                for k in acc:
+                    acc[k] += r[k]
     b_ms, b_by = bound(tot["flops"], tot["bytes"])
+    s_ms, s_by = bound(step["flops"], step["bytes"])
     log(f"# time res_chain, the four decoder chains of a decode: kernel {tot['ms']:.3f} ms, "
         f"cuDNN composition {tot['library_ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms, "
         f"bound {b_ms:.3f} ms")
+    log(f"# time res_chain, the four chains of a 64-latent stream step (T = rows + {ctx}, "
+        f"zero_below {ctx}): kernel {step['ms']:.3f} ms, cuDNN composition "
+        f"{step['library_ms']:.3f} ms, plain {step['plain_ms']:.3f} ms, bound {s_ms:.3f} ms")
     return {"name": "res_chain", "route": "cuda",
             "source": "echo_tts_tpu_torch/csrc/res_chain.cu",
             "replaces": "echo_tts_tpu/ops/pallas_conv.py:60",
@@ -789,16 +821,24 @@ def k2_times(dev, gen, errs: dict, launches: dict) -> dict:
             "library": "cuDNN composition: bf16 F.conv1d (dilated, causal pad) + eager snakes "
                        "+ 1x1 F.conv1d",
             "widths": widths, "ptxas": PTXAS.get("res_chain", {}),
+            "stream_step": {"ms": step["ms"], "plain_ms": step["plain_ms"],
+                            "library_ms": step["library_ms"], "bound_ms": s_ms,
+                            "bound_by": s_by, "shape": f"C=768/384/192/96 at T = "
+                            + "/".join(str(t) for _, t in stream) + f", zero_below {ctx}"},
             "shape": "decoder chains C=768/384/192/96 at T=20480/163840/655360/1310720, summed"}
 
 
 K1_SHAPES = (("one branch", 1, 1, (768, 160)), ("three branches", 3, 1, (768, 1600)),
              ("training", 1, 8, (768, 160)))
+# the streaming cond branch at a 192- and a 64-latent block: latent 160 +
+# text 768 + the 20 s prompt's speaker bucket of 160 patches
+K1_STREAM = tuple((f"stream, cond branch, S={s}", 1, 1, (160, 768, 160), s,
+                   ("latent", "text", "speaker")) for s in (192, 64))
 GRAPH_ITERS = 20  # calls per timed CUDA-graph replay, for kernels shorter than their launch
 
 
-def k1_times(dev, gen, what, g, b, seg_lens) -> dict:
-    """K1 at S=640, H=16, D=128, seq-major, speaker scale 1.5, fp32 biases:
+def k1_times(dev, gen, what, g, b, seg_lens, s=640, names=("text", "speaker")) -> dict:
+    """K1 at S (640), H=16, D=128, seq-major, speaker scale 1.5, fp32 biases:
     device ms (CUDA-graph replays of 20 launches: the kernel is shorter than
     the wrapper's host time) with 64 and with 128 query rows a block, the
     plain version, the bound, and the library yardstick: one SDPA call over
@@ -807,7 +847,7 @@ def k1_times(dev, gen, what, g, b, seg_lens) -> dict:
     from echo_tts_tpu_torch.bench.timing import cuda_ms
     from echo_tts_tpu_torch.ops import joint_attention as ja
 
-    s, h, d = 640, 16, 128
+    h, d = 16, 128
     q, k, v, segs = _k1_inputs(gen, g, s, h, seg_lens, dev, b=b)
     segs = [(kk, vv, torch.where(m, 0.0, -1e30).float(), sc) for kk, vv, m, sc in segs]
     out = torch.empty_like(q)
@@ -829,14 +869,15 @@ def k1_times(dev, gen, what, g, b, seg_lens) -> dict:
     flops = 4.0 * g * b * h * s * (s + t_seg) * d
     nbytes = 2 * (4 * g * b * s * h * d + 2 * b * h * t_seg * d) + 4 * g * b * t_seg
     b_ms, b_by = bound(flops, nbytes)
-    ms = by_tq[ja.TQ]
-    log(f"# time joint_attention, {what} (G={g} B={b}): kernel {ms:.4f} ms at tq {ja.TQ} "
+    tq = ja.pick_tq(s)
+    ms = by_tq[tq]
+    log(f"# time joint_attention, {what} (G={g} B={b}): kernel {ms:.4f} ms at tq {tq} "
         f"(tq 64: {by_tq[64]:.4f}, tq 128: {by_tq[128]:.4f}; {flops / ms / 1e9:.0f} TFLOP/s), "
         f"plain {plain_ms:.3f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": lib_ms, "tq": ja.TQ, "ms_tq64": by_tq[64], "ms_tq128": by_tq[128],
-            "shape": f"{what}: G={g} B={b} S={s} H={h} D={d} self {s} + text {seg_lens[0]} + "
-                     f"speaker {seg_lens[1]} (scale 1.5)"}
+            "library_ms": lib_ms, "tq": tq, "ms_tq64": by_tq[64], "ms_tq128": by_tq[128],
+            "shape": f"{what}: G={g} B={b} S={s} H={h} D={d} self {s} + "
+                     + " + ".join(f"{n} {t}" for n, t in zip(names, seg_lens)) + " (scale 1.5)"}
 
 
 def k1_host_us(dev, gen, launches: int = 400) -> float:
@@ -1229,6 +1270,27 @@ def noise_host_us(dev, reps: int = 20) -> float:
     return us
 
 
+def plain_attention(q, k_self, v_self, segments, layout="hm", self_len=None, out=None):
+    from echo_tts_tpu_torch.ops.joint_attention import joint_attention_plain
+
+    res = joint_attention_plain(q, k_self, v_self, segments, layout, self_len)
+    return res if out is None else out.copy_(res)
+
+
+def with_random_res_biases(ae_params, gen, dev):
+    """A copy of the AE weights whose decoder residual units have non-zero
+    biases (zero biases map the causal pad to zeros and hide the re-zero)."""
+    ae = dict(ae_params)
+    ae["decoder"] = dict(ae["decoder"])
+    ae["decoder"]["blocks"] = [dict(b) for b in ae["decoder"]["blocks"]]
+    for blk in ae["decoder"]["blocks"]:
+        blk["res_units"] = [
+            {**u, **{c: {**u[c], "b": (0.3 * torch.randn(u[c]["w"].shape[0], generator=gen,
+                                                         device=dev)).to(torch.bfloat16)}
+                     for c in ("conv1", "conv2")}} for u in blk["res_units"]]
+    return ae
+
+
 def phase_path_check(tts, dev) -> None:
     """At full width, on the activations the path really produces: one CFG
     forward (branch split, the text and speaker caches as the sampler builds
@@ -1240,12 +1302,7 @@ def phase_path_check(tts, dev) -> None:
     units and four upsamplings, so it is information, not a gate."""
     import echo_tts_tpu_torch.models.dit as dit_mod
     import echo_tts_tpu_torch.models.s1dac as s1_mod
-    from echo_tts_tpu_torch.ops.joint_attention import joint_attention_plain
     from echo_tts_tpu_torch.ops.res_chain import res_chain_plain
-
-    def plain_attention(q, k_self, v_self, segments, layout="hm", self_len=None, out=None):
-        res = joint_attention_plain(q, k_self, v_self, segments, layout, self_len)
-        return res if out is None else out.copy_(res)
 
     cfg, gen = tts.dit_cfg, torch.Generator(device=dev).manual_seed(3)
     ids = torch.randint(0, 256, (1, 768), generator=gen, device=dev)
@@ -1268,14 +1325,7 @@ def phase_path_check(tts, dev) -> None:
             dit_mod.joint_attention = kernel_attention
         attn_rel = rel_l2(got, ref)
 
-        ae = dict(tts.ae_params)
-        ae["decoder"] = dict(ae["decoder"])
-        ae["decoder"]["blocks"] = [dict(b) for b in ae["decoder"]["blocks"]]
-        for blk in ae["decoder"]["blocks"]:
-            blk["res_units"] = [
-                {**u, **{c: {**u[c], "b": (0.3 * torch.randn(u[c]["w"].shape[0], generator=gen,
-                                                             device=dev)).to(torch.bfloat16)}
-                         for c in ("conv1", "conv2")}} for u in blk["res_units"]]
+        ae = with_random_res_biases(tts.ae_params, gen, dev)
         z_q = (0.3 * torch.randn(1, tts.ae_cfg.latent_dim, 640, generator=gen,
                                  device=dev)).to(torch.bfloat16)
         kernel_chain = s1_mod.res_units_cl
@@ -1304,9 +1354,10 @@ def phase_path_check(tts, dev) -> None:
         raise SystemExit("the full-width path disagrees with its plain versions")
 
 
-def profile_families(what: str, run) -> None:
+def profile_families(what: str, run) -> dict:
     """Wall time of run() unprofiled, then under torch.profiler: device time
-    by kernel family and the device-busy share of the unprofiled wall."""
+    by kernel family and the device-busy share of the unprofiled wall
+    (returned as wall_ms, device_ms, busy)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1317,13 +1368,13 @@ def profile_families(what: str, run) -> None:
     run()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
+    # device activity only: the tables read device events alone, and host-op
+    # events made the profile's own processing take minutes on a stream
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         prof_wall_ms = (time.perf_counter() - t0) * 1e3
-    # device-side events only: CPU ops also carry their kernels' device time
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     fam = device_time_by_family(prof)
     total = sum(v["ms"] for v in fam.values())
@@ -1341,6 +1392,263 @@ def profile_families(what: str, run) -> None:
             name = re.search(r"::(\w+(?:<\d+>)?)", e.key)
             log(f"#   port kernel {name.group(1) if name else e.key[:60]}: "
                 f"{e.device_time_total / 1e3:.2f} ms in {e.count} launches")
+    return {"wall_ms": wall_ms, "device_ms": total, "busy": total / wall_ms}
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the streaming slice at full width
+# ---------------------------------------------------------------------------
+
+
+def lap(name: str, since: float) -> float:
+    now = time.perf_counter()
+    log(f"# stream ({name}) took {now - since:.1f} s")
+    return now
+
+
+def phase_stream(dev, wrappers: dict) -> dict:
+    """Streaming generation at the full width of DiTConfig() (latent modules)
+    and AEConfig() in bf16, random weights from seeds 0/1: (a) one block's
+    CFG forward through K1 against the plain attention, on the latent cache
+    of a 640-latent run at start_pos 0 and 256, S = 64 and 192; (b) the
+    stateful decode of 640 z_q frames in blocks 64 + 192 x 3, every K2 call
+    against the plain chain and the audio against decode_zq, and 1- and
+    2-frame first chunks; (c) sample_pipeline_stream with the (64, 192)
+    schedule and phase 5's prompts, warm-up and timed, exact launch counts,
+    one profile; (d) stream_blocks_fused at bench.py --blockwise's shapes;
+    (e) a continuation from 5 s of audio. Returns the launches of (c)."""
+    import echo_tts_tpu_torch.models.dit as dit_mod
+    import echo_tts_tpu_torch.models.s1dac as s1_mod
+    from echo_tts_tpu_torch.bench.init_ae import init_ae_params
+    from echo_tts_tpu_torch.core.config import AEConfig, DiTConfig, SamplerConfig
+    from echo_tts_tpu_torch.core.rope import precompute_rope
+    from echo_tts_tpu_torch.models.dit import init_dit_params
+    from echo_tts_tpu_torch.models.pca import PCAState
+    from echo_tts_tpu_torch.ops.res_chain import chain_ctx, res_chain_plain, unit_operands
+    from echo_tts_tpu_torch.pipeline.pipeline import (
+        EchoTTS,
+        _prepare_inputs,
+        sample_pipeline_stream,
+        stream_blocks_fused,
+    )
+    from echo_tts_tpu_torch.sampling.euler_cfg import _f32_ge, draw_noise, t_schedule
+
+    t_phase = time.perf_counter()
+    dit_cfg, ae_cfg = DiTConfig(), AEConfig()
+    t0 = time.perf_counter()
+    tts = EchoTTS(init_dit_params(dit_cfg, torch.bfloat16, dev, seed=0), dit_cfg,
+                  init_ae_params(ae_cfg, torch.bfloat16, dev, seed=1), ae_cfg,
+                  PCAState.random(device=dev), model_dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    log(f"# stream: init on the card, DiT with latent modules "
+        f"{param_count(tts.dit_params) / 1e9:.3f} B params, {time.perf_counter() - t0:.1f} s")
+    sc = SamplerConfig(num_steps=40, cfg_scale_text=3.0, cfg_scale_speaker=8.0, cfg_min_t=0.5,
+                       cfg_max_t=1.0, truncation_factor=0.8, sequence_length=640)
+    sr, spl = ae_cfg.sample_rate, ae_cfg.frame_length
+    spk_audio = synthetic_speech(20.0, sr, 7)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    p, L = tts.dit_params, dit_cfg.num_layers
+
+    # (a) one block's CFG forward, kernels against the plain attention
+    ids, tmask, _, spk, smask, _ = _prepare_inputs(tts, SPEAKER_TEXT, spk_audio, False, None,
+                                                   None, True)
+    ids, tmask, spk, smask = (torch.as_tensor(a, device=dev) for a in (ids, tmask, spk, smask))
+    with torch.no_grad():
+        kv_text = dit_mod.get_kv_cache_text(p, dit_cfg, ids, tmask)
+        kv_spk = dit_mod.get_kv_cache_speaker(p, dit_cfg, spk.to(torch.bfloat16))
+        lat = {0: dit_mod.init_latent_kv_state(p, dit_cfg, 1, 640, torch.bfloat16)}
+        lat[256] = dit_mod.extend_latent_kv(
+            p, dit_cfg, dit_mod.init_latent_kv_state(p, dit_cfg, 1, 640, torch.bfloat16),
+            torch.randn(1, 256, 80, generator=gen, device=dev).to(torch.bfloat16), 0)
+        cos, sin = precompute_rope(dit_cfg.head_dim, 640, device=dev)
+        t_b = torch.full((1,), 0.7, device=dev).to(torch.bfloat16)
+        fwd_rel = {}
+        for start in (0, 256):
+            lmask = (torch.arange(160, device=dev) * 4 < start)[None]
+            for s in (64, 192):
+                x = torch.randn(1, s, 80, generator=gen, device=dev).to(torch.bfloat16)
+                kw = dict(rope_q=(cos[start:start + s], sin[start:start + s]),
+                          speaker_kv_scale=[1.5] * L)
+                lat_kw = dict(kv_latent=(lat[start]["k"], lat[start]["v"]), latent_mask=lmask)
+                k1 = wrappers["joint_attention"].launches
+                got = dit_mod.dit_forward_cfg(p, dit_cfg, x, t_b, tmask, smask, kv_text, kv_spk,
+                                              **kw, **lat_kw)
+                k1 = wrappers["joint_attention"].launches - k1
+                kernel_attention, dit_mod.joint_attention = dit_mod.joint_attention, \
+                    plain_attention
+                try:
+                    ref = dit_mod.dit_forward_cfg(p, dit_cfg, x, t_b, tmask, smask, kv_text,
+                                                  kv_spk, **kw, **lat_kw)
+                finally:
+                    dit_mod.joint_attention = kernel_attention
+                fwd_rel[(start, s)] = rel_l2(got, ref)
+                exact = ""
+                if start == 0:  # every latent key masked: K1 must add exact zeros
+                    without = dit_mod.dit_forward_cfg(p, dit_cfg, x, t_b, tmask, smask,
+                                                      kv_text, kv_spk, **kw)
+                    exact = f", max |diff| against no latent segment {max_abs(got, without):.3e}"
+                    if not torch.equal(got, without):
+                        raise SystemExit(f"stream (a): the all-masked latent segment at S={s} "
+                                         f"changed the forward{exact}")
+                log(f"# stream (a) CFG forward, start_pos {start}, S={s}, latent 160 "
+                    f"({int(lmask.sum())} visible) + text 768 + speaker {kv_spk[0].shape[3]}: "
+                    f"K1 vs plain rel-L2 {fwd_rel[(start, s)]:.3e}, {k1} K1 launches{exact}")
+                if k1 != 3 * L:
+                    raise SystemExit(f"stream (a): {k1} K1 launches, expected {3 * L}")
+    if max(fwd_rel.values()) >= REL_L2_BOUND:
+        raise SystemExit(f"stream (a): the forward disagrees with its plain version {fwd_rel}")
+    split = lap("a", t_phase)
+    del lat, kv_text, kv_spk
+
+    # (b) the stateful decode, every K2 call against the plain chain
+    ae = with_random_res_biases(tts.ae_params, gen, dev)
+    z_q = (0.3 * torch.randn(1, ae_cfg.latent_dim, 640, generator=gen, device=dev)
+           ).to(torch.bfloat16)
+    kernel_chain, calls = s1_mod.res_units_cl, []
+
+    def checked_chain(xc, units, dilations=(1, 3, 9), *, zero_below=None):
+        out = kernel_chain(xc, units, dilations, zero_below=zero_below)
+        ref_c = res_chain_plain(xc.float(), f32_units(units), dilations, zero_below)
+        calls.append((xc.shape[2], xc.shape[1], zero_below, rel_l2(out, ref_c),
+                      bool(out[:, :zero_below].any())))
+        return out
+
+    def stream_decode(frames, sizes):
+        state, chunks, off = s1_mod.streaming_decode_init(ae, ae_cfg, 1), [], 0
+        for n in sizes:
+            audio, state = s1_mod.decode_zq_stream_step(ae, ae_cfg, state,
+                                                        frames[:, :, off:off + n])
+            chunks.append(audio)
+            off += n
+        return torch.cat(chunks, -1)
+
+    with torch.no_grad():
+        full = s1_mod.decode_zq(ae, ae_cfg, z_q)
+        s1_mod.res_units_cl = checked_chain
+        try:
+            streamed = stream_decode(z_q, (64, 192, 192, 192))
+            main_calls = list(calls)
+            short = {n: stream_decode(z_q[:, :, :64], (n, 64 - n)) for n in (1, 2)}
+        finally:
+            s1_mod.res_units_cl = kernel_chain
+        full64 = s1_mod.decode_zq(ae, ae_cfg, z_q[:, :, :64])
+        pack_units = [u for blk in ae["decoder"]["blocks"] for u in blk["res_units"]]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for u in pack_units:
+            unit_operands(u, u["conv1"]["w"].shape[0], dev)
+        pack_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+    dec_rel = rel_l2(streamed, full)
+    short_rel = {n: rel_l2(a, full64) for n, a in short.items()}
+    chain_rel = max(c[3] for c in calls)
+    # the first chain (rate0 rows a z_q frame) re-zeroes clip(ctx - pos*rate0, 0, ctx)
+    ctx, rate0 = chain_ctx(), math.prod(ae_cfg.downsample_factor) * ae_cfg.decoder_rates[0]
+    c0 = main_calls[0][0]
+    zb_first = [c[2] for c in main_calls if c[0] == c0]
+    zb_short = {n: [c[2] for c in calls[len(main_calls):] if c[0] == c0][2 * i:2 * i + 2]
+                for i, n in enumerate((1, 2))}
+    zb_want = {pos: min(max(ctx - pos * rate0, 0), ctx) for pos in (0, 1, 2, 64, 256, 448)}
+    log(f"# stream (b) stateful decode of 640 z_q frames in 64 + 192 x 3 (non-zero biases): "
+        f"{len(calls)} K2 calls, max rel-L2 vs the plain chain {chain_rel:.3e}; first chain's "
+        f"zero_below {zb_first} (chain_ctx {ctx} rows), then "
+        f"{zb_short[1]} and {zb_short[2]} after a 1- and a 2-frame first chunk; streamed audio "
+        f"vs decode_zq rel-L2 {dec_rel:.3e}; 1 + 63 frames {short_rel[1]:.3e}, 2 + 62 "
+        f"{short_rel[2]:.3e}; weight packing of the 12 units a step: {pack_ms:.2f} ms of host "
+        f"time")
+    if (chain_rel >= REL_L2_BOUND or any(c[4] for c in calls) or dec_rel >= REL_L2_BOUND
+            or max(short_rel.values()) >= REL_L2_BOUND
+            or zb_first != [zb_want[pos] for pos in (0, 64, 256, 448)]
+            or zb_short != {n: [zb_want[0], zb_want[n]] for n in (1, 2)}):
+        raise SystemExit("stream (b): the streaming decode disagrees")
+    del ae, z_q, full, streamed, short, full64
+    split = lap("b", split)
+
+    # (c) sample_pipeline_stream, warm-up then timed, exact launches, a profile
+    ts = t_schedule(sc)
+    n_cfg = sum(_f32_ge(float(ts[i]), sc.cfg_min_t) and _f32_ge(sc.cfg_max_t, float(ts[i]))
+                for i in range(sc.num_steps))
+    n_blocks = 4
+    k1_expected = n_blocks * (3 * n_cfg + (sc.num_steps - n_cfg)) * L
+    pc = tts.pipe_cfg
+    prompt_chunks = math.ceil(min(spk_audio.shape[-1], pc.max_speaker_latent_length * spl)
+                              / (pc.audio_chunk_latents * spl))
+    k2_expected = (n_blocks * 3 * len(ae_cfg.decoder_rates)
+                   + prompt_chunks * 3 * len(ae_cfg.encoder_rates))
+
+    def run_stream(seed, sc=sc, **kw):
+        t0, walls, chunks = time.perf_counter(), [], []
+        for chunk in sample_pipeline_stream(tts, SPEAKER_TEXT, spk_audio, seed, sc=sc,
+                                            stop_at_flattening=False, **kw):
+            walls.append(time.perf_counter() - t0)
+            chunks.append(chunk)
+        return walls, np.concatenate(chunks, -1)
+
+    # warm-up: two steps a block reach every shape of the timed stream (one
+    # step in the CFG window, one after it)
+    run_stream(99, sc=dataclasses.replace(sc, num_steps=2))
+    torch.cuda.synchronize()
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    walls, audio = run_stream(0)
+    launches = {k: w.launches for k, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    secs = audio.shape[-1] / sr
+    blocks_ms = [(b - a) * 1e3 for a, b in zip([0.0] + walls[:-1], walls)]
+    log(f"# stream (c) sample_pipeline_stream, (64, 192) -> 4 blocks, 20 s prompt: time to first "
+        f"audio {walls[0] * 1e3:.1f} ms, block walls {', '.join(f'{b:.1f}' for b in blocks_ms)} "
+        f"ms, total {walls[-1] * 1e3:.1f} ms, audio {secs:.2f} s, {secs / walls[-1]:.2f} "
+        f"audio-s/s; peak memory {peak:.2f} GiB; launches {launches} (expected K1 "
+        f"{k1_expected}, K2 {k2_expected})")
+    if (audio.shape[-1] != 640 * spl or not np.isfinite(audio).all()
+            or launches["joint_attention"] != k1_expected
+            or launches["res_chain"] != k2_expected):
+        raise SystemExit("stream (c): wrong audio length, non-finite audio or launch counts")
+    prof = profile_families("one stream again", lambda: run_stream(5))
+    for k, w in wrappers.items():  # the profile's launches are not the path's
+        w.launches = launches[k]
+    split = lap("c", split)
+
+    # (d) stream_blocks_fused at bench.py --blockwise's shapes, timed once
+    bids = torch.randint(0, 256, (1, 768), generator=gen, device=dev)
+    bspk = torch.randn(1, 6400, 80, generator=gen, device=dev)
+    ones_t = torch.ones(1, 768, dtype=torch.bool, device=dev)
+    ones_s = torch.ones(1, 6400, dtype=torch.bool, device=dev)
+    noise = draw_noise(0, (1, 640, 80), dev)
+    noises = [noise[:, i * 160:(i + 1) * 160] for i in range(4)]
+    torch.cuda.synchronize()
+    t0, d_walls = time.perf_counter(), []
+    for _, chunk, _, _ in stream_blocks_fused(tts.dit_params, dit_cfg, sc, tts.ae_params, ae_cfg,
+                                              tts.pca, bspk, ones_s, bids, ones_t,
+                                              [160] * 4, noises, torch.bfloat16):
+        torch.cuda.synchronize()
+        d_walls.append(time.perf_counter() - t0)
+    log(f"# stream (d) stream_blocks_fused 160 x 4, text 768, speaker 6400 latents: time to "
+        f"first audio {d_walls[0] * 1e3:.1f} ms, block walls "
+        f"{', '.join(f'{(b - a) * 1e3:.1f}' for a, b in zip([0.0] + d_walls[:-1], d_walls))} "
+        f"ms, total {d_walls[-1] * 1e3:.1f} ms, {640 * spl / sr / d_walls[-1]:.2f} audio-s/s")
+
+    split = lap("d", split)
+
+    # (e) a continuation from 5 s of audio: only new audio is emitted
+    cont = synthetic_speech(5.0, sr, 8)
+    cont_len = cont.shape[-1] // spl // dit_cfg.speaker_patch_size * dit_cfg.speaker_patch_size
+    e_walls, e_audio = run_stream(1, continuation_audio=cont)
+    log(f"# stream (e) continuation from 5 s ({cont_len} latents): {len(e_walls)} blocks, "
+        f"{e_audio.shape[-1] / spl:.0f} new latents of audio ({e_audio.shape[-1] / sr:.2f} s), "
+        f"time to first audio {e_walls[0] * 1e3:.1f} ms, total {e_walls[-1] * 1e3:.1f} ms")
+    if e_audio.shape[-1] != (640 - cont_len) * spl or not np.isfinite(e_audio).all():
+        raise SystemExit(f"stream (e): {e_audio.shape[-1]} samples, expected "
+                         f"{(640 - cont_len) * spl} of new audio")
+    for k, w in wrappers.items():
+        w.launches = launches[k]
+    lap("e", split)
+    log(f"# stream phase: {time.perf_counter() - t_phase:.1f} s, peak memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    return {"launches": launches, "ttfa_ms": walls[0] * 1e3, "block_ms": blocks_ms,
+            "audio_s_per_s": secs / walls[-1], "profile": prof,
+            "blockwise_ttfa_ms": d_walls[0] * 1e3, "pack_ms": pack_ms}
 
 
 # ---------------------------------------------------------------------------
@@ -1519,6 +1827,9 @@ def main(argv) -> int:
         phase_build(("joint_attention", "joint_attention_bwd", "res_chain"))
         tts, _ = phase_slice(dev, slice_wrappers)
         phase_train(tts, dev, train_wrappers)
+        del tts
+        torch.cuda.empty_cache()
+        phase_stream(dev, slice_wrappers)
     else:
         phase_build()
         phase_core_check(dev)
@@ -1531,6 +1842,8 @@ def main(argv) -> int:
             tts, launches["one_shot"] = phase_slice(dev, slice_wrappers)
             launches["training"] = phase_train(tts, dev, train_wrappers)
             del tts
+            torch.cuda.empty_cache()
+            launches["streaming"] = phase_stream(dev, slice_wrappers)["launches"]
             torch.cuda.empty_cache()
             launches["measurement"] = phase_measurement(dev)
         rows = phase_kernel_times(dev, errs, launches)

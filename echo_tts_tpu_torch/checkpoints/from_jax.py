@@ -48,6 +48,16 @@ def dit_params_from_numpy(tree: dict, cfg: DiTConfig, device=None,
     _expect("in_proj.w", p["in_proj"]["w"], (cfg.latent_size, d))
     _expect("text_encoder.embedding", p["text_encoder"]["embedding"],
             (cfg.text_vocab_size, cfg.text_model_size))
+    ds = cfg.speaker_model_size
+    if cfg.has_latent_modules:
+        for name in ("wk_latent", "wv_latent"):
+            _expect(f"blocks.attention.{name}", attn[name], (l, ds, d))
+        _expect("latent_encoder.in_proj.w", p["latent_encoder"]["in_proj"]["w"],
+                (cfg.latent_size * cfg.speaker_patch_size, ds))
+        _expect("latent_encoder.blocks.attention.wq",
+                p["latent_encoder"]["blocks"]["attention"]["wq"],
+                (cfg.speaker_num_layers, ds, ds))
+        _expect("latent_norm", p["latent_norm"], (ds,))
     return p
 
 

@@ -1,5 +1,5 @@
-"""EchoDiT (counterpart of echo_tts_tpu/models/dit.py): one-shot and training
-forwards.
+"""EchoDiT (counterpart of echo_tts_tpu/models/dit.py): one-shot, blockwise
+and training forwards.
 
 Parameters are the JAX package's pytree as nested dicts of tensors: trunk and
 encoder layers are stacked on a leading L axis and looped over in Python,
@@ -7,7 +7,9 @@ linear weights are (in, out) and used as `x @ w`, q_norm/k_norm are (H, Dh).
 KV caches are head-major (L, B, H, T, Dh). The CFG branches are a group axis
 G on the queries; every branch shares the text/speaker caches and differs
 only in its masks. Joint attention goes through kernel K1
-(`ops/joint_attention.py`).
+(`ops/joint_attention.py`). The blockwise (streaming) path adds a third
+segment ahead of text and speaker: the latent-prefix cache of the blocks
+already sampled, built incrementally by `extend_latent_kv`.
 
 The "force speaker" scale is a per-layer list of host floats (the schedule
 is known on the host), applied at use-site inside the attention.
@@ -21,6 +23,7 @@ weight is recomputed, never saved.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -104,8 +107,8 @@ def text_encoder_forward(params: dict, cfg: DiTConfig, input_ids: torch.Tensor,
 
 
 def _patch_encoder_forward(enc: dict, cfg: DiTConfig, latent: torch.Tensor) -> torch.Tensor:
-    """Speaker encoder: patchify by 4, in_proj, the x/6 activation scale,
-    causal blocks."""
+    """Speaker or latent encoder: patchify by 4, in_proj, the x/6
+    activation scale, causal blocks."""
     p = cfg.speaker_patch_size
     b, s, d_lat = latent.shape
     x = latent.reshape(b, s // p, d_lat * p)
@@ -123,9 +126,10 @@ def _patch_encoder_forward(enc: dict, cfg: DiTConfig, latent: torch.Tensor) -> t
 
 
 def _project_kv(blocks_attn: dict, state: torch.Tensor, wk_name: str, wv_name: str,
-                num_heads: int, eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
+                num_heads: int, eps: float, rope=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-layer K/V projections of an encoder state, stacked to
-    (L, B, H, S, Dh); k_norm on the keys, no RoPE."""
+    (L, B, H, S, Dh); k_norm on the keys, then half-head RoPE when `rope`
+    (cos, sin) of the S positions is given (the latent prefix), else none."""
     b, s, _ = state.shape
     ks, vs = [], []
     for p in layer_slices({n: blocks_attn[n] for n in (wk_name, wv_name, "k_norm")}):
@@ -133,6 +137,8 @@ def _project_kv(blocks_attn: dict, state: torch.Tensor, wk_name: str, wv_name: s
         hd = p[wk_name].shape[-1] // num_heads
         k, v = quant.proj_shared(state, [p[wk_name], p[wv_name]])
         k = rms_norm(k.reshape(b, s, num_heads, hd), p["k_norm"], eps)
+        if rope is not None:
+            k = apply_rope_half_heads(k, *rope)
         ks.append(k.transpose(1, 2))
         vs.append(v.reshape(b, s, num_heads, hd).transpose(1, 2))
     return torch.stack(ks), torch.stack(vs)
@@ -150,6 +156,99 @@ def get_kv_cache_speaker(params: dict, cfg: DiTConfig, speaker_latent):
     state = rms_norm(state, params["speaker_norm"], cfg.norm_eps)
     return _project_kv(params["blocks"]["attention"], state, "wk_speaker", "wv_speaker",
                        cfg.num_heads, cfg.norm_eps)
+
+
+def get_kv_cache_latent(params: dict, cfg: DiTConfig, prefix_latent):
+    """The latent-prefix cache of a whole prefix (B, S, latent_size): the
+    latent encoder (a second patch encoder), latent_norm, per-layer
+    wk/wv_latent and k_norm, half-head RoPE at positions i·patch."""
+    state = _patch_encoder_forward(params["latent_encoder"], cfg, prefix_latent)
+    state = rms_norm(state, params["latent_norm"], cfg.norm_eps)
+    p = cfg.speaker_patch_size
+    cos, sin = precompute_rope(cfg.head_dim, state.shape[1] * p, device=state.device)
+    return _project_kv(params["blocks"]["attention"], state, "wk_latent", "wv_latent",
+                       cfg.num_heads, cfg.norm_eps, rope=(cos[::p], sin[::p]))
+
+
+# ---------------------------------------------------------------------------
+# Incremental latent-prefix KV (blockwise streaming)
+# ---------------------------------------------------------------------------
+#
+# The latent encoder is causal, so a block's patches are appended into
+# preallocated buffers (the encoder's per-layer self-attention K/V and the
+# trunk's per-layer latent cache) instead of re-encoding the prefix. The
+# buffers are written in place, the counterpart of the JAX package's donated
+# dynamic_update_slice; unwritten positions hold zeros and stay inert under
+# the `kv <= q` mask here and the sampler's `latent_pos < start_pos` mask.
+
+
+def init_latent_kv_state(params: dict, cfg: DiTConfig, batch: int, total_len: int,
+                         dtype: torch.dtype) -> dict:
+    """Zero state for a blockwise run of `total_len` latents, on the
+    params' device: enc_k/enc_v (L_enc, B, T_pat, H_enc, Dh_enc), the
+    encoder's self-attention K/V; k/v (L, B, H, T_pat, Dh), the trunk's
+    latent cache in `get_kv_cache_latent`'s layout."""
+    dev = params["latent_norm"].device
+    n_pat = total_len // cfg.speaker_patch_size
+    enc = (cfg.speaker_num_layers, batch, n_pat, cfg.speaker_num_heads, cfg.speaker_head_dim)
+    trunk = (cfg.num_layers, batch, cfg.num_heads, n_pat, cfg.head_dim)
+    return {"enc_k": torch.zeros(enc, dtype=dtype, device=dev),
+            "enc_v": torch.zeros(enc, dtype=dtype, device=dev),
+            "k": torch.zeros(trunk, dtype=dtype, device=dev),
+            "v": torch.zeros(trunk, dtype=dtype, device=dev)}
+
+
+def extend_latent_kv(params: dict, cfg: DiTConfig, state: dict, new_latent: torch.Tensor,
+                     start_pos: int) -> dict:
+    """Append `new_latent` (B, n·patch, latent_size), the latents
+    [start_pos, start_pos + n·patch) in the model dtype, into `state` in
+    place and return it. Exact against a whole-prefix `get_kv_cache_latent`:
+    the encoder is causal and the masked tail adds exact zeros. start_pos is
+    one int for every row; a per-row (B,) start_pos is not ported yet."""
+    if getattr(start_pos, "ndim", 0) or isinstance(start_pos, (list, tuple)):
+        raise NotImplementedError("a per-row start_pos (continuous batching) is not ported yet")
+    enc = params["latent_encoder"]
+    p = cfg.speaker_patch_size
+    b, s_lat, d_lat = new_latent.shape
+    n = s_lat // p
+    eps = cfg.norm_eps
+    heads, hd = cfg.speaker_num_heads, cfg.speaker_head_dim
+    t_pat = state["enc_k"].shape[2]
+    pos = int(start_pos) // p
+    if s_lat % p or pos + n > t_pat:
+        raise ValueError(f"{s_lat} latents at {start_pos} do not fit {t_pat} patches of {p}")
+    dev = new_latent.device
+
+    x = new_latent.reshape(b, n, d_lat * p) @ enc["in_proj"]["w"] + enc["in_proj"]["b"]
+    x = x / 6.0
+    cos, sin = (tab[pos:pos + n] for tab in precompute_rope(hd, t_pat, device=dev))
+    # query at patch pos + i sees the keys at patches <= pos + i
+    hidden = torch.arange(t_pat, device=dev)[None, :] > (pos + torch.arange(n, device=dev))[:, None]
+    for l, lp in enumerate(layer_slices(enc["blocks"])):
+        lp = layer_weights(lp)
+        a = lp["attention"]
+        h = rms_norm(x, lp["attention_norm"], eps)
+        q, k, v, gate = quant.proj_shared(h, [a["wq"], a["wk"], a["wv"], a["gate"]])
+        q = apply_rope(rms_norm(q.reshape(b, n, heads, hd), a["q_norm"], eps), cos, sin)
+        k = apply_rope(rms_norm(k.reshape(b, n, heads, hd), a["k_norm"], eps), cos, sin)
+        kbuf, vbuf = state["enc_k"][l], state["enc_v"][l]
+        kbuf[:, pos:pos + n] = k  # written before this layer reads the buffer
+        vbuf[:, pos:pos + n] = v.reshape(b, n, heads, hd)
+        logits = torch.einsum("bnhd,bthd->bhnt", q.float(), kbuf.float()) / math.sqrt(hd)
+        w = torch.softmax(logits.masked_fill(hidden, _NEG), dim=-1).to(vbuf.dtype)
+        o = torch.einsum("bhnt,bthd->bnhd", w.float(), vbuf.float()).to(vbuf.dtype)
+        x = x + quant.mm(o.reshape(b, n, heads * hd) * torch.sigmoid(gate), a["wo"])
+        x = x + quant.swiglu_mlp_q(rms_norm(x, lp["mlp_norm"], eps), lp["mlp"])
+
+    # the trunk's cache of the new patches, as get_kv_cache_latent builds it
+    x = rms_norm(x, params["latent_norm"], eps)
+    cos, sin = precompute_rope(cfg.head_dim, t_pat * p, device=dev)
+    rows = slice(pos * p, (pos + n) * p, p)
+    ks, vs = _project_kv(params["blocks"]["attention"], x, "wk_latent", "wv_latent",
+                         cfg.num_heads, eps, rope=(cos[rows], sin[rows]))
+    state["k"][:, :, :, pos:pos + n] = ks
+    state["v"][:, :, :, pos:pos + n] = vs
+    return state
 
 
 # ---------------------------------------------------------------------------
@@ -213,11 +312,14 @@ def _dit_forward_grouped(
     self_len=None,
     remat: bool = False,
     attn_impl: Optional[str] = None,
+    kv_latent: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # (L, B, H, T_lat, Dh)
+    latent_mask: Optional[torch.Tensor] = None,                     # (G, B, T_lat) bool
 ) -> torch.Tensor:
     """Core trunk. Returns fp32 (G, B, S, latent_size). remat: run each
     layer under torch.utils.checkpoint (the counterpart of
     jax.checkpoint(body)). attn_impl: None for the inference kernel,
-    "trainable" for the differentiable K1/K3 pair."""
+    "trainable" for the differentiable K1/K3 pair. kv_latent, when given,
+    is the first segment, [latent | text | speaker]; no branch skips it."""
     if attn_impl not in (None, "trainable"):
         raise ValueError(f"attn_impl must be None or 'trainable', got {attn_impl!r}")
     g, b, s, _ = x.shape
@@ -236,12 +338,15 @@ def _dit_forward_grouped(
     a_shift, a_scale, a_gate = precompute_adaln(cond, layer_weights(blocks["attention_adaln"]))
     m_shift, m_scale, m_gate = precompute_adaln(cond, layer_weights(blocks["mlp_adaln"]))
     text_bias, spk_bias = _mask_bias(text_mask), _mask_bias(spk_mask)
+    stacks = [*kv_text, *kv_speaker, a_shift, a_scale, a_gate, m_shift, m_scale, m_gate]
+    if kv_latent is not None:
+        lat_bias = _mask_bias(latent_mask)
+        stacks += kv_latent
     per = zip(layer_slices({"attention": blocks["attention"], "mlp": blocks["mlp"]}),
-              *(stack.unbind(0) for stack in (*kv_text, *kv_speaker, a_shift, a_scale,
-                                              a_gate, m_shift, m_scale, m_gate)))
+              *(stack.unbind(0) for stack in stacks))
 
     def layer(x, p, kt_k, kt_v, ks_k, ks_v, a_shift, a_scale, a_gate, m_shift, m_scale,
-              m_gate, skv):
+              m_gate, kl_k=None, kl_v=None, skv=None):
         p = layer_weights(p)
         a = p["attention"]
         h = modulate_rms(x, a_shift, a_scale, eps)
@@ -251,14 +356,14 @@ def _dit_forward_grouped(
         v_self = v_self.reshape(g, b, s, h_, dh)
         q = apply_rope_half_heads(q, cos_q, sin_q)
         k_self = apply_rope_half_heads(k_self, cos_q, sin_q)
+        # segment order [latent | text | speaker]
+        segments = [] if kl_k is None else [(kl_k, kl_v, lat_bias, None, ())]
+        segments += [(kt_k, kt_v, text_bias, None, branch_skips[0]),
+                     (ks_k, ks_v, spk_bias, skv, branch_skips[1])]
         if attn_impl == "trainable":
-            o = joint_attention_trainable(q, k_self, v_self,
-                                          [(kt_k, kt_v, text_bias, None),
-                                           (ks_k, ks_v, spk_bias, skv)], layout="sm")
+            o = joint_attention_trainable(q, k_self, v_self, [sg[:4] for sg in segments],
+                                          layout="sm")
         else:
-            # segment order [text | speaker]
-            segments = [(kt_k, kt_v, text_bias, None, branch_skips[0]),
-                        (ks_k, ks_v, spk_bias, skv, branch_skips[1])]
             o = _joint_attention_grouped(q, k_self, v_self, segments, layout="sm",
                                          self_len=self_len)
         o = o.reshape(g, b, s, cfg.model_size) * torch.sigmoid(gate)
@@ -267,6 +372,8 @@ def _dit_forward_grouped(
         return x + m_gate * quant.swiglu_mlp_q(h, p["mlp"])
 
     for l, args in enumerate(per):
+        if kv_latent is None:
+            args += (None, None)
         skv = None if speaker_kv_scale is None else speaker_kv_scale[l]
         if remat:
             x = checkpoint(layer, x, *args, skv, use_reentrant=False)
@@ -278,33 +385,52 @@ def _dit_forward_grouped(
     return x.float()
 
 
+def _latent_segment(kv_latent, latent_mask, x: torch.Tensor, g: int):
+    """The latent segment as the trunk takes it: kept whenever the cache has
+    positions, whatever its mask says (as the JAX package keeps it); the
+    (B, T_lat) mask, all visible by default, broadcast over g branches."""
+    if kv_latent is None or kv_latent[0].shape[3] == 0:
+        return None, None
+    if latent_mask is None:
+        latent_mask = torch.ones((x.shape[0], kv_latent[0].shape[3]), dtype=torch.bool,
+                                 device=x.device)
+    return kv_latent, latent_mask[None].expand((g,) + tuple(latent_mask.shape))
+
+
 def dit_forward(params: dict, cfg: DiTConfig, x, t, text_mask, speaker_mask,
                 kv_text, kv_speaker, rope_q=None, speaker_kv_scale=None,
                 self_len=None, remat: bool = False,
-                attn_impl: Optional[str] = None) -> torch.Tensor:
+                attn_impl: Optional[str] = None, kv_latent=None,
+                latent_mask=None) -> torch.Tensor:
     """Single-branch forward, fp32 output. speaker_mask is (B, S_spk_latents),
     strided by the patch size here. remat/attn_impl as in
-    `_dit_forward_grouped` (training passes True and "trainable")."""
+    `_dit_forward_grouped` (training passes True and "trainable").
+    Blockwise callers pass rope_q sliced at start_pos, the latent-prefix
+    cache and its (B, T_lat) `latent_pos < start_pos` mask."""
     spk_mask = speaker_mask[..., :: cfg.speaker_patch_size]
+    kv_latent, lm = _latent_segment(kv_latent, latent_mask, x, 1)
     out = _dit_forward_grouped(params, cfg, x[None], t, text_mask[None], spk_mask[None],
                                kv_text, kv_speaker, rope_q, speaker_kv_scale,
-                               self_len=self_len, remat=remat, attn_impl=attn_impl)
+                               self_len=self_len, remat=remat, attn_impl=attn_impl,
+                               kv_latent=kv_latent, latent_mask=lm)
     return out[0]
 
 
 def dit_forward_cfg(params: dict, cfg: DiTConfig, x, t, text_mask, speaker_mask,
                     kv_text, kv_speaker, rope_q=None, speaker_kv_scale=None,
-                    self_len=None) -> torch.Tensor:
+                    self_len=None, kv_latent=None, latent_mask=None) -> torch.Tensor:
     """CFG forward over [cond, text-uncond, speaker-uncond]: the unconds
     attend to nothing in their ablated segment, the caches carry
-    conditional values. Returns fp32 (3, B, S, latent_size)."""
+    conditional values; the latent segment's mask is every branch's.
+    Returns fp32 (3, B, S, latent_size)."""
     spk = speaker_mask[..., :: cfg.speaker_patch_size]
     text_m = torch.stack([text_mask, torch.zeros_like(text_mask), text_mask])
     spk_m = torch.stack([spk, spk, torch.zeros_like(spk)])
     xg = x[None].expand((3,) + tuple(x.shape))
+    kv_latent, lm = _latent_segment(kv_latent, latent_mask, x, 3)
     return _dit_forward_grouped(params, cfg, xg, t, text_m, spk_m, kv_text, kv_speaker,
                                 rope_q, speaker_kv_scale, branch_skips=((1,), (2,)),
-                                self_len=self_len)
+                                self_len=self_len, kv_latent=kv_latent, latent_mask=lm)
 
 
 # ---------------------------------------------------------------------------
@@ -361,11 +487,9 @@ def init_dit_params(cfg: DiTConfig, dtype: torch.dtype = torch.bfloat16,
     (uniform ±1/sqrt(fan_in) linears, unit norms, zero biases, normal
     embedding), drawn on `device` (default cuda) from `seed`. The numbers
     differ from jax.random's; tests carry JAX weights over with
-    checkpoints/from_jax.py instead. The latent encoder of the streaming
-    path is not ported yet, so `cfg.has_latent_modules` must be False."""
-    if cfg.has_latent_modules:
-        raise NotImplementedError("the latent encoder (streaming) is not ported yet; "
-                                  "use DiTConfig(has_latent_modules=False)")
+    checkpoints/from_jax.py instead. With `cfg.has_latent_modules` the
+    streaming path's latent encoder, latent_norm and wk/wv_latent are
+    built too."""
     ini = _Init(resolve_device(device), seed, dtype)
     d, l, h = cfg.model_size, cfg.num_layers, cfg.num_heads
     hd = cfg.head_dim
@@ -382,19 +506,22 @@ def init_dit_params(cfg: DiTConfig, dtype: torch.dtype = torch.bfloat16,
             "gate_up": {"w": ini.linear(r, (l, r, d)), "b": ini.zeros((l, d))},
         }
 
-    in_dim = cfg.latent_size * cfg.speaker_patch_size
+    def patch_encoder():
+        in_dim = cfg.latent_size * cfg.speaker_patch_size
+        return {
+            "in_proj": {"w": ini.linear(in_dim, (in_dim, ds)), "b": ini.zeros((ds,))},
+            "blocks": _init_encoder_blocks(ini, cfg.speaker_num_layers, ds,
+                                           cfg.speaker_num_heads,
+                                           cfg.speaker_intermediate_size),
+        }
+
     params = {
         "text_encoder": {
             "embedding": ini.normal((cfg.text_vocab_size, dt)),
             "blocks": _init_encoder_blocks(ini, cfg.text_num_layers, dt,
                                            cfg.text_num_heads, cfg.text_intermediate_size),
         },
-        "speaker_encoder": {
-            "in_proj": {"w": ini.linear(in_dim, (in_dim, ds)), "b": ini.zeros((ds,))},
-            "blocks": _init_encoder_blocks(ini, cfg.speaker_num_layers, ds,
-                                           cfg.speaker_num_heads,
-                                           cfg.speaker_intermediate_size),
-        },
+        "speaker_encoder": patch_encoder(),
         "text_norm": ini.ones((dt,)),
         "speaker_norm": ini.ones((ds,)),
         "cond_module": {
@@ -430,5 +557,11 @@ def init_dit_params(cfg: DiTConfig, dtype: torch.dtype = torch.bfloat16,
         "out_proj": {"w": ini.linear(d, (d, cfg.latent_size)),
                      "b": ini.zeros((cfg.latent_size,))},
     }
+    if cfg.has_latent_modules:
+        attn = params["blocks"]["attention"]
+        attn["wk_latent"] = ini.linear(ds, (l, ds, d))
+        attn["wv_latent"] = ini.linear(ds, (l, ds, d))
+        params["latent_encoder"] = patch_encoder()
+        params["latent_norm"] = ini.ones((ds,))
     return params
 

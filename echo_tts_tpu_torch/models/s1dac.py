@@ -1,5 +1,6 @@
-"""Fish S1-DAC audio codec (counterpart of echo_tts_tpu/models/s1dac.py),
-the parts the one-shot path runs: encode to codes / z_q, decode z_q.
+"""Fish S1-DAC audio codec (counterpart of echo_tts_tpu/models/s1dac.py):
+encode to codes / z_q, decode z_q, and the streaming decodes (a chunk at a
+time from carried per-stage state, or re-decoded from its receptive field).
 
 Parameters are the JAX package's pytree as nested dicts and lists of
 tensors, with torch-layout conv weights (O, I, K) and transposed-conv
@@ -23,9 +24,10 @@ import torch.nn.functional as F
 
 from echo_tts_tpu_torch.core.config import AEConfig
 from echo_tts_tpu_torch.ops.res_chain import (
-    sin2_poly,
     causal_conv_shifted_cl,
+    chain_ctx,
     res_units_cl,
+    sin2_poly,
     snake_cl,
 )
 
@@ -338,3 +340,209 @@ def decode_zq(params: dict, cfg: AEConfig, z_q: torch.Tensor) -> torch.Tensor:
     z = quantizer_transformer(params, cfg, "post_module", z_q)
     z = quantizer_upsample(params, cfg, z)
     return decoder_forward(params, cfg, z)
+
+
+# ---------------------------------------------------------------------------
+# Streaming decode
+# ---------------------------------------------------------------------------
+
+
+def decode_receptive_frames(cfg: AEConfig) -> int:
+    """Left context (z_q frames) of the decode: q_n_layer window-limited
+    attention layers of (window - 1) frames each, plus < 64 frames of conv
+    tail."""
+    return cfg.q_n_layer * (cfg.q_window_size - 1) + 64
+
+
+def decode_zq_window(params: dict, cfg: AEConfig, z_q: torch.Tensor, start: int, end: int,
+                     context_frames: Optional[int] = None) -> torch.Tensor:
+    """Frames [start, end) of z_q (B, D, T >= end), decoded from enough left
+    context to equal the whole decode: (B, 1, (end - start)·frame_length)."""
+    if context_frames is None:
+        context_frames = decode_receptive_frames(cfg)
+    audio = decode_zq(params, cfg, z_q[:, :, max(0, start - context_frames):end])
+    return audio[:, :, -(end - start) * cfg.frame_length:]
+
+
+def decode_zq_streaming(params: dict, cfg: AEConfig, z_q: torch.Tensor,
+                        chunk_frames: int = 64, context_frames: Optional[int] = None):
+    """Yields the audio of z_q in chunks of `chunk_frames` frames, each
+    re-decoded from its receptive field (`decode_zq_window`)."""
+    for start in range(0, z_q.shape[-1], chunk_frames):
+        yield decode_zq_window(params, cfg, z_q, start, min(start + chunk_frames, z_q.shape[-1]),
+                               context_frames)
+
+
+# The stateful decode carries, between chunks: each post_module layer's last
+# (window - 1) keys and values, and the input tail of every conv stage, each
+# as long as that stage reaches back. Zero tails stand for each stage's causal
+# left pad at the stream start. A residual-unit chain carries `chain_ctx`
+# rows of its input and runs on [tail | chunk]; while part of the tail still
+# stands for the pad (pad_rows = clip(ctx - pos·rate, 0, ctx) rows), kernel K2
+# re-zeroes those rows after every unit (`zero_below`), as each conv's own
+# input is zero-padded in the full decode. Each chunk's audio equals the same
+# slice of `decode_zq`, at O(chunk) cost.
+
+
+def _conv_stream_cl(x_cl, tail_cl, w, b, *, kernel_size: int, dilation: int = 1):
+    """Stride-1 causal conv on [tail | x], channels-last, cropped to x's
+    rows; returns (y, the new tail of (k - 1)·dilation input rows)."""
+    ctx = (kernel_size - 1) * dilation
+    xw = torch.cat([tail_cl, x_cl], dim=1)
+    y = causal_conv_shifted_cl(xw, w, b, kernel_size=kernel_size, dilation=dilation)
+    return y[:, ctx:], xw[:, -ctx:].clone()
+
+
+def _tconv_stream_cl(x_cl, tail_cl, w, b, *, kernel_size: int, stride: int):
+    """Causal transposed conv on [tail | x], channels-last: output rows
+    [j·s, (j + 1)·s) read inputs j - m .. j with m = ceil(k/s) - 1, the
+    tail's length."""
+    ctx = -(-kernel_size // stride) - 1
+    if ctx == 0:
+        return _causal_tconv_phase_cl(x_cl, w, b, kernel_size=kernel_size, stride=stride), tail_cl
+    xw = torch.cat([tail_cl, x_cl], dim=1)
+    y = _causal_tconv_phase_cl(xw, w, b, kernel_size=kernel_size, stride=stride)
+    return y[:, ctx * stride:], xw[:, -ctx:].clone()
+
+
+def _res_chain_stream_cl(x_cl, tail_cl, units, dilations, pad_rows: int):
+    """The residual-unit chain on [tail | x] (kernel K2 on the card), its
+    first `pad_rows` rows re-zeroed after every unit; returns (y, the new
+    tail)."""
+    ctx = tail_cl.shape[1]
+    xw = torch.cat([tail_cl, x_cl], dim=1)
+    y = res_units_cl(xw, units, dilations, zero_below=pad_rows)
+    return y[:, ctx:], xw[:, -ctx:].clone()
+
+
+def _window_transformer_stream(x, p: dict, kv: list, pos0: int, *, n_head: int,
+                               head_dim: int, window: int, norm_eps: float = 1e-5,
+                               max_positions: int = 1024):
+    """One step of the window-limited transformer on x (B, C, S) at frame
+    offset pos0. kv: per layer {"k", "v"} (B, window - 1, H, Dh), the
+    previous window - 1 positions (zeros before the start, masked). Returns
+    (y (B, C, S), new kv). RoPE from the `max_positions` table."""
+    x = x.transpose(1, 2)
+    b, s, _ = x.shape
+    n_cache = window - 1
+    cos, sin = (tab[pos0:pos0 + s] for tab in
+                _ae_rope_tables(max_positions, head_dim, device=x.device))
+    # kv slot j holds position pos0 - n_cache + j; query i sits at pos0 + i
+    i = torch.arange(s, device=x.device)[:, None]
+    j = torch.arange(n_cache + s, device=x.device)[None, :]
+    mask = (j >= i) & (j <= i + n_cache) & (j >= n_cache - pos0)
+    scale = 1.0 / math.sqrt(head_dim)
+    new_kv = []
+    for layer, lkv in zip(p["layers"], kv):
+        h = _ae_rms_norm(x, layer["attention_norm"]["w"], norm_eps)
+        q, k, v = torch.chunk(h @ layer["attention"]["wqkv"]["w"], 3, dim=-1)
+        q = _ae_apply_rope(q.reshape(b, s, n_head, head_dim), cos, sin)
+        k = _ae_apply_rope(k.reshape(b, s, n_head, head_dim), cos, sin)
+        kc = torch.cat([lkv["k"], k.to(lkv["k"].dtype)], dim=1)
+        vc = torch.cat([lkv["v"], v.reshape(b, s, n_head, head_dim).to(lkv["v"].dtype)], dim=1)
+        new_kv.append({"k": kc[:, -n_cache:].clone(), "v": vc[:, -n_cache:].clone()})
+        logits = torch.einsum("bshd,bthd->bhst", q.float(), kc.float()) * scale
+        w_ = torch.softmax(logits.masked_fill(~mask[None, None], -1e30), dim=-1).to(v.dtype)
+        o = torch.einsum("bhst,bthd->bshd", w_.float(), vc.float()).to(v.dtype)
+        x = x + layer["attention_layer_scale"] * (
+            o.reshape(b, s, n_head * head_dim) @ layer["attention"]["wo"]["w"])
+        h = _ae_rms_norm(x, layer["ffn_norm"]["w"], norm_eps)
+        ff = layer["feed_forward"]
+        x = x + layer["ffn_layer_scale"] * (
+            (F.silu(h @ ff["w1"]["w"]) * (h @ ff["w3"]["w"])) @ ff["w2"]["w"])
+    return _ae_rms_norm(x, p["norm"]["w"], norm_eps).transpose(1, 2), new_kv
+
+
+def streaming_decode_init(params: dict, cfg: AEConfig, batch: int,
+                          dtype: Optional[torch.dtype] = None,
+                          per_row_pos: bool = False) -> dict:
+    """Zero state for `decode_zq_stream_step` on the params' device, in the
+    params' dtype unless `dtype` is given. The stream position is one int
+    for every row; a per-row position (continuous batching) is not ported
+    yet."""
+    if per_row_pos:
+        raise NotImplementedError("per-row stream positions (continuous batching) are not "
+                                  "ported yet")
+    dtype = dtype or params_dtype(params)
+    dev = params["decoder"]["stem"]["w"].device
+
+    def z(*shape):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    n_cache = cfg.q_window_size - 1
+    blocks, ch = [], cfg.decoder_dim
+    for blk in params["decoder"]["blocks"]:
+        out_ch = blk["up"]["w"].shape[1]
+        blocks.append({"tconv": z(batch, 1, ch), "chain": z(batch, chain_ctx(), out_ch)})
+        ch = out_ch
+    return {"pos": 0,
+            "kv": [{"k": z(batch, n_cache, cfg.q_n_head, cfg.q_head_dim),
+                    "v": z(batch, n_cache, cfg.q_n_head, cfg.q_head_dim)}
+                   for _ in range(cfg.q_n_layer)],
+            "up": [z(batch, cfg.latent_dim, 6) for _ in cfg.downsample_factor],  # (B, C, 6)
+            "stem": z(batch, 6, cfg.latent_dim),  # channels-last from here on
+            "blocks": blocks,
+            "head": z(batch, 6, ch)}
+
+
+def decode_zq_stream_step(params: dict, cfg: AEConfig, state: dict, z_chunk: torch.Tensor,
+                          max_positions: int = 1024):
+    """One streaming decode step: z_chunk (B, D, S) holds frames [pos,
+    pos + S). Returns (audio (B, 1, S·frame_length), the new state); the
+    audio equals that slice of `decode_zq`."""
+    pos = state["pos"]
+    y, kv = _window_transformer_stream(
+        z_chunk, params["quantizer"]["post_module"], state["kv"], pos, n_head=cfg.q_n_head,
+        head_dim=cfg.q_head_dim, window=cfg.q_window_size, norm_eps=cfg.norm_eps,
+        max_positions=max_positions)
+
+    up_tails = []
+    for i, factor in enumerate(reversed(cfg.downsample_factor)):
+        st = params["quantizer"]["upsample"][i]
+        y = causal_tconv(y, st["conv"], kernel_size=factor, stride=factor)
+        # the tconv has k == s; the ConvNeXt depthwise k=7 conv carries 6 frames
+        yw = torch.cat([state["up"][i], y], dim=-1)
+        up_tails.append(yw[..., -6:].clone())
+        y = convnext_block(yw, st["convnext"])[..., 6:]
+
+    dec = params["decoder"]
+    x, stem_tail = _conv_stream_cl(y.transpose(1, 2), state["stem"], dec["stem"]["w"],
+                                   dec["stem"].get("b"), kernel_size=7)
+    rate = math.prod(cfg.downsample_factor)
+    block_tails = []
+    for i, stride in enumerate(cfg.decoder_rates):
+        blk, st = dec["blocks"][i], state["blocks"][i]
+        rate *= stride  # chain i runs at `rate` rows a z_q frame
+        x = snake_cl(x, blk["snake"].reshape(-1))
+        x, t_tail = _tconv_stream_cl(x, st["tconv"], blk["up"]["w"], blk["up"].get("b"),
+                                     kernel_size=2 * stride, stride=stride)
+        ctx = st["chain"].shape[1]
+        x, c_tail = _res_chain_stream_cl(x, st["chain"], blk["res_units"], (1, 3, 9),
+                                         min(max(ctx - pos * rate, 0), ctx))
+        block_tails.append({"tconv": t_tail, "chain": c_tail})
+    x = snake_cl(x, dec["head_snake"].reshape(-1))
+    x, head_tail = _conv_stream_cl(x, state["head"], dec["head"]["w"], dec["head"].get("b"),
+                                   kernel_size=7)
+    new_state = {"pos": pos + z_chunk.shape[-1], "kv": kv, "up": up_tails, "stem": stem_tail,
+                 "blocks": block_tails, "head": head_tail}
+    return torch.tanh(x).transpose(1, 2), new_state
+
+
+def decode_zq_streaming_stateful(params: dict, cfg: AEConfig, z_q: torch.Tensor,
+                                 chunk_frames: int = 64, max_positions: Optional[int] = None):
+    """Yields the audio of z_q (B, D, T) in chunks of up to `chunk_frames`
+    frames through the carried state; the last partial chunk is padded on
+    the right with zero frames (future context: causality keeps the kept
+    samples exact) and cropped."""
+    b, _, t = z_q.shape
+    if max_positions is None:
+        max_positions = max(1024, t)
+    state = streaming_decode_init(params, cfg, b, dtype=z_q.dtype)
+    spl = cfg.frame_length
+    for start in range(0, t, chunk_frames):
+        n = min(chunk_frames, t - start)
+        chunk = z_q[:, :, start:start + n]
+        if n < chunk_frames:
+            chunk = F.pad(chunk, (0, chunk_frames - n))
+        audio, state = decode_zq_stream_step(params, cfg, state, chunk, max_positions)
+        yield audio[:, :, :n * spl]

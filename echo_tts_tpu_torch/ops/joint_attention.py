@@ -43,10 +43,12 @@ _LOG2E = 1.4426950408889634
 HEAD_DIM = 128      # the kernel's head width
 MAX_SEGMENTS = 3
 # query rows a block of K1 takes: 64 = one consumer warpgroup and two blocks
-# on an SM, 128 = two consumer warpgroups that share each K/V tile. 128 read
-# 5-9 % faster at the one-branch, the three-branch and the training shape
-# (chip_smoke.py phase 8 times both on an H100).
-TQ = 128
+# on an SM, 128 = two consumer warpgroups that share each K/V tile. At S=640
+# 128 read 5-9 % faster (the one-branch, three-branch and training shapes);
+# at the stream's S=64 and 192, with 16 heads, 128 leaves most SMs idle and
+# 64 read 22-27 % faster (chip_smoke.py phase 8 times both on an H100).
+def pick_tq(s: int) -> int:
+    return 64 if s < 256 else 128
 
 
 def _to_head_major(x: torch.Tensor, layout: str) -> torch.Tensor:
@@ -185,8 +187,8 @@ def _bias_of(mask: torch.Tensor) -> torch.Tensor:
 def _joint_attention_cuda(q, k_self, v_self, segments, layout, self_len, out, lse=None,
                           tq=None):
     """K1. `lse`, when given, receives each query row's base-2 log-sum-exp
-    as fp32 (G, B, H, S) contiguous. `tq` (64 or 128, default `TQ`) only
-    chooses the schedule."""
+    as fp32 (G, B, H, S) contiguous. `tq` (64 or 128, default `pick_tq(S)`)
+    only chooses the schedule."""
     dev = q.device
     q_shape, q_st = _head_major_meta("q", q, layout, dev)
     k_shape, k_st = _head_major_meta("k_self", k_self, layout, dev)
@@ -239,7 +241,7 @@ def _joint_attention_cuda(q, k_self, v_self, segments, layout, self_len, out, ls
     err = _fn()(q.data_ptr(), k_self.data_ptr(), v_self.data_ptr(), out.data_ptr(),
                 strides(*q_st), strides(*k_st), strides(*v_st), strides(*o_st), sl_ptr,
                 None if lse is None else lse.data_ptr(), g, b, h, s, s_kv, segs, len(segments),
-                _LOG2E / math.sqrt(HEAD_DIM), TQ if tq is None else int(tq),
+                _LOG2E / math.sqrt(HEAD_DIM), pick_tq(s) if tq is None else int(tq),
                 torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"joint_attention kernel launch failed: CUDA error {err}")

@@ -1,7 +1,14 @@
-"""One-shot sampling pipeline (counterpart of echo_tts_tpu/pipeline/pipeline.py):
+"""Sampling pipelines (counterpart of echo_tts_tpu/pipeline/pipeline.py).
 
-text -> ids/mask (cap 768) -> speaker audio -> chunked latents/mask ->
-Euler sampler -> PCA deproject + S1-DAC decode -> flattening-point crop.
+One-shot (`sample_pipeline`): text -> ids/mask (cap 768) -> speaker audio ->
+chunked latents/mask -> Euler sampler -> PCA deproject + S1-DAC decode ->
+flattening-point crop.
+
+Streaming (`sample_pipeline_stream`): the same inputs, then block by block
+the blockwise sampler (`sampling/blockwise.py`, latent-prefix KV appended
+after each block), PCA deproject and the stateful S1-DAC decode step of
+just that block; each block's audio is yielded as soon as it is decoded,
+held back by one flattening-detector window.
 
 Text and speaker lengths are padded to the configured shape buckets, as in
 the JAX package, so both packages see the same shapes. Runs on the card
@@ -20,9 +27,18 @@ from echo_tts_tpu_torch.core.config import AEConfig, DiTConfig, PipelineConfig, 
 from echo_tts_tpu_torch.core.device import resolve_device
 from echo_tts_tpu_torch.models import pca as pca_mod
 from echo_tts_tpu_torch.models import s1dac
+from echo_tts_tpu_torch.models.dit import (
+    extend_latent_kv,
+    get_kv_cache_speaker,
+    get_kv_cache_text,
+    init_latent_kv_state,
+)
+from echo_tts_tpu_torch.pipeline import flattening
 from echo_tts_tpu_torch.pipeline import tokenizer as tok
 from echo_tts_tpu_torch.pipeline.flattening import crop_audio_to_flattening_point
 from echo_tts_tpu_torch.pipeline.speaker import find_min_bucket_gte, get_speaker_latent_and_mask
+from echo_tts_tpu_torch.sampling.blockwise import check_patch_aligned as _check_patch_aligned
+from echo_tts_tpu_torch.sampling.blockwise import sample_block_core
 from echo_tts_tpu_torch.sampling.euler_cfg import (
     draw_noise,
     sample_euler_cfg_independent_guidances,
@@ -172,3 +188,253 @@ def sample_pipeline(
                                            samples_per_latent=tts.ae_cfg.frame_length)
     timings["crop"] = time.perf_counter() - t0
     return audio, normalized[0], timings
+
+
+# ---------------------------------------------------------------------------
+# Streaming
+# ---------------------------------------------------------------------------
+
+
+def _block_schedule(block_size, budget: int, patch: int = 1) -> list:
+    """Block sizes summing to `budget`: an int is a uniform size; a
+    sequence is used in order and its last entry repeats (the final block
+    truncates), e.g. (64, 192) -> [64, 192, 192, 192] at 640. `patch`
+    rounds every size up to a multiple of the latent patch size."""
+    sizes = [int(block_size)] if isinstance(block_size, (int, np.integer)) \
+        else [int(s) for s in block_size]
+    if not sizes or any(s < 1 for s in sizes):
+        raise ValueError(f"block sizes must be >= 1, got {block_size}")
+    if patch > 1:
+        if budget % patch:
+            raise ValueError(
+                f"block budget {budget} is not a multiple of the latent "
+                f"patch size {patch} (the latent-prefix KV is patchified)")
+        sizes = [-(-s // patch) * patch for s in sizes]
+    out, i = [], 0
+    while budget > 0:
+        out.append(min(sizes[min(i, len(sizes) - 1)], budget))
+        budget -= out[-1]
+        i += 1
+    return out
+
+
+def _deprojected(pca, latents, ae_params) -> torch.Tensor:
+    return pca_mod.deproject(pca, latents).to(s1dac.params_dtype(ae_params))
+
+
+@torch.no_grad()
+def _sample_block_and_decode(dit_params, dit_cfg, sc, prefix, lat_state, dec_state,
+                             start_pos: int, noise, text_mask, speaker_mask, kv_text,
+                             kv_speaker, ae_params, ae_cfg, pca, block_size: int,
+                             total_len: int, model_dtype, max_positions: int):
+    """One streaming step: sample the block [start_pos, start_pos + block),
+    append its latent KV, deproject it and decode it through the stateful
+    S1-DAC step. Returns (prefix, lat_state, dec_state, audio fp32)."""
+    prefix, lat_state = sample_block_core(
+        dit_params, dit_cfg, sc, prefix, lat_state, start_pos, noise, text_mask,
+        speaker_mask, kv_text, kv_speaker, block_size, total_len, model_dtype)
+    z_q = _deprojected(pca, prefix[:, start_pos:start_pos + block_size], ae_params)
+    audio, dec_state = s1dac.decode_zq_stream_step(ae_params, ae_cfg, dec_state, z_q,
+                                                   max_positions)
+    return prefix, lat_state, dec_state, audio.float()
+
+
+@torch.no_grad()
+def _stream_first_block(dit_params, dit_cfg, sc, ae_params, ae_cfg, pca, speaker_latent,
+                        speaker_mask, ids, text_mask, noise, block_size: int, total_len: int,
+                        model_dtype, max_positions: int):
+    """The stream's prologue and first block: text and speaker KV, zero
+    prefix, latent-KV and decoder state, then the first block's step.
+    Returns (kv_text, kv_speaker, prefix, lat_state, dec_state, audio)."""
+    kv_text = get_kv_cache_text(dit_params, dit_cfg, ids, text_mask)
+    kv_speaker = get_kv_cache_speaker(dit_params, dit_cfg, speaker_latent.to(model_dtype))
+    b = ids.shape[0]
+    prefix = torch.zeros((b, total_len, dit_cfg.latent_size), dtype=torch.float32,
+                         device=ids.device)
+    lat_state = init_latent_kv_state(dit_params, dit_cfg, b, total_len, model_dtype)
+    dec_state = s1dac.streaming_decode_init(ae_params, ae_cfg, b)
+    prefix, lat_state, dec_state, audio = _sample_block_and_decode(
+        dit_params, dit_cfg, sc, prefix, lat_state, dec_state, 0, noise, text_mask,
+        speaker_mask, kv_text, kv_speaker, ae_params, ae_cfg, pca, block_size, total_len,
+        model_dtype, max_positions)
+    return kv_text, kv_speaker, prefix, lat_state, dec_state, audio
+
+
+@torch.no_grad()
+def stream_blocks_fused(dit_params, dit_cfg, sc, ae_params, ae_cfg, pca, speaker_latent,
+                        speaker_mask, ids, text_mask, block_sizes, noises, model_dtype,
+                        continuation_latent=None, max_positions: Optional[int] = None):
+    """The streaming loop shared by `sample_pipeline_stream` and the
+    benchmark: per block, sample, deproject and decode through the stateful
+    vocoder. Yields (prefix, audio (B, 1, bs·frame_length) fp32 on the
+    device, start, bs). A continuation prefix first seeds the latent KV and
+    advances the decoder state through the seed region (its audio is
+    dropped); only new blocks are yielded. `sc.first_block_steps`, when
+    set, is the step count of the first emitted block. The prefix buffer is
+    written in place by later blocks."""
+    dev = ids.device
+    b = ids.shape[0]
+    cont_len = 0 if continuation_latent is None else continuation_latent.shape[1]
+    _check_patch_aligned(block_sizes, cont_len, dit_cfg.speaker_patch_size)
+    total = cont_len + sum(int(s) for s in block_sizes)
+    if max_positions is None:
+        max_positions = max(1024, total)
+    sc_rest = dataclasses.replace(sc, first_block_steps=None)
+    sc0 = (dataclasses.replace(sc_rest, num_steps=int(sc.first_block_steps))
+           if sc.first_block_steps else sc_rest)
+
+    def noise_of(i):
+        return torch.as_tensor(noises[i], dtype=torch.float32, device=dev)
+
+    if continuation_latent is None:
+        bs0 = int(block_sizes[0])
+        kv_text, kv_speaker, prefix, lat_state, dec_state, audio = _stream_first_block(
+            dit_params, dit_cfg, sc0, ae_params, ae_cfg, pca, speaker_latent, speaker_mask,
+            ids, text_mask, noise_of(0), bs0, total, model_dtype, max_positions)
+        yield prefix, audio, 0, bs0
+        start = bs0
+        rest = list(enumerate(block_sizes))[1:]
+    else:
+        kv_text = get_kv_cache_text(dit_params, dit_cfg, ids, text_mask)
+        kv_speaker = get_kv_cache_speaker(dit_params, dit_cfg, speaker_latent.to(model_dtype))
+        prefix = torch.zeros((b, total, dit_cfg.latent_size), dtype=torch.float32, device=dev)
+        prefix[:, :cont_len] = continuation_latent.float()
+        lat_state = init_latent_kv_state(dit_params, dit_cfg, b, total, model_dtype)
+        extend_latent_kv(dit_params, dit_cfg, lat_state, continuation_latent.to(model_dtype), 0)
+        dec_state = s1dac.streaming_decode_init(ae_params, ae_cfg, b)
+        z_cont = _deprojected(pca, prefix[:, :cont_len], ae_params)
+        for done in range(0, cont_len, 64):
+            _, dec_state = s1dac.decode_zq_stream_step(
+                ae_params, ae_cfg, dec_state, z_cont[:, :, done:done + 64], max_positions)
+        start = cont_len
+        rest = list(enumerate(block_sizes))
+
+    for bi, bs in rest:
+        # a continuation's first emitted block is the first block too
+        sc_b = sc0 if (continuation_latent is not None and bi == 0) else sc_rest
+        prefix, lat_state, dec_state, audio = _sample_block_and_decode(
+            dit_params, dit_cfg, sc_b, prefix, lat_state, dec_state, start, noise_of(bi),
+            text_mask, speaker_mask, kv_text, kv_speaker, ae_params, ae_cfg, pca, int(bs),
+            total, model_dtype, max_positions)
+        yield prefix, audio, start, int(bs)
+        start += int(bs)
+
+
+class _StreamEmitter:
+    """Emission state of one streamed utterance: audio is held back by one
+    detector window, so that a flattening point near a block's end crops
+    the audio before it is sent; detection looks at the generated region
+    only and counts only windows that lie wholly inside the latents seen
+    so far (the detector pads past its input with zeros, which would look
+    flat at every block's end)."""
+
+    WINDOW = 20  # the flattening detector's window
+
+    def __init__(self, total: int, spl: int, cont_len: int = 0,
+                 stop_at_flattening: bool = True):
+        self.total = total
+        self.spl = spl
+        self.cont_len = cont_len
+        self.stop_at_flattening = stop_at_flattening
+        self.emitted_to = cont_len
+        self.held = np.zeros((1, 1, 0), np.float32)
+        self.stopped = False
+
+    def on_block(self, lat_row, audio_row: np.ndarray, start: int, bs: int):
+        """lat_row: (>= start + bs, latent) latents (a tensor), or None when
+        stop_at_flattening is off; audio_row: (1, 1, bs·spl), this block's
+        audio. Returns (chunk, possibly empty; stopped)."""
+        end = start + bs
+        is_final = end == self.total
+        audio = np.concatenate([self.held, audio_row], axis=-1)  # [emitted_to, end)
+        self.held = np.zeros((1, 1, 0), np.float32)
+
+        fp = None
+        if self.stop_at_flattening:
+            cand = self.cont_len + int(flattening.find_flattening_point(
+                lat_row[self.cont_len:end]))
+            if cand <= end - self.WINDOW or (is_final and cand < end):
+                fp = cand
+        if fp is not None and fp < end:
+            self.stopped = True
+            return audio[:, :, :max(0, fp - self.emitted_to) * self.spl], True
+        if is_final:
+            self.stopped = True
+            return audio, True
+        hold_from = max(self.emitted_to, end - self.WINDOW)
+        cut = (hold_from - self.emitted_to) * self.spl
+        self.held = audio[:, :, cut:]
+        self.emitted_to = hold_from
+        return audio[:, :, :cut], False
+
+
+def sample_pipeline_stream(
+    tts: EchoTTS,
+    text_prompt: str,
+    speaker_audio: Optional[np.ndarray],
+    rng_seed: int,
+    sc: Optional[SamplerConfig] = None,
+    block_size=(64, 192),
+    normalize_text: bool = False,
+    stop_at_flattening: bool = True,
+    continuation_audio: Optional[np.ndarray] = None,
+):
+    """Streaming generation: yields fp32 numpy chunks (1, 1, n_samples), one
+    per latent block, as soon as each block is sampled and decoded.
+
+    Block i's noise is rows [start_i, end_i) of the one-shot draw for
+    `rng_seed`. With `stop_at_flattening` the flattening detector runs on
+    the latents generated so far after each block; emission is held back
+    by its 20-latent window, so the stream crops where the one-shot path
+    would and stops there. `continuation_audio` (1, samples) is encoded
+    into latents that seed the prefix (the text should include its
+    transcript); it spends its share of the sequence_length budget, and
+    only new audio is emitted. Needs a checkpoint with the latent modules.
+    """
+    if not tts.dit_cfg.has_latent_modules:
+        raise ValueError(
+            "streaming generation needs the blockwise (latent-prefix) modules;"
+            " this checkpoint was converted with delete_blockwise_modules")
+    sc = sc or SamplerConfig()
+    dev = tts.device
+    ids, text_mask, _, speaker_latent, speaker_mask, _ = _prepare_inputs(
+        tts, text_prompt, speaker_audio, normalize_text, None, None, True)
+    patch = tts.dit_cfg.speaker_patch_size
+    block_sizes = _block_schedule(block_size, sc.sequence_length, patch)
+    spl = tts.ae_cfg.frame_length
+
+    cont_latent, cont_len = None, 0
+    if continuation_audio is not None:
+        # whole frames, encoded in chunks; cropped to the valid length and
+        # then to a multiple of the latent patch size
+        cont_np, cont_mask = get_speaker_latent_and_mask(
+            tts.ae_params, tts.ae_cfg, tts.pca, np.asarray(continuation_audio),
+            max_speaker_latent_length=tts.pipe_cfg.max_speaker_latent_length,
+            audio_chunk_latents=tts.pipe_cfg.audio_chunk_latents, pad_to_max=False)
+        cont_len = int(cont_mask.sum())
+        cont_len -= cont_len % patch
+        if cont_len == 0:
+            raise ValueError("continuation audio shorter than one latent patch")
+        cont_latent = torch.as_tensor(cont_np[:, :cont_len], device=dev)
+        budget = sc.sequence_length - cont_len
+        if budget < 1:
+            raise ValueError(f"continuation occupies {cont_len} of the {sc.sequence_length}"
+                             "-latent budget; nothing left to generate")
+        block_sizes = _block_schedule(block_size, budget, patch)
+
+    full_noise = draw_noise(rng_seed, (1, sc.sequence_length, tts.dit_cfg.latent_size), dev)
+    offsets = np.cumsum([0] + block_sizes)
+    noises = [full_noise[:, a:b] for a, b in zip(offsets[:-1], offsets[1:])]
+
+    em = _StreamEmitter(cont_len + sum(block_sizes), spl, cont_len, stop_at_flattening)
+    for prefix, audio, start, bs in stream_blocks_fused(
+            tts.dit_params, tts.dit_cfg, sc, tts.ae_params, tts.ae_cfg, tts.pca,
+            torch.as_tensor(speaker_latent, device=dev),
+            torch.as_tensor(speaker_mask, device=dev), torch.as_tensor(ids, device=dev),
+            torch.as_tensor(text_mask, device=dev), block_sizes, noises, tts.model_dtype,
+            continuation_latent=cont_latent):
+        lat_row = prefix[0, :start + bs] if stop_at_flattening else None
+        chunk, stopped = em.on_block(lat_row, audio.cpu().numpy(), start, bs)
+        yield chunk
+        if stopped:
+            return

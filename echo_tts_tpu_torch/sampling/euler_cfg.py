@@ -76,14 +76,20 @@ def _check_supported(sc: SamplerConfig) -> None:
 
 def euler_cfg_scan(params: dict, cfg: DiTConfig, sc: SamplerConfig,
                    x_init: torch.Tensor, text_mask, speaker_mask, kv_text, kv_speaker,
-                   model_dtype: torch.dtype) -> torch.Tensor:
+                   model_dtype: torch.dtype, rope_q=None, kv_latent=None,
+                   latent_mask=None, self_len=None) -> torch.Tensor:
     """The Euler loop. x_init (B, S, latent) fp32 with truncation applied;
-    returns fp32 latents."""
+    returns fp32 latents. rope_q defaults to positions [0, S); the
+    blockwise sampler passes its block's slice, the latent-prefix cache and
+    its mask, which go to every forward."""
     _check_supported(sc)
     b, s = x_init.shape[:2]
     ts = t_schedule(sc)
     t0 = float(ts[0])
-    rope_q = precompute_rope(cfg.head_dim, s, device=x_init.device)
+    if rope_q is None:
+        rope_q = precompute_rope(cfg.head_dim, s, device=x_init.device)
+    extra = dict(rope_q=rope_q, kv_latent=kv_latent, latent_mask=latent_mask,
+                 self_len=self_len)
     x_t = x_init
     for i in range(sc.num_steps):
         t, t_next = float(ts[i]), float(ts[i + 1])
@@ -92,13 +98,13 @@ def euler_cfg_scan(params: dict, cfg: DiTConfig, sc: SamplerConfig,
         x_in = x_t.to(model_dtype)
         if _f32_ge(t, sc.cfg_min_t) and _f32_ge(sc.cfg_max_t, t):
             v = dit_forward_cfg(params, cfg, x_in, t_b, text_mask, speaker_mask,
-                                kv_text, kv_speaker, rope_q=rope_q, speaker_kv_scale=s_vec)
+                                kv_text, kv_speaker, speaker_kv_scale=s_vec, **extra)
             v_cond, v_ut, v_us = v[0], v[1], v[2]
             v_pred = (v_cond + sc.cfg_scale_text * (v_cond - v_ut)
                       + sc.cfg_scale_speaker * (v_cond - v_us))
         else:
             v_pred = dit_forward(params, cfg, x_in, t_b, text_mask, speaker_mask,
-                                 kv_text, kv_speaker, rope_q=rope_q, speaker_kv_scale=s_vec)
+                                 kv_text, kv_speaker, speaker_kv_scale=s_vec, **extra)
         if sc.rescale_k is not None and sc.rescale_sigma is not None:
             v_pred = temporal_score_rescale(v_pred, x_t, t, sc.rescale_k, sc.rescale_sigma)
         x_t = x_t + v_pred * float(np.float32(t_next) - np.float32(t))

@@ -13,13 +13,18 @@ The recipe is JAX's default generator with `jax_threefry_partitionable` on
   * normal: sqrt(2) * erfinv(u) with XLA's single-precision erfinv (the
     Giles polynomial), all in float32.
 
+`jax_fold_in(seed, i)` is the key `jax.random.fold_in(PRNGKey(seed), i)`:
+threefry-2x32 of PRNGKey(seed) over the counter words (0, i). `jax_normal`
+draws from such a key as from a seed (the blockwise sampler's per-block
+noise).
+
 Agreement with JAX on the CPU: max |diff| below 1e-6 (the float32 log1p of
 numpy and of XLA may differ in the last bit); `tests/test_torch_sampler.py`
 holds it to 2e-6.
 """
 from __future__ import annotations
 
-from typing import Sequence, Union
+from typing import NamedTuple, Sequence, Union
 
 import numpy as np
 
@@ -62,13 +67,34 @@ def _erfinv32(x: np.ndarray) -> np.ndarray:
     return np.where(np.abs(x) == np.float32(1.0), x * np.finfo(np.float32).max, p * x)
 
 
-def _normal_one(seed: int, shape) -> np.ndarray:
+class JaxKey(NamedTuple):
+    """A raw threefry key, the two uint32 words of a JAX PRNG key."""
+
+    k0: int
+    k1: int
+
+
+def jax_key(seed: int) -> JaxKey:
+    """`jax.random.PRNGKey(seed)` with 64-bit types off."""
+    return JaxKey(0, int(seed) & 0xFFFFFFFF)
+
+
+def jax_fold_in(seed: Union[int, JaxKey], data: int) -> JaxKey:
+    """`jax.random.fold_in(key, data)` of `PRNGKey(seed)` (or of a key)."""
+    key = seed if isinstance(seed, JaxKey) else jax_key(seed)
+    with np.errstate(over="ignore"):
+        w0, w1 = threefry2x32(key.k0, key.k1, np.zeros(1, np.uint32),
+                              np.array([int(data) & 0xFFFFFFFF], np.uint32))
+    return JaxKey(int(w0[0]), int(w1[0]))
+
+
+def _normal_one(key: JaxKey, shape) -> np.ndarray:
     n = int(np.prod(shape, dtype=np.int64))
     idx = np.arange(n, dtype=np.uint64)
     hi = (idx >> np.uint64(32)).astype(np.uint32)
     lo = (idx & np.uint64(0xFFFFFFFF)).astype(np.uint32)
     with np.errstate(over="ignore"):
-        b0, b1 = threefry2x32(0, int(seed) & 0xFFFFFFFF, hi, lo)
+        b0, b1 = threefry2x32(key.k0, key.k1, hi, lo)
     bits = b0 ^ b1
     one = np.float32(1.0)
     lo_f = np.nextafter(np.float32(-1.0), np.float32(0.0), dtype=np.float32)
@@ -77,12 +103,15 @@ def _normal_one(seed: int, shape) -> np.ndarray:
     return (np.float32(np.sqrt(2)) * _erfinv32(u)).astype(np.float32).reshape(shape)
 
 
-def jax_normal(seeds: Union[int, Sequence[int]], shape) -> np.ndarray:
+def jax_normal(seeds: Union[int, JaxKey, Sequence[int]], shape) -> np.ndarray:
     """float32 standard normals as `jax.random.normal(PRNGKey(seed), shape)`
-    draws them. With one seed per row (a sequence), row i is the draw of
-    seeds[i] at `shape`, and the result is (len(seeds), *shape): the rows a
-    batch of requests with their own seeds needs."""
+    draws them, or `jax.random.normal(key, shape)` for a `JaxKey`. With one
+    seed per row (a sequence), row i is the draw of seeds[i] at `shape`, and
+    the result is (len(seeds), *shape): the rows a batch of requests with
+    their own seeds needs."""
     shape = tuple(int(s) for s in shape)
+    if isinstance(seeds, JaxKey):
+        return _normal_one(seeds, shape)
     if isinstance(seeds, (int, np.integer)):
-        return _normal_one(int(seeds), shape)
-    return np.stack([_normal_one(int(s), shape) for s in seeds])
+        return _normal_one(jax_key(seeds), shape)
+    return np.stack([_normal_one(jax_key(s), shape) for s in seeds])

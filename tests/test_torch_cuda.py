@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card (K1 joint attention and its log-sum-exp,
 K2 residual units, K3 the attention backward, and the measurement variants
-K1v, K2v-cl, K2v-cf, K2s; the bare checks of the attention and conv cores),
+K1v, K2v-cl, K2v-cf, K2s; the bare checks of the attention and conv cores;
+K1 and K2 at the streaming path's shapes and one stateful decode step),
 each against its plain
 PyTorch version in fp32 on the same bf16 inputs (rel-L2 < 2e-2: bf16
 rounding gives ~1e-3, a wrong kernel O(1)). Every test needs a CUDA card and skips without one. The
@@ -139,6 +140,107 @@ def test_joint_attention_kernel_at_ragged_shapes(cuda_device, case, layout, tq):
                                   [(k, v, m[i:i + 1], sc) for k, v, m, sc in segs], layout, sl,
                                   split[i:i + 1], None, tq)
     assert _rel(split, ref) < 2e-2
+
+
+@pytest.mark.parametrize("visible", [0, 64], ids=["latent_all_masked", "latent_64_visible"])
+@pytest.mark.parametrize("s", [64, 192])
+def test_joint_attention_kernel_at_the_stream_shapes(cuda_device, s, visible):
+    """The streaming CFG group: S=64 or 192 query rows (half a 128-row q
+    tile, or one and a half), segments [latent 160 | text 768 | speaker 160
+    at scale 1.5], branches split as dit_forward_cfg launches them (cond
+    sees all three, the unconds drop text or speaker; none drops the
+    latent). At the first block every latent key is masked in every branch:
+    the kernel must add exact zeros there, so the output equals the launch
+    without the latent segment bit for bit."""
+    q, ks, vs, segs = _k1_inputs(cuda_device, 3, 1, s, 16, (160, 768, 160), 29,
+                                 (None, None, 1.5))
+    (kl, vl, ml, _), (kt, vt, mt, _), (kp, vp, mp, sp) = segs
+    ml = (torch.arange(160, device=cuda_device) < visible).expand(3, 1, 160).contiguous()
+    mt[1] = False
+    mp[2] = False
+    seg5 = [(kl, vl, ml, None, ()), (kt, vt, mt, None, (1,)), (kp, vp, mp, sp, (2,))]
+    before = tja.joint_attention.launches
+    got = tdit._joint_attention_grouped(q, ks, vs, seg5, layout="sm")
+    assert tja.joint_attention.launches == before + 3
+    ref = tja.joint_attention_plain(q.float(), ks.float(), vs.float(),
+                                    _f32([sg[:4] for sg in seg5]), layout="sm")
+    assert _rel(got, ref) < 2e-2
+    if visible == 0:
+        assert torch.equal(got, tdit._joint_attention_grouped(q, ks, vs, seg5[1:], layout="sm"))
+
+
+@pytest.mark.parametrize("c,rows,ctx,zero_below", [
+    (768, 32, 80, 48), (768, 64, 80, 16), (768, 2048, 80, 0), (384, 256, 80, 80),
+    (768, 2048, 78, 46), (768, 2048, 78, 14), (96, 1024, 80, 47)])
+def test_res_chain_kernel_at_the_stream_zero_below(cuda_device, c, rows, ctx, zero_below):
+    """K2 as a streaming decode step runs it: on [tail | chunk], T = rows +
+    ctx (no multiple of a tile), with zero_below anywhere from 0 to ctx
+    (chain_ctx is 80: the first chain, at 32 rows a z_q frame, re-zeroes
+    80, 48, 16, then 0 rows at frame positions 0, 1, 2, 3; 78, 46 and 14
+    put the edge one row pair off); non-zero biases."""
+    rng = np.random.default_rng(c + rows + zero_below)
+
+    def bf(*shape, sc=1.0, lo=None):
+        a = rng.uniform(lo, 1.5, shape) if lo is not None else rng.standard_normal(shape) * sc
+        return torch.from_numpy(a.astype(np.float32)).to(cuda_device, torch.bfloat16)
+
+    units = [{"snake1": bf(1, c, 1, lo=0.2), "snake2": bf(1, c, 1, lo=0.2),
+              "conv1": {"w": bf(c, c, 7, sc=(7 * c) ** -0.5), "b": bf(c, sc=0.3)},
+              "conv2": {"w": bf(c, c, 1, sc=c ** -0.5), "b": bf(c, sc=0.3)}} for _ in range(3)]
+    x = bf(1, rows + ctx, c)
+    x[:, :zero_below] = 0
+    got = trc.res_units_cl(x, units, zero_below=zero_below)
+    f32 = [{k: ({kk: vv.float() for kk, vv in v.items()} if isinstance(v, dict) else v.float())
+            for k, v in u.items()} for u in units]
+    ref = trc.res_chain_plain(x.float(), f32, zero_below=zero_below)
+    assert _rel(got, ref) < 2e-2
+    assert not got[0, :zero_below].any()
+    assert _rel(got[0, zero_below:], ref[0, zero_below:]) < 2e-2
+
+
+def test_stream_step_against_the_plain_chain(cuda_device):
+    """Two stateful decode steps at full width (AEConfig(), bf16, non-zero
+    residual biases): 1 frame, then 2 frames at position 1. Every K2 call
+    matches the plain chain (fp32) on its own input, its zero_below rows
+    are exactly zero, and the first chain's zero_below is 80 then 48."""
+    from echo_tts_tpu_torch.bench.init_ae import init_ae_params
+    from echo_tts_tpu_torch.core.config import AEConfig
+    from echo_tts_tpu_torch.models import s1dac as ts1
+
+    cfg = AEConfig()
+    params = init_ae_params(cfg, torch.bfloat16, cuda_device, seed=3)
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    for blk in params["decoder"]["blocks"]:
+        for u in blk["res_units"]:
+            for cv in ("conv1", "conv2"):
+                u[cv]["b"] = (0.3 * torch.randn(u[cv]["w"].shape[0], generator=gen,
+                                                device=cuda_device)).to(torch.bfloat16)
+    calls = []
+    kernel = ts1.res_units_cl
+
+    def checked(x, units, dilations=(1, 3, 9), *, zero_below=None):
+        out = kernel(x, units, dilations, zero_below=zero_below)
+        f32 = [{k: ({kk: vv.float() for kk, vv in v.items()} if isinstance(v, dict)
+                    else v.float()) for k, v in u.items()} for u in units]
+        ref = trc.res_chain_plain(x.float(), f32, dilations, zero_below)
+        calls.append((x.shape[2], zero_below, _rel(out, ref), bool(out[:, :zero_below].any())))
+        return out
+
+    z = (0.3 * torch.randn(1, cfg.latent_dim, 3, generator=gen, device=cuda_device)
+         ).to(torch.bfloat16)
+    state = ts1.streaming_decode_init(params, cfg, 1)
+    ts1.res_units_cl = checked
+    try:
+        with torch.no_grad():
+            a1, state = ts1.decode_zq_stream_step(params, cfg, state, z[:, :, :1])
+            a2, state = ts1.decode_zq_stream_step(params, cfg, state, z[:, :, 1:])
+    finally:
+        ts1.res_units_cl = kernel
+    assert a1.shape[-1] == cfg.frame_length and a2.shape[-1] == 2 * cfg.frame_length
+    assert torch.isfinite(a1).all() and torch.isfinite(a2).all() and state["pos"] == 3
+    assert len(calls) == 8
+    assert [zb for ch, zb, _, _ in calls if ch == 768] == [80, 48]
+    assert all(rel < 2e-2 and not dirty for _, _, rel, dirty in calls), calls
 
 
 def test_conv_core_tap_product_matches_matmul(cuda_device):

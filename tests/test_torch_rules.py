@@ -26,7 +26,7 @@ from echo_tts_tpu_torch.models.dit import init_dit_params
 from echo_tts_tpu_torch.models.pca import PCAState
 from echo_tts_tpu_torch.ops import joint_attention as tja
 from echo_tts_tpu_torch.ops import res_chain as trc
-from echo_tts_tpu_torch.pipeline.pipeline import EchoTTS
+from echo_tts_tpu_torch.pipeline.pipeline import EchoTTS, sample_pipeline_stream
 
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -48,7 +48,7 @@ assert len(names) >= 20, names
 for new in ("bench.attention", "bench.attention_variants", "bench.conv_kernel_variants",
             "bench.conv_variants", "bench.profile_breakdown", "bench.timing",
             "ops.attention_variants", "ops.res_chain_variants", "utils.profiling",
-            "ops.conv_core", "sampling.jax_random"):
+            "ops.conv_core", "sampling.jax_random", "sampling.blockwise"):
     assert "echo_tts_tpu_torch." + new in names, new
 """
 
@@ -66,6 +66,9 @@ def test_entry_points_default_to_cuda():
         lambda: EchoTTS({}, tiny, {}, AEConfig().tiny(), PCAState.random(0, 64, device="cpu")),
         lambda: init_dit_params(tiny, dtype=torch.float32),
         lambda: init_ae_params(AEConfig().tiny()),
+        lambda: next(sample_pipeline_stream(
+            EchoTTS({}, DiTConfig().tiny(), {}, AEConfig().tiny(),
+                    PCAState.random(0, 64, device="cpu")), "hi", None, 0)),
     ]
     if torch.cuda.is_available():
         tts = calls[0]()
@@ -100,9 +103,24 @@ def test_bench_entry_point_needs_a_card_or_cpu_flag(name, capsys):
     assert not any(res["launches"].values())
 
 
-def test_init_refuses_unported_latent_encoder():
-    with pytest.raises(NotImplementedError, match="latent encoder"):
-        init_dit_params(DiTConfig().tiny(), dtype=torch.float32, device="cpu")
+def test_init_builds_latent_encoder():
+    """With has_latent_modules (the default) the port's init builds the
+    streaming path's latent encoder, latent_norm and wk/wv_latent: the same
+    leaves as the JAX package's init, with equal shapes."""
+    import jax
+
+    from echo_tts_tpu.core.config import DiTConfig as JDiTConfig
+    from echo_tts_tpu.models.dit import init_dit_params as j_init
+
+    def shapes(tree, prefix=""):
+        if isinstance(tree, dict):
+            return {k: v for n, sub in tree.items() for k, v in shapes(sub, f"{prefix}{n}.").items()}
+        return {prefix[:-1]: tuple(tree.shape)}
+
+    got = shapes(init_dit_params(DiTConfig().tiny(), dtype=torch.float32, device="cpu"))
+    ref = shapes(jax.eval_shape(lambda k: j_init(k, JDiTConfig().tiny()), jax.random.PRNGKey(0)))
+    assert got == ref
+    assert {"latent_norm", "blocks.attention.wk_latent", "latent_encoder.in_proj.w"} <= set(got)
 
 
 def test_wrappers_refuse_other_devices():

@@ -16,6 +16,7 @@ from echo_tts_tpu.sampling import euler_cfg as jeu
 from echo_tts_tpu_torch.checkpoints.from_jax import dit_params_from_numpy
 from echo_tts_tpu_torch.core.config import DiTConfig, SamplerConfig
 from echo_tts_tpu_torch.sampling import euler_cfg as teu
+from echo_tts_tpu_torch.sampling.jax_random import jax_fold_in, jax_normal
 
 from torch_parity import np_tree, rel_l2, t
 
@@ -97,3 +98,17 @@ def test_noise_draw_one_seed_per_row():
         assert float(np.abs(row - ref).max()) <= 2e-6
     with pytest.raises(ValueError):
         teu.draw_noise([1, 2], (3, 6, 80), "cpu")
+
+
+@pytest.mark.parametrize("seed", [0, 1, 12345])
+def test_folded_key_draw_matches_jax_random(seed):
+    """jax_fold_in gives the words of jax.random.fold_in(PRNGKey(seed), i),
+    and jax_normal draws from it what jax.random.normal does (the blockwise
+    sampler's per-block noise), block indices 0-3, max |diff| <= 2e-6."""
+    for i in range(4):
+        key = jax.random.fold_in(jax.random.PRNGKey(seed), i)
+        assert tuple(jax_fold_in(seed, i)) == tuple(int(w) for w in np.asarray(key))
+        ref = np.asarray(jax.random.normal(key, (2, 64, 80), dtype=jnp.float32))
+        got = jax_normal(jax_fold_in(seed, i), (2, 64, 80))
+        assert got.dtype == np.float32
+        assert float(np.abs(got - ref).max()) <= 2e-6
