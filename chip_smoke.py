@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py                 # every phase
     python3 chip_smoke.py --kernels-only  # build + kernel checks + kernel times
-    python3 chip_smoke.py --slices-only   # phases 1, 5, 6 and 9 only (K1, K2, K3 built)
+    python3 chip_smoke.py --slices-only   # phases 1, 5, 6, 9 and 10 only (K1, K2, K3 built)
 
 Phases, in order; any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi), torch/CUDA/nvcc versions;
@@ -53,6 +53,19 @@ Phases, in order; any failure exits non-zero:
      first audio, block walls, audio-s/s, peak memory, exact K1 and K2
      launch counts, one torch.profiler pass); stream_blocks_fused at
      bench.py --blockwise's 160 x 4; a continuation from 5 s of audio;
+ 10. (run after 9, on its weights) batching: K1 at B=4 (one CFG block at S=64,
+     rows at start_pos 0/64/256/448 with self_len 64/64/40/0) and K2 at B=4
+     (one stateful decode step, rows at frame 0/1/2/64, zero_below one a
+     row) against their plain versions, each row of a B=4 launch against
+     the row launched alone (bit for bit), the B=4 forward and decode step
+     against each row's own B=1 run (information); sample_pipeline_batch
+     at B = 1, 2 and 4 (wall, CUDA-event time, aggregate audio-s/s, peak
+     memory, exact K1 and K2 launches; one torch.profiler pass at B=4), each
+     row of B=4 against its solo sample_pipeline; sample_pipeline_stream_batch
+     at B=2 on (64, 192) against the solo streams; a continuous group of four
+     rows on 64-latent blocks (first-block and plain joins, a partial final
+     block, a resize 4 -> 2; each step's wall and CUDA-event time, the state
+     a row, peak memory) against the solo streams; audio rel-L2 < 2e-2;
   7. the measurement path: the entry points of echo_tts_tpu_torch/bench/
      (attention_variants, conv_kernel_variants, conv_variants, attention,
      profile_breakdown) at their full shapes, each printing its JSON line,
@@ -707,7 +720,7 @@ def phase_kernel_times(dev, errs: dict, launches: dict) -> list:
     # K1 at three shapes of the main paths: one launch of a single-branch
     # step (text 768, the 640-latent speaker bucket of 160 patches), of the
     # three-branch CFG group (speaker 1600), and of a LoRA step at B=8
-    k1 = [k1_times(dev, gen, *shape) for shape in K1_SHAPES + K1_STREAM]
+    k1 = [k1_times(dev, gen, *shape) for shape in K1_SHAPES + K1_STREAM + K1_BATCH]
     host_us = k1_host_us(dev, gen)
     from echo_tts_tpu_torch.ops import _build
 
@@ -728,6 +741,7 @@ def phase_kernel_times(dev, errs: dict, launches: dict) -> list:
 # the chains of one 640-latent decode and of one 640-latent encode (B=1)
 K2_DECODER = ((768, 20480), (384, 163840), (192, 655360), (96, 1310720))
 K2_ENCODER = ((64, 1310720), (128, 655360), (256, 163840), (512, 20480))
+K2_RATES = (4 * 8, 8, 4, 2)  # AEConfig(): the quantizer's x4, then each decoder block's stride
 
 
 def library_chain(x_cf, units, dilations=(1, 3, 9)):
@@ -747,13 +761,13 @@ def library_chain(x_cf, units, dilations=(1, 3, 9)):
     return x_cf
 
 
-def k2_chain_times(dev, gen, c, t, zero_below=None) -> dict:
-    """One three-unit chain of K2 at width c and T rows: kernel, plain
-    version, the cuDNN composition (library_chain), bound."""
+def k2_chain_times(dev, gen, c, t, zero_below=None, b=1) -> dict:
+    """One three-unit chain of K2 at width c, T rows and B batch rows:
+    kernel, plain version, the cuDNN composition (library_chain), bound."""
     from echo_tts_tpu_torch.bench.timing import cuda_ms
     from echo_tts_tpu_torch.ops import res_chain as rc
 
-    x = torch.randn(1, t, c, generator=gen, device=dev).to(torch.bfloat16)
+    x = torch.randn(b, t, c, generator=gen, device=dev).to(torch.bfloat16)
     us = [{"snake1": torch.ones(1, c, 1, device=dev, dtype=torch.bfloat16),
            "snake2": torch.ones(1, c, 1, device=dev, dtype=torch.bfloat16),
            "conv1": {"w": (torch.randn(c, c, 7, generator=gen, device=dev) * 0.02
@@ -769,10 +783,10 @@ def k2_chain_times(dev, gen, c, t, zero_below=None) -> dict:
                        warmup=1)
         x_cf = x.transpose(1, 2).contiguous()
         l_ms = cuda_ms(lambda: library_chain(x_cf, us), reps=5)
-    flops = 3 * 2.0 * t * c * c * 8
-    nbytes = 2 * 2 * t * c + 3 * 2 * (8 * c * c) + 3 * 4 * 4 * c
+    flops = 3 * 2.0 * b * t * c * c * 8
+    nbytes = 2 * 2 * b * t * c + 3 * 2 * (8 * c * c) + 3 * 4 * 4 * c
     b_ms, b_by = bound(flops, nbytes)
-    return {"C": c, "T": t, "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": b_ms,
+    return {"C": c, "T": t, "B": b, "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": b_ms,
             "bound_by": b_by, "flops": flops, "bytes": nbytes}
 
 
@@ -780,26 +794,34 @@ def k2_times(dev, gen, errs: dict, launches: dict) -> dict:
     """K2, one three-unit chain at each decoder and each encoder width at
     the row counts a 640-latent decode and encode give it, and the four
     chains of one streaming decode step of a 64-latent first block (rows +
-    chain_ctx, zero_below = chain_ctx): kernel, plain version, the cuDNN
-    composition (library_chain), bound. The JSON row's times are the
-    decoder chains summed; `widths` has each, `stream_step` the step's."""
+    chain_ctx, zero_below = chain_ctx) and of a continuous group's step at
+    B=4 (rows at frame 0, 1, 2 and 64: zero_below one a row): kernel, plain
+    version, the cuDNN composition (library_chain), bound. The JSON row's
+    times are the decoder chains summed; `widths` has each, `stream_step`
+    and `group_step` the steps'."""
     from echo_tts_tpu_torch.ops.res_chain import chain_ctx
 
     widths, tot = [], {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "flops": 0.0, "bytes": 0.0}
     ctx = chain_ctx()
-    step = {k: 0.0 for k in tot}
+    step, group = {k: 0.0 for k in tot}, {k: 0.0 for k in tot}
     stream = tuple((c, t // 10 + ctx) for c, t in K2_DECODER)  # 64 of 640 latents
     for stack, shapes in (("decoder", K2_DECODER), ("encoder", K2_ENCODER),
-                          ("stream step", stream)):
-        for c, t in shapes:
-            r = k2_chain_times(dev, gen, c, t, ctx if stack == "stream step" else None)
+                          ("stream step", stream), ("group step B=4", stream)):
+        for i, (c, t) in enumerate(shapes):
+            zb, b = None, 1
+            if stack == "stream step":
+                zb = ctx
+            elif stack == "group step B=4":
+                rate = math.prod(K2_RATES[:i + 1])  # rows a z_q frame at chain i
+                zb, b = [min(max(ctx - pos * rate, 0), ctx) for pos in (0, 1, 2, 64)], 4
+            r = k2_chain_times(dev, gen, c, t, zb, b)
             log(f"# time res_chain {stack} C={c} T={t}: kernel {r['ms']:.3f} ms "
                 f"({r['ms'] / r['bound_ms']:.2f}x its bound, {r['flops'] / r['ms'] / 1e9:.0f} "
                 f"TFLOP/s), plain {r['plain_ms']:.3f} ms, cuDNN composition "
                 f"{r['library_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms ({r['bound_by']})")
             widths.append({"stack": stack, **{k: r[k] for k in ("C", "T", "ms", "plain_ms",
                                                                  "library_ms", "bound_ms")}})
-            acc = tot if stack == "decoder" else step if stack == "stream step" else None
+            acc = {"decoder": tot, "stream step": step, "group step B=4": group}.get(stack)
             if acc is not None:
                 for k in acc:
                     acc[k] += r[k]
@@ -811,6 +833,10 @@ def k2_times(dev, gen, errs: dict, launches: dict) -> dict:
     log(f"# time res_chain, the four chains of a 64-latent stream step (T = rows + {ctx}, "
         f"zero_below {ctx}): kernel {step['ms']:.3f} ms, cuDNN composition "
         f"{step['library_ms']:.3f} ms, plain {step['plain_ms']:.3f} ms, bound {s_ms:.3f} ms")
+    g_ms, g_by = bound(group["flops"], group["bytes"])
+    log(f"# time res_chain, the four chains of a B=4 group step (the same T, zero_below one a "
+        f"row): kernel {group['ms']:.3f} ms, cuDNN composition {group['library_ms']:.3f} ms, "
+        f"plain {group['plain_ms']:.3f} ms, bound {g_ms:.3f} ms")
     return {"name": "res_chain", "route": "cuda",
             "source": "echo_tts_tpu_torch/csrc/res_chain.cu",
             "replaces": "echo_tts_tpu/ops/pallas_conv.py:60",
@@ -825,6 +851,10 @@ def k2_times(dev, gen, errs: dict, launches: dict) -> dict:
                             "library_ms": step["library_ms"], "bound_ms": s_ms,
                             "bound_by": s_by, "shape": f"C=768/384/192/96 at T = "
                             + "/".join(str(t) for _, t in stream) + f", zero_below {ctx}"},
+            "group_step": {"ms": group["ms"], "plain_ms": group["plain_ms"],
+                           "library_ms": group["library_ms"], "bound_ms": g_ms,
+                           "bound_by": g_by, "shape": "the stream step's chains at B=4, rows "
+                           "at z_q frame 0/1/2/64, zero_below one a row"},
             "shape": "decoder chains C=768/384/192/96 at T=20480/163840/655360/1310720, summed"}
 
 
@@ -834,6 +864,9 @@ K1_SHAPES = (("one branch", 1, 1, (768, 160)), ("three branches", 3, 1, (768, 16
 # text 768 + the 20 s prompt's speaker bucket of 160 patches
 K1_STREAM = tuple((f"stream, cond branch, S={s}", 1, 1, (160, 768, 160), s,
                    ("latent", "text", "speaker")) for s in (192, 64))
+# a continuous group's step at B=4 (64-latent blocks), the cond branch
+K1_BATCH = (("group step, cond branch, S=64", 1, 4, (160, 768, 160), 64,
+             ("latent", "text", "speaker")),)
 GRAPH_ITERS = 20  # calls per timed CUDA-graph replay, for kernels shorter than their launch
 
 
@@ -1416,7 +1449,8 @@ def phase_stream(dev, wrappers: dict) -> dict:
     2-frame first chunks; (c) sample_pipeline_stream with the (64, 192)
     schedule and phase 5's prompts, warm-up and timed, exact launch counts,
     one profile; (d) stream_blocks_fused at bench.py --blockwise's shapes;
-    (e) a continuation from 5 s of audio. Returns the launches of (c)."""
+    (e) a continuation from 5 s of audio. Returns the launches of (c) and
+    the weights, which phase 10 goes on with."""
     import echo_tts_tpu_torch.models.dit as dit_mod
     import echo_tts_tpu_torch.models.s1dac as s1_mod
     from echo_tts_tpu_torch.bench.init_ae import init_ae_params
@@ -1646,9 +1680,358 @@ def phase_stream(dev, wrappers: dict) -> dict:
     lap("e", split)
     log(f"# stream phase: {time.perf_counter() - t_phase:.1f} s, peak memory "
         f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
-    return {"launches": launches, "ttfa_ms": walls[0] * 1e3, "block_ms": blocks_ms,
+    return {"launches": launches, "tts": tts, "ttfa_ms": walls[0] * 1e3, "block_ms": blocks_ms,
             "audio_s_per_s": secs / walls[-1], "profile": prof,
             "blockwise_ttfa_ms": d_walls[0] * 1e3, "pack_ms": pack_ms}
+
+
+# ---------------------------------------------------------------------------
+# phase 10: batching at full width
+# ---------------------------------------------------------------------------
+
+
+def events_ms(run):
+    """(result, wall ms, ms between two CUDA events around run())."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    out = run()
+    end.record()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3, start.elapsed_time(end)
+
+
+def stack_rows(trees):
+    """One-row states (nested dicts and lists of tensors) stacked on axis 0."""
+    if isinstance(trees[0], dict):
+        return {k: stack_rows([t[k] for t in trees]) for k in trees[0]}
+    if isinstance(trees[0], (list, tuple)):
+        return [stack_rows(list(x)) for x in zip(*trees)]
+    return torch.cat(trees)
+
+
+def check_batch_rows(what: str, got: dict, ref: dict) -> None:
+    """rel-L2 of each row's audio against its solo run, printed; fails
+    above the bound or on a length mismatch."""
+    rels = {}
+    for r in ref:
+        if got[r].shape != ref[r].shape:
+            raise SystemExit(f"batching {what}: row {r} has {got[r].shape[-1]} samples, its solo "
+                             f"run {ref[r].shape[-1]}")
+        rels[r] = rel_l2(torch.from_numpy(got[r]), torch.from_numpy(ref[r]))
+    log(f"# batching {what}: each row against its solo run, audio rel-L2 "
+        f"{', '.join(f'row {r} {v:.3e}' for r, v in rels.items())}")
+    if max(rels.values()) >= REL_L2_BOUND or not all(np.isfinite(got[r]).all() for r in got):
+        raise SystemExit(f"batching {what}: a row disagrees with its solo run {rels}")
+
+
+def phase_batch(dev, wrappers: dict, tts) -> dict:
+    """Batching on phase 9's weights (DiTConfig() with the latent modules,
+    AEConfig(), bf16): (a) K1 and K2 at B=4 with one position a row, each
+    call against its plain version and a row of the B=4 launch against the
+    same row launched alone; (b) sample_pipeline_batch at B = 1, 2 and 4,
+    each row of B=4 against its solo sample_pipeline; (c)
+    sample_pipeline_stream_batch at B=2 against the solo streams; (d) a
+    continuous group of 4 rows on 64-latent blocks (joins with and without
+    a first block, a partial final block, a resize 4 -> 2) against the solo
+    streams. Returns the launches of (b) at B=4, (c) and (d) by path."""
+    import echo_tts_tpu_torch.models.dit as dit_mod
+    import echo_tts_tpu_torch.models.s1dac as s1_mod
+    from echo_tts_tpu_torch.core.config import SamplerConfig
+    from echo_tts_tpu_torch.core.rope import precompute_rope, rope_rows
+    from echo_tts_tpu_torch.ops.joint_attention import pick_tq
+    from echo_tts_tpu_torch.ops.res_chain import chain_ctx, res_chain_plain
+    from echo_tts_tpu_torch.pipeline import pipeline as pl
+    from echo_tts_tpu_torch.sampling.euler_cfg import draw_noise
+
+    t_phase = time.perf_counter()
+    dit_cfg, ae_cfg = tts.dit_cfg, tts.ae_cfg
+    p, L, md = tts.dit_params, dit_cfg.num_layers, tts.model_dtype
+    sc = SamplerConfig(num_steps=40, cfg_scale_text=3.0, cfg_scale_speaker=8.0, cfg_min_t=0.5,
+                       cfg_max_t=1.0, truncation_factor=0.8, sequence_length=640)
+    sr, spl = ae_cfg.sample_rate, ae_cfg.frame_length
+    spk_audio = synthetic_speech(20.0, sr, 7)
+    requests = [(SHORT_TEXT, None, 0), (SPEAKER_TEXT, spk_audio, 1), (LONG_TEXT, None, 2),
+                (SHORT_TEXT, None, 3)]
+    gen = torch.Generator(device=dev).manual_seed(21)
+    k1_w, k2_w = wrappers["joint_attention"], wrappers["res_chain"]
+    pc = tts.pipe_cfg
+    prompt_chunks = math.ceil(min(spk_audio.shape[-1], pc.max_speaker_latent_length * spl)
+                              / (pc.audio_chunk_latents * spl))
+    k2_step, k2_chunk = 3 * len(ae_cfg.decoder_rates), 3 * len(ae_cfg.encoder_rates)
+
+    # (a) K1 at B=4: one CFG block forward at S=64, rows at start_pos 0, 64,
+    # 256, 448 with self_len 64, 64, 40, 0, the four requests' caches
+    starts, self_len = [0, 64, 256, 448], [64, 64, 40, 0]
+    preps = [pl._prepare_inputs(tts, text, spk, False, None, None, True)
+             for text, spk, _ in requests]
+    ids, tmask, spk, smask = pl._stack_padded(preps, dev)
+    captured = []
+
+    def capture_k1(q, k_self, v_self, segments, layout="hm", self_len=None, out=None):
+        res = k1_w(q, k_self, v_self, segments, layout=layout, self_len=self_len, out=out)
+        if not captured:
+            captured.append((q, k_self, v_self, list(segments), layout, self_len))
+        return res
+
+    with torch.no_grad():
+        kv_text = dit_mod.get_kv_cache_text(p, dit_cfg, ids, tmask)
+        kv_spk = dit_mod.get_kv_cache_speaker(p, dit_cfg, spk.to(md))
+        lat = dit_mod.init_latent_kv_state(p, dit_cfg, 4, 640, md)
+        dit_mod.extend_latent_kv(p, dit_cfg, lat, torch.randn(4, 448, 80, generator=gen,
+                                                              device=dev).to(md), 0)
+        st = torch.tensor(starts, device=dev)
+        lmask = torch.arange(160, device=dev)[None] * 4 < st[:, None]
+        rope_q = rope_rows(*precompute_rope(dit_cfg.head_dim, 640, device=dev),
+                           st[:, None] + torch.arange(64, device=dev))
+        sl = torch.tensor(self_len, dtype=torch.int32, device=dev)
+        x = torch.randn(4, 64, 80, generator=gen, device=dev).to(md)
+        kw = dict(rope_q=rope_q, speaker_kv_scale=[1.5] * L, self_len=sl,
+                  kv_latent=(lat["k"], lat["v"]), latent_mask=lmask)
+        t_b = torch.full((4,), 0.7, device=dev).to(md)
+        before = k1_w.launches
+        dit_mod.joint_attention = capture_k1
+        try:
+            got = dit_mod.dit_forward_cfg(p, dit_cfg, x, t_b, tmask, smask, kv_text, kv_spk, **kw)
+            dit_mod.joint_attention = plain_attention
+            ref = dit_mod.dit_forward_cfg(p, dit_cfg, x, t_b, tmask, smask, kv_text, kv_spk, **kw)
+        finally:
+            dit_mod.joint_attention = k1_w
+        k1_n = k1_w.launches - before
+        live = [b for b in range(4) if self_len[b] > 0]
+        fwd_rel = {b: rel_l2(got[:, b], ref[:, b]) for b in range(4)}
+        # a row of the B=4 launch against the same row launched alone
+        q, k_self, v_self, segs, layout, slc = captured[0]
+        whole = k1_w(q, k_self, v_self, segs, layout=layout, self_len=slc)
+        row_equal = [torch.equal(whole[:, b:b + 1], k1_w(
+            q[:, b:b + 1], k_self[:, b:b + 1], v_self[:, b:b + 1],
+            [(k[b:b + 1], v[b:b + 1], m[:, b:b + 1], s_) for k, v, m, s_ in segs],
+            layout=layout, self_len=slc[b:b + 1])) for b in range(4)]
+    log(f"# batching (a) CFG block forward at B=4, S=64, start_pos {starts}, self_len {self_len}, "
+        f"latent visible {lmask.sum(1).tolist()} of 160, text {kv_text[0].shape[3]}, speaker "
+        f"{kv_spk[0].shape[3]}: {k1_n} K1 launches, K1 vs plain rel-L2 by row "
+        f"{', '.join(f'{fwd_rel[b]:.3e}' for b in range(4))} (live rows {live}); K1 tile "
+        f"{pick_tq(64)} query rows: G x B x H x q tiles = {q.shape[0]} x {q.shape[1]} x "
+        f"{q.shape[3]} x {math.ceil(q.shape[2] / pick_tq(64))} blocks for the cond branch's "
+        f"launch; row of the B=4 launch == the row alone, bit for bit: {row_equal}")
+    if (k1_n != 3 * L or max(fwd_rel[b] for b in live) >= REL_L2_BOUND
+            or not torch.isfinite(got).all()):
+        raise SystemExit(f"batching (a): K1 at B=4 disagrees with its plain version {fwd_rel}")
+    if not all(row_equal):
+        raise SystemExit(f"batching (a): a row of the B=4 K1 launch differs from the row "
+                         f"launched alone {row_equal}")
+    # information: the whole B=4 forward against each row's own B=1 forward
+    # (the GEMMs see another M; K1 and K2 give each row its own blocks)
+    with torch.no_grad():
+        solo_rel = []
+        for b in range(4):
+            one = lambda a: a[b:b + 1]  # noqa: E731
+            kw1 = dict(kw, rope_q=tuple(map(one, rope_q)), self_len=one(sl),
+                       kv_latent=(lat["k"][:, b:b + 1], lat["v"][:, b:b + 1]),
+                       latent_mask=one(lmask))
+            solo_rel.append(rel_l2(got[:, b:b + 1], dit_mod.dit_forward_cfg(
+                p, dit_cfg, one(x), one(t_b), one(tmask), one(smask),
+                tuple(a[:, b:b + 1] for a in kv_text), tuple(a[:, b:b + 1] for a in kv_spk),
+                **kw1)))
+    log(f"# batching (a) the B=4 CFG forward against each row's own B=1 forward: rel-L2 "
+        f"{', '.join(f'{r_:.3e}' for r_ in solo_rel)}")
+    del kv_text, kv_spk, lat, got, ref, captured, whole
+
+    # K2 at B=4: one stateful decode step of 64 frames, rows at frame 0, 1, 2, 64
+    ae = with_random_res_biases(tts.ae_params, gen, dev)
+    z = (0.3 * torch.randn(4, ae_cfg.latent_dim, 128, generator=gen, device=dev)).to(md)
+    k2_calls = []
+
+    def checked_chain(xc, units, dilations=(1, 3, 9), *, zero_below=None):
+        out = k2_w(xc, units, dilations, zero_below=zero_below)
+        ref_c = res_chain_plain(xc.float(), f32_units(units), dilations, zero_below)
+        zb = torch.as_tensor(zero_below).reshape(-1).tolist()
+        dirty = any(bool(out[b, :zb[b]].any()) for b in range(out.shape[0]))
+        row_eq = all(torch.equal(out[b:b + 1], k2_w(xc[b:b + 1].contiguous(), units, dilations,
+                                                     zero_below=zb[b:b + 1]))
+                     for b in range(out.shape[0]))
+        k2_calls.append((xc.shape[2], xc.shape[1], zb, rel_l2(out, ref_c), dirty, row_eq))
+        return out
+
+    pos = [0, 1, 2, 64]
+    with torch.no_grad():
+        states = []
+        for r, n in enumerate(pos):
+            st1 = s1_mod.streaming_decode_init(ae, ae_cfg, 1, per_row_pos=True)
+            if n:
+                _, st1 = s1_mod.decode_zq_stream_step(ae, ae_cfg, st1, z[r:r + 1, :, :n])
+            states.append(st1)
+        chunk = torch.stack([z[r, :, n:n + 64] for r, n in enumerate(pos)])
+        s1_mod.res_units_cl = checked_chain
+        try:
+            audio4, _ = s1_mod.decode_zq_stream_step(ae, ae_cfg, stack_rows(states), chunk)
+        finally:
+            s1_mod.res_units_cl = k2_w
+    ctx, rate0 = chain_ctx(), math.prod(ae_cfg.downsample_factor) * ae_cfg.decoder_rates[0]
+    want0 = [min(max(ctx - n * rate0, 0), ctx) for n in pos]
+    for c, rows, zb, rel, dirty, row_eq in k2_calls:
+        log(f"# batching (a) K2 at B=4, C={c}, T={rows}: zero_below by row {zb}, rel-L2 vs "
+            f"plain {rel:.3e}, zero rows exactly zero {not dirty}, each row == the row alone "
+            f"bit for bit {row_eq}")
+    if (len(k2_calls) != len(ae_cfg.decoder_rates) or k2_calls[0][2] != want0
+            or any(c[3] >= REL_L2_BOUND or c[4] or not c[5] for c in k2_calls)
+            or not torch.isfinite(audio4).all()):
+        raise SystemExit(f"batching (a): K2 at B=4 disagrees (first chain's zero_below "
+                         f"expected {want0})")
+    with torch.no_grad():  # information: each row's step decoded alone
+        dec_rel = [rel_l2(audio4[r:r + 1], s1_mod.decode_zq_stream_step(
+            ae, ae_cfg, states[r], chunk[r:r + 1])[0]) for r in range(4)]
+    log(f"# batching (a) the B=4 decode step against each row's own B=1 step: audio rel-L2 "
+        f"{', '.join(f'{r_:.3e}' for r_ in dec_rel)}")
+    del ae, z, states, audio4
+    split = lap("batching a", t_phase)
+
+    # (b) sample_pipeline_batch at B = 1, 2, 4; each row of B=4 against its solo run
+    pl.sample_pipeline_batch(tts, requests, sc=dataclasses.replace(sc, num_steps=2))  # warm-up
+    out_b, launches = {}, {}
+    for bsz in (1, 2, 4):
+        reqs = requests[:bsz]
+        for w in wrappers.values():
+            w.launches = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        res, wall, ev = events_ms(lambda: pl.sample_pipeline_batch(tts, reqs, sc=sc))
+        got_l = {k: w.launches for k, w in wrappers.items()}
+        launches[f"batch_{bsz}"] = got_l
+        secs = sum(a.shape[-1] for a, _, _ in res) / sr
+        prompted = sum(spk_ is not None for _, spk_, _ in reqs)
+        want = {"joint_attention": 20 * 3 * L + 20 * L,
+                "res_chain": k2_step + prompted * prompt_chunks * k2_chunk}
+        log(f"# batching (b) sample_pipeline_batch B={bsz}: wall {wall:.1f} ms, CUDA events "
+            f"around the call {ev:.1f} ms, sample+decode {res[0][2]['sample'] * 1e3:.1f} ms, "
+            f"audio {secs:.2f} s, {secs / wall * 1e3:.2f} audio-s/s; peak memory "
+            f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; launches {got_l} "
+            f"(expected {want}: K1 and the decode's K2 as at B=1, "
+            f"{prompt_chunks * k2_chunk} K2 for each prompted request's encode)")
+        if got_l != want or any(tm["batch_size"] != bsz for _, _, tm in res):
+            raise SystemExit(f"batching (b): launches {got_l}, expected {want}")
+        out_b[bsz] = {r: a for r, (a, _, _) in enumerate(res)}
+    profile_families("sample_pipeline_batch B=4",
+                     lambda: pl.sample_pipeline_batch(tts, requests, sc=sc))
+    solo = {r: pl.sample_pipeline(tts, text, spk_, seed, sc=sc)[0]
+            for r, (text, spk_, seed) in enumerate(requests)}
+    check_batch_rows("(b) B=4", out_b[4], solo)
+    split = lap("batching b", split)
+
+    # (c) sample_pipeline_stream_batch at B=2, (64, 192), the prompt on one row
+    s_reqs = [requests[1], requests[0]]
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0, c_walls, rows_c = time.perf_counter(), [], {0: [], 1: []}
+    for out in pl.sample_pipeline_stream_batch(tts, s_reqs, sc=sc, stop_at_flattening=False):
+        c_walls.append(time.perf_counter() - t0)
+        for r, chunk_ in out.items():
+            rows_c[r].append(chunk_)
+    launches["stream_batch_2"] = {k: w.launches for k, w in wrappers.items()}
+    want_c = {"joint_attention": 4 * (20 * 3 + 20) * L,
+              "res_chain": 4 * k2_step + prompt_chunks * k2_chunk}
+    got_c = {r: np.concatenate(v, -1) for r, v in rows_c.items()}
+    log(f"# batching (c) sample_pipeline_stream_batch B=2, (64, 192): time to first audio "
+        f"{c_walls[0] * 1e3:.1f} ms, block walls "
+        f"{', '.join(f'{(b - a) * 1e3:.1f}' for a, b in zip([0.0] + c_walls[:-1], c_walls))} ms, "
+        f"total {c_walls[-1] * 1e3:.1f} ms, {2 * 640 * spl / sr / c_walls[-1]:.2f} audio-s/s; "
+        f"peak memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; launches "
+        f"{launches['stream_batch_2']} (expected {want_c})")
+    if launches["stream_batch_2"] != want_c:
+        raise SystemExit("batching (c): launch counts")
+    solo_c = {r: np.concatenate(list(pl.sample_pipeline_stream(
+        tts, text, spk_, seed, sc=sc, stop_at_flattening=False)), -1)
+        for r, (text, spk_, seed) in enumerate(s_reqs)}
+    check_batch_rows("(c) stream B=2", got_c, solo_c)
+    split = lap("batching c", split)
+
+    # (d) a continuous group of 4 rows on 64-latent blocks
+    bs = 64
+    budgets = {0: 192, 1: 160, 2: 256}
+    total = max(budgets.values()) + bs
+    g_preps = [pl._prepare_inputs(tts, text, spk_, False, None, None, True)
+               for text, spk_, _ in requests[:3]]
+    text_len = max(pp[0].shape[1] for pp in g_preps)
+    spk_len = max(pp[3].shape[1] for pp in g_preps)
+
+    def row_inputs(r):
+        pp = g_preps[r]
+        return [torch.as_tensor(pl._pad_to(np.asarray(pp[i]), n), device=dev)
+                for i, n in ((0, text_len), (1, text_len), (3, spk_len), (4, spk_len))]
+
+    noise = {r: draw_noise(requests[r][2], (1, n, 80), dev) for r, n in budgets.items()}
+    zero = torch.zeros(bs, 80, device=dev)
+
+    def nrow(r, a):
+        blk = noise[r][0, a:a + bs]
+        return torch.cat([blk, zero[:bs - blk.shape[0]]]) if r is not None else zero
+
+    args = (p, dit_cfg, sc, tts.ae_params, ae_cfg, tts.pca)
+    g_audio = {r: [] for r in budgets}
+    d_rows = []
+
+    def step(gs, slots, starts_, valids):
+        b = len(starts_)
+        nz = torch.stack([nrow(slots[i], starts_[i]) if valids[i] else zero for i in range(b)])
+        (gs, audio, _), wall, ev = events_ms(lambda: pl._stream_step_rows(
+            *args, gs, starts_, valids, nz, bs, total, md, 1024))
+        audio = audio.cpu().numpy()
+        for i, r in enumerate(slots):
+            if r is not None and valids[i]:
+                g_audio[r].append(audio[i:i + 1, :, :valids[i] * spl])
+        d_rows.append((f"step B={b} starts {starts_} valid {valids}", wall, ev))
+        return gs
+
+    def join_first(gs, row, r):
+        (gs, audio, _), wall, ev = events_ms(lambda: pl._join_row_first_block(
+            *args, gs, row, *row_inputs(r), nrow(r, 0)[None], bs, total, md, 1024))
+        g_audio[r].append(audio.cpu().numpy())
+        d_rows.append((f"join row {r} with its first block", wall, ev))
+        return gs
+
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    with torch.no_grad():
+        gs = pl.init_stream_group(tts, 4, total, text_len, spk_len)
+        torch.cuda.synchronize()
+        state_gb = sum(t_.numel() * t_.element_size() for t_ in pl._leaves(gs)) / 4 / 1e9
+        gs = join_first(gs, 0, 0)
+        (gs, wall, ev) = events_ms(lambda: pl._join_row(p, dit_cfg, tts.ae_params, ae_cfg, gs,
+                                                        1, *row_inputs(1), md))
+        d_rows.append(("join row 1", wall, ev))
+        gs = step(gs, [0, 1, None, None], [64, 0, 0, 0], [64, 64, 0, 0])
+        gs = step(gs, [0, 1, None, None], [128, 64, 0, 0], [64, 64, 0, 0])
+        gs = join_first(gs, 2, 2)
+        # row 0 retired; row 1's last block holds 32 valid latents
+        gs = step(gs, [None, 1, 2, None], [192, 128, 64, 0], [0, 32, 64, 0])
+        (gs, wall, ev) = events_ms(lambda: pl._resize_group(gs, [2, 3], [True, False]))
+        d_rows.append(("resize 4 -> 2", wall, ev))
+        gs = step(gs, [2, None], [128, 0], [64, 0])
+        gs = step(gs, [2, None], [192, 0], [64, 0])
+    launches["continuous_group"] = {k: w.launches for k, w in wrappers.items()}
+    n_blocks = 2 + 5
+    want_d = {"joint_attention": n_blocks * (20 * 3 + 20) * L, "res_chain": n_blocks * k2_step}
+    peak_d = torch.cuda.max_memory_allocated(dev) / 2**30
+    for what, wall, ev in d_rows:
+        log(f"# batching (d) {what}: wall {wall:.1f} ms, CUDA events {ev:.1f} ms")
+    log(f"# batching (d) group state {state_gb:.3f} GB a row (text {text_len}, speaker "
+        f"{spk_len} latents, {total} latents of prefix); peak memory {peak_d:.2f} GiB; "
+        f"launches {launches['continuous_group']} (expected {want_d})")
+    if launches["continuous_group"] != want_d:
+        raise SystemExit("batching (d): launch counts")
+    got_d = {r: np.concatenate(v, -1) for r, v in g_audio.items()}
+    solo_d = {r: np.concatenate(list(pl.sample_pipeline_stream(
+        tts, requests[r][0], requests[r][1], requests[r][2],
+        sc=dataclasses.replace(sc, sequence_length=n), block_size=bs,
+        stop_at_flattening=False)), -1) for r, n in budgets.items()}
+    check_batch_rows("(d) continuous group", got_d, solo_d)
+    del gs
+    lap("batching d", split)
+    log(f"# batching phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"batch_one_shot": launches["batch_4"], "stream_batch": launches["stream_batch_2"],
+            "continuous_group": launches["continuous_group"]}
 
 
 # ---------------------------------------------------------------------------
@@ -1829,7 +2212,7 @@ def main(argv) -> int:
         phase_train(tts, dev, train_wrappers)
         del tts
         torch.cuda.empty_cache()
-        phase_stream(dev, slice_wrappers)
+        phase_batch(dev, slice_wrappers, phase_stream(dev, slice_wrappers)["tts"])
     else:
         phase_build()
         phase_core_check(dev)
@@ -1843,7 +2226,10 @@ def main(argv) -> int:
             launches["training"] = phase_train(tts, dev, train_wrappers)
             del tts
             torch.cuda.empty_cache()
-            launches["streaming"] = phase_stream(dev, slice_wrappers)["launches"]
+            stream = phase_stream(dev, slice_wrappers)
+            launches["streaming"] = stream["launches"]
+            launches.update(phase_batch(dev, slice_wrappers, stream.pop("tts")))
+            del stream
             torch.cuda.empty_cache()
             launches["measurement"] = phase_measurement(dev)
         rows = phase_kernel_times(dev, errs, launches)

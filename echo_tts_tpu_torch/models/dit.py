@@ -38,7 +38,14 @@ from echo_tts_tpu_torch.core.layers import (
     rms_norm,
     timestep_embedding,
 )
-from echo_tts_tpu_torch.core.rope import apply_rope, apply_rope_half_heads, precompute_rope
+from echo_tts_tpu_torch.core.rope import (
+    apply_rope,
+    apply_rope_half_heads,
+    per_row,
+    precompute_rope,
+    row_slots,
+    rope_rows,
+)
 from echo_tts_tpu_torch.models import quant
 from echo_tts_tpu_torch.ops.attention import sdpa
 from echo_tts_tpu_torch.ops.joint_attention import joint_attention, joint_attention_trainable
@@ -199,14 +206,16 @@ def init_latent_kv_state(params: dict, cfg: DiTConfig, batch: int, total_len: in
 
 
 def extend_latent_kv(params: dict, cfg: DiTConfig, state: dict, new_latent: torch.Tensor,
-                     start_pos: int) -> dict:
+                     start_pos) -> dict:
     """Append `new_latent` (B, n·patch, latent_size), the latents
     [start_pos, start_pos + n·patch) in the model dtype, into `state` in
     place and return it. Exact against a whole-prefix `get_kv_cache_latent`:
     the encoder is causal and the masked tail adds exact zeros. start_pos is
-    one int for every row; a per-row (B,) start_pos is not ported yet."""
-    if getattr(start_pos, "ndim", 0) or isinstance(start_pos, (list, tuple)):
-        raise NotImplementedError("a per-row start_pos (continuous batching) is not ported yet")
+    one int for every row, or one position a row ((B,), continuous
+    batching): each row then takes RoPE, its causal mask and its writes at
+    its own patch offset (a write that would not fit is moved back until it
+    does, as the JAX package's dynamic_update_slice moves it; only a free
+    slot gets there)."""
     enc = params["latent_encoder"]
     p = cfg.speaker_patch_size
     b, s_lat, d_lat = new_latent.shape
@@ -214,16 +223,28 @@ def extend_latent_kv(params: dict, cfg: DiTConfig, state: dict, new_latent: torc
     eps = cfg.norm_eps
     heads, hd = cfg.speaker_num_heads, cfg.speaker_head_dim
     t_pat = state["enc_k"].shape[2]
-    pos = int(start_pos) // p
-    if s_lat % p or pos + n > t_pat:
-        raise ValueError(f"{s_lat} latents at {start_pos} do not fit {t_pat} patches of {p}")
     dev = new_latent.device
+    rows = per_row(start_pos)
+    if rows:
+        pos = torch.as_tensor(start_pos, dtype=torch.long, device=dev).reshape(b) // p
+        if s_lat % p or n > t_pat:
+            raise ValueError(f"{s_lat} latents do not fit {t_pat} patches of {p}")
+        idx = pos[:, None] + torch.arange(n, device=dev)  # (B, n) absolute patches
+        cos, sin = rope_rows(*precompute_rope(hd, t_pat, device=dev), idx)
+        hidden = (torch.arange(t_pat, device=dev)[None, None, :] > idx[:, :, None])[:, None]
+        at = row_slots(pos, n, t_pat)
+        bi = torch.arange(b, device=dev)[:, None]
+    else:
+        pos = int(start_pos) // p
+        if s_lat % p or pos + n > t_pat:
+            raise ValueError(f"{s_lat} latents at {start_pos} do not fit {t_pat} patches of {p}")
+        cos, sin = (tab[pos:pos + n] for tab in precompute_rope(hd, t_pat, device=dev))
+        # query at patch pos + i sees the keys at patches <= pos + i
+        hidden = (torch.arange(t_pat, device=dev)[None, :]
+                  > (pos + torch.arange(n, device=dev))[:, None])
 
     x = new_latent.reshape(b, n, d_lat * p) @ enc["in_proj"]["w"] + enc["in_proj"]["b"]
     x = x / 6.0
-    cos, sin = (tab[pos:pos + n] for tab in precompute_rope(hd, t_pat, device=dev))
-    # query at patch pos + i sees the keys at patches <= pos + i
-    hidden = torch.arange(t_pat, device=dev)[None, :] > (pos + torch.arange(n, device=dev))[:, None]
     for l, lp in enumerate(layer_slices(enc["blocks"])):
         lp = layer_weights(lp)
         a = lp["attention"]
@@ -232,8 +253,13 @@ def extend_latent_kv(params: dict, cfg: DiTConfig, state: dict, new_latent: torc
         q = apply_rope(rms_norm(q.reshape(b, n, heads, hd), a["q_norm"], eps), cos, sin)
         k = apply_rope(rms_norm(k.reshape(b, n, heads, hd), a["k_norm"], eps), cos, sin)
         kbuf, vbuf = state["enc_k"][l], state["enc_v"][l]
-        kbuf[:, pos:pos + n] = k  # written before this layer reads the buffer
-        vbuf[:, pos:pos + n] = v.reshape(b, n, heads, hd)
+        # written before this layer reads the buffer
+        if rows:
+            kbuf[bi, at] = k.to(kbuf.dtype)
+            vbuf[bi, at] = v.reshape(b, n, heads, hd).to(vbuf.dtype)
+        else:
+            kbuf[:, pos:pos + n] = k
+            vbuf[:, pos:pos + n] = v.reshape(b, n, heads, hd)
         logits = torch.einsum("bnhd,bthd->bhnt", q.float(), kbuf.float()) / math.sqrt(hd)
         w = torch.softmax(logits.masked_fill(hidden, _NEG), dim=-1).to(vbuf.dtype)
         o = torch.einsum("bhnt,bthd->bnhd", w.float(), vbuf.float()).to(vbuf.dtype)
@@ -243,11 +269,16 @@ def extend_latent_kv(params: dict, cfg: DiTConfig, state: dict, new_latent: torc
     # the trunk's cache of the new patches, as get_kv_cache_latent builds it
     x = rms_norm(x, params["latent_norm"], eps)
     cos, sin = precompute_rope(cfg.head_dim, t_pat * p, device=dev)
-    rows = slice(pos * p, (pos + n) * p, p)
+    rope = rope_rows(cos, sin, idx * p) if rows else \
+        (cos[pos * p:(pos + n) * p:p], sin[pos * p:(pos + n) * p:p])
     ks, vs = _project_kv(params["blocks"]["attention"], x, "wk_latent", "wv_latent",
-                         cfg.num_heads, eps, rope=(cos[rows], sin[rows]))
-    state["k"][:, :, :, pos:pos + n] = ks
-    state["v"][:, :, :, pos:pos + n] = vs
+                         cfg.num_heads, eps, rope=rope)
+    if rows:  # (L, B, H, T, Dh) caches indexed on axes 1 and 3: (B, n, L, H, Dh)
+        state["k"][:, bi, :, at] = ks.permute(1, 3, 0, 2, 4).to(state["k"].dtype)
+        state["v"][:, bi, :, at] = vs.permute(1, 3, 0, 2, 4).to(state["v"].dtype)
+    else:
+        state["k"][:, :, :, pos:pos + n] = ks
+        state["v"][:, :, :, pos:pos + n] = vs
     return state
 
 

@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from echo_tts_tpu_torch.core.config import AEConfig
+from echo_tts_tpu_torch.core.rope import per_row, rope_rows
 from echo_tts_tpu_torch.ops.res_chain import (
     causal_conv_shifted_cl,
     chain_ctx,
@@ -118,11 +119,15 @@ def _ae_rope_tables(seq_len: int, head_dim: int, base: float = 10000.0, device=N
 
 
 def _ae_apply_rope(x, cos, sin):
-    """Adjacent-pair rotation in fp32; tables (S, D/2)."""
+    """Adjacent-pair rotation in fp32; tables (S, D/2), or (B, S, D/2) with
+    one position a row (a continuous group's rows at their own offsets)."""
     dtype = x.dtype
     xf = x.float()
     xr, xi = xf[..., 0::2], xf[..., 1::2]
-    c, s = cos[:, None, :], sin[:, None, :]
+    if cos.dim() == 2:
+        c, s = cos[:, None, :], sin[:, None, :]
+    else:
+        c, s = cos[:, :, None, :], sin[:, :, None, :]
     return torch.stack([xr * c - xi * s, xi * c + xr * s], dim=-1).reshape(x.shape).to(dtype)
 
 
@@ -405,32 +410,38 @@ def _tconv_stream_cl(x_cl, tail_cl, w, b, *, kernel_size: int, stride: int):
     return y[:, ctx * stride:], xw[:, -ctx:].clone()
 
 
-def _res_chain_stream_cl(x_cl, tail_cl, units, dilations, pad_rows: int):
+def _res_chain_stream_cl(x_cl, tail_cl, units, dilations, pad_rows):
     """The residual-unit chain on [tail | x] (kernel K2 on the card), its
-    first `pad_rows` rows re-zeroed after every unit; returns (y, the new
-    tail)."""
+    first `pad_rows` rows (an int, or (B,) one a row) re-zeroed after every
+    unit; returns (y, the new tail)."""
     ctx = tail_cl.shape[1]
     xw = torch.cat([tail_cl, x_cl], dim=1)
     y = res_units_cl(xw, units, dilations, zero_below=pad_rows)
     return y[:, ctx:], xw[:, -ctx:].clone()
 
 
-def _window_transformer_stream(x, p: dict, kv: list, pos0: int, *, n_head: int,
+def _window_transformer_stream(x, p: dict, kv: list, pos0, *, n_head: int,
                                head_dim: int, window: int, norm_eps: float = 1e-5,
                                max_positions: int = 1024):
     """One step of the window-limited transformer on x (B, C, S) at frame
-    offset pos0. kv: per layer {"k", "v"} (B, window - 1, H, Dh), the
-    previous window - 1 positions (zeros before the start, masked). Returns
-    (y (B, C, S), new kv). RoPE from the `max_positions` table."""
+    offset pos0: an int, or a (B,) tensor with each row's own offset. kv:
+    per layer {"k", "v"} (B, window - 1, H, Dh), the previous window - 1
+    positions (zeros before the start, masked). Returns (y (B, C, S), new
+    kv). RoPE from the `max_positions` table."""
     x = x.transpose(1, 2)
     b, s, _ = x.shape
     n_cache = window - 1
-    cos, sin = (tab[pos0:pos0 + s] for tab in
-                _ae_rope_tables(max_positions, head_dim, device=x.device))
+    tabs = _ae_rope_tables(max_positions, head_dim, device=x.device)
     # kv slot j holds position pos0 - n_cache + j; query i sits at pos0 + i
     i = torch.arange(s, device=x.device)[:, None]
     j = torch.arange(n_cache + s, device=x.device)[None, :]
-    mask = (j >= i) & (j <= i + n_cache) & (j >= n_cache - pos0)
+    if per_row(pos0):
+        cos, sin = rope_rows(*tabs, pos0.long()[:, None] + torch.arange(s, device=x.device))
+        mask = ((j >= i) & (j <= i + n_cache))[None] & (j[None] >= n_cache - pos0[:, None, None])
+        mask = mask[:, None]  # (B, 1, s, t)
+    else:
+        cos, sin = (tab[pos0:pos0 + s] for tab in tabs)
+        mask = ((j >= i) & (j <= i + n_cache) & (j >= n_cache - pos0))[None, None]
     scale = 1.0 / math.sqrt(head_dim)
     new_kv = []
     for layer, lkv in zip(p["layers"], kv):
@@ -442,7 +453,7 @@ def _window_transformer_stream(x, p: dict, kv: list, pos0: int, *, n_head: int,
         vc = torch.cat([lkv["v"], v.reshape(b, s, n_head, head_dim).to(lkv["v"].dtype)], dim=1)
         new_kv.append({"k": kc[:, -n_cache:].clone(), "v": vc[:, -n_cache:].clone()})
         logits = torch.einsum("bshd,bthd->bhst", q.float(), kc.float()) * scale
-        w_ = torch.softmax(logits.masked_fill(~mask[None, None], -1e30), dim=-1).to(v.dtype)
+        w_ = torch.softmax(logits.masked_fill(~mask, -1e30), dim=-1).to(v.dtype)
         o = torch.einsum("bhst,bthd->bshd", w_.float(), vc.float()).to(v.dtype)
         x = x + layer["attention_layer_scale"] * (
             o.reshape(b, s, n_head * head_dim) @ layer["attention"]["wo"]["w"])
@@ -458,11 +469,9 @@ def streaming_decode_init(params: dict, cfg: AEConfig, batch: int,
                           per_row_pos: bool = False) -> dict:
     """Zero state for `decode_zq_stream_step` on the params' device, in the
     params' dtype unless `dtype` is given. The stream position is one int
-    for every row; a per-row position (continuous batching) is not ported
-    yet."""
-    if per_row_pos:
-        raise NotImplementedError("per-row stream positions (continuous batching) are not "
-                                  "ported yet")
+    for every row, or with `per_row_pos` a (B,) int32 tensor on the device:
+    each row of the batch is then a stream at its own position (the
+    continuous group's form)."""
     dtype = dtype or params_dtype(params)
     dev = params["decoder"]["stem"]["w"].device
 
@@ -475,7 +484,7 @@ def streaming_decode_init(params: dict, cfg: AEConfig, batch: int,
         out_ch = blk["up"]["w"].shape[1]
         blocks.append({"tconv": z(batch, 1, ch), "chain": z(batch, chain_ctx(), out_ch)})
         ch = out_ch
-    return {"pos": 0,
+    return {"pos": torch.zeros(batch, dtype=torch.int32, device=dev) if per_row_pos else 0,
             "kv": [{"k": z(batch, n_cache, cfg.q_n_head, cfg.q_head_dim),
                     "v": z(batch, n_cache, cfg.q_n_head, cfg.q_head_dim)}
                    for _ in range(cfg.q_n_layer)],
@@ -488,8 +497,9 @@ def streaming_decode_init(params: dict, cfg: AEConfig, batch: int,
 def decode_zq_stream_step(params: dict, cfg: AEConfig, state: dict, z_chunk: torch.Tensor,
                           max_positions: int = 1024):
     """One streaming decode step: z_chunk (B, D, S) holds frames [pos,
-    pos + S). Returns (audio (B, 1, S·frame_length), the new state); the
-    audio equals that slice of `decode_zq`."""
+    pos + S) (each row's own pos when the state has one a row). Returns
+    (audio (B, 1, S·frame_length), the new state); the audio equals that
+    slice of `decode_zq`."""
     pos = state["pos"]
     y, kv = _window_transformer_stream(
         z_chunk, params["quantizer"]["post_module"], state["kv"], pos, n_head=cfg.q_n_head,
@@ -517,8 +527,9 @@ def decode_zq_stream_step(params: dict, cfg: AEConfig, state: dict, z_chunk: tor
         x, t_tail = _tconv_stream_cl(x, st["tconv"], blk["up"]["w"], blk["up"].get("b"),
                                      kernel_size=2 * stride, stride=stride)
         ctx = st["chain"].shape[1]
-        x, c_tail = _res_chain_stream_cl(x, st["chain"], blk["res_units"], (1, 3, 9),
-                                         min(max(ctx - pos * rate, 0), ctx))
+        pad_rows = ((ctx - pos * rate).clamp(0, ctx).to(torch.int32) if per_row(pos)
+                    else min(max(ctx - pos * rate, 0), ctx))
+        x, c_tail = _res_chain_stream_cl(x, st["chain"], blk["res_units"], (1, 3, 9), pad_rows)
         block_tails.append({"tconv": t_tail, "chain": c_tail})
     x = snake_cl(x, dec["head_snake"].reshape(-1))
     x, head_tail = _conv_stream_cl(x, state["head"], dec["head"]["w"], dec["head"].get("b"),

@@ -10,6 +10,16 @@ after each block), PCA deproject and the stateful S1-DAC decode step of
 just that block; each block's audio is yielded as soon as it is decoded,
 held back by one flattening-detector window.
 
+Batching (`sample_pipeline_batch`, `sample_pipeline_stream_batch`): N
+requests, each prepared as the solo path prepares it (its own tokenize,
+speaker encode and seed), padded to the largest text and speaker bucket of
+the batch and run as one batch of N rows: the batch lies in each kernel's
+grid and in each GEMM's rows, so N rows cost one request's launches. The
+continuous group (`init_stream_group`, `_stream_step_rows`, `_join_row`,
+`_join_row_first_block`, `_resize_group`) holds N streams at their own
+positions in one device-resident state; rows join and retire at block
+boundaries.
+
 Text and speaker lengths are padded to the configured shape buckets, as in
 the JAX package, so both packages see the same shapes. Runs on the card
 unless the caller asks for the CPU.
@@ -25,6 +35,7 @@ import torch
 
 from echo_tts_tpu_torch.core.config import AEConfig, DiTConfig, PipelineConfig, SamplerConfig
 from echo_tts_tpu_torch.core.device import resolve_device
+from echo_tts_tpu_torch.core.rope import row_slots
 from echo_tts_tpu_torch.models import pca as pca_mod
 from echo_tts_tpu_torch.models import s1dac
 from echo_tts_tpu_torch.models.dit import (
@@ -188,6 +199,56 @@ def sample_pipeline(
                                            samples_per_latent=tts.ae_cfg.frame_length)
     timings["crop"] = time.perf_counter() - t0
     return audio, normalized[0], timings
+
+
+def _stack_padded(preps, dev):
+    """The prepared requests' ids, text mask, speaker latents and speaker
+    mask, each padded to the batch's largest bucket and stacked on the
+    device; the masks keep the padding out of the attention."""
+    text_len = max(p[0].shape[1] for p in preps)
+    spk_len = max(p[3].shape[1] for p in preps)
+
+    def stack(i, n):
+        return torch.as_tensor(np.concatenate([_pad_to(np.asarray(p[i]), n) for p in preps]),
+                               device=dev)
+
+    return stack(0, text_len), stack(1, text_len), stack(3, spk_len), stack(4, spk_len)
+
+
+def sample_pipeline_batch(tts: EchoTTS, requests, sc: Optional[SamplerConfig] = None,
+                          normalize_text: bool = False):
+    """`sample_pipeline` for N requests (text, speaker_audio or None, seed)
+    through one `_sample_and_decode` of N rows. Row i's noise is
+    `draw_noise(seed_i)`'s, as the solo call draws it. Returns a list of
+    (audio (1, 1, T_i), normalized text, timings) in request order, each
+    cropped at its own flattening point; every timings dict carries the
+    shared sample wall and `batch_size`."""
+    sc = sc or SamplerConfig()
+    dev = tts.device
+    preps = [_prepare_inputs(tts, text, spk, normalize_text, None, None, True)
+             for text, spk, _seed in requests]
+    ids, text_mask, speaker_latent, speaker_mask = _stack_padded(preps, dev)
+
+    t0 = time.perf_counter()
+    noise = draw_noise([seed for _text, _spk, seed in requests],
+                       (len(requests), sc.sequence_length, tts.dit_cfg.latent_size), dev)
+    latents, audio = _sample_and_decode(
+        tts.dit_params, tts.dit_cfg, sc, tts.ae_params, tts.ae_cfg, tts.pca, speaker_latent,
+        speaker_mask, ids, text_mask, noise, tts.model_dtype)
+    audio = audio.cpu().numpy()
+    sample_wall = time.perf_counter() - t0
+
+    out = []
+    for i, p in enumerate(preps):
+        timings = dict(p[5], sample=sample_wall, batch_size=float(len(requests)),
+                       samples_before_crop=float(audio.shape[-1]),
+                       finite_before_crop=float(np.isfinite(audio[i]).all()))
+        t0 = time.perf_counter()
+        cropped = crop_audio_to_flattening_point(audio[i:i + 1], latents[i],
+                                                 samples_per_latent=tts.ae_cfg.frame_length)
+        timings["crop"] = time.perf_counter() - t0
+        out.append((cropped, p[2][0], timings))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -438,3 +499,226 @@ def sample_pipeline_stream(
         yield chunk
         if stopped:
             return
+
+
+def sample_pipeline_stream_batch(
+    tts: EchoTTS,
+    requests,                       # list of (text, speaker_audio or None, seed)
+    sc: Optional[SamplerConfig] = None,
+    block_size=(64, 192),
+    normalize_text: bool = False,
+    stop_at_flattening: bool = True,
+):
+    """N streams through one `stream_blocks_fused` of N rows. Yields
+    {request index: chunk (1, 1, n > 0)} after each block: a row appears
+    only with audio (the hold-back can leave a row's share of a block
+    empty) and stops appearing after its flattening point; the batch stops
+    once every row has stopped. A row's chunks, concatenated, equal its
+    solo `sample_pipeline_stream` up to rounding (its noise rows are its
+    seed's; the padding is masked). The emission logic is the solo path's
+    `_StreamEmitter`. No continuation: use `sample_pipeline_stream`."""
+    if not tts.dit_cfg.has_latent_modules:
+        raise ValueError(
+            "streaming generation needs the blockwise (latent-prefix) modules;"
+            " this checkpoint was converted with delete_blockwise_modules")
+    sc = sc or SamplerConfig()
+    dev = tts.device
+    n = len(requests)
+    preps = [_prepare_inputs(tts, text, spk, normalize_text, None, None, True)
+             for text, spk, _seed in requests]
+    ids, text_mask, speaker_latent, speaker_mask = _stack_padded(preps, dev)
+    block_sizes = _block_schedule(block_size, sc.sequence_length, tts.dit_cfg.speaker_patch_size)
+    full = draw_noise([seed for _t, _s, seed in requests],
+                      (n, sc.sequence_length, tts.dit_cfg.latent_size), dev)
+    offsets = np.cumsum([0] + block_sizes)
+    noises = [full[:, a:b] for a, b in zip(offsets[:-1], offsets[1:])]
+
+    ems = [_StreamEmitter(sum(block_sizes), tts.ae_cfg.frame_length, 0, stop_at_flattening)
+           for _ in range(n)]
+    for prefix, audio, start, bs in stream_blocks_fused(
+            tts.dit_params, tts.dit_cfg, sc, tts.ae_params, tts.ae_cfg, tts.pca,
+            speaker_latent, speaker_mask, ids, text_mask, block_sizes, noises, tts.model_dtype):
+        audio = audio.cpu().numpy()
+        out = {}
+        for i, em in enumerate(ems):
+            if em.stopped:
+                continue
+            lat_row = prefix[i, :start + bs] if stop_at_flattening else None
+            chunk, _ = em.on_block(lat_row, audio[i:i + 1], start, bs)
+            if chunk.shape[-1]:
+                out[i] = chunk
+        yield out
+        if all(em.stopped for em in ems):
+            return
+
+
+# ---------------------------------------------------------------------------
+# Continuous stream group
+# ---------------------------------------------------------------------------
+#
+# The group state holds B streams, one a row, each at its own position:
+#   kv_text, kv_speaker  (k, v) pairs of (L, B, H, T, Dh): each row's caches
+#   text_mask, speaker_mask  (B, T) bool; a free row's are all False
+#   prefix  (B, total_len, latent) fp32; lat  `init_latent_kv_state` (rows on
+#   axis 1); dec  `streaming_decode_init(per_row_pos=True)` (rows on axis 0)
+# total_len carries a block of headroom past the sampler budget, so that a
+# row's final partial block writes [pos, pos + block) in bounds. A free row
+# computes with empty masks and valid_len 0; its outputs are thrown away.
+# `_join_row` and `_stream_step_rows` write the state in place (the JAX
+# package donates it); `_resize_group` gathers rows into new tensors.
+
+
+def _map_rows(tree, fn):
+    """fn applied to every tensor leaf of nested dicts and lists."""
+    if isinstance(tree, dict):
+        return {k: _map_rows(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_rows(v, fn) for v in tree)
+    return fn(tree)
+
+
+def _leaves(tree) -> list:
+    """The tensor leaves of nested dicts and lists, in a fixed order."""
+    out = []
+    _map_rows(tree, out.append)
+    return out
+
+
+def _tails(dec: dict) -> dict:
+    """A vocoder state's carried tails and KV window, its position left
+    out: rows on axis 0."""
+    return {k: v for k, v in dec.items() if k != "pos"}
+
+
+def init_stream_group(tts: EchoTTS, batch: int, total_len: int, text_len: int,
+                      spk_len: int) -> dict:
+    """A group state of `batch` free rows on the card: zero caches and
+    all-False masks (a fully masked segment adds exact zeros)."""
+    cfg, md, dev = tts.dit_cfg, tts.model_dtype, tts.device
+    n_spk = spk_len // cfg.speaker_patch_size
+
+    def z(t):
+        return torch.zeros((cfg.num_layers, batch, cfg.num_heads, t, cfg.head_dim), dtype=md,
+                           device=dev)
+
+    return {"kv_text": (z(text_len), z(text_len)),
+            "kv_speaker": (z(n_spk), z(n_spk)),
+            "text_mask": torch.zeros((batch, text_len), dtype=torch.bool, device=dev),
+            "speaker_mask": torch.zeros((batch, spk_len), dtype=torch.bool, device=dev),
+            "prefix": torch.zeros((batch, total_len, cfg.latent_size), dtype=torch.float32,
+                                  device=dev),
+            "lat": init_latent_kv_state(tts.dit_params, cfg, batch, total_len, md),
+            "dec": s1dac.streaming_decode_init(tts.ae_params, tts.ae_cfg, batch,
+                                               per_row_pos=True)}
+
+
+@torch.no_grad()
+def _stream_step_rows(dit_params, dit_cfg, sc, ae_params, ae_cfg, pca, gs: dict, start_pos,
+                      valid_len, noise, block_size: int, total_len: int, model_dtype,
+                      max_positions: int):
+    """One block of `block_size` for every row of the group at its own
+    position (start_pos (B,)): sample, append each row's latent KV, decode
+    through the per-row stateful vocoder. valid_len (B,) hides each row's
+    in-block keys past its remaining budget; a free row passes 0. Writes
+    `gs` in place; returns (gs, audio (B, 1, block·frame_length) fp32,
+    the block's latents (B, block, latent) fp32)."""
+    dev = gs["prefix"].device
+    start_pos = torch.as_tensor(start_pos, dtype=torch.long, device=dev)
+    sample_block_core(dit_params, dit_cfg, sc, gs["prefix"], gs["lat"], start_pos,
+                      torch.as_tensor(noise, dtype=torch.float32, device=dev), gs["text_mask"],
+                      gs["speaker_mask"], gs["kv_text"], gs["kv_speaker"], block_size,
+                      total_len, model_dtype, valid_len=valid_len)
+    rows = torch.arange(start_pos.shape[0], device=dev)[:, None]
+    block_lat = gs["prefix"][rows, row_slots(start_pos, block_size, total_len)]
+    audio, gs["dec"] = s1dac.decode_zq_stream_step(
+        ae_params, ae_cfg, gs["dec"], _deprojected(pca, block_lat, ae_params), max_positions)
+    return gs, audio.float(), block_lat
+
+
+def _put_caches(gs: dict, row: int, kv_text, kv_speaker, tmask, smask) -> None:
+    """A one-row request's text/speaker caches and masks into slot `row`."""
+    for name, new in (("kv_text", kv_text), ("kv_speaker", kv_speaker)):
+        for buf, nb in zip(gs[name], new):
+            buf[:, row, :, :nb.shape[3]] = nb[:, 0]
+    gs["text_mask"][row] = tmask[0]
+    gs["speaker_mask"][row] = smask[0]
+
+
+@torch.no_grad()
+def _join_row(dit_params, dit_cfg, ae_params, ae_cfg, gs: dict, row: int, ids, tmask,
+              spk_latent, smask, model_dtype) -> dict:
+    """Admit a stream into slot `row` of a running group, in place: its
+    text and speaker caches and masks are written, and the slot's prefix,
+    latent KV and vocoder state (its position too) are zeroed."""
+    _put_caches(gs, row, get_kv_cache_text(dit_params, dit_cfg, ids, tmask),
+                get_kv_cache_speaker(dit_params, dit_cfg, spk_latent.to(model_dtype)),
+                tmask, smask)
+    gs["prefix"][row] = 0
+    for buf in gs["lat"].values():
+        buf[:, row] = 0
+    gs["dec"]["pos"][row] = 0
+    for buf in _leaves(_tails(gs["dec"])):
+        buf[row] = 0
+    return gs
+
+
+@torch.no_grad()
+def _join_row_first_block(dit_params, dit_cfg, sc, ae_params, ae_cfg, pca, gs: dict, row: int,
+                          ids, tmask, spk_latent, smask, noise, block_size: int,
+                          total_len: int, model_dtype, max_positions: int):
+    """Admit a stream into slot `row` with its first block: build its caches,
+    sample and decode its first `block_size` latents alone (B=1, the solo
+    stream's prologue), then write the whole one-row state into the slot,
+    in place. The group continues the row at start_pos = block_size.
+    Returns (gs, audio (1, 1, block·frame_length) fp32, the block's
+    latents (1, block, latent) fp32)."""
+    dev = gs["prefix"].device
+    kv_text = get_kv_cache_text(dit_params, dit_cfg, ids, tmask)
+    kv_speaker = get_kv_cache_speaker(dit_params, dit_cfg, spk_latent.to(model_dtype))
+    prefix1 = torch.zeros((1, total_len, dit_cfg.latent_size), dtype=torch.float32, device=dev)
+    lat1 = init_latent_kv_state(dit_params, dit_cfg, 1, total_len, model_dtype)
+    sample_block_core(dit_params, dit_cfg, sc, prefix1, lat1, 0,
+                      torch.as_tensor(noise, dtype=torch.float32, device=dev), tmask, smask,
+                      kv_text, kv_speaker, block_size, total_len, model_dtype)
+    block_lat = prefix1[:, :block_size]
+    dec1 = s1dac.streaming_decode_init(ae_params, ae_cfg, 1, per_row_pos=True)
+    audio, dec1 = s1dac.decode_zq_stream_step(
+        ae_params, ae_cfg, dec1, _deprojected(pca, block_lat, ae_params), max_positions)
+
+    _put_caches(gs, row, kv_text, kv_speaker, tmask, smask)
+    gs["prefix"][row] = prefix1[0]
+    for name, buf in gs["lat"].items():
+        buf[:, row] = lat1[name][:, 0]
+    gs["dec"]["pos"][row] = dec1["pos"][0]
+    for buf, new in zip(_leaves(_tails(gs["dec"])), _leaves(_tails(dec1))):
+        buf[row] = new[0]
+    return gs, audio.float(), block_lat
+
+
+@torch.no_grad()
+def _resize_group(gs: dict, perm, keep) -> dict:
+    """A new group state whose row i is old row perm[i]; rows with
+    keep[i] False become free slots (masks cleared, vocoder position 0;
+    the rest of their state is never read before `_join_row` rewrites it).
+    Rows are independent everywhere in a step, so each surviving stream
+    goes on exactly as before. Gathers into new tensors; the old state's
+    memory is freed when the caller drops it."""
+    dev = gs["prefix"].device
+    perm = torch.as_tensor(perm, dtype=torch.long, device=dev)
+    keep = torch.as_tensor(keep, dtype=torch.bool, device=dev)
+
+    def t0(a):
+        return a.index_select(0, perm)
+
+    def t1(a):
+        return a.index_select(1, perm)
+
+    dec = gs["dec"]
+    return {"kv_text": tuple(t1(a) for a in gs["kv_text"]),
+            "kv_speaker": tuple(t1(a) for a in gs["kv_speaker"]),
+            "text_mask": t0(gs["text_mask"]) & keep[:, None],
+            "speaker_mask": t0(gs["speaker_mask"]) & keep[:, None],
+            "prefix": t0(gs["prefix"]),
+            "lat": {k: t1(v) for k, v in gs["lat"].items()},
+            "dec": dict(_map_rows(_tails(dec), t0),
+                        pos=torch.where(keep, t0(dec["pos"]), 0).to(torch.int32))}

@@ -15,7 +15,7 @@ from typing import List, Optional, Sequence
 import torch
 
 from echo_tts_tpu_torch.core.config import DiTConfig, SamplerConfig
-from echo_tts_tpu_torch.core.rope import precompute_rope
+from echo_tts_tpu_torch.core.rope import per_row, precompute_rope, row_slots, rope_rows
 from echo_tts_tpu_torch.models.dit import (
     extend_latent_kv,
     get_kv_cache_speaker,
@@ -28,35 +28,51 @@ from echo_tts_tpu_torch.sampling.jax_random import jax_fold_in, jax_normal
 
 @torch.no_grad()
 def sample_block_core(params: dict, cfg: DiTConfig, sc: SamplerConfig,
-                      prefix_latent: torch.Tensor, lat_state: dict, start_pos: int,
+                      prefix_latent: torch.Tensor, lat_state: dict, start_pos,
                       noise: torch.Tensor, text_mask, speaker_mask, kv_text, kv_speaker,
-                      block_size: int, total_len: int, model_dtype: torch.dtype):
+                      block_size: int, total_len: int, model_dtype: torch.dtype,
+                      valid_len=None):
     """Sample latents [start_pos, start_pos + block_size) into
     `prefix_latent` (B, total_len, latent) fp32 and append them to
     `lat_state`, both in place; returns (prefix_latent, lat_state). The
     queries take RoPE at their absolute positions; the latent segment shows
-    only the patches before start_pos. start_pos is one int for every row
-    (a per-row start_pos belongs to continuous batching, not ported yet)."""
-    if getattr(start_pos, "ndim", 0) or isinstance(start_pos, (list, tuple)):
-        raise NotImplementedError("a per-row start_pos (continuous batching) is not ported yet")
-    start_pos = int(start_pos)
+    only the patches before start_pos. start_pos is one int for every row,
+    or one position a row ((B,): continuous batching, where each row of the
+    batch is its own stream). valid_len (B,), when given, is each row's
+    count of valid positions in this block: kernel K1's `self_len`, so that
+    a row on its final partial block does not see the keys past its budget
+    (a free slot passes 0; what it computes is thrown away)."""
     dev = prefix_latent.device
+    b = prefix_latent.shape[0]
     kv_latent = (lat_state["k"], lat_state["v"])
     n_lat = kv_latent[0].shape[3]
     latent_pos = torch.arange(n_lat, device=dev) * cfg.speaker_patch_size
-    latent_mask = (latent_pos < start_pos)[None].expand(prefix_latent.shape[0], n_lat)
     cos, sin = precompute_rope(cfg.head_dim, total_len, device=dev)
-    rope_q = (cos[start_pos:start_pos + block_size], sin[start_pos:start_pos + block_size])
+    rows = per_row(start_pos)
+    if rows:
+        start_pos = torch.as_tensor(start_pos, dtype=torch.long, device=dev).reshape(b)
+        latent_mask = latent_pos[None] < start_pos[:, None]
+        rope_q = rope_rows(cos, sin, start_pos[:, None] + torch.arange(block_size, device=dev))
+    else:
+        start_pos = int(start_pos)
+        latent_mask = (latent_pos < start_pos)[None].expand(b, n_lat)
+        rope_q = (cos[start_pos:start_pos + block_size], sin[start_pos:start_pos + block_size])
+    if valid_len is not None:
+        valid_len = torch.as_tensor(valid_len, dtype=torch.int32, device=dev).reshape(b)
 
     x_init = noise.float()
     if sc.truncation_factor is not None:
         x_init = x_init * sc.truncation_factor
     x_out = euler_cfg_scan(params, cfg, sc, x_init, text_mask, speaker_mask, kv_text,
                            kv_speaker, model_dtype, rope_q=rope_q, kv_latent=kv_latent,
-                           latent_mask=latent_mask)
+                           latent_mask=latent_mask, self_len=valid_len)
     # this block's KV conditions the next blocks
     extend_latent_kv(params, cfg, lat_state, x_out.to(model_dtype), start_pos)
-    prefix_latent[:, start_pos:start_pos + block_size] = x_out
+    if rows:
+        prefix_latent[torch.arange(b, device=dev)[:, None],
+                      row_slots(start_pos, block_size, total_len)] = x_out
+    else:
+        prefix_latent[:, start_pos:start_pos + block_size] = x_out
     return prefix_latent, lat_state
 
 

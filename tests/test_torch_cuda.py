@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card (K1 joint attention and its log-sum-exp,
 K2 residual units, K3 the attention backward, and the measurement variants
 K1v, K2v-cl, K2v-cf, K2s; the bare checks of the attention and conv cores;
-K1 and K2 at the streaming path's shapes and one stateful decode step),
+K1 and K2 at the streaming path's shapes and one stateful decode step, K1
+and K2 at a continuous group's B=4 with one position a row),
 each against its plain
 PyTorch version in fp32 on the same bf16 inputs (rel-L2 < 2e-2: bf16
 rounding gives ~1e-3, a wrong kernel O(1)). Every test needs a CUDA card and skips without one. The
@@ -241,6 +242,71 @@ def test_stream_step_against_the_plain_chain(cuda_device):
     assert len(calls) == 8
     assert [zb for ch, zb, _, _ in calls if ch == 768] == [80, 48]
     assert all(rel < 2e-2 and not dirty for _, _, rel, dirty in calls), calls
+
+
+def test_joint_attention_kernel_at_b4_per_row(cuda_device):
+    """A continuous group's CFG launch at B=4: one S=64 block a row, each
+    row with its own latent-segment extent (0, 16, 64, 112 of 160 patches:
+    rows at start_pos 0, 64, 256, 448) and its own self_len (64, 64, 40,
+    0), text 768 and speaker 160 with their own masks, branches split as
+    dit_forward_cfg launches them. Against the plain version; and each row
+    of the B=4 launch equals that row launched alone, bit for bit (every
+    block of the kernel is one row's)."""
+    dev = cuda_device
+    q, ks, vs, segs = _k1_inputs(dev, 3, 4, 64, 16, (160, 768, 160), 31, (None, None, 1.5))
+    (kl, vl, _, _), (kt, vt, mt, _), (kp, vp, mp, sp) = segs
+    vis = torch.tensor([0, 16, 64, 112], device=dev)
+    ml = (torch.arange(160, device=dev)[None] < vis[:, None]).expand(3, 4, 160).contiguous()
+    mt[1] = False
+    mp[2] = False
+    sl = torch.tensor([64, 64, 40, 0], dtype=torch.int32, device=dev)
+    seg5 = [(kl, vl, ml, None, ()), (kt, vt, mt, None, (1,)), (kp, vp, mp, sp, (2,))]
+    before = tja.joint_attention.launches
+    got = tdit._joint_attention_grouped(q, ks, vs, seg5, layout="sm", self_len=sl)
+    assert tja.joint_attention.launches == before + 3
+    ref = tja.joint_attention_plain(q.float(), ks.float(), vs.float(),
+                                    _f32([sg[:4] for sg in seg5]), layout="sm", self_len=sl)
+    for b in range(4):
+        assert _rel(got[:, b], ref[:, b]) < 2e-2, b
+    for b in range(4):
+        one = tdit._joint_attention_grouped(
+            q[:, b:b + 1], ks[:, b:b + 1], vs[:, b:b + 1],
+            [(k[b:b + 1], v[b:b + 1], m[:, b:b + 1], s, sk) for k, v, m, s, sk in seg5],
+            layout="sm", self_len=sl[b:b + 1])
+        assert torch.equal(got[:, b:b + 1], one), b
+
+
+@pytest.mark.parametrize("c,rate", [(768, 32), (96, 2048)])
+def test_res_chain_kernel_at_b4_per_row_zero_below(cuda_device, c, rate):
+    """K2 as a continuous group's decode step runs it: four rows at z_q
+    frame positions 0, 1, 2 and 64 on [tail | chunk] (2048 + 80 rows), each
+    with its own zero_below clip(80 - pos * rate, 0, 80) (80, 48, 16, 0 on
+    the first chain, 80, 0, 0, 0 on the last); non-zero biases. Against the plain chain, each row's re-zeroed
+    rows exactly zero, and each row of the B=4 launch equal to that row
+    launched alone, bit for bit."""
+    rng = np.random.default_rng(c + rate)
+
+    def bf(*shape, sc=1.0, lo=None):
+        a = rng.uniform(lo, 1.5, shape) if lo is not None else rng.standard_normal(shape) * sc
+        return torch.from_numpy(a.astype(np.float32)).to(cuda_device, torch.bfloat16)
+
+    units = [{"snake1": bf(1, c, 1, lo=0.2), "snake2": bf(1, c, 1, lo=0.2),
+              "conv1": {"w": bf(c, c, 7, sc=(7 * c) ** -0.5), "b": bf(c, sc=0.3)},
+              "conv2": {"w": bf(c, c, 1, sc=c ** -0.5), "b": bf(c, sc=0.3)}} for _ in range(3)]
+    zb = [min(max(80 - p * rate, 0), 80) for p in (0, 1, 2, 64)]
+    x = bf(4, 2048 + 80, c)
+    for b, z in enumerate(zb):
+        x[b, :z] = 0
+    zbt = torch.tensor(zb, dtype=torch.int32, device=cuda_device)
+    got = trc.res_units_cl(x, units, zero_below=zbt)
+    f32 = [{k: ({kk: vv.float() for kk, vv in v.items()} if isinstance(v, dict) else v.float())
+            for k, v in u.items()} for u in units]
+    ref = trc.res_chain_plain(x.float(), f32, zero_below=zbt)
+    assert _rel(got, ref) < 2e-2
+    for b, z in enumerate(zb):
+        assert not got[b, :z].any()
+        assert torch.equal(got[b:b + 1], trc.res_units_cl(x[b:b + 1].contiguous(), units,
+                                                          zero_below=[z]))
 
 
 def test_conv_core_tap_product_matches_matmul(cuda_device):

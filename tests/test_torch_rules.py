@@ -26,7 +26,11 @@ from echo_tts_tpu_torch.models.dit import init_dit_params
 from echo_tts_tpu_torch.models.pca import PCAState
 from echo_tts_tpu_torch.ops import joint_attention as tja
 from echo_tts_tpu_torch.ops import res_chain as trc
-from echo_tts_tpu_torch.pipeline.pipeline import EchoTTS, sample_pipeline_stream
+from echo_tts_tpu_torch.pipeline.pipeline import (
+    EchoTTS,
+    sample_pipeline_batch,
+    sample_pipeline_stream,
+)
 
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -48,7 +52,8 @@ assert len(names) >= 20, names
 for new in ("bench.attention", "bench.attention_variants", "bench.conv_kernel_variants",
             "bench.conv_variants", "bench.profile_breakdown", "bench.timing",
             "ops.attention_variants", "ops.res_chain_variants", "utils.profiling",
-            "ops.conv_core", "sampling.jax_random", "sampling.blockwise"):
+            "ops.conv_core", "sampling.jax_random", "sampling.blockwise", "core.rope",
+            "models.s1dac", "pipeline.pipeline"):
     assert "echo_tts_tpu_torch." + new in names, new
 """
 
@@ -69,6 +74,9 @@ def test_entry_points_default_to_cuda():
         lambda: next(sample_pipeline_stream(
             EchoTTS({}, DiTConfig().tiny(), {}, AEConfig().tiny(),
                     PCAState.random(0, 64, device="cpu")), "hi", None, 0)),
+        lambda: sample_pipeline_batch(
+            EchoTTS({}, tiny, {}, AEConfig().tiny(), PCAState.random(0, 64, device="cpu")),
+            [("hi", None, 0)]),
     ]
     if torch.cuda.is_available():
         tts = calls[0]()

@@ -37,7 +37,7 @@ from echo_tts_tpu_torch.pipeline import flattening as tflat
 from echo_tts_tpu_torch.pipeline import pipeline as tpipe
 from echo_tts_tpu_torch.sampling import blockwise as tbw
 
-from torch_parity import assert_close, np_tree, rel_l2, t
+from torch_parity import assert_close, np_tree, perturb_res_biases, rel_l2, t
 
 CFG = tc.DiTConfig().tiny()
 JCFG = jc.DiTConfig().tiny()
@@ -48,20 +48,6 @@ PIPE = dict(text_buckets=(64,), speaker_buckets=(32, 64), audio_chunk_latents=32
 SAMPLER = dict(num_steps=3, truncation_factor=0.8, sequence_length=16)
 
 
-def _perturb_res_biases(tree, seed):
-    """Non-zero residual-unit biases (numpy): with the initializer's zero
-    biases a unit maps zeros to zeros, and the streaming re-zero of the
-    chain's causal pad (zero_below) could not be seen; a re-zero done only at
-    the stream start once corrupted the second chunk of short streams."""
-    rng = np.random.default_rng(seed)
-    for stack in ("encoder", "decoder"):
-        for blk in tree[stack]["blocks"]:
-            for u in blk["res_units"]:
-                for c in ("conv1", "conv2"):
-                    u[c]["b"] = (0.3 * rng.standard_normal(u[c]["b"].shape)).astype(np.float32)
-    return tree
-
-
 @pytest.fixture(scope="module")
 def dit():
     jp = jdit.init_dit_params(jax.random.PRNGKey(4), JCFG, dtype=jnp.float32)
@@ -70,8 +56,8 @@ def dit():
 
 @pytest.fixture(scope="module")
 def ae():
-    tree = _perturb_res_biases(np_tree(j_init_ae(jax.random.PRNGKey(5), JACFG,
-                                                 dtype=jnp.float32)), 6)
+    tree = perturb_res_biases(np_tree(j_init_ae(jax.random.PRNGKey(5), JACFG,
+                                                dtype=jnp.float32)), 6)
     return jax.tree_util.tree_map(jnp.asarray, tree), ae_params_from_numpy(tree, ACFG,
                                                                            device="cpu")
 
@@ -119,7 +105,7 @@ def test_extend_latent_kv_two_appends(dit):
     """Two appends (8 latents at 0, 12 at 8) into a 32-latent state: every
     buffer equals the JAX package's, and the trunk cache over the written
     patches equals a whole-prefix get_kv_cache_latent; unwritten patches
-    stay zero."""
+    stay zero. The same appends given a (B,) start position equal it too."""
     jp, tp = dit
     prefix = _latents(20, 2)
     js = jdit.init_latent_kv_state(jp, JCFG, 1, 32, jnp.float32)
@@ -134,8 +120,12 @@ def test_extend_latent_kv_two_appends(dit):
     assert_close(ts["k"][:, :, :, :5], whole[0].numpy(), atol=1e-5, rtol=1e-4)
     assert_close(ts["v"][:, :, :, :5], whole[1].numpy(), atol=1e-5, rtol=1e-4)
     assert not ts["k"][:, :, :, 5:].any() and not ts["enc_k"][:, :, 5:].any()
-    with pytest.raises(NotImplementedError, match="per-row"):
-        tdit.extend_latent_kv(tp, CFG, ts, t(prefix[:, :4]), torch.tensor([0]))
+    # the same appends at one start position a row ((B,), continuous batching)
+    rows = tdit.init_latent_kv_state(tp, CFG, 1, 32, torch.float32)
+    for a, b in ((0, 8), (8, 20)):
+        tdit.extend_latent_kv(tp, CFG, rows, t(prefix[:, a:b]), torch.tensor([a]))
+    for name in ("enc_k", "enc_v", "k", "v"):
+        assert_close(rows[name], js[name], atol=1e-5, rtol=1e-4)
 
 
 @pytest.mark.parametrize("jax_impl", ["xla", "pallas_interpret"])
@@ -276,8 +266,9 @@ def test_stateful_decode_matches_jax_pallas_interpret(ae):
 
 def test_stream_state_and_zero_below(ae):
     """The chain tails are chain_ctx rows; zero_below of the first chain
-    walks ctx, ctx - rate, ... down to 0 over 1-frame steps, each step's
-    audio equals the full decode's slice, and a per-row position raises."""
+    walks ctx, ctx - rate, ... down to 0 over 1-frame steps and each step's
+    audio equals the full decode's slice, with one position for the batch
+    and with one position a row."""
     _, tp = ae
     state = ts1.streaming_decode_init(tp, ACFG, 1)
     assert state["pos"] == 0 and state["blocks"][0]["chain"].shape[1] == 80
@@ -298,8 +289,23 @@ def test_stream_state_and_zero_below(ae):
     first = [zb for c, zb in seen if c == seen[0][0]]
     assert first == [max(80 - rate0 * p, 0) for p in range(12)]
     assert rel_l2(_cat(chunks), ts1.decode_zq(tp, ACFG, t(z)).numpy()) <= 1e-4
-    with pytest.raises(NotImplementedError, match="per-row"):
-        ts1.streaming_decode_init(tp, ACFG, 1, per_row_pos=True)
+    # with one position a row: pos is a (B,) int32 tensor and zero_below one
+    # value a row, the same walk and the same audio
+    seen.clear()
+    state = ts1.streaming_decode_init(tp, ACFG, 2, per_row_pos=True)
+    assert state["pos"].dtype == torch.int32 and state["pos"].tolist() == [0, 0]
+    z2 = t(np.concatenate([z, z]))
+    ts1.res_units_cl = spy
+    try:
+        rows = []
+        for p in range(12):
+            audio, state = ts1.decode_zq_stream_step(tp, ACFG, state, z2[:, :, p:p + 1])
+            rows.append(audio.numpy())
+    finally:
+        ts1.res_units_cl = real
+    assert [zb.tolist() for c, zb in seen if c == seen[0][0]] == [[zb, zb] for zb in first]
+    assert state["pos"].tolist() == [12, 12]
+    assert rel_l2(_cat(rows)[:1], _cat(chunks)) <= 1e-6
 
 
 def test_windowed_decode_matches_jax(ae):

@@ -33,6 +33,21 @@ def assert_close(got, ref, atol=1e-5, rtol=1e-4):
     np.testing.assert_allclose(got, np.asarray(ref), atol=atol, rtol=rtol)
 
 
+def perturb_res_biases(tree, seed):
+    """Non-zero residual-unit biases in a numpy AE tree (in place; returned):
+    with the initializer's zero biases a unit maps zeros to zeros, and the
+    streaming re-zero of the chain's causal pad (zero_below) could not be
+    seen; a re-zero done only at the stream start once corrupted the second
+    chunk of short streams."""
+    rng = np.random.default_rng(seed)
+    for stack in ("encoder", "decoder"):
+        for blk in tree[stack]["blocks"]:
+            for u in blk["res_units"]:
+                for c in ("conv1", "conv2"):
+                    u[c]["b"] = (0.3 * rng.standard_normal(u[c]["b"].shape)).astype(np.float32)
+    return tree
+
+
 @pytest.fixture
 def cuda_device():
     """The first CUDA device; skips the test where there is none. Decided
