@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py                 # every phase
     python3 chip_smoke.py --kernels-only  # build + kernel checks + kernel times
-    python3 chip_smoke.py --slices-only   # phases 1, 5, 6, 9 and 10 only (K1, K2, K3 built)
+    python3 chip_smoke.py --slices-only   # phases 1, 5, 6, 9, 10 and 11 only (K1, K2, K3 built)
 
 Phases, in order; any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi), torch/CUDA/nvcc versions;
@@ -66,6 +66,21 @@ Phases, in order; any failure exits non-zero:
      rows on 64-latent blocks (first-block and plain joins, a partial final
      block, a resize 4 -> 2; each step's wall and CUDA-event time, the state
      a row, peak memory) against the solo streams; audio rel-L2 < 2e-2;
+ 11. (run after 10, on its weights) serving through Engine and the HTTP
+     server on 127.0.0.1: one-shot /tts of requests (i) and (ii) (the 20 s
+     prompt as WAV base64, twice: the speaker cache), each body equal to the
+     server's WAV of a direct sample_pipeline; /tts_stream of (ii) on
+     (64, 192), its chunks equal to sample_pipeline_stream's PCM16 (time to
+     first chunk at the client); four concurrent /tts of one batch key on
+     Engine(max_batch=4): one batch, one request's K1 and decode K2, every
+     row equal to its solo run, aggregate audio-s/s; run_trace (6 streams of
+     640 latents at 0.5/s, 64-latent blocks) on a continuous, a dispatch and
+     a continuous engine without the fast join: TTFA and completion p50/p95,
+     achieved audio-s/s, one continuous
+     row against its solo stream (rel-L2 < 2e-2); /reconstruct equal to
+     ae_reconstruct; /lora with an r16 LoRA and back (the base audio bit
+     for bit); set_lora while a continuous group is live (the group's row
+     stays on the old params);
   7. the measurement path: the entry points of echo_tts_tpu_torch/bench/
      (attention_variants, conv_kernel_variants, conv_variants, attention,
      profile_breakdown) at their full shapes, each printing its JSON line,
@@ -1735,7 +1750,8 @@ def phase_batch(dev, wrappers: dict, tts) -> dict:
     sample_pipeline_stream_batch at B=2 against the solo streams; (d) a
     continuous group of 4 rows on 64-latent blocks (joins with and without
     a first block, a partial final block, a resize 4 -> 2) against the solo
-    streams. Returns the launches of (b) at B=4, (c) and (d) by path."""
+    streams. Returns the launches of (b) at B=4, (c) and (d) by path, and
+    `tts`, which phase 11 goes on with."""
     import echo_tts_tpu_torch.models.dit as dit_mod
     import echo_tts_tpu_torch.models.s1dac as s1_mod
     from echo_tts_tpu_torch.core.config import SamplerConfig
@@ -2031,7 +2047,374 @@ def phase_batch(dev, wrappers: dict, tts) -> dict:
     lap("batching d", split)
     log(f"# batching phase: {time.perf_counter() - t_phase:.1f} s")
     return {"batch_one_shot": launches["batch_4"], "stream_batch": launches["stream_batch_2"],
-            "continuous_group": launches["continuous_group"]}
+            "continuous_group": launches["continuous_group"]}, tts
+
+
+# ---------------------------------------------------------------------------
+# phase 11: serving at full width
+# ---------------------------------------------------------------------------
+
+
+def http_call(port: int, method: str, path: str, body=None):
+    """(status, headers, body bytes, client wall ms) of one request."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=900)
+    try:
+        t0 = time.perf_counter()
+        conn.request(method, path, body=None if body is None else json.dumps(body).encode(),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        data = resp.read()
+        return resp.status, dict(resp.getheaders()), data, (time.perf_counter() - t0) * 1e3
+    finally:
+        conn.close()
+
+
+def http_stream(port: int, body: dict):
+    """POST /tts_stream; the HTTP chunks as the server framed them (read
+    from the raw body), the ms to the first at the client, and the total."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=900)
+    try:
+        t0 = time.perf_counter()
+        conn.request("POST", "/tts_stream", body=json.dumps(body).encode(),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        if resp.status != 200 or resp.getheader("Transfer-Encoding") != "chunked":
+            raise SystemExit(f"serving (b): /tts_stream answered {resp.status}: {resp.read()[:200]}")
+        chunks, first_ms = [], None
+        while True:
+            size = int(resp.fp.readline().split(b";")[0], 16)
+            if size == 0:
+                resp.fp.readline()
+                break
+            chunks.append(resp.fp.read(size))
+            resp.fp.readline()
+            if first_ms is None:
+                first_ms = (time.perf_counter() - t0) * 1e3
+        return chunks, first_ms, (time.perf_counter() - t0) * 1e3
+    finally:
+        conn.close()
+
+
+def phase_serve(dev, wrappers: dict, tts) -> dict:
+    """Serving on phase 9/10's weights (DiTConfig() with the latent modules,
+    AEConfig(), bf16, text bucket 768) through Engine and the HTTP server on
+    127.0.0.1: (a) one-shot /tts, requests (i) and (ii) (the 20 s prompt as
+    WAV base64, twice: the second hits the speaker cache), each body equal to
+    the server's encoding of a direct sample_pipeline on the prompt as the
+    server decodes it; (b) /tts_stream of (ii) on (64, 192), its chunks equal
+    to the PCM16 of sample_pipeline_stream's; (c) four concurrent /tts of one
+    batch key on Engine(max_batch=4): one batch, K1 and the decode's K2 as one
+    request's, every row equal to its solo run; (d) run_trace, 6 streams of
+    640 latents at 0.5 requests/s on 64-latent blocks, on a continuous, a
+    dispatch and a continuous engine without the fast join, one continuous
+    row against its solo stream; (e)
+    /reconstruct against ae_reconstruct, /lora with an r16 LoRA (the audio
+    changes) and back (the base audio bit for bit), and set_lora while a
+    continuous group is live (its row stays on the old params). Returns the
+    launches of the served requests."""
+    import base64
+    import tempfile
+    import threading
+
+    from echo_tts_tpu_torch.bench.trace import _TEXTS, run_trace
+    from echo_tts_tpu_torch.core.config import SamplerConfig
+    from echo_tts_tpu_torch.pipeline import pipeline as pl
+    from echo_tts_tpu_torch.pipeline.audio_io import load_audio, write_wav
+    from echo_tts_tpu_torch.pipeline.speaker import ae_reconstruct
+    from echo_tts_tpu_torch.sampling.euler_cfg import _f32_ge, t_schedule
+    from echo_tts_tpu_torch.serve.engine import Engine
+    from echo_tts_tpu_torch.serve.server import pcm16_bytes, serve, wav_bytes
+    from echo_tts_tpu_torch.train.lora import LoRAConfig, init_lora, save_lora_checkpoint
+
+    t_phase = time.perf_counter()
+    dit_cfg, ae_cfg, L = tts.dit_cfg, tts.ae_cfg, tts.dit_cfg.num_layers
+    fields = dict(num_steps=40, cfg_scale_text=3.0, cfg_scale_speaker=8.0, cfg_min_t=0.5,
+                  cfg_max_t=1.0, truncation_factor=0.8, sequence_length=640)
+    sc = SamplerConfig(**fields)
+    sr, spl = ae_cfg.sample_rate, ae_cfg.frame_length
+    ts = t_schedule(sc)
+    n_cfg = sum(_f32_ge(float(ts[i]), sc.cfg_min_t) and _f32_ge(sc.cfg_max_t, float(ts[i]))
+                for i in range(sc.num_steps))
+    k1_request = (3 * n_cfg + (sc.num_steps - n_cfg)) * L
+    k2_decode = 3 * len(ae_cfg.decoder_rates)
+    served = {k: 0 for k in wrappers}
+
+    def serving(fn):
+        """Run fn with every count at 0 before and read after; the served
+        requests' launches add up in `served`."""
+        for w in wrappers.values():
+            w.launches = 0
+        out = fn()
+        got = {k: w.launches for k, w in wrappers.items()}
+        for k in served:
+            served[k] += got[k]
+        return out, got
+
+    def need(ok, what):
+        if not ok:
+            raise SystemExit(f"serving {what}")
+
+    tmp = tempfile.mkdtemp(prefix="echo_tts_serve_")
+    spk_path = os.path.join(tmp, "prompt.wav")
+    write_wav(spk_path, synthetic_speech(20.0, sr, 7)[0], sr)
+    spk_b64 = base64.b64encode(open(spk_path, "rb").read()).decode()
+    spk = load_audio(spk_path)  # the prompt as the server decodes it
+    engines, servers = [], []
+
+    def start(**kw):
+        eng = Engine(tts, **kw)
+        httpd = serve(eng, host="127.0.0.1", port=0, background=True)
+        engines.append(eng)
+        servers.append(httpd)
+        return eng, httpd.server_address[1]
+
+    try:
+        # (a) one-shot over HTTP
+        eng_a, port_a = start(max_batch=1)
+        status, _, body, _ = http_call(port_a, "GET", "/health")
+        need(status == 200 and json.loads(body)["status"] == "ok", "(a): /health")
+        status, _, body, _ = http_call(port_a, "GET", "/presets")
+        need(status == 200 and len(json.loads(body)) == 6, "(a): /presets")
+        a_reqs = [("i", {"text": SHORT_TEXT, "seed": 0}),
+                  ("ii", {"text": SPEAKER_TEXT, "seed": 1, "speaker_wav_b64": spk_b64}),
+                  ("ii again", {"text": SPEAKER_TEXT, "seed": 1, "speaker_wav_b64": spk_b64})]
+        bodies, a_tm = {}, {}
+        for name, req in a_reqs:
+            torch.cuda.reset_peak_memory_stats(dev)
+            (status, headers, body, wall), got = serving(
+                lambda: http_call(port_a, "POST", "/tts", {**req, **fields}))
+            need(status == 200, f"(a) {name}: status {status}: {body[:200]}")
+            tm = json.loads(headers["X-Timings"])
+            bodies[name], a_tm[name] = body, tm
+            secs = (len(body) - 44) / 2 / sr
+            log(f"# serving (a) POST /tts request {name}: client wall {wall:.1f} ms, "
+                f"speaker_encode {tm['speaker_encode'] * 1e3:.1f} ms"
+                f"{' (cache hit)' if tm.get('speaker_encode_cache_hit') else ''}, sample+decode "
+                f"{tm['sample'] * 1e3:.1f} ms, engine total {tm['total'] * 1e3:.1f} ms; audio "
+                f"{secs:.2f} s, {secs / wall * 1e3:.2f} audio-s/s at the client; peak memory "
+                f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; launches {got}")
+        need("speaker_encode_cache_hit" not in a_tm["ii"]
+             and a_tm["ii again"].get("speaker_encode_cache_hit") == 1.0,
+             f"(a): the second (ii) did not hit the speaker cache: {a_tm}")
+        direct = {0: pl.sample_pipeline(tts, SHORT_TEXT, None, 0, sc=sc, normalize_text=True)[0],
+                  1: pl.sample_pipeline(tts, SPEAKER_TEXT, spk, 1, sc=sc, normalize_text=True)[0]}
+        same = {name: bodies[name] == wav_bytes(direct[req["seed"]][0], sr)
+                for name, req in a_reqs}
+        log(f"# serving (a) each body equal to the WAV of a direct sample_pipeline: {same}; "
+            f"speaker_encode {a_tm['ii']['speaker_encode'] * 1e3:.1f} ms, then "
+            f"{a_tm['ii again']['speaker_encode'] * 1e3:.1f} ms from the cache")
+        need(all(same.values()), "(a): a response differs from the direct call")
+        split = lap("serving a", t_phase)
+
+        # (b) /tts_stream of (ii) on (64, 192)
+        (chunks, first_ms, total_ms), got = serving(lambda: http_stream(port_a, {
+            "text": SPEAKER_TEXT, "seed": 1, "speaker_wav_b64": spk_b64, "block_size": [64, 192],
+            **fields}))
+        ref = [pcm16_bytes(c) for c in pl.sample_pipeline_stream(
+            tts, SPEAKER_TEXT, spk, 1, sc=sc, block_size=[64, 192], normalize_text=True)]
+        ref = [c for c in ref if c]
+        secs = sum(len(c) for c in chunks) / 2 / sr
+        log(f"# serving (b) POST /tts_stream (ii), (64, 192): first chunk at the client "
+            f"{first_ms:.1f} ms, {len(chunks)} chunks, total {total_ms:.1f} ms, audio "
+            f"{secs:.2f} s, {secs / total_ms * 1e3:.2f} audio-s/s; launches {got}; chunks equal "
+            f"to sample_pipeline_stream's PCM16: {chunks == ref}")
+        need(chunks == ref, "(b): the streamed chunks differ from sample_pipeline_stream's")
+        split = lap("serving b", split)
+
+        # (c) four concurrent /tts of one batch key on Engine(max_batch=4)
+        eng_c, port_c = start(max_batch=4, batch_wait_ms=5000.0)
+        c_reqs = [(SHORT_TEXT, 0), (LONG_TEXT, 1), (LONG_TEXT, 2), (SHORT_TEXT, 3)]
+        keys = {eng_c._batch_key(text, None, sc, True) for text, _ in c_reqs}
+        need(len(keys) == 1, f"(c): the four requests have {len(keys)} batch keys")
+        res_c = {}
+
+        def post_c(seed, text):
+            res_c[seed] = http_call(port_c, "POST", "/tts", {"text": text, "seed": seed, **fields})
+
+        def burst():
+            threads = [threading.Thread(target=post_c, args=(seed, text),
+                                        name=f"echo-tts-client-{seed}") for text, seed in c_reqs]
+            for t_ in threads:
+                t_.start()
+            for t_ in threads:
+                t_.join(timeout=600)
+            need(not any(t_.is_alive() for t_ in threads), "(c): a request hung")
+
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        _, got = serving(burst)
+        wall = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        need(all(res_c[s][0] == 200 for _, s in c_reqs), f"(c): statuses "
+             f"{[res_c[s][0] for _, s in c_reqs]}")
+        solo = {s: direct[0] if s == 0 else pl.sample_pipeline(tts, text, None, s, sc=sc,
+                                                                normalize_text=True)[0]
+                for text, s in c_reqs}
+        same = {s: res_c[s][2] == wav_bytes(solo[s][0], sr) for _, s in c_reqs}
+        secs = sum(a.shape[-1] for a in solo.values()) / sr
+        st = eng_c.health()
+        want = {"joint_attention": k1_request, "res_chain": k2_decode}
+        log(f"# serving (c) four concurrent POST /tts, one batch key: wall {wall:.1f} ms (client "
+            f"walls {', '.join(f'{res_c[s][3]:.1f}' for _, s in c_reqs)}), audio {secs:.2f} s, "
+            f"**{secs / wall * 1e3:.2f} aggregate audio-s/s**; batches {st['batches']}, requests "
+            f"{st['requests']}; peak memory {peak:.2f} GiB; launches {got} (expected {want}); "
+            f"each row equal to its solo run: {same}")
+        need(st["batches"] == 1 and st["requests"] == 4, f"(c): {st}")
+        need(got == want, f"(c): launches {got}, expected {want}")
+        need(all(same.values()), "(c): a batched row differs from its solo run")
+        split = lap("serving c", split)
+
+        # (d) the arrival trace on a continuous and on a dispatch engine, each
+        # stream as long as the one-shot requests above (640 latents)
+        traces = {}
+        for mode, kw in (("continuous", dict(continuous=True, continuous_block=64)),
+                         ("dispatch", {}),
+                         ("continuous, no fast join", dict(continuous=True, continuous_block=64,
+                                                           continuous_fast_join=False))):
+            eng_t = Engine(tts, max_batch=4, **kw)
+            engines.append(eng_t)
+            streams, real = {}, eng_t.generate_stream
+
+            def tee(text, speaker, seed=0, real=real, streams=streams, **kw_):
+                streams[seed] = (text, [])
+                for c in real(text, speaker, seed=seed, **kw_):
+                    streams[seed][1].append(c)
+                    yield c
+
+            eng_t.generate_stream = tee
+            torch.cuda.reset_peak_memory_stats(dev)
+            s, got = serving(lambda: run_trace(eng_t, sc, 6, 0.5, block_size=64, seed=0,
+                                               timeout_s=600))
+            st = eng_t.health()
+            traces[mode] = dict(s, batches=st["batches"], launches=got)
+            log(f"# serving (d) run_trace {mode}, 6 streams of 640 latents at 0.5/s, 64-latent "
+                f"blocks: TTFA p50 {s['ttfa_p50_s'] * 1e3:.1f} / p95 {s['ttfa_p95_s'] * 1e3:.1f} "
+                f"ms, completion p50 {s['completion_p50_s'] * 1e3:.1f} / p95 "
+                f"{s['completion_p95_s'] * 1e3:.1f} ms, **{s['achieved_audio_s_per_s']} "
+                f"achieved audio-s/s** (offered {s['offered_audio_s_per_s']}), makespan "
+                f"{s['makespan_s']} s; n_ok {s['n_ok']}, n_hung {s['n_hung']}, errors "
+                f"{s['errors']}; batches {st['batches']}; peak memory "
+                f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; launches {got}")
+            need(s["n_ok"] == 6 and s["n_hung"] == 0, f"(d) {mode}: {s}")
+            if mode == "continuous":
+                seed = 1005
+                text, parts = streams[seed]
+                row = np.concatenate(parts, -1)
+                ref = np.concatenate(list(pl.sample_pipeline_stream(
+                    tts, text, None, seed, sc=sc, block_size=64, normalize_text=True)), -1)
+                need(row.shape == ref.shape, f"(d): row {seed} has {row.shape[-1]} samples, its "
+                     f"solo stream {ref.shape[-1]}")
+                r = rel_l2(torch.from_numpy(row), torch.from_numpy(ref))
+                log(f"# serving (d) continuous row seed {seed} against its solo stream: audio "
+                    f"rel-L2 {r:.3e}")
+                need(r < REL_L2_BOUND, f"(d): the continuous row is {r:.3e} from its solo stream")
+            eng_t.close()
+        split = lap("serving d", split)
+
+        # (e) /reconstruct, /lora and back, set_lora under a live group
+        (status, _, body, wall), got = serving(
+            lambda: http_call(port_a, "POST", "/reconstruct", {"wav_b64": spk_b64}))
+        chunk = tts.pipe_cfg.audio_chunk_latents * spl
+        a_ = spk[:, :chunk]
+        with torch.no_grad():
+            rec = ae_reconstruct(tts.ae_params, ae_cfg, tts.pca, torch.as_tensor(
+                np.pad(a_, ((0, 0), (0, chunk - a_.shape[-1]))), device=dev)[:, None])
+        rec = rec.cpu().numpy()[:, :, :-(-a_.shape[-1] // spl) * spl]
+        need(status == 200 and body == wav_bytes(rec[0], sr), "(e): /reconstruct differs from "
+             "ae_reconstruct")
+        log(f"# serving (e) POST /reconstruct of the 20 s prompt: client wall {wall:.1f} ms, "
+            f"equal to ae_reconstruct's WAV; launches {got}")
+        gen = torch.Generator(device=dev).manual_seed(16)
+        lc = LoRAConfig(rank=16, alpha=16.0)
+        lora = init_lora(gen, tts.dit_params, lc)
+        # b large enough that the adapted model's audio moves beyond the
+        # rows' 2e-2 gate: with random weights the sampler's output is
+        # mostly its noise, and b ~ N(0, 0.05) moved it by 1.8e-2 only
+        for ab in lora.values():
+            ab["b"].normal_(0.0, 0.5, generator=gen)
+        lora_path = os.path.join(tmp, "lora_r16.npz")
+        save_lora_checkpoint(lora_path, lora, lc)
+        del lora
+        req_i = {"text": SHORT_TEXT, "seed": 0, **fields}
+
+        def lora_round():
+            out = [http_call(port_a, "POST", "/lora", {"path": lora_path})]
+            out.append(http_call(port_a, "POST", "/tts", req_i))
+            out.append(http_call(port_a, "POST", "/lora", {"path": None}))
+            out.append(http_call(port_a, "POST", "/tts", req_i))
+            return out
+
+        torch.cuda.reset_peak_memory_stats(dev)
+        (set_, merged, unset, back), got = serving(lora_round)
+        need(all(r[0] == 200 for r in (set_, merged, unset, back)), "(e): a /lora round failed")
+        pcm = {k: np.frombuffer(b[44:], "<i2").astype(np.float64)
+               for k, b in (("base", bodies["i"]), ("lora", merged[2]))}
+        n = min(len(pcm["base"]), len(pcm["lora"]))
+        moved = rel_l2(torch.from_numpy(pcm["lora"][:n]), torch.from_numpy(pcm["base"][:n]))
+        log(f"# serving (e) POST /lora r16 (set {set_[3]:.1f} ms, revert {unset[3]:.1f} ms): "
+            f"request (i) with the LoRA {moved:.3e} from the base audio (rel-L2), back to the "
+            f"base bit for bit: {back[2] == bodies['i']}; peak memory "
+            f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; launches {got}")
+        need(merged[2] != bodies["i"] and moved > REL_L2_BOUND, "(e): the LoRA did not change "
+             "the audio beyond the gate")
+        need(back[2] == bodies["i"], "(e): reverting the LoRA did not bring the base audio back")
+
+        # a 192-latent stream: the check needs a group that is live while
+        # set_lora waits, not a long one
+        sc_live = dataclasses.replace(sc, sequence_length=192)
+        eng_g = Engine(tts, max_batch=2, continuous=True, continuous_block=64)
+        engines.append(eng_g)
+        live = {}
+
+        def live_stream():
+            live["out"] = np.concatenate(list(eng_g.generate_stream(
+                SHORT_TEXT, None, seed=4, sc=sc_live, block_size=64)), -1)
+
+        def swap_under_load():
+            t_ = threading.Thread(target=live_stream, name="echo-tts-client-live")
+            t_.start()
+            deadline = time.monotonic() + 600
+            while not any(s_.n_active for s_ in list(eng_g._cont_scheds.values())):
+                need(time.monotonic() < deadline and t_.is_alive(), "(e): no live group")
+                time.sleep(0.005)
+            sched = next(iter(eng_g._cont_scheds.values()))
+            t0 = time.perf_counter()
+            eng_g.set_lora(lora_path)
+            swap_ms = (time.perf_counter() - t0) * 1e3
+            alive = sched.thread.is_alive()
+            need(sched.params is tts.dit_params and eng_g.tts.dit_params is not tts.dit_params,
+                 "(e): the live group's params were replaced, or the swap did nothing")
+            t_.join(timeout=600)
+            need(not t_.is_alive(), "(e): the live stream hung")
+            return swap_ms, alive
+
+        (swap_ms, alive), got = serving(swap_under_load)
+        ref = np.concatenate(list(pl.sample_pipeline_stream(
+            tts, SHORT_TEXT, None, 4, sc=sc_live, block_size=64, normalize_text=True)), -1)
+        need(live["out"].shape == ref.shape, "(e): the live row's length differs")
+        r = rel_l2(torch.from_numpy(live["out"]), torch.from_numpy(ref))
+        log(f"# serving (e) set_lora while a continuous group was live: returned in "
+            f"{swap_ms:.1f} ms with the group still live ({alive}); the live row against its solo "
+            f"stream on the base params: rel-L2 {r:.3e}; launches {got}")
+        need(alive and r < REL_L2_BOUND, "(e): the live group did not stay on the old params")
+        lap("serving e", split)
+    finally:
+        for httpd in servers:
+            httpd.shutdown()
+            httpd.server_close()
+        for eng in engines:
+            eng.close()
+        for name in os.listdir(tmp):
+            os.unlink(os.path.join(tmp, name))
+        os.rmdir(tmp)
+    need(min(served.values()) > 0, f"(all): a kernel was never launched: {served}")
+    log(f"# serving phase: {time.perf_counter() - t_phase:.1f} s, launches of the served "
+        f"requests {served}; trace summaries {json.dumps(traces)}")
+    return served
 
 
 # ---------------------------------------------------------------------------
@@ -2212,7 +2595,9 @@ def main(argv) -> int:
         phase_train(tts, dev, train_wrappers)
         del tts
         torch.cuda.empty_cache()
-        phase_batch(dev, slice_wrappers, phase_stream(dev, slice_wrappers)["tts"])
+        _, tts = phase_batch(dev, slice_wrappers, phase_stream(dev, slice_wrappers)["tts"])
+        phase_serve(dev, slice_wrappers, tts)
+        del tts
     else:
         phase_build()
         phase_core_check(dev)
@@ -2228,8 +2613,11 @@ def main(argv) -> int:
             torch.cuda.empty_cache()
             stream = phase_stream(dev, slice_wrappers)
             launches["streaming"] = stream["launches"]
-            launches.update(phase_batch(dev, slice_wrappers, stream.pop("tts")))
+            batch_launches, tts = phase_batch(dev, slice_wrappers, stream.pop("tts"))
+            launches.update(batch_launches)
             del stream
+            launches["serving"] = phase_serve(dev, slice_wrappers, tts)
+            del tts
             torch.cuda.empty_cache()
             launches["measurement"] = phase_measurement(dev)
         rows = phase_kernel_times(dev, errs, launches)

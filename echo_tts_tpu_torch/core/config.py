@@ -6,6 +6,7 @@ describes the same model in the other. `DTYPE_POLICY` holds torch dtypes.
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Optional, Tuple
 
 import torch
@@ -97,6 +98,32 @@ class SamplerConfig:
     first_block_steps: Optional[int] = None
     solver: str = "euler"
 
+    @staticmethod
+    def from_preset(d: dict, **overrides) -> "SamplerConfig":
+        """A config from the sampler-presets JSON schema, whose numbers may
+        be strings ("40", "1.", "none"); the integer fields come back as
+        ints and a bool (joint_uncond over HTTP) stays a bool."""
+
+        def to_num(v, is_int=False):
+            if v is None or v == "" or (isinstance(v, str) and v.strip().lower() == "none"):
+                return None
+            if isinstance(v, bool):
+                return v
+            f = float(v)
+            return int(f) if is_int else f
+
+        kw = {}
+        for f in dataclasses.fields(SamplerConfig):
+            if f.name in d:
+                if f.name == "solver":  # the one string-valued field
+                    kw[f.name] = str(d[f.name])
+                    continue
+                is_int = f.name in ("num_steps", "speaker_kv_max_layers", "sequence_length",
+                                    "uncond_cache_interval", "first_block_steps")
+                kw[f.name] = to_num(d[f.name], is_int)
+        kw.update(overrides)
+        return SamplerConfig(**kw)
+
 
 @dataclasses.dataclass(frozen=True)
 class AEConfig:
@@ -186,3 +213,9 @@ DTYPE_POLICY = {
     "pca": torch.float32,
 }
 
+
+def load_sampler_presets(path: str) -> dict:
+    """A sampler_presets.json file as {name: SamplerConfig}."""
+    with open(path) as f:
+        raw = json.load(f)
+    return {name: SamplerConfig.from_preset(d) for name, d in raw.items()}

@@ -27,8 +27,9 @@ unless the caller asks for the CPU.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import time
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -47,7 +48,11 @@ from echo_tts_tpu_torch.models.dit import (
 from echo_tts_tpu_torch.pipeline import flattening
 from echo_tts_tpu_torch.pipeline import tokenizer as tok
 from echo_tts_tpu_torch.pipeline.flattening import crop_audio_to_flattening_point
-from echo_tts_tpu_torch.pipeline.speaker import find_min_bucket_gte, get_speaker_latent_and_mask
+from echo_tts_tpu_torch.pipeline.speaker import (
+    ae_decode,
+    find_min_bucket_gte,
+    get_speaker_latent_and_mask,
+)
 from echo_tts_tpu_torch.sampling.blockwise import check_patch_aligned as _check_patch_aligned
 from echo_tts_tpu_torch.sampling.blockwise import sample_block_core
 from echo_tts_tpu_torch.sampling.euler_cfg import (
@@ -118,9 +123,17 @@ def _pad_to(arr: np.ndarray, n: int) -> np.ndarray:
 
 def _prepare_inputs(tts: EchoTTS, text_prompt: str, speaker_audio: Optional[np.ndarray],
                     normalize_text: bool, pad_to_max_text_length: Optional[int],
-                    pad_to_max_speaker_latent_length: Optional[int], use_buckets: bool):
+                    pad_to_max_speaker_latent_length: Optional[int], use_buckets: bool,
+                    speaker_cache=None):
     """Text/speaker preprocessing on the host. The no-speaker fallback is a
-    zero (1, 4, 80) latent with an all-false mask (one speaker patch)."""
+    zero (1, 4, 80) latent with an all-false mask (one speaker patch).
+
+    speaker_cache: an optional mapping {key: (latent, mask)} (`get` and item
+    assignment) consulted before the chunked AE encode, so that a repeated
+    prompt skips the encoder. The key is the audio's shape, the sha1 of its
+    bytes and the pad policy, so a hit is exactly the encode it replaces; a
+    hit sets timings["speaker_encode_cache_hit"]. Eviction is the caller's
+    (serve.Engine keeps an LRU)."""
     pc = tts.pipe_cfg
     timings = {}
 
@@ -140,12 +153,24 @@ def _prepare_inputs(tts: EchoTTS, text_prompt: str, speaker_audio: Optional[np.n
         speaker_latent = np.zeros((1, n, tts.dit_cfg.latent_size), np.float32)
         speaker_mask = np.zeros((1, n), bool)
     else:
-        speaker_latent, speaker_mask = get_speaker_latent_and_mask(
-            tts.ae_params, tts.ae_cfg, tts.pca, speaker_audio,
-            max_speaker_latent_length=(pad_to_max_speaker_latent_length
-                                       or pc.max_speaker_latent_length),
-            audio_chunk_latents=pc.audio_chunk_latents,
-            pad_to_max=pad_to_max_speaker_latent_length is not None)
+        cache_key = cached = None
+        if speaker_cache is not None:
+            arr = np.ascontiguousarray(np.asarray(speaker_audio))
+            cache_key = (arr.shape, hashlib.sha1(arr.tobytes()).hexdigest(),
+                         pad_to_max_speaker_latent_length)
+            cached = speaker_cache.get(cache_key)
+        if cached is not None:
+            speaker_latent, speaker_mask = cached
+            timings["speaker_encode_cache_hit"] = 1.0
+        else:
+            speaker_latent, speaker_mask = get_speaker_latent_and_mask(
+                tts.ae_params, tts.ae_cfg, tts.pca, speaker_audio,
+                max_speaker_latent_length=(pad_to_max_speaker_latent_length
+                                           or pc.max_speaker_latent_length),
+                audio_chunk_latents=pc.audio_chunk_latents,
+                pad_to_max=pad_to_max_speaker_latent_length is not None)
+            if cache_key is not None:
+                speaker_cache[cache_key] = (speaker_latent, speaker_mask)
         if pad_to_max_speaker_latent_length is None and use_buckets:
             bucket = find_min_bucket_gte(pc.speaker_buckets, speaker_latent.shape[1])
             speaker_latent = _pad_to(speaker_latent, bucket)
@@ -160,37 +185,55 @@ def sample_pipeline(
     speaker_audio: Optional[np.ndarray],       # (1, samples) or None
     rng_seed: int,
     sc: Optional[SamplerConfig] = None,
+    sample_fn: Optional[Callable[..., torch.Tensor]] = None,
     pad_to_max_speaker_latent_length: Optional[int] = None,
     pad_to_max_text_length: Optional[int] = None,
     normalize_text: bool = False,
     noise: Optional[np.ndarray] = None,
     use_buckets: bool = True,
+    speaker_cache=None,
 ) -> Tuple[np.ndarray, str, dict]:
     """Returns (audio (1, 1, T) fp32 numpy, normalized text, timings).
 
     timings holds the wall seconds of each stage (tokenize, speaker_encode,
-    sample = sampler + decode, crop) and, for checks, the sample count and
-    finiteness of the audio before the crop. `noise` (1, sequence_length,
-    latent) replaces the seeded draw (`draw_noise`: the numbers
-    jax.random.normal gives the JAX package for the same seed)."""
+    sample, vocoder, crop) and, for checks, the sample count and finiteness
+    of the audio before the crop. Without `sample_fn` the sampler and the
+    decode run as one call: "sample" holds both and "vocoder" is 0.0.
+    `sample_fn(speaker_latent, speaker_mask, ids, text_mask, rng_seed)`,
+    given torch tensors on `tts.device`, replaces the sampler and returns
+    the latents (1, T, latent); they are then decoded by `ae_decode`, whose
+    wall is "vocoder". `noise` (1, sequence_length, latent) replaces the
+    seeded draw (`draw_noise`: the numbers jax.random.normal gives the JAX
+    package for the same seed). `speaker_cache`: see `_prepare_inputs`."""
     sc = sc or SamplerConfig()
     dev = tts.device
     (ids, text_mask, normalized, speaker_latent, speaker_mask,
      timings) = _prepare_inputs(tts, text_prompt, speaker_audio, normalize_text,
                                 pad_to_max_text_length, pad_to_max_speaker_latent_length,
-                                use_buckets)
+                                use_buckets, speaker_cache=speaker_cache)
+    spk_t, smask_t = (torch.as_tensor(speaker_latent, device=dev),
+                      torch.as_tensor(speaker_mask, device=dev))
+    ids_t, tmask_t = torch.as_tensor(ids, device=dev), torch.as_tensor(text_mask, device=dev)
 
     t0 = time.perf_counter()
-    shape = (1, sc.sequence_length, tts.dit_cfg.latent_size)
-    noise_t = (draw_noise(rng_seed, shape, dev) if noise is None
-               else torch.as_tensor(np.asarray(noise), dtype=torch.float32, device=dev))
-    latents, audio = _sample_and_decode(
-        tts.dit_params, tts.dit_cfg, sc, tts.ae_params, tts.ae_cfg, tts.pca,
-        torch.as_tensor(speaker_latent, device=dev), torch.as_tensor(speaker_mask, device=dev),
-        torch.as_tensor(ids, device=dev), torch.as_tensor(text_mask, device=dev),
-        noise_t, tts.model_dtype)
-    audio = audio.cpu().numpy()
-    timings["sample"] = time.perf_counter() - t0
+    if sample_fn is None:
+        shape = (1, sc.sequence_length, tts.dit_cfg.latent_size)
+        noise_t = (draw_noise(rng_seed, shape, dev) if noise is None
+                   else torch.as_tensor(np.asarray(noise), dtype=torch.float32, device=dev))
+        latents, audio = _sample_and_decode(
+            tts.dit_params, tts.dit_cfg, sc, tts.ae_params, tts.ae_cfg, tts.pca, spk_t,
+            smask_t, ids_t, tmask_t, noise_t, tts.model_dtype)
+        audio = audio.cpu().numpy()
+        timings["sample"] = time.perf_counter() - t0
+        timings["vocoder"] = 0.0
+    else:
+        latents = sample_fn(spk_t, smask_t, ids_t, tmask_t, rng_seed)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        timings["sample"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        audio = ae_decode(tts.ae_params, tts.ae_cfg, tts.pca, latents).cpu().numpy()
+        timings["vocoder"] = time.perf_counter() - t0
     timings["samples_before_crop"] = float(audio.shape[-1])
     timings["finite_before_crop"] = float(np.isfinite(audio).all())
 
@@ -216,16 +259,18 @@ def _stack_padded(preps, dev):
 
 
 def sample_pipeline_batch(tts: EchoTTS, requests, sc: Optional[SamplerConfig] = None,
-                          normalize_text: bool = False):
+                          normalize_text: bool = False, speaker_cache=None):
     """`sample_pipeline` for N requests (text, speaker_audio or None, seed)
     through one `_sample_and_decode` of N rows. Row i's noise is
     `draw_noise(seed_i)`'s, as the solo call draws it. Returns a list of
     (audio (1, 1, T_i), normalized text, timings) in request order, each
     cropped at its own flattening point; every timings dict carries the
-    shared sample wall and `batch_size`."""
+    shared sample wall, `vocoder` 0.0 and `batch_size`. `speaker_cache`:
+    see `_prepare_inputs`."""
     sc = sc or SamplerConfig()
     dev = tts.device
-    preps = [_prepare_inputs(tts, text, spk, normalize_text, None, None, True)
+    preps = [_prepare_inputs(tts, text, spk, normalize_text, None, None, True,
+                             speaker_cache=speaker_cache)
              for text, spk, _seed in requests]
     ids, text_mask, speaker_latent, speaker_mask = _stack_padded(preps, dev)
 
@@ -240,7 +285,7 @@ def sample_pipeline_batch(tts: EchoTTS, requests, sc: Optional[SamplerConfig] = 
 
     out = []
     for i, p in enumerate(preps):
-        timings = dict(p[5], sample=sample_wall, batch_size=float(len(requests)),
+        timings = dict(p[5], sample=sample_wall, vocoder=0.0, batch_size=float(len(requests)),
                        samples_before_crop=float(audio.shape[-1]),
                        finite_before_crop=float(np.isfinite(audio[i]).all()))
         t0 = time.perf_counter()
@@ -439,6 +484,7 @@ def sample_pipeline_stream(
     normalize_text: bool = False,
     stop_at_flattening: bool = True,
     continuation_audio: Optional[np.ndarray] = None,
+    speaker_cache=None,
 ):
     """Streaming generation: yields fp32 numpy chunks (1, 1, n_samples), one
     per latent block, as soon as each block is sampled and decoded.
@@ -451,6 +497,7 @@ def sample_pipeline_stream(
     into latents that seed the prefix (the text should include its
     transcript); it spends its share of the sequence_length budget, and
     only new audio is emitted. Needs a checkpoint with the latent modules.
+    `speaker_cache`: see `_prepare_inputs`.
     """
     if not tts.dit_cfg.has_latent_modules:
         raise ValueError(
@@ -459,7 +506,8 @@ def sample_pipeline_stream(
     sc = sc or SamplerConfig()
     dev = tts.device
     ids, text_mask, _, speaker_latent, speaker_mask, _ = _prepare_inputs(
-        tts, text_prompt, speaker_audio, normalize_text, None, None, True)
+        tts, text_prompt, speaker_audio, normalize_text, None, None, True,
+        speaker_cache=speaker_cache)
     patch = tts.dit_cfg.speaker_patch_size
     block_sizes = _block_schedule(block_size, sc.sequence_length, patch)
     spl = tts.ae_cfg.frame_length
@@ -508,6 +556,7 @@ def sample_pipeline_stream_batch(
     block_size=(64, 192),
     normalize_text: bool = False,
     stop_at_flattening: bool = True,
+    speaker_cache=None,
 ):
     """N streams through one `stream_blocks_fused` of N rows. Yields
     {request index: chunk (1, 1, n > 0)} after each block: a row appears
@@ -516,7 +565,8 @@ def sample_pipeline_stream_batch(
     once every row has stopped. A row's chunks, concatenated, equal its
     solo `sample_pipeline_stream` up to rounding (its noise rows are its
     seed's; the padding is masked). The emission logic is the solo path's
-    `_StreamEmitter`. No continuation: use `sample_pipeline_stream`."""
+    `_StreamEmitter`. No continuation: use `sample_pipeline_stream`.
+    `speaker_cache`: see `_prepare_inputs`."""
     if not tts.dit_cfg.has_latent_modules:
         raise ValueError(
             "streaming generation needs the blockwise (latent-prefix) modules;"
@@ -524,7 +574,8 @@ def sample_pipeline_stream_batch(
     sc = sc or SamplerConfig()
     dev = tts.device
     n = len(requests)
-    preps = [_prepare_inputs(tts, text, spk, normalize_text, None, None, True)
+    preps = [_prepare_inputs(tts, text, spk, normalize_text, None, None, True,
+                             speaker_cache=speaker_cache)
              for text, spk, _seed in requests]
     ids, text_mask, speaker_latent, speaker_mask = _stack_padded(preps, dev)
     block_sizes = _block_schedule(block_size, sc.sequence_length, tts.dit_cfg.speaker_patch_size)

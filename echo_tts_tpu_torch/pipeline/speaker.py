@@ -28,6 +28,14 @@ def ae_decode(ae_params: dict, ae_cfg: AEConfig, pca: pca_mod.PCAState,
     return s1dac.decode_zq(ae_params, ae_cfg, z_q).float()
 
 
+@torch.no_grad()
+def ae_reconstruct(ae_params: dict, ae_cfg: AEConfig, pca: pca_mod.PCAState,
+                   audio: torch.Tensor) -> torch.Tensor:
+    """The AE round trip, encode then decode: audio (B, 1, T) -> (B, 1, T')
+    fp32, for auditioning a prompt."""
+    return ae_decode(ae_params, ae_cfg, pca, ae_encode(ae_params, ae_cfg, pca, audio))
+
+
 def get_speaker_latent_and_mask(
     ae_params: dict,
     ae_cfg: AEConfig,

@@ -4,8 +4,9 @@
   does chip_smoke.py;
 * its entry points run on CUDA unless the caller asks for the CPU, and raise
   where CUDA is absent instead of falling back quietly; the measurement
-  entry points (echo_tts_tpu_torch/bench/) rehearse end to end with --cpu
-  at a tiny size through the plain versions;
+  entry points (echo_tts_tpu_torch/bench/) and the server's
+  (echo_tts_tpu_torch/serve/__main__.py) rehearse end to end with --cpu at a
+  tiny size through the plain versions; the serving levers not ported raise;
 * the kernel wrappers take the plain version only for CPU tensors and
   refuse what the kernels do not take, inputs that require grad included.
 """
@@ -31,6 +32,9 @@ from echo_tts_tpu_torch.pipeline.pipeline import (
     sample_pipeline_batch,
     sample_pipeline_stream,
 )
+from echo_tts_tpu_torch.bench import trace
+from echo_tts_tpu_torch.serve import __main__ as serve_main
+from echo_tts_tpu_torch.serve.engine import Engine
 
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -53,7 +57,8 @@ for new in ("bench.attention", "bench.attention_variants", "bench.conv_kernel_va
             "bench.conv_variants", "bench.profile_breakdown", "bench.timing",
             "ops.attention_variants", "ops.res_chain_variants", "utils.profiling",
             "ops.conv_core", "sampling.jax_random", "sampling.blockwise", "core.rope",
-            "models.s1dac", "pipeline.pipeline"):
+            "models.s1dac", "pipeline.pipeline", "serve.engine", "serve.continuous",
+            "serve.server", "serve.presets", "serve.__main__", "utils.locks", "bench.trace"):
     assert "echo_tts_tpu_torch." + new in names, new
 """
 
@@ -77,6 +82,10 @@ def test_entry_points_default_to_cuda():
         lambda: sample_pipeline_batch(
             EchoTTS({}, tiny, {}, AEConfig().tiny(), PCAState.random(0, 64, device="cpu")),
             [("hi", None, 0)]),
+        lambda: Engine(EchoTTS({}, tiny, {}, AEConfig().tiny(),
+                               PCAState.random(0, 64, device="cpu"))),
+        lambda: serve_main.build_engine(serve_main.parse_args(["--random-tiny"])),
+        lambda: trace.main(["--tiny"]),
     ]
     if torch.cuda.is_available():
         tts = calls[0]()
@@ -88,6 +97,29 @@ def test_entry_points_default_to_cuda():
     tts = EchoTTS({}, tiny, {}, AEConfig().tiny(), PCAState.random(0, 64, device="cpu"),
                   device="cpu")
     assert tts.device.type == "cpu"
+
+
+def test_serve_and_trace_entry_points_on_the_cpu_flag(capsys):
+    """With --cpu the server's entry point builds its engine on the CPU, and
+    the trace bench runs end to end there, naming the CPU as its device and
+    launching no kernel."""
+    eng = serve_main.build_engine(serve_main.parse_args(["--cpu", "--random-tiny",
+                                                         "--max-batch", "2"]))
+    try:
+        assert eng.tts.device.type == "cpu" and eng.max_batch == 2
+    finally:
+        eng.close()
+    res = trace.main(["--cpu", "--tiny", "--n", "2", "--rate", "50"])
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == res
+    assert res["device"].startswith("cpu") and res["card"] == "cpu"
+    assert res["n_ok"] == 2 and res["n_hung"] == 0 and not any(res["launches"].values())
+
+
+@pytest.mark.parametrize("argv", [["--dit", "dit.safetensors"], ["--random", "--int8"],
+                                  ["--random", "--tp", "2"], ["--random", "--gradio"]])
+def test_serve_flags_not_ported_raise(argv):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        serve_main.build_engine(serve_main.parse_args(["--cpu"] + argv))
 
 
 BENCH_ENTRY_POINTS = ("attention_variants", "conv_kernel_variants", "conv_variants", "attention",

@@ -55,3 +55,37 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     return torch.device("cuda", 0)
+
+
+def tiny_pair(dit_seed: int, ae_seed: int, pipe: dict, has_latent_modules: bool = True):
+    """(JAX EchoTTS, port EchoTTS) on the same fp32 tiny weights (the JAX
+    initializers, carried over by checkpoints/from_jax.py) with the same
+    PCA state and PipelineConfig(**pipe); the port's on the CPU."""
+    import jax
+    import jax.numpy as jnp
+
+    from echo_tts_tpu.bench.init_ae import init_ae_params as j_init_ae
+    from echo_tts_tpu.core import config as jc
+    from echo_tts_tpu.models import dit as jdit
+    from echo_tts_tpu.models.pca import PCAState as JPCAState
+    from echo_tts_tpu.pipeline import pipeline as jpipe
+    from echo_tts_tpu_torch.checkpoints.from_jax import ae_params_from_numpy, dit_params_from_numpy
+    from echo_tts_tpu_torch.core import config as tc
+    from echo_tts_tpu_torch.models.pca import PCAState
+    from echo_tts_tpu_torch.pipeline import pipeline as tpipe
+
+    jcfg = jc.DiTConfig(has_latent_modules=has_latent_modules).tiny()
+    jacfg = jc.AEConfig().tiny()
+    jp = jax.jit(lambda k: jdit.init_dit_params(k, jcfg, dtype=jnp.float32))(
+        jax.random.PRNGKey(dit_seed))
+    ja = jax.jit(lambda k: j_init_ae(k, jacfg, dtype=jnp.float32))(jax.random.PRNGKey(ae_seed))
+    jtts = jpipe.EchoTTS(jp, jcfg, ja, jacfg, JPCAState.random(0, jacfg.latent_dim),
+                         model_dtype=jnp.float32, pipe_cfg=jc.PipelineConfig(**pipe))
+    cfg = tc.DiTConfig(has_latent_modules=has_latent_modules).tiny()
+    acfg = tc.AEConfig().tiny()
+    ttts = tpipe.EchoTTS(dit_params_from_numpy(np_tree(jp), cfg, device="cpu"), cfg,
+                         ae_params_from_numpy(np_tree(ja), acfg, device="cpu"), acfg,
+                         PCAState.random(0, acfg.latent_dim, device="cpu"),
+                         model_dtype=torch.float32, pipe_cfg=tc.PipelineConfig(**pipe),
+                         device="cpu")
+    return jtts, ttts
