@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py                 # every phase
     python3 chip_smoke.py --kernels-only  # build + kernel checks + kernel times
-    python3 chip_smoke.py --slices-only   # phases 1, 5, 6, 9, 10 and 11 only (K1, K2, K3 built)
+    python3 chip_smoke.py --slices-only   # phases 1, 5, 6, 9-12 only (K1-K5 built)
 
 Phases, in order; any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi), torch/CUDA/nvcc versions;
@@ -25,7 +25,13 @@ Phases, in order; any failure exits non-zero:
      points use (K1v attention_var, K2v-cl res_chain, K2v-cf res_chain_cf,
      K2s res_chain_snake) at the full shapes and at a ragged one, K2v-cf
      against K2v-cl on the transposed input (at both widths, with T a
-     multiple of 8 and not), and K2s poly against exact;
+     multiple of 8 and not), and K2s poly against exact; K1 with no context
+     segment and with the latent segment alone (the joint-uncond branch);
+     K5 quant_rows and K4 int8_gemm bit for bit against their plain versions
+     (K5 at (1920, 2048), (1920, 5888), (192, 2048), (37, 2048), bf16 and
+     fp32, an all-zero row; K4's int32 sums and bf16 output at the trunk's
+     (K, N) with M = 1920, 192, 1, 37, a ragged N and K), and the wrappers
+     refusing what the kernels do not take;
   5. the one-shot slice at the full width of DiTConfig(has_latent_modules=
      False) and AEConfig() in bf16, random weights from a seed: one CFG
      forward and one decode through the kernels against the plain versions;
@@ -81,6 +87,17 @@ Phases, in order; any failure exits non-zero:
      ae_reconstruct; /lora with an r16 LoRA and back (the base audio bit
      for bit); set_lora while a continuous group is live (the group's row
      stays on the old params);
+ 12. (run after 11, on its weights) the sampler levers and the int8 trunk:
+     request (i) with joint_uncond, uncond_cache_interval=2 and midpoint at
+     20 steps (wall, CUDA-event time, exact K1 and K2 launches counted from
+     the schedule, rel-L2 from the Euler-40 request as information); the
+     time to quantize the params; bench/quant_snr.py's latent SNR of the
+     int8 trunk against bf16, trunk only and with the encoders (>= 40 dB);
+     one int8 request (i) (exact K1, K2, K4, K5 launches, peak memory, a
+     profile by family) and one int8 stream on (64, 192); Engine(int8=True)
+     behind the HTTP server: /tts byte-equal to the direct call, set_lora
+     re-quantizing the merge and reverting to the int8 base bytes, a /tts
+     with "joint_uncond" in the body;
   7. the measurement path: the entry points of echo_tts_tpu_torch/bench/
      (attention_variants, conv_kernel_variants, conv_variants, attention,
      profile_breakdown) at their full shapes, each printing its JSON line,
@@ -96,12 +113,15 @@ Phases, in order; any failure exits non-zero:
      same chain), K3, K1v, K2v-cl, K2v-cf and K2s (over replays of a graph
      of 3 chains, and call by call as well: the wrappers' host work to pack
      the weights is then included, as in the readings before); and K2v-cf
-     against K2v-cl (sin) timed in turns at both widths of the entry point.
+     against K2v-cl (sin) timed in turns at both widths of the entry point;
+     K4 at the trunk's (K, N) with M = 1920 and 192 beside torch._int_mm +
+     the dequantize and the bf16 torch.matmul it replaces, and K5 at a
+     layer's (M, D), over CUDA-graph replays.
 The line before the last is the kernel JSON; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX. --slices-only is for
 comparing two trees end to end in one call on one card (run them in turns:
 the host's clock moves more between calls than a kernel change moves it); it
-prints no kernel JSON. The build of the seven sources runs in parallel;
+prints no kernel JSON. The build of the nine sources runs in parallel;
 ptxas serialising a wgmma of K2 or of the chain kernel of K2v-cl, K2v-cf and
 K2s (C7512/C7514) fails the run.
 """
@@ -124,8 +144,9 @@ sys.path.insert(0, HERE)
 
 import torch  # noqa: E402
 
-# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor core, HBM3
+# H100 SXM peaks (NVIDIA data sheet, dense): bf16 and int8 tensor core, HBM3
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
 REL_L2_BOUND = 2e-2
 
@@ -145,8 +166,8 @@ def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
-def bound(flops: float, nbytes: float):
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+def bound(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS):
+    t_ops = flops / peak * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -176,13 +197,19 @@ SERIAL_FREE = ("res_chain", "res_chain_variants")  # must show none: the run fai
 
 def _kernel_name(mangled: str) -> str:
     """kernel<its integer and bool template arguments>: joint_attention_kernel<2>,
-    res_chain_cl_kernel<192, 0> (width, snake code), dq_kernel."""
-    m = re.search(r"\d+([a-z][a-z_]*_kernel)", mangled)
-    if m is None:
-        return mangled
-    rest = mangled[m.end():]
-    args = re.findall(r"L[ib](\d+)E", rest.split("Ev", 1)[0]) if rest.startswith("I") else []
-    return m.group(1) + (f"<{', '.join(args)}>" if args else "")
+    res_chain_cl_kernel<192, 0> (width, snake code), dq_kernel. The name is
+    the `<length><name>` of the mangling that ends in "_kernel"; a digit run
+    may carry a namespace's digits before the length (int8_gemm_kernel)."""
+    for run in re.finditer(r"\d+", mangled):
+        for i in range(run.start(), run.end()):
+            n = int(mangled[i:run.end()])
+            name = mangled[run.end():run.end() + n]
+            if len(name) == n and re.fullmatch(r"[a-z][a-z0-9_]*_kernel", name):
+                rest = mangled[run.end() + n:]
+                args = (re.findall(r"L[ib](\d+)E", rest.split("Ev", 1)[0])
+                        if rest.startswith("I") else [])
+                return name + (f"<{', '.join(args)}>" if args else "")
+    return mangled
 
 
 def parse_ptxas(text: str) -> dict:
@@ -474,6 +501,28 @@ def phase_kernel_checks(dev) -> dict:
     k1_case("three segments S=200 G=2 H=16, T=300 + 52 + 7", 2, 1, 200, 16, (300, 52, 7),
             layout="hm")
 
+    # K1 with no context segment and with the latent segment alone: the
+    # joint-uncond branch of the one-shot path (text and speaker skipped)
+    # and of a stream; G=1 and 2, S=64 and 640, self_len given and not
+    for g in (1, 2):
+        for s_ in (64, 640):
+            for seg_lens in ((), (160,)):
+                for sl_rows in (None, (s_, s_ // 2 + 3)):
+                    b_ = 1 if sl_rows is None else 2
+                    q, k, v, segs = _k1_inputs(gen, g, s_, 16, seg_lens, dev, b=b_)
+                    segs = [(kk, vv, m, None) for kk, vv, m, _ in segs]
+                    sl = None if sl_rows is None else torch.tensor(sl_rows, dtype=torch.int32,
+                                                                   device=dev)
+                    before = ja.joint_attention.launches
+                    got = ja.joint_attention(q, k, v, segs, "sm", self_len=sl)
+                    if ja.joint_attention.launches - before != 1:
+                        failures.append(f"joint_attention nseg={len(segs)}: no launch")
+                    check("joint_attention",
+                          f"nseg {len(segs)} ({'latent 160' if segs else 'no context'}), G={g} "
+                          f"B={b_} S={s_}, self_len {sl_rows}", got,
+                          ja.joint_attention_plain(q.float(), k.float(), v.float(),
+                                                   f32_segments(segs), "sm", sl))
+
     # K2 at every width of the S1-DAC stacks (decoder 768/384/192/96, encoder
     # 64/128/256/512), non-zero biases, ragged lengths, B=2, zero_below
     # scalar and per row; one launch a unit
@@ -563,6 +612,95 @@ def phase_kernel_checks(dev) -> dict:
     if failures:
         raise SystemExit("kernel checks failed: " + "; ".join(failures))
     return errs
+
+
+def int8_operands(gen, m, k, n, dev):
+    """K4's and K5's operands as the int8 trunk makes them: bf16 activation
+    rows (M, K) and their codes and scales (the plain K5 on the CPU), and a
+    quantized (K, N) weight of the initializer's scale, stored (N, K)."""
+    from echo_tts_tpu_torch.models.quant import quantize_weight
+    from echo_tts_tpu_torch.ops.quant_rows import quant_rows_plain
+
+    h = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+    w = ((torch.rand(k, n, generator=gen, device=dev) * 2 - 1) * k ** -0.5).to(torch.bfloat16)
+    a, s_row = (x.to(dev) for x in quant_rows_plain(h.cpu()))
+    qw = quantize_weight(w)
+    return h, w, a, s_row.reshape(-1), qw["q"], qw["s"]
+
+
+# the trunk's projections (K, N) a layer: wq wk wv gate wo, w1 w3, w2
+INT8_KN = ((2048, 2048), (2048, 5888), (5888, 2048))
+INT8_PER_LAYER = {(2048, 2048): 5, (2048, 5888): 2, (5888, 2048): 1}
+
+
+def phase_int8_checks(dev) -> dict:
+    """K5 (row quantize) and K4 (int8 GEMM + dequantize) against their plain
+    versions, bit for bit: K5 at (1920, 2048), (1920, 5888), (192, 2048) and
+    a ragged (37, 2048), bf16 and fp32, with an all-zero row, against the
+    plain version on the CPU (IEEE division, round half to even); K4's int32
+    sums and its bf16 output at the trunk's (K, N) with M = 1920, 192, 1 and
+    37, a ragged N and K, against the plain version (float64 sums, exact
+    here); the wrappers refuse what the kernels do not take."""
+    from echo_tts_tpu_torch.ops import int8_gemm as ig
+    from echo_tts_tpu_torch.ops import quant_rows as qr
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    failures = []
+    for m, d in ((1920, 2048), (1920, 5888), (192, 2048), (37, 2048)):
+        for dtype in (torch.bfloat16, torch.float32):
+            h = (torch.randn(m, d, generator=gen, device=dev) * 3).to(dtype)
+            h[3] = 0
+            before = qr.quant_rows.launches
+            q, s = qr.quant_rows(h)
+            torch.cuda.synchronize()
+            rq, rs = qr.quant_rows_plain(h.cpu())
+            same = torch.equal(q.cpu(), rq) and torch.equal(s.cpu(), rs)
+            log(f"# check quant_rows [({m}, {d}) {str(dtype)[6:]}, row 3 all zero]: codes and "
+                f"scales equal to the plain version: {same}; "
+                f"{int((q.cpu() != rq).sum())} codes differ")
+            if not same or qr.quant_rows.launches - before != 1:
+                failures.append(f"quant_rows ({m}, {d}) {dtype}")
+    shapes = [(m, k, n) for m in (1920, 192, 1, 37) for k, n in INT8_KN]
+    shapes += [(37, 2048, 200), (37, 1040, 200)]  # ragged N; K a multiple of 16, not of 64
+    for m, k, n in shapes:
+        _, _, a, s_row, w, s_col = int8_operands(gen, m, k, n, dev)
+        before = ig.int8_gemm.launches
+        acc = ig.int8_gemm(a, s_row, w, s_col, torch.int32)
+        out = ig.int8_gemm(a, s_row, w, s_col, torch.bfloat16)
+        torch.cuda.synchronize()
+        r_acc = ig.int8_gemm_plain(a, s_row, w, s_col, torch.int32)
+        r_out = ig.int8_gemm_plain(a, s_row, w, s_col, torch.bfloat16)
+        same = torch.equal(acc, r_acc) and torch.equal(out, r_out)
+        log(f"# check int8_gemm [(M, K, N) = ({m}, {k}, {n})]: int32 sums equal: "
+            f"{torch.equal(acc, r_acc)}, bf16 output equal: {torch.equal(out, r_out)}")
+        if not same or ig.int8_gemm.launches - before != 2:
+            failures.append(f"int8_gemm ({m}, {k}, {n})")
+    a8 = torch.zeros(4, 40, dtype=torch.int8, device=dev)
+    sv = torch.ones(4, device=dev)
+    w16 = torch.zeros(16, 64, dtype=torch.int8, device=dev)
+    for what, call, exc in (
+            ("K not a multiple of 16", lambda: ig.int8_gemm(a8, sv, a8, sv, torch.bfloat16),
+             ValueError),
+            ("float activations", lambda: ig.int8_gemm(a8[:, :32].float(), sv, w16[:, :32], sv,
+                                                       torch.bfloat16), TypeError),
+            ("a transposed weight", lambda: ig.int8_gemm(
+                torch.zeros(64, 16, dtype=torch.int8, device=dev), torch.ones(64, device=dev),
+                w16.t(), torch.ones(64, device=dev), torch.bfloat16), ValueError),
+            ("D not a multiple of 8", lambda: qr.quant_rows(torch.zeros(4, 12, device=dev)),
+             ValueError),
+            ("int8 rows", lambda: qr.quant_rows(a8), TypeError)):
+        before = (ig.int8_gemm.launches, qr.quant_rows.launches)
+        try:
+            call()
+        except exc as e:
+            log(f"# the int8 wrappers refuse {what}: {type(e).__name__}")
+        else:
+            failures.append(f"the int8 wrappers accepted {what}")
+        if (ig.int8_gemm.launches, qr.quant_rows.launches) != before:
+            failures.append(f"a refused call ({what}) launched")
+    if failures:
+        raise SystemExit("int8 kernel checks failed: " + "; ".join(failures))
+    return {"int8_gemm": 0.0, "quant_rows": 0.0}
 
 
 # ---------------------------------------------------------------------------
@@ -750,7 +888,7 @@ def phase_kernel_times(dev, errs: dict, launches: dict) -> list:
 
     rows.append(k2_times(dev, gen, errs, launches))
     rows.append(k3_times(dev, gen, errs, launches))
-    return rows + variant_times(dev, errs, launches)
+    return rows + variant_times(dev, errs, launches) + int8_times(dev, errs, launches)
 
 
 # the chains of one 640-latent decode and of one 640-latent encode (B=1)
@@ -1096,6 +1234,105 @@ def variant_times(dev, errs: dict, launches: dict) -> list:
         cf_row = next(r for r in rows if r["name"] == "res_chain_cf")
         cf_row["in_turns"] = [layout_in_turns(dev, c, t) for c, t in bcv.FULL_SHAPES]
     return rows
+
+
+def int8_times(dev, errs: dict, launches: dict) -> list:
+    """K4 and K5 at the trunk's shapes, over CUDA-graph replays (both are
+    shorter than their wrappers' host time at M = 192): K4 at each (K, N) of
+    a layer's projections with M = 1920 (a one-shot CFG forward) and 192 (a
+    stream block's), beside the plain version, the bound (1979 TOP/s int8,
+    3.35 TB/s) and two yardsticks the port never calls: torch._int_mm then
+    the dequantize (the library's int8 product), and the bf16 torch.matmul
+    that int8 replaces; K5 at the (M, D) of a layer's four quantizations.
+    The JSON rows' times are one trunk layer's at M = 1920: K4's eight
+    projections and K5's four row quantizations, summed."""
+    from echo_tts_tpu_torch.bench.timing import cuda_ms
+    from echo_tts_tpu_torch.ops import int8_gemm as ig
+    from echo_tts_tpu_torch.ops import quant_rows as qr
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    k4_shapes, k5_shapes = [], []
+    sums = {m: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bf16_matmul_ms": 0.0,
+                "int_mm_ms": 0.0, "flops": 0.0, "bytes": 0.0} for m in (1920, 192)}
+    with torch.no_grad():
+        for m in (1920, 192):
+            for k, n in INT8_KN:
+                h, w_bf, a, s_row, w, s_col = int8_operands(gen, m, k, n, dev)
+                wt = w.t().contiguous()  # torch._int_mm's (K, N)
+                ms = cuda_ms(lambda: ig.int8_gemm(a, s_row, w, s_col, torch.bfloat16),
+                             graph_iters=GRAPH_ITERS)
+                plain_ms = cuda_ms(lambda: ig.int8_gemm_plain(a, s_row, w, s_col,
+                                                              torch.bfloat16), reps=3)
+                int_mm_ms = cuda_ms(lambda: torch._int_mm(a, wt), graph_iters=GRAPH_ITERS)
+                lib_ms = cuda_ms(lambda: (torch._int_mm(a, wt).float()
+                                          * (s_row[:, None] * s_col)).to(torch.bfloat16),
+                                 graph_iters=GRAPH_ITERS)
+                bf_ms = cuda_ms(lambda: torch.matmul(h, w_bf), graph_iters=GRAPH_ITERS)
+                flops = 2.0 * m * k * n
+                nbytes = m * k + n * k + 4 * (m + n) + 2 * m * n
+                b_ms, b_by = bound(flops, nbytes, PEAK_INT8_OPS)
+                log(f"# time int8_gemm (M, K, N) = ({m}, {k}, {n}): kernel {ms:.4f} ms "
+                    f"({flops / ms / 1e9:.0f} TOP/s, {ms / b_ms:.2f}x its bound), plain "
+                    f"{plain_ms:.3f} ms, torch._int_mm {int_mm_ms:.4f} ms (+ dequantize "
+                    f"{lib_ms:.4f}), bf16 matmul {bf_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+                k4_shapes.append({"M": m, "K": k, "N": n, "ms": ms, "plain_ms": plain_ms,
+                                  "library_ms": lib_ms, "int_mm_ms": int_mm_ms,
+                                  "bf16_matmul_ms": bf_ms, "bound_ms": b_ms, "bound_by": b_by})
+                per = INT8_PER_LAYER[(k, n)]
+                for key, val in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
+                                 ("bf16_matmul_ms", bf_ms), ("int_mm_ms", int_mm_ms),
+                                 ("flops", flops), ("bytes", nbytes)):
+                    sums[m][key] += per * val
+            for d, per in ((2048, 3), (5888, 1)):
+                h = torch.randn(m, d, generator=gen, device=dev).to(torch.bfloat16)
+                ms = cuda_ms(lambda: qr.quant_rows(h), graph_iters=GRAPH_ITERS)
+                plain_ms = cuda_ms(lambda: qr.quant_rows_plain(h), reps=5)
+                nbytes = 2 * m * d + m * d + 4 * m
+                b_ms, b_by = bound(5.0 * m * d, nbytes)
+                log(f"# time quant_rows ({m}, {d}) bf16: kernel {ms:.4f} ms "
+                    f"({nbytes / ms / 1e6:.0f} GB/s, {ms / b_ms:.2f}x its bound), plain "
+                    f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+                k5_shapes.append({"M": m, "D": d, "ms": ms, "plain_ms": plain_ms,
+                                  "bound_ms": b_ms, "bound_by": b_by, "per_layer": per})
+    for m in sums:
+        sums[m]["bound_ms"], sums[m]["bound_by"] = bound(sums[m]["flops"], sums[m]["bytes"],
+                                                         PEAK_INT8_OPS)
+    layer = sums[1920]
+    b4_ms, b4_by = layer["bound_ms"], layer["bound_by"]
+    l5 = [r for r in k5_shapes if r["M"] == 1920]
+    k5 = {key: sum(r[key] * r["per_layer"] for r in l5) for key in ("ms", "plain_ms", "bound_ms")}
+    log(f"# time int8_gemm, the eight projections of one trunk layer at M = 1920: kernel "
+        f"{layer['ms']:.4f} ms, torch._int_mm + dequantize {layer['library_ms']:.4f} ms, bf16 "
+        f"matmul {layer['bf16_matmul_ms']:.4f} ms, bound {b4_ms:.4f} ms; at M = 192: kernel "
+        f"{sums[192]['ms']:.4f} ms, bf16 matmul {sums[192]['bf16_matmul_ms']:.4f} ms, bound "
+        f"{sums[192]['bound_ms']:.4f} ms ({sums[192]['bound_by']})")
+    log(f"# time quant_rows, the four quantizations of one trunk layer at M = 1920: kernel "
+        f"{k5['ms']:.4f} ms, plain {k5['plain_ms']:.4f} ms, bound {k5['bound_ms']:.4f} ms")
+    return [{"name": "int8_gemm", "route": "cuda",
+             "source": "echo_tts_tpu_torch/csrc/int8_gemm.cu",
+             "replaces": "echo_tts_tpu/models/quant.py:114 (qdot: no Pallas kernel, XLA fuses "
+                         "the int8 dot and its dequantize)",
+             "launches": launches.get("int8", {}).get("int8_gemm", 0),
+             "launches_by_path": by_path(launches, "int8_gemm"),
+             "max_abs_err": errs["int8_gemm"], "ms": layer["ms"], "plain_ms": layer["plain_ms"],
+             "bound_ms": b4_ms, "bound_by": b4_by, "library_ms": layer["library_ms"],
+             "library": "torch._int_mm + the dequantize in PyTorch ops",
+             "bf16_matmul_ms": layer["bf16_matmul_ms"], "int_mm_ms": layer["int_mm_ms"],
+             "at_m192": sums[192], "shapes": k4_shapes, "ptxas": PTXAS.get("int8_gemm", {}),
+             "shape": "the eight projections of one trunk layer at M = 1920: 5 x (2048 -> "
+                      "2048), 2 x (2048 -> 5888), 1 x (5888 -> 2048), summed"},
+            {"name": "quant_rows", "route": "cuda",
+             "source": "echo_tts_tpu_torch/csrc/quant_rows.cu",
+             "replaces": "echo_tts_tpu/models/quant.py:105 (quant_rows: no Pallas kernel, XLA "
+                         "fuses it into the int8 dot)",
+             "launches": launches.get("int8", {}).get("quant_rows", 0),
+             "launches_by_path": by_path(launches, "quant_rows"),
+             "max_abs_err": errs["quant_rows"], "ms": k5["ms"], "plain_ms": k5["plain_ms"],
+             "bound_ms": k5["bound_ms"], "bound_by": "bytes",
+             # no single PyTorch call quantizes rows with their own dynamic scales
+             "library_ms": None, "shapes": k5_shapes, "ptxas": PTXAS.get("quant_rows", {}),
+             "shape": "the four row quantizations of one trunk layer at M = 1920: 3 x "
+                      "(1920, 2048) + 1 x (1920, 5888) bf16, summed"}]
 
 
 def layout_in_turns(dev, c, t) -> dict:
@@ -1463,7 +1700,8 @@ def phase_stream(dev, wrappers: dict) -> dict:
     against the plain chain and the audio against decode_zq, and 1- and
     2-frame first chunks; (c) sample_pipeline_stream with the (64, 192)
     schedule and phase 5's prompts, warm-up and timed, exact launch counts,
-    one profile; (d) stream_blocks_fused at bench.py --blockwise's shapes;
+    one profile of its first two blocks; (d) stream_blocks_fused at bench.py
+    --blockwise's shapes;
     (e) a continuation from 5 s of audio. Returns the launches of (c) and
     the weights, which phase 10 goes on with."""
     import echo_tts_tpu_torch.models.dit as dit_mod
@@ -1625,12 +1863,14 @@ def phase_stream(dev, wrappers: dict) -> dict:
     k2_expected = (n_blocks * 3 * len(ae_cfg.decoder_rates)
                    + prompt_chunks * 3 * len(ae_cfg.encoder_rates))
 
-    def run_stream(seed, sc=sc, **kw):
+    def run_stream(seed, sc=sc, n_chunks=None, **kw):
         t0, walls, chunks = time.perf_counter(), [], []
         for chunk in sample_pipeline_stream(tts, SPEAKER_TEXT, spk_audio, seed, sc=sc,
                                             stop_at_flattening=False, **kw):
             walls.append(time.perf_counter() - t0)
             chunks.append(chunk)
+            if len(chunks) == n_chunks:
+                break
         return walls, np.concatenate(chunks, -1)
 
     # warm-up: two steps a block reach every shape of the timed stream (one
@@ -1654,7 +1894,10 @@ def phase_stream(dev, wrappers: dict) -> dict:
             or launches["joint_attention"] != k1_expected
             or launches["res_chain"] != k2_expected):
         raise SystemExit("stream (c): wrong audio length, non-finite audio or launch counts")
-    prof = profile_families("one stream again", lambda: run_stream(5))
+    # the profile reads the first two blocks (64 + 192 latents) only: the
+    # profiler's own processing of a whole stream's ~350k launches took ~100 s
+    prof = profile_families("the first two blocks of one stream again",
+                            lambda: run_stream(5, n_chunks=2))
     for k, w in wrappers.items():  # the profile's launches are not the path's
         w.launches = launches[k]
     split = lap("c", split)
@@ -2418,6 +2661,237 @@ def phase_serve(dev, wrappers: dict, tts) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 12: the sampler levers and the int8 trunk at full width
+# ---------------------------------------------------------------------------
+
+
+def k1_launches(sc, num_layers: int) -> int:
+    """K1 launches of one sampling with `sc`, counted from the schedule: an
+    evaluation inside the CFG window launches once a branch signature (3, or
+    2 with joint_uncond), one outside it once; midpoint evaluates at t and at
+    t + dt/2, the uncond cache refreshes every interval-th window step."""
+    from echo_tts_tpu_torch.sampling.euler_cfg import _f32_ge, t_schedule
+
+    ts = t_schedule(sc)
+    g = 2 if sc.joint_uncond else 3
+
+    def win(t):
+        return _f32_ge(t, sc.cfg_min_t) and _f32_ge(sc.cfg_max_t, t)
+
+    per_layer, n_win = 0, 0
+    for i in range(sc.num_steps):
+        t, t_next = np.float32(ts[i]), np.float32(ts[i + 1])
+        if sc.solver == "midpoint":
+            for tt in (t, t + np.float32(0.5) * (t_next - t)):
+                per_layer += g if win(float(tt)) else 1
+            continue
+        refresh = win(float(t)) and n_win % sc.uncond_cache_interval == 0
+        per_layer += g if refresh else 1
+        n_win += win(float(t))
+    return per_layer * num_layers
+
+
+def phase_levers(dev, wrappers: dict, tts) -> dict:
+    """The opt-in levers and the W8A8 int8 trunk on phase 9-11's weights
+    (DiTConfig() with the latent modules, AEConfig(), bf16, text bucket
+    768): (c) request (i) one-shot with joint_uncond, with
+    uncond_cache_interval=2 and with the midpoint solver at 20 steps: wall,
+    CUDA-event time, audio-s/s, exact K1 and K2 launches, rel-L2 from the
+    Euler-40 request (information: other integrators); (d) the time to
+    quantize the params; bench/quant_snr.py's latent SNR of the int8 trunk
+    against bf16 on the same noise, trunk only and with the encoders (gate
+    >= 40 dB); one int8 request (i): wall, device time, busy share, peak
+    memory, exact launches, one profile by family; one int8 stream on (64,
+    192); (e) Engine(int8=True) behind the HTTP server: /tts byte-equal to
+    the direct call on its quantized params, set_lora (r16) re-quantizing
+    the merge and set_lora(None) giving the int8 base bytes back, one /tts
+    with "joint_uncond" in the body. Returns {path: launches}."""
+    import tempfile
+
+    from echo_tts_tpu_torch.bench import quant_snr as qs
+    from echo_tts_tpu_torch.core.config import SamplerConfig
+    from echo_tts_tpu_torch.models.quant import is_quantized, quantize_dit_params
+    from echo_tts_tpu_torch.pipeline import pipeline as pl
+    from echo_tts_tpu_torch.serve.engine import Engine
+    from echo_tts_tpu_torch.serve.server import serve, wav_bytes
+    from echo_tts_tpu_torch.train.lora import LoRAConfig, init_lora, save_lora_checkpoint
+
+    t_phase = time.perf_counter()
+    dit_cfg, ae_cfg, L = tts.dit_cfg, tts.ae_cfg, tts.dit_cfg.num_layers
+    fields = dict(num_steps=40, cfg_scale_text=3.0, cfg_scale_speaker=8.0, cfg_min_t=0.5,
+                  cfg_max_t=1.0, truncation_factor=0.8, sequence_length=640)
+    sc = SamplerConfig(**fields)
+    sr = ae_cfg.sample_rate
+    k2_decode = 3 * len(ae_cfg.decoder_rates)
+    out = {}
+
+    def counted(run):
+        """run() with every count at 0 before it; (result, wall ms, event ms,
+        launches)."""
+        for w in wrappers.values():
+            w.launches = 0
+        res, wall, ev = events_ms(run)
+        return res, wall, ev, {k: w.launches for k, w in wrappers.items()}
+
+    def request(params, sc_, seed=0, text=SHORT_TEXT):
+        return pl.sample_pipeline(dataclasses.replace(tts, dit_params=params), text, None,
+                                  seed, sc=sc_, normalize_text=True)[0]
+
+    # (c) the sampler levers, one-shot, on request (i)
+    base_audio = request(tts.dit_params, sc)
+    levers = {"joint_uncond": dataclasses.replace(sc, joint_uncond=True),
+              "uncond_cache_interval=2": dataclasses.replace(sc, uncond_cache_interval=2),
+              "midpoint-20": dataclasses.replace(sc, solver="midpoint", num_steps=20)}
+    out["levers"] = {}
+    for name, sc_l in levers.items():
+        request(tts.dit_params, dataclasses.replace(sc_l, num_steps=2))  # warm-up
+        audio, wall, ev, got = counted(lambda: request(tts.dit_params, sc_l))
+        want = {"joint_attention": k1_launches(sc_l, L), "res_chain": k2_decode}
+        secs = audio.shape[-1] / sr
+        r = rel_l2(torch.from_numpy(audio), torch.from_numpy(base_audio))
+        log(f"# levers (c) request (i), {name}: wall {wall:.1f} ms, CUDA events {ev:.1f} ms, "
+            f"{secs / wall * 1e3:.2f} audio-s/s; launches {got} (expected {want}); audio "
+            f"rel-L2 from the Euler-40 request {r:.3e} (information)")
+        if ({k: got[k] for k in want} != want or not np.isfinite(audio).all()
+                or got["int8_gemm"] or got["quant_rows"]):
+            raise SystemExit(f"levers (c) {name}: launches {got}, expected {want}, or "
+                             f"non-finite audio")
+        out["levers"][name] = got
+    split = lap("levers c", t_phase)
+
+    # (d) int8: quantization time, SNR, one request, one stream
+    q_s = {}
+    for enc in (False, True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        qp = quantize_dit_params(tts.dit_params, encoders=enc)
+        torch.cuda.synchronize()
+        q_s[enc] = (time.perf_counter() - t0) * 1e3
+        if enc:
+            qparams_enc = qp
+        else:
+            qparams = qp
+    q_bytes = sum(v["q"].numel() for v in qparams["blocks"]["attention"].values()
+                  if is_quantized(v)) + sum(v["q"].numel()
+                                            for v in qparams["blocks"]["mlp"].values())
+    log(f"# int8 (d) quantize_dit_params: trunk {q_s[False]:.1f} ms ({q_bytes / 1e9:.3f} GB of "
+        f"int8 codes), with the encoders {q_s[True]:.1f} ms")
+    inp = qs.inputs(dit_cfg, dev)
+    ref = qs.run(tts.dit_params, dit_cfg, sc, tts.ae_params, ae_cfg, tts.pca, inp,
+                 tts.model_dtype)
+    snr = {}
+    for name, qp in (("trunk", qparams), ("trunk+encoders", qparams_enc)):
+        (lat, audio), wall, ev, got = counted(
+            lambda: qs.run(qp, dit_cfg, sc, tts.ae_params, ae_cfg, tts.pca, inp,
+                           tts.model_dtype))
+        snr[name] = qs.compare((lat, audio), ref)
+        log(f"# int8 (d) bench/quant_snr.py, {name} vs bf16, 40 steps, text 768, speaker 6400 "
+            f"latents, same noise: {json.dumps(snr[name])}; launches {got}")
+    if min(v["latent_snr_db"] for v in snr.values()) < 40.0:
+        raise SystemExit(f"int8 (d): latent SNR under 40 dB: {snr}")
+    del qparams_enc
+    request(qparams, dataclasses.replace(sc, num_steps=2))  # warm-up
+    torch.cuda.reset_peak_memory_stats(dev)
+    audio, wall, ev, got = counted(lambda: request(qparams, sc))
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    per_fwd = sc.num_steps * L
+    want = {"joint_attention": k1_launches(sc, L), "res_chain": k2_decode,
+            "int8_gemm": 8 * per_fwd, "quant_rows": 4 * per_fwd}
+    secs = audio.shape[-1] / sr
+    log(f"# int8 (d) request (i) on the int8 trunk: wall {wall:.1f} ms, CUDA events {ev:.1f} ms, "
+        f"{secs / wall * 1e3:.2f} audio-s/s, peak memory {peak:.2f} GiB; launches {got} (expected "
+        f"{want}); audio rel-L2 from the bf16 request {rel_l2(torch.from_numpy(audio), torch.from_numpy(base_audio)):.3e}")
+    if got != want or not np.isfinite(audio).all():
+        raise SystemExit(f"int8 (d): launches {got}, expected {want}, or non-finite audio")
+    out["int8"] = got
+    prof = profile_families("request (i) on the int8 trunk", lambda: request(qparams, sc))
+    log(f"# int8 (d) request (i): device time {prof['device_ms']:.1f} ms, busy "
+        f"{prof['busy']:.1%} of the unprofiled wall")
+
+    def stream():
+        t0, walls, chunks = time.perf_counter(), [], []
+        for chunk in pl.sample_pipeline_stream(dataclasses.replace(tts, dit_params=qparams),
+                                               SHORT_TEXT, None, 0, sc=sc,
+                                               block_size=[64, 192], normalize_text=True,
+                                               stop_at_flattening=False):
+            walls.append(time.perf_counter() - t0)
+            chunks.append(chunk)
+        return walls, np.concatenate(chunks, -1)
+
+    (walls, s_audio), wall, ev, got = counted(stream)
+    want_s = {"int8_gemm": 4 * 8 * per_fwd, "quant_rows": 4 * 4 * per_fwd}
+    log(f"# int8 (d) sample_pipeline_stream on the int8 trunk, (64, 192): first audio "
+        f"{walls[0] * 1e3:.1f} ms, total {walls[-1] * 1e3:.1f} ms, CUDA events {ev:.1f} ms, "
+        f"{s_audio.shape[-1] / sr / walls[-1]:.2f} audio-s/s; launches {got} (expected K4/K5 "
+        f"{want_s})")
+    if {k: got[k] for k in want_s} != want_s or not np.isfinite(s_audio).all():
+        raise SystemExit(f"int8 (d): stream launches {got}, expected {want_s}")
+    out["int8_stream"] = got
+    split = lap("int8 d", split)
+
+    # (e) Engine(int8=True) behind the HTTP server
+    tmp = tempfile.mkdtemp(prefix="echo_tts_int8_")
+    eng = Engine(tts, int8=True)
+    httpd = serve(eng, host="127.0.0.1", port=0, background=True)
+    port = httpd.server_address[1]
+    try:
+        base_q = eng.tts.dit_params
+        req = {"text": SHORT_TEXT, "seed": 0, **fields}
+        (status, _, body, cwall), _, _, got = counted(lambda: http_call(port, "POST", "/tts", req))
+        direct = request(base_q, sc)
+        same = status == 200 and body == wav_bytes(direct[0], sr)
+        log(f"# int8 (e) Engine(int8=True) POST /tts (i): client wall {cwall:.1f} ms, equal to "
+            f"the direct call on the engine's int8 params: {same}; launches {got}")
+        if not same or got["int8_gemm"] != 8 * per_fwd:
+            raise SystemExit("int8 (e): the int8 /tts differs from the direct call")
+        sc_j = dataclasses.replace(sc, joint_uncond=True)
+        (status, _, body_j, cwall), _, _, got = counted(
+            lambda: http_call(port, "POST", "/tts", {**req, "joint_uncond": True}))
+        same_j = status == 200 and body_j == wav_bytes(request(base_q, sc_j)[0], sr)
+        log(f"# int8 (e) POST /tts (i) with \"joint_uncond\": true: client wall {cwall:.1f} ms, "
+            f"equal to the direct call: {same_j}; launches {got} (K1 expected "
+            f"{k1_launches(sc_j, L)})")
+        if not same_j or got["joint_attention"] != k1_launches(sc_j, L):
+            raise SystemExit("int8 (e): the joint_uncond /tts differs from the direct call")
+        gen = torch.Generator(device=dev).manual_seed(17)
+        lc = LoRAConfig(rank=16, alpha=16.0)
+        lora = init_lora(gen, tts.dit_params, lc)
+        for ab in lora.values():
+            ab["b"].normal_(0.0, 0.5, generator=gen)
+        lora_path = os.path.join(tmp, "lora_r16.npz")
+        save_lora_checkpoint(lora_path, lora, lc)
+        del lora
+        t0 = time.perf_counter()
+        eng.set_lora(lora_path)
+        set_ms = (time.perf_counter() - t0) * 1e3
+        merged_q = eng.tts.dit_params
+        requant = (merged_q is not base_q and is_quantized(merged_q["blocks"]["mlp"]["w1"])
+                   and not torch.equal(merged_q["blocks"]["mlp"]["w1"]["q"],
+                                       base_q["blocks"]["mlp"]["w1"]["q"]))
+        _, _, body_l, _ = http_call(port, "POST", "/tts", req)
+        t0 = time.perf_counter()
+        eng.set_lora(None)
+        unset_ms = (time.perf_counter() - t0) * 1e3
+        _, _, body_b, _ = http_call(port, "POST", "/tts", req)
+        log(f"# int8 (e) set_lora r16 under int8: {set_ms:.1f} ms (merge + quantize), the merge "
+            f"re-quantized: {requant}, audio changed: {body_l != body}; set_lora(None) "
+            f"{unset_ms:.1f} ms, the int8 base back: {eng.tts.dit_params is base_q}, its "
+            f"bytes: {body_b == body}")
+        if not (requant and body_l != body and eng.tts.dit_params is base_q and body_b == body):
+            raise SystemExit("int8 (e): set_lora under int8 did not re-quantize or revert")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        eng.close()
+        for name in os.listdir(tmp):
+            os.unlink(os.path.join(tmp, name))
+        os.rmdir(tmp)
+    lap("int8 e", split)
+    log(f"# levers and int8 phase: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 6: the training slice at full width
 # ---------------------------------------------------------------------------
 
@@ -2584,25 +3058,31 @@ def main(argv) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from echo_tts_tpu_torch.ops.int8_gemm import int8_gemm
     from echo_tts_tpu_torch.ops.joint_attention import joint_attention, joint_attention_bwd
+    from echo_tts_tpu_torch.ops.quant_rows import quant_rows
     from echo_tts_tpu_torch.ops.res_chain import res_units_cl
 
     slice_wrappers = {"joint_attention": joint_attention, "res_chain": res_units_cl}
     train_wrappers = {**slice_wrappers, "joint_attention_bwd": joint_attention_bwd}
+    int8_wrappers = {**slice_wrappers, "int8_gemm": int8_gemm, "quant_rows": quant_rows}
     if slices_only:
-        phase_build(("joint_attention", "joint_attention_bwd", "res_chain"))
+        phase_build(("joint_attention", "joint_attention_bwd", "res_chain", "int8_gemm",
+                     "quant_rows"))
         tts, _ = phase_slice(dev, slice_wrappers)
         phase_train(tts, dev, train_wrappers)
         del tts
         torch.cuda.empty_cache()
         _, tts = phase_batch(dev, slice_wrappers, phase_stream(dev, slice_wrappers)["tts"])
         phase_serve(dev, slice_wrappers, tts)
+        phase_levers(dev, int8_wrappers, tts)
         del tts
     else:
         phase_build()
         phase_core_check(dev)
         phase_conv_core_check(dev)
         errs = phase_kernel_checks(dev)
+        errs.update(phase_int8_checks(dev))
         errs.update(phase_variant_checks(dev))
         launches = {"one_shot": {"joint_attention": 0, "res_chain": 0},
                     "training": {"joint_attention": 0, "joint_attention_bwd": 0, "res_chain": 0}}
@@ -2617,6 +3097,9 @@ def main(argv) -> int:
             launches.update(batch_launches)
             del stream
             launches["serving"] = phase_serve(dev, slice_wrappers, tts)
+            lever_paths = phase_levers(dev, int8_wrappers, tts)
+            launches.update({f"levers {k}": v for k, v in lever_paths.pop("levers").items()})
+            launches.update(lever_paths)
             del tts
             torch.cuda.empty_cache()
             launches["measurement"] = phase_measurement(dev)

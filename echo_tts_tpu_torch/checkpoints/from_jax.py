@@ -6,6 +6,11 @@ weights as (in, out), conv weights as torch-layout (O, I, K) and transposed
 conv weights as (I, O, K). So the conversion is leaf by leaf: each array
 (numpy, or anything `np.asarray` takes) becomes a tensor on `device`,
 optionally cast to `dtype`. A few shapes are checked against the config.
+
+A tree quantized by the JAX package's `quantize_dit_params` carries over as
+it is: each `{"q": int8 (…, K, N), "s": fp32 (…, N)}` leaf keeps int8 codes
+and fp32 scales whatever `dtype` asks, and its codes are laid K-major,
+(…, N, K), the port's layout (`models/quant.py`), here once.
 """
 from __future__ import annotations
 
@@ -16,9 +21,14 @@ import torch
 
 from echo_tts_tpu_torch.core.config import AEConfig, DiTConfig
 from echo_tts_tpu_torch.core.device import resolve_device
+from echo_tts_tpu_torch.models.quant import is_quantized
 
 
 def _convert(tree, device, dtype):
+    if is_quantized(tree):
+        q = np.ascontiguousarray(np.swapaxes(np.asarray(tree["q"], np.int8), -1, -2))
+        s = np.asarray(tree["s"], np.float32)
+        return {"q": torch.from_numpy(q).to(device), "s": torch.from_numpy(s.copy()).to(device)}
     if isinstance(tree, dict):
         return {k: _convert(v, device, dtype) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -30,9 +40,12 @@ def _convert(tree, device, dtype):
     return t.to(dtype) if dtype is not None and t.is_floating_point() else t
 
 
-def _expect(name: str, t: torch.Tensor, shape) -> None:
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+def _expect(name: str, t, shape) -> None:
+    """t's shape, a quantized leaf's as the plain (…, K, N) weight's."""
+    got = tuple(t.shape) if not is_quantized(t) else \
+        tuple(t["q"].shape[:-2]) + (t["q"].shape[-1], t["q"].shape[-2])
+    if got != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {got}")
 
 
 def dit_params_from_numpy(tree: dict, cfg: DiTConfig, device=None,

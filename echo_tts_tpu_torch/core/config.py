@@ -76,9 +76,9 @@ class DiTConfig:
 
 @dataclasses.dataclass(frozen=True)
 class SamplerConfig:
-    """Euler CFG sampler settings. The port runs `solver="euler"` with
-    `uncond_cache_interval=1` and `joint_uncond=False`; the other levers
-    raise NotImplementedError in sampling/euler_cfg.py."""
+    """Euler CFG sampler settings, with the opt-in levers `solver`
+    ("euler" or "midpoint"), `uncond_cache_interval` and `joint_uncond`
+    (sampling/euler_cfg.py)."""
 
     num_steps: int = 40
     cfg_scale_text: float = 3.0

@@ -19,7 +19,9 @@ trunk layer under `torch.utils.checkpoint` and attention through
 `joint_attention_trainable` (K1 forward, K3 backward). A stacked leaf may be
 a LoRA-adapted weight (`train/lora.py:LoRAWeight`) instead of a tensor: each
 layer forms its own w + s·a@b where it uses it, so under remat the merged
-weight is recomputed, never saved.
+weight is recomputed, never saved. A leaf may also be an int8 quantized
+weight (`models/quant.py`, inference only), on which `quant.mm` and
+`quant.proj_shared` dispatch.
 """
 from __future__ import annotations
 
@@ -141,7 +143,7 @@ def _project_kv(blocks_attn: dict, state: torch.Tensor, wk_name: str, wv_name: s
     ks, vs = [], []
     for p in layer_slices({n: blocks_attn[n] for n in (wk_name, wv_name, "k_norm")}):
         p = layer_weights(p)
-        hd = p[wk_name].shape[-1] // num_heads
+        hd = quant.out_dim(p[wk_name]) // num_heads
         k, v = quant.proj_shared(state, [p[wk_name], p[wv_name]])
         k = rms_norm(k.reshape(b, s, num_heads, hd), p["k_norm"], eps)
         if rope is not None:
@@ -449,18 +451,28 @@ def dit_forward(params: dict, cfg: DiTConfig, x, t, text_mask, speaker_mask,
 
 def dit_forward_cfg(params: dict, cfg: DiTConfig, x, t, text_mask, speaker_mask,
                     kv_text, kv_speaker, rope_q=None, speaker_kv_scale=None,
-                    self_len=None, kv_latent=None, latent_mask=None) -> torch.Tensor:
-    """CFG forward over [cond, text-uncond, speaker-uncond]: the unconds
-    attend to nothing in their ablated segment, the caches carry
-    conditional values; the latent segment's mask is every branch's.
-    Returns fp32 (3, B, S, latent_size)."""
+                    self_len=None, kv_latent=None, latent_mask=None,
+                    joint_uncond: bool = False) -> torch.Tensor:
+    """CFG forward over [cond, text-uncond, speaker-uncond], or [cond,
+    joint-uncond] (text and speaker both masked) when joint_uncond: the
+    unconds attend to nothing in their ablated segments, the caches carry
+    conditional values; the latent segment's mask is every branch's. With
+    joint_uncond the uncond branch sees no context segment at all (or the
+    latent one alone), which K1 takes as a launch of its own. Returns fp32
+    (3 or 2, B, S, latent_size)."""
     spk = speaker_mask[..., :: cfg.speaker_patch_size]
-    text_m = torch.stack([text_mask, torch.zeros_like(text_mask), text_mask])
-    spk_m = torch.stack([spk, spk, torch.zeros_like(spk)])
-    xg = x[None].expand((3,) + tuple(x.shape))
-    kv_latent, lm = _latent_segment(kv_latent, latent_mask, x, 3)
+    if joint_uncond:
+        n_groups, branch_skips = 2, ((1,), (1,))
+        text_m = torch.stack([text_mask, torch.zeros_like(text_mask)])
+        spk_m = torch.stack([spk, torch.zeros_like(spk)])
+    else:
+        n_groups, branch_skips = 3, ((1,), (2,))
+        text_m = torch.stack([text_mask, torch.zeros_like(text_mask), text_mask])
+        spk_m = torch.stack([spk, spk, torch.zeros_like(spk)])
+    xg = x[None].expand((n_groups,) + tuple(x.shape))
+    kv_latent, lm = _latent_segment(kv_latent, latent_mask, x, n_groups)
     return _dit_forward_grouped(params, cfg, xg, t, text_m, spk_m, kv_text, kv_speaker,
-                                rope_q, speaker_kv_scale, branch_skips=((1,), (2,)),
+                                rope_q, speaker_kv_scale, branch_skips=branch_skips,
                                 self_len=self_len, kv_latent=kv_latent, latent_mask=lm)
 
 

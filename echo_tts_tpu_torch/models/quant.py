@@ -1,25 +1,123 @@
-"""Trunk GEMM helpers (counterpart of the bf16 half of
+"""Trunk GEMM helpers and the opt-in W8A8 int8 trunk (counterpart of
 echo_tts_tpu/models/quant.py).
 
-The port has plain weights only; the JAX package's W8A8 int8 leaves are a
-later slice. Weights are (in, out) and used as `x @ w`.
+Plain weights are (in, out) and used as `x @ w`. Quantization is dynamic and
+symmetric, with no calibration data:
+
+* weights: per-output-channel int8 codes, `scale = amax_K |w| / 127`
+  (`quantize_dit_params`, once);
+* activations: per-row int8 codes, `scale = amax_D |h| / 127`, computed on
+  the fly (`quant_rows`: kernel K5 on the card, `ops/quant_rows.py`);
+* product: int8 x int8 -> int32, dequantized as `acc · (s_row · s_col)` into
+  the activation's dtype (`qdot`: kernel K4 on the card, `ops/int8_gemm.py`).
+
+A quantized leaf is the dict `{"q": int8, "s": fp32 (…, N)}` and the forward
+dispatches on it structurally (`mm`, `proj_shared`, `swiglu_mlp_q`), so the
+samplers, the pipelines and the engine take quantized params unchanged.
+
+Where the port's leaf differs from the JAX package's: JAX keeps the codes
+as the weight lies, (…, K, N); the port stores them K-major, (…, N, K),
+because the card's 8-bit tensor-core operands must be K-major (`mma.sync`
+takes the B operand of an s8 product only as "col", and `wgmma` has no
+transpose for 8-bit types). `quantize_weight` and
+`checkpoints/from_jax.py` make that layout once; no call transposes or
+packs a weight. The codes and scales are the JAX package's bit for bit.
+
+The trunk's eight projections (wq wk wv gate wo w1 w3 w2) are quantized;
+with `encoders=True` also the encoder blocks and the context-KV projections.
+Inference only, as in the JAX package (rounding has no useful gradient):
+training always runs the plain weights. Apply after any LoRA merge.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from echo_tts_tpu_torch.ops.int8_gemm import int8_gemm
+from echo_tts_tpu_torch.ops.quant_rows import quant_rows
 
-def mm(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+_ATTN_KEYS = ("wq", "wk", "wv", "gate", "wo")
+_MLP_KEYS = ("w1", "w3", "w2")
+_KV_KEYS = ("wk_text", "wv_text", "wk_speaker", "wv_speaker", "wk_latent", "wv_latent")
+
+
+def is_quantized(w) -> bool:
+    return isinstance(w, dict) and "q" in w
+
+
+def out_dim(w) -> int:
+    """Output dimension N of a plain (…, K, N) or quantized weight leaf."""
+    return w["s"].shape[-1] if is_quantized(w) else w.shape[-1]
+
+
+@torch.no_grad()
+def quantize_weight(w: torch.Tensor) -> dict:
+    """(…, K, N) weight -> {"q": int8 (…, N, K) contiguous, "s": fp32 (…, N)}
+    with symmetric per-output-channel scales, as the JAX package's
+    `quantize_weight` computes them (fp32, round half to even)."""
+    wf = w.float().transpose(-1, -2)
+    s = torch.clamp_min(wf.abs().amax(dim=-1, keepdim=True), 1e-12) / 127.0
+    q = torch.clamp(torch.round(wf / s), -127, 127).to(torch.int8).contiguous()
+    return {"q": q, "s": s.squeeze(-1)}
+
+
+def _quantize_blocks(blocks: dict) -> dict:
+    attn = dict(blocks["attention"])
+    mlp = dict(blocks["mlp"])
+    for k in _ATTN_KEYS:
+        attn[k] = quantize_weight(attn[k])
+    for k in _MLP_KEYS:
+        mlp[k] = quantize_weight(mlp[k])
+    return {**blocks, "attention": attn, "mlp": mlp}
+
+
+def quantize_dit_params(params: dict, encoders: bool = False) -> dict:
+    """A new params dict with the trunk's GEMM weight stacks quantized
+    (shallow copies along the touched path; the input is unmodified).
+    encoders=True also quantizes the text/speaker/latent encoder blocks and
+    the per-layer context-KV projections: their noise is frozen into the KV
+    caches for every step (check `bench/quant_snr.py --encoders`)."""
+    params = dict(params)
+    params["blocks"] = _quantize_blocks(params["blocks"])
+    if encoders:
+        attn = dict(params["blocks"]["attention"])
+        for k in _KV_KEYS:
+            if k in attn:
+                attn[k] = quantize_weight(attn[k])
+        params["blocks"] = {**params["blocks"], "attention": attn}
+        for enc in ("text_encoder", "speaker_encoder", "latent_encoder"):
+            if enc in params:
+                params[enc] = {**params[enc], "blocks": _quantize_blocks(params[enc]["blocks"])}
+    return params
+
+
+def qdot(q: torch.Tensor, s_row: torch.Tensor, w: dict, out_dtype: torch.dtype) -> torch.Tensor:
+    """int8 rows (…, K) with their fp32 scales (…, 1) times a quantized
+    weight -> (…, N) in out_dtype: `float(q·wᵀ) · (s_row · s_col)`."""
+    lead = q.shape[:-1]
+    out = int8_gemm(q.reshape(-1, q.shape[-1]), s_row.reshape(-1), w["q"], w["s"], out_dtype)
+    return out.reshape(*lead, out.shape[-1])
+
+
+def mm(h: torch.Tensor, w) -> torch.Tensor:
+    """h @ w for a plain or a quantized weight leaf; h's dtype out."""
+    if is_quantized(w):
+        q, s = quant_rows(h)
+        return qdot(q, s, w, h.dtype)
     return h @ w
 
 
 def proj_shared(h: torch.Tensor, ws: list) -> list:
-    """Several projections of the same activation."""
+    """Several projections of the same activation (q/k/v/gate; w1/w3):
+    quantized weights share one row quantization of h."""
+    if is_quantized(ws[0]):
+        q, s = quant_rows(h)
+        return [qdot(q, s, w, h.dtype) for w in ws]
     return [h @ w for w in ws]
 
 
 def swiglu_mlp_q(x: torch.Tensor, p: dict) -> torch.Tensor:
-    """w2(silu(w1 x) * w3 x)."""
+    """w2(silu(w1 x) * w3 x); quantized, the gated product is quantized
+    again for w2."""
     u, g = proj_shared(x, [p["w1"], p["w3"]])
     return mm(F.silu(u) * g, p["w2"])

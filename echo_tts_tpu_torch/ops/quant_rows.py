@@ -1,0 +1,83 @@
+"""Kernel K5: dynamic per-row int8 quantization of the trunk's activations.
+
+Counterpart of `echo_tts_tpu/models/quant.py:quant_rows`, which XLA fuses
+into the int8 dot that follows it; the JAX package has no Pallas kernel here.
+For h (…, D) in bf16 or fp32, cast to fp32, per row:
+
+    s = max(amax |h|, 1e-8) / 127            (fp32)
+    q = clip(round_half_even(h / s), -127, 127)   (int8)
+
+`quant_rows` runs the hand-written CUDA kernel (`csrc/quant_rows.cu`) for
+CUDA tensors and `quant_rows_plain` for CPU tensors; anything the kernel
+does not take raises. `quant_rows.launches` counts kernel launches. The
+kernel divides (no reciprocal) and rounds with `rintf`, and the build keeps
+IEEE division (no fast math), so its codes and scales equal the plain
+version's bit for bit.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+
+def quant_rows_plain(h: torch.Tensor):
+    """(…, D) -> (int8 (…, D), fp32 scale (…, 1)) in torch ops, fp32."""
+    hf = h.float()
+    s = torch.clamp_min(hf.abs().amax(dim=-1, keepdim=True), 1e-8) / 127.0
+    q = torch.clamp(torch.round(hf / s), -127, 127).to(torch.int8)
+    return q, s
+
+
+_FN = None
+
+
+def _fn():
+    global _FN
+    if _FN is None:
+        from echo_tts_tpu_torch.ops import _build
+
+        f = _build.load("quant_rows").quant_rows
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        f.argtypes = [vp, vp, vp, i, i, i, vp]
+        f.restype = i
+        _FN = f
+    return _FN
+
+
+def _quant_rows_cuda(h: torch.Tensor):
+    if h.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"h must be bfloat16 or float32 for the CUDA kernel, got {h.dtype}")
+    if h.dim() < 1 or h.shape[-1] < 1 or h.shape[-1] % 8:
+        raise ValueError(f"the kernel takes (…, D) with D a multiple of 8, got shape "
+                         f"{tuple(h.shape)}")
+    d = h.shape[-1]
+    x = h.reshape(-1, d).contiguous()
+    if x.data_ptr() % 16:
+        raise ValueError("the kernel takes a 16-byte aligned h")
+    m = x.shape[0]
+    q = torch.empty(x.shape, dtype=torch.int8, device=h.device)
+    s = torch.empty((m,), dtype=torch.float32, device=h.device)
+    err = _fn()(x.data_ptr(), q.data_ptr(), s.data_ptr(), m, d, int(h.dtype == torch.bfloat16),
+                torch.cuda.current_stream(h.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"quant_rows kernel launch failed: CUDA error {err}")
+    quant_rows.launches += 1
+    return q.reshape(h.shape), s.reshape(*h.shape[:-1], 1)
+
+
+def quant_rows(h: torch.Tensor):
+    """(…, D) -> (int8 codes (…, D), fp32 scales (…, 1)). CPU tensors take
+    the plain version; CUDA tensors launch the kernel or raise. No
+    gradient: int8 is inference only."""
+    if h.device.type == "cpu":
+        return quant_rows_plain(h)
+    if torch.is_grad_enabled() and h.requires_grad:
+        raise RuntimeError("quant_rows: kernel K5 has no backward (int8 is inference only); "
+                           "call it under torch.no_grad()")
+    if h.device.type != "cuda":
+        raise ValueError(f"unsupported device {h.device}")
+    return _quant_rows_cuda(h)
+
+
+quant_rows.launches = 0

@@ -3,10 +3,16 @@ echo_tts_tpu/sampling/euler_cfg.py).
 
 The time schedule is known on the host, so the JAX package's `lax.cond` on
 the CFG window and its traced speaker-KV scale become plain Python
-decisions over host floats: no device sync per step. The sampler state
-stays fp32; each forward sees it cast to the model dtype. Only the exact
-Euler path is ported: the midpoint solver, uncond caching and the joint
-uncond branch raise NotImplementedError.
+decisions over host floats: no device sync per step. Every flow time and
+every window test is fp32, as in the JAX scan. The sampler state stays fp32;
+each forward sees it cast to the model dtype.
+
+The opt-in levers of the JAX package are here too: `solver="midpoint"` (two
+velocity evaluations a step, each with the CFG window, the speaker-KV scale
+and the temporal rescale at its own flow time), `uncond_cache_interval > 1`
+(the two uncond branches refreshed every interval-th window step and reused,
+stale, in between) and `joint_uncond` (one shared uncond branch). Midpoint
+with an uncond cache, and an unknown solver, raise ValueError as in JAX.
 """
 from __future__ import annotations
 
@@ -65,24 +71,23 @@ def _speaker_scale_vec(sc: SamplerConfig, cfg: DiTConfig, t: float,
     return [s if l < max_layers else 1.0 for l in range(cfg.num_layers)]
 
 
-def _check_supported(sc: SamplerConfig) -> None:
-    if sc.solver != "euler":
-        raise NotImplementedError(f"solver {sc.solver!r} is not ported yet")
-    if sc.uncond_cache_interval > 1:
-        raise NotImplementedError("uncond_cache_interval > 1 is not ported yet")
-    if sc.joint_uncond:
-        raise NotImplementedError("joint_uncond is not ported yet")
+def _check_solver(sc: SamplerConfig) -> None:
+    if sc.solver == "midpoint" and sc.uncond_cache_interval > 1:
+        raise ValueError("uncond_cache_interval > 1 is not supported with "
+                         "solver='midpoint' — pick one NFE lever")
+    if sc.solver not in ("euler", "midpoint"):
+        raise ValueError(f"unknown solver {sc.solver!r}")
 
 
 def euler_cfg_scan(params: dict, cfg: DiTConfig, sc: SamplerConfig,
                    x_init: torch.Tensor, text_mask, speaker_mask, kv_text, kv_speaker,
                    model_dtype: torch.dtype, rope_q=None, kv_latent=None,
                    latent_mask=None, self_len=None) -> torch.Tensor:
-    """The Euler loop. x_init (B, S, latent) fp32 with truncation applied;
+    """The sampler loop. x_init (B, S, latent) fp32 with truncation applied;
     returns fp32 latents. rope_q defaults to positions [0, S); the
     blockwise sampler passes its block's slice, the latent-prefix cache and
     its mask, which go to every forward."""
-    _check_supported(sc)
+    _check_solver(sc)
     b, s = x_init.shape[:2]
     ts = t_schedule(sc)
     t0 = float(ts[0])
@@ -90,23 +95,65 @@ def euler_cfg_scan(params: dict, cfg: DiTConfig, sc: SamplerConfig,
         rope_q = precompute_rope(cfg.head_dim, s, device=x_init.device)
     extra = dict(rope_q=rope_q, kv_latent=kv_latent, latent_mask=latent_mask,
                  self_len=self_len)
+
+    def in_window(t: float) -> bool:
+        return _f32_ge(t, sc.cfg_min_t) and _f32_ge(sc.cfg_max_t, t)
+
+    def t_batch(t: float) -> torch.Tensor:
+        return torch.full((b,), t, dtype=torch.float32, device=x_init.device).to(model_dtype)
+
+    def fwd_cfg(x, t):
+        v = dit_forward_cfg(params, cfg, x.to(model_dtype), t_batch(t), text_mask,
+                            speaker_mask, kv_text, kv_speaker,
+                            speaker_kv_scale=_speaker_scale_vec(sc, cfg, t, t0),
+                            joint_uncond=sc.joint_uncond, **extra)
+        # joint: the one shared uncond serves both guidance terms
+        return (v[0], v[1], v[1]) if sc.joint_uncond else (v[0], v[1], v[2])
+
+    def fwd_single(x, t):
+        return dit_forward(params, cfg, x.to(model_dtype), t_batch(t), text_mask, speaker_mask,
+                           kv_text, kv_speaker, speaker_kv_scale=_speaker_scale_vec(sc, cfg, t, t0),
+                           **extra)
+
+    def guide(v_cond, v_ut, v_us):
+        return (v_cond + sc.cfg_scale_text * (v_cond - v_ut)
+                + sc.cfg_scale_speaker * (v_cond - v_us))
+
+    def rescale(v, x, t):
+        if sc.rescale_k is not None and sc.rescale_sigma is not None:
+            return temporal_score_rescale(v, x, t, sc.rescale_k, sc.rescale_sigma)
+        return v
+
     x_t = x_init
+    if sc.solver == "midpoint":
+        def v_at(x, t: float):
+            v = guide(*fwd_cfg(x, t)) if in_window(t) else fwd_single(x, t)
+            return rescale(v, x, t)
+
+        for i in range(sc.num_steps):
+            t, t_next = np.float32(ts[i]), np.float32(ts[i + 1])
+            dt = t_next - t
+            x_mid = x_t + float(np.float32(0.5) * dt) * v_at(x_t, float(t))
+            x_t = x_t + float(dt) * v_at(x_mid, float(t + np.float32(0.5) * dt))
+        return x_t
+
+    # Euler; with uncond_cache_interval > 1 the uncond branches are refreshed
+    # every interval-th step inside the CFG window and reused in between
+    interval = sc.uncond_cache_interval
+    v_ut_c = v_us_c = None
+    n_win = 0
     for i in range(sc.num_steps):
         t, t_next = float(ts[i]), float(ts[i + 1])
-        s_vec = _speaker_scale_vec(sc, cfg, t, t0)
-        t_b = torch.full((b,), t, dtype=torch.float32, device=x_t.device).to(model_dtype)
-        x_in = x_t.to(model_dtype)
-        if _f32_ge(t, sc.cfg_min_t) and _f32_ge(sc.cfg_max_t, t):
-            v = dit_forward_cfg(params, cfg, x_in, t_b, text_mask, speaker_mask,
-                                kv_text, kv_speaker, speaker_kv_scale=s_vec, **extra)
-            v_cond, v_ut, v_us = v[0], v[1], v[2]
-            v_pred = (v_cond + sc.cfg_scale_text * (v_cond - v_ut)
-                      + sc.cfg_scale_speaker * (v_cond - v_us))
+        has_cfg = in_window(t)
+        if has_cfg and n_win % interval == 0:
+            v_cond, v_ut_c, v_us_c = fwd_cfg(x_t, t)
+            v_pred = guide(v_cond, v_ut_c, v_us_c)
         else:
-            v_pred = dit_forward(params, cfg, x_in, t_b, text_mask, speaker_mask,
-                                 kv_text, kv_speaker, speaker_kv_scale=s_vec, **extra)
-        if sc.rescale_k is not None and sc.rescale_sigma is not None:
-            v_pred = temporal_score_rescale(v_pred, x_t, t, sc.rescale_k, sc.rescale_sigma)
+            v_pred = fwd_single(x_t, t)
+            if has_cfg:
+                v_pred = guide(v_pred, v_ut_c, v_us_c)
+        n_win += has_cfg
+        v_pred = rescale(v_pred, x_t, t)
         x_t = x_t + v_pred * float(np.float32(t_next) - np.float32(t))
     return x_t
 
@@ -138,7 +185,7 @@ def sample_euler_cfg_independent_guidances(
     model_dtype: torch.dtype = torch.bfloat16,
 ) -> torch.Tensor:
     """One-shot sampling. Returns fp32 latents (B, sequence_length, latent)."""
-    _check_supported(sc)
+    _check_solver(sc)
     kv_text = get_kv_cache_text(params, cfg, text_input_ids, text_mask)
     kv_speaker = get_kv_cache_speaker(params, cfg, speaker_latent.to(model_dtype))
     x_init = noise.float()

@@ -2,13 +2,16 @@
 random-weight half of scripts/serve.py).
 
     python -m echo_tts_tpu_torch.serve --random --port 7861           # the card
+    python -m echo_tts_tpu_torch.serve --random --int8 --port 7861    # W8A8 int8 trunk
     python -m echo_tts_tpu_torch.serve --cpu --random-tiny --port 7861
     curl -s -X POST localhost:7861/tts -d '{"text": "hello", "seed": 1}' -o out.wav
 
 --random serves DiTConfig() with the latent modules and AEConfig() in bf16
 (random weights from seeds 0 and 1) on the card; --random-tiny serves the
-tiny configs in fp32. Without --cpu it needs a CUDA card. Loading
-checkpoints (--dit/--ae/--pca), int8 serving (--int8), tensor parallelism
+tiny configs in fp32. Without --cpu it needs a CUDA card. --int8 serves the
+W8A8 int8 trunk (kernels K4 and K5 on the card), --int8-encoders the
+encoders and context-KV projections in int8 too. Loading checkpoints
+(--dit/--ae/--pca), a saved int8 base (--int8-cache), tensor parallelism
 (--tp) and the Gradio UI (--gradio) are not ported: each raises, naming the
 ROADMAP.md item it waits for.
 """
@@ -22,7 +25,7 @@ _NOT_PORTED = {
     "dit": "checkpoint loading is not ported yet (ROADMAP.md §1 item 9)",
     "ae": "checkpoint loading is not ported yet (ROADMAP.md §1 item 9)",
     "pca": "checkpoint loading is not ported yet (ROADMAP.md §1 item 9)",
-    "int8": "int8 serving is not ported yet (ROADMAP.md §1 item 6)",
+    "int8_cache": "a saved int8 base needs checkpoint I/O, not ported yet (ROADMAP.md §1 item 9)",
     "tp": "tensor-parallel serving is not ported yet (ROADMAP.md §1 item 8)",
     "gradio": "the Gradio UI is not ported: gradio is not installed (ROADMAP.md §1 item 7)",
 }
@@ -54,7 +57,12 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     help="the uniform latent block of a continuous group")
     ap.add_argument("--no-fast-join", action="store_true",
                     help="admit a stream without sampling its first block alone")
-    ap.add_argument("--int8", action="store_true", help="not ported")
+    ap.add_argument("--int8", action="store_true",
+                    help="opt-in W8A8 int8 trunk (models/quant.py)")
+    ap.add_argument("--int8-encoders", action="store_true",
+                    help="--int8, and the encoders and context-KV projections in int8 too")
+    ap.add_argument("--int8-cache", default=None, metavar="PATH",
+                    help="not ported: a saved quantized base")
     ap.add_argument("--tp", type=int, default=1, help="not ported above 1")
     ap.add_argument("--gradio", action="store_true", help="not ported")
     return ap.parse_args(argv)
@@ -66,13 +74,14 @@ def build_engine(args: argparse.Namespace):
     from echo_tts_tpu_torch.bench.trace import random_tts
     from echo_tts_tpu_torch.serve.engine import Engine
 
-    for flag in ("dit", "ae", "pca", "int8", "gradio"):
+    for flag in ("dit", "ae", "pca", "int8_cache", "gradio"):
         if getattr(args, flag):
             raise NotImplementedError(_NOT_PORTED[flag])
     if args.tp > 1:
         raise NotImplementedError(_NOT_PORTED["tp"])
     tts = random_tts(entry_device(args.cpu), tiny=args.random_tiny)
-    return Engine(tts, max_batch=args.max_batch, batch_wait_ms=args.batch_wait_ms,
+    return Engine(tts, int8=args.int8, int8_encoders=args.int8_encoders,
+                  max_batch=args.max_batch, batch_wait_ms=args.batch_wait_ms,
                   continuous=args.continuous, continuous_block=args.continuous_block,
                   continuous_fast_join=not args.no_fast_join)
 

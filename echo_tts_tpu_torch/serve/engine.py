@@ -182,27 +182,43 @@ class Engine:
         SamplerConfig.first_block_steps), so its first audio does not wait
         for a group step.
 
-        int8, int8_encoders, int8_cache_path (W8A8 serving) and mesh (tensor
-        parallelism) are not ported: they raise NotImplementedError.
+        int8 serves the W8A8 int8 trunk (models/quant.py; int8_encoders also
+        quantizes the encoders and the context-KV projections): the
+        effective params are quantized once, the base here and every LoRA
+        merge in `set_lora`, under the device lock. int8_cache_path (a
+        saved quantized base) needs checkpoint I/O and mesh (tensor
+        parallelism) multi-GPU, neither ported: they raise
+        NotImplementedError.
 
-        On cuda the kernels K1 and K2 are built here (nvcc, at first use in
-        the process), so that no request pays the build under the lock."""
-        if int8 or int8_encoders or int8_cache_path is not None:
-            raise NotImplementedError("int8 serving is not ported yet (ROADMAP.md §1 item 6)")
+        On cuda the kernels K1 and K2 (and, with int8, K4 and K5) are built
+        here (nvcc, at first use in the process), so that no request pays
+        the build under the lock."""
+        if int8_cache_path is not None:
+            raise NotImplementedError(
+                "a saved int8 base (int8_cache_path) needs checkpoint I/O, which is not "
+                "ported yet (ROADMAP.md §1 item 9)")
         if mesh is not None:
             raise NotImplementedError(
                 "tensor-parallel serving (mesh) is not ported yet (ROADMAP.md §1 item 8)")
+        self.int8 = int8 or int8_encoders
+        self.int8_encoders = int8_encoders
         if tts.device.type == "cuda":
             from echo_tts_tpu_torch.ops import _build
 
-            _build.build_all(("joint_attention", "res_chain"))
-            for name in ("joint_attention", "res_chain"):
+            names = ("joint_attention", "res_chain") + (
+                ("int8_gemm", "quant_rows") if self.int8 else ())
+            _build.build_all(names)
+            for name in names:
                 _build.load(name)
         self._base_params = tts.dit_params
         # own container: a LoRA swap never leaks into the caller's EchoTTS
         self.tts = dataclasses.replace(tts)
         self.max_retries = max_retries
         self._lock = FairLock()
+        with self._device():
+            # the effective base: quantized once, given back by set_lora(None)
+            self._effective_base = self._effective(self._base_params)
+            self.tts.dit_params = self._effective_base
         self._current_lora_path: Optional[str] = None
         self.stats = {"requests": 0, "failures": 0, "retries": 0, "total_sample_s": 0.0,
                       "total_audio_s": 0.0, "batches": 0}
@@ -255,6 +271,14 @@ class Engine:
         for s in scheds:
             s.thread.join(timeout=30)
 
+    def _effective(self, params: dict) -> dict:
+        """The params requests run on: quantized when the engine serves int8."""
+        if not self.int8:
+            return params
+        from echo_tts_tpu_torch.models.quant import quantize_dit_params
+
+        return quantize_dit_params(params, encoders=self.int8_encoders)
+
     # -- LoRA hot-swap -------------------------------------------------------
     def set_lora(self, lora_path: Optional[str], strength: float = 1.0) -> None:
         """Swap the effective DiT params for base + LoRA merged (None: back to
@@ -262,17 +286,18 @@ class Engine:
         about one block boundary under streaming load. A live continuous
         group keeps the params it started with (its streams finish on the
         old voice); every request issued after this call, and every group
-        started after it, uses the new params."""
+        started after it, uses the new params. Under int8 the merge is
+        quantized here; None gives the quantized base back as it was."""
         with self._device():
             if lora_path == self._current_lora_path:
                 return
             if lora_path is None:
-                self.tts.dit_params = self._base_params
+                self.tts.dit_params = self._effective_base
             else:
                 lora, lc = load_lora_checkpoint(lora_path, self.tts.device)
                 if strength != 1.0:
                     lc = dataclasses.replace(lc, alpha=lc.alpha * strength)
-                self.tts.dit_params = merge_lora(self._base_params, lora, lc)
+                self.tts.dit_params = self._effective(merge_lora(self._base_params, lora, lc))
             self._current_lora_path = lora_path
 
     # -- generation ----------------------------------------------------------

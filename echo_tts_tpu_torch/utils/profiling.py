@@ -88,6 +88,10 @@ def kernel_family(name: str) -> str:
         return "K2v-cl/K2s res_chain"
     if "res_unit" in name:
         return "K2 res_chain"
+    if "int8_gemm_kernel" in name:  # before the library's "gemm"
+        return "K4 int8_gemm"
+    if "quant_rows_kernel" in name:
+        return "K5 quant_rows"
     if any(k in low for k in ("gemm", "xmma", "cutlass", "gemv", "nvjet")):
         return "GEMM (cuBLAS)"
     if "conv" in low or "cudnn" in low:

@@ -2,7 +2,9 @@
 K2 residual units, K3 the attention backward, and the measurement variants
 K1v, K2v-cl, K2v-cf, K2s; the bare checks of the attention and conv cores;
 K1 and K2 at the streaming path's shapes and one stateful decode step, K1
-and K2 at a continuous group's B=4 with one position a row),
+and K2 at a continuous group's B=4 with one position a row, K1 with no
+context segment or the latent one alone; the int8 kernels K4 and K5 bit for
+bit, and an int8 forward against bf16),
 each against its plain
 PyTorch version in fp32 on the same bf16 inputs (rel-L2 < 2e-2: bf16
 rounding gives ~1e-3, a wrong kernel O(1)). Every test needs a CUDA card and skips without one. The
@@ -646,3 +648,120 @@ def test_variant_wrappers_refuse_bad_inputs(cuda_device):
     with pytest.raises(ValueError):
         trv.res_chain(x, units, tile_t=4096)
     assert [w.launches for w in wrappers] == before
+
+
+# -- the joint-uncond shapes of K1, and the int8 kernels K4 and K5 ----------
+
+@pytest.mark.parametrize("self_len", [None, (640, 203)], ids=["no_self_len", "self_len"])
+@pytest.mark.parametrize("s", [64, 640])
+@pytest.mark.parametrize("g", [1, 2])
+@pytest.mark.parametrize("latent", [0, 160], ids=["no_context", "latent_alone"])
+def test_joint_attention_kernel_with_no_context_segment(cuda_device, latent, g, s, self_len):
+    """K1 as the joint-uncond branch launches it: no context segment (the
+    one-shot path: text and speaker both skipped) or the latent segment
+    alone (a stream), against the plain version."""
+    b = 1 if self_len is None else 2
+    q, ks, vs, segs = _k1_inputs(cuda_device, g, b, s, 16, (latent,) if latent else (), 31,
+                                 (None,))
+    sl = None if self_len is None else torch.tensor([min(x, s) for x in self_len],
+                                                    dtype=torch.int32, device=cuda_device)
+    before = tja.joint_attention.launches
+    got = tja.joint_attention(q, ks, vs, segs, layout="sm", self_len=sl)
+    assert tja.joint_attention.launches == before + 1
+    ref = tja.joint_attention_plain(q.float(), ks.float(), vs.float(), _f32(segs), layout="sm",
+                                    self_len=sl)
+    assert _rel(got, ref) < 2e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("m,d", [(1920, 2048), (192, 5888), (37, 2048)])
+def test_quant_rows_kernel_matches_plain_bit_for_bit(cuda_device, m, d, dtype):
+    """K5's codes and scales equal the plain version's (on the CPU: IEEE
+    division, round half to even), an all-zero row included."""
+    from echo_tts_tpu_torch.ops import quant_rows as tqr
+
+    gen = torch.Generator(device=cuda_device).manual_seed(m + d)
+    h = (torch.randn(m, d, generator=gen, device=cuda_device) * 3).to(dtype)
+    h[1] = 0
+    before = tqr.quant_rows.launches
+    q, s = tqr.quant_rows(h)
+    torch.cuda.synchronize()
+    assert tqr.quant_rows.launches == before + 1
+    rq, rs = tqr.quant_rows_plain(h.cpu())
+    assert torch.equal(q.cpu(), rq) and torch.equal(s.cpu(), rs)
+
+
+@pytest.mark.parametrize("m,k,n", [(1920, 2048, 5888), (192, 5888, 2048), (1, 2048, 2048),
+                                   (37, 1040, 200)])
+def test_int8_gemm_kernel_matches_plain_bit_for_bit(cuda_device, m, k, n):
+    """K4's int32 sums and its bf16 and fp32 outputs equal the plain
+    version's (float64 sums, exact at these K)."""
+    from echo_tts_tpu_torch.models.quant import quantize_weight
+    from echo_tts_tpu_torch.ops import int8_gemm as tig
+    from echo_tts_tpu_torch.ops.quant_rows import quant_rows_plain
+
+    gen = torch.Generator(device=cuda_device).manual_seed(m + k + n)
+    a, s_row = quant_rows_plain(torch.randn(m, k, generator=gen, device=cuda_device))
+    w = quantize_weight((torch.rand(k, n, generator=gen, device=cuda_device) - 0.5) * k ** -0.5)
+    for dtype in (torch.int32, torch.bfloat16, torch.float32):
+        before = tig.int8_gemm.launches
+        got = tig.int8_gemm(a, s_row.reshape(-1), w["q"], w["s"], dtype)
+        torch.cuda.synchronize()
+        assert tig.int8_gemm.launches == before + 1
+        assert torch.equal(got, tig.int8_gemm_plain(a, s_row.reshape(-1), w["q"], w["s"], dtype))
+
+
+def test_int8_wrappers_refuse_bad_inputs(cuda_device):
+    from echo_tts_tpu_torch.ops import int8_gemm as tig
+    from echo_tts_tpu_torch.ops import quant_rows as tqr
+
+    a = torch.zeros(4, 40, dtype=torch.int8, device=cuda_device)
+    s = torch.ones(4, device=cuda_device)
+    before = (tig.int8_gemm.launches, tqr.quant_rows.launches)
+    with pytest.raises(ValueError):
+        tig.int8_gemm(a, s, a, s, torch.bfloat16)  # K not a multiple of 16
+    with pytest.raises(TypeError):
+        tig.int8_gemm(a[:, :32].float(), s, a[:, :32].contiguous(), s, torch.bfloat16)
+    with pytest.raises(ValueError):
+        w = torch.zeros(16, 4, dtype=torch.int8, device=cuda_device)
+        tig.int8_gemm(a[:, :16].contiguous(), s, w.t(), s, torch.bfloat16)  # not contiguous
+    with pytest.raises(ValueError):
+        tqr.quant_rows(torch.zeros(4, 12, device=cuda_device))
+    with pytest.raises(TypeError):
+        tqr.quant_rows(a)
+    with pytest.raises(RuntimeError, match="no backward"):
+        tqr.quant_rows(torch.zeros(4, 16, device=cuda_device, requires_grad=True))
+    assert (tig.int8_gemm.launches, tqr.quant_rows.launches) == before
+
+
+def test_int8_forward_on_the_card_tracks_bf16(cuda_device):
+    """A small DiT's joint-uncond CFG forward on the int8 trunk (K4 and K5,
+    eight K4 launches a layer) tracks the bf16 forward within 5 % a branch,
+    the bound of the JAX package's own test."""
+    from echo_tts_tpu_torch.core.config import DiTConfig
+    from echo_tts_tpu_torch.models.quant import quantize_dit_params
+    from echo_tts_tpu_torch.ops import int8_gemm as tig
+
+    cfg = DiTConfig(model_size=256, num_layers=2, num_heads=2, intermediate_size=512,
+                    text_model_size=128, text_num_layers=1, text_num_heads=1,
+                    text_intermediate_size=256, speaker_model_size=128, speaker_num_layers=1,
+                    speaker_num_heads=1, speaker_intermediate_size=256, adaln_rank=16)
+    p = tdit.init_dit_params(cfg, torch.bfloat16, cuda_device, seed=3)
+    qp = quantize_dit_params(p)
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    x = torch.randn(1, 64, cfg.latent_size, generator=gen, device=cuda_device).to(torch.bfloat16)
+    t_b = torch.full((1,), 0.7, device=cuda_device).to(torch.bfloat16)
+    ids = torch.randint(0, 256, (1, 32), generator=gen, device=cuda_device)
+    tm = torch.ones(1, 32, dtype=torch.bool, device=cuda_device)
+    spk = torch.randn(1, 32, cfg.latent_size, generator=gen, device=cuda_device).to(torch.bfloat16)
+    sm = torch.ones(1, 32, dtype=torch.bool, device=cuda_device)
+    with torch.no_grad():
+        kt = tdit.get_kv_cache_text(p, cfg, ids, tm)
+        ks = tdit.get_kv_cache_speaker(p, cfg, spk)
+        before = tig.int8_gemm.launches
+        got = tdit.dit_forward_cfg(qp, cfg, x, t_b, tm, sm, kt, ks, joint_uncond=True)
+        assert tig.int8_gemm.launches - before == 8 * cfg.num_layers
+        ref = tdit.dit_forward_cfg(p, cfg, x, t_b, tm, sm, kt, ks, joint_uncond=True)
+    assert got.shape == (2, 1, 64, cfg.latent_size) and torch.isfinite(got).all()
+    for i in range(2):
+        assert _rel(got[i], ref[i]) < 5e-2

@@ -6,7 +6,7 @@
   where CUDA is absent instead of falling back quietly; the measurement
   entry points (echo_tts_tpu_torch/bench/) and the server's
   (echo_tts_tpu_torch/serve/__main__.py) rehearse end to end with --cpu at a
-  tiny size through the plain versions; the serving levers not ported raise;
+  tiny size through the plain versions; the serving options not ported raise;
 * the kernel wrappers take the plain version only for CPU tensors and
   refuse what the kernels do not take, inputs that require grad included.
 """
@@ -115,7 +115,8 @@ def test_serve_and_trace_entry_points_on_the_cpu_flag(capsys):
     assert res["n_ok"] == 2 and res["n_hung"] == 0 and not any(res["launches"].values())
 
 
-@pytest.mark.parametrize("argv", [["--dit", "dit.safetensors"], ["--random", "--int8"],
+@pytest.mark.parametrize("argv", [["--dit", "dit.safetensors"],
+                                  ["--random", "--int8-cache", "q.npz"],
                                   ["--random", "--tp", "2"], ["--random", "--gradio"]])
 def test_serve_flags_not_ported_raise(argv):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -228,3 +229,44 @@ def test_inference_wrappers_refuse_inputs_that_require_grad():
             tja.joint_attention(q, q, q, [], layout="sm")
         with pytest.raises(ValueError, match="unsupported device"):
             trc.res_units_cl(x, [])
+
+
+@pytest.mark.parametrize("mangled,name", [
+    ("_ZN45_GLOBAL__N__f1e66924_12_int8_gemm_cu_9258764416int8_gemm_kernelILi2EEEvPKaS2_PKfS4_Pviii",
+     "int8_gemm_kernel<2>"),
+    ("_ZN12_GLOBAL__N_117quant_rows_kernelILb1EEEvPKvPaPfii", "quant_rows_kernel<1>"),
+    ("_ZN12_GLOBAL__N_115res_unit_kernelILi768ELi1ELi128ELi16ELi5ELi1ELi1EEEvv",
+     "res_unit_kernel<768, 1, 128, 16, 5, 1, 1>"),
+    ("_Z9dq_kernel6Params", "dq_kernel"),
+])
+def test_chip_smoke_names_kernels_from_their_mangled_names(mangled, name):
+    """chip_smoke.py keys ptxas' registers and spills by kernel: the name is
+    the mangled `<length><name>` ending in `_kernel`, with its template
+    arguments."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+
+    assert chip_smoke._kernel_name(mangled) == name
+
+
+def test_quant_snr_entry_point_needs_a_card_or_cpu_flag(capsys):
+    """bench/quant_snr.py raises without a card and without --cpu; with --cpu
+    --tiny it runs both samplings through the plain versions, names the CPU
+    as its device, launches no kernel and prints the JSON line of
+    scripts/quant_snr.py (an int8 trunk well inside the 40 dB gate); flag
+    combinations the JAX script refuses are refused."""
+    from echo_tts_tpu_torch.bench import quant_snr
+
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            quant_snr.main([])
+    for argv in (["--cpu", "--tiny", "--first-steps", "2"], ["--cpu", "--tiny", "--bf16"]):
+        with pytest.raises(SystemExit):
+            quant_snr.main(argv)
+    capsys.readouterr()
+    res = quant_snr.main(["--cpu", "--tiny"])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out == res and res["bench"] == "quant_snr" and res["card"] == "cpu"
+    assert res["device"].startswith("cpu") and not any(res["launches"].values())
+    assert {"latent_rel_l2", "latent_snr_db", "waveform_rel_l2"} <= set(res)
+    assert 40.0 <= res["latent_snr_db"] < 200.0 and res["metric"].startswith("int8 W8A8 trunk")

@@ -69,15 +69,6 @@ def test_sampler_matches_jax(params, name):
     assert rel_l2(got.numpy(), ref) <= 1e-4
 
 
-@pytest.mark.parametrize("kw", [dict(solver="midpoint"), dict(uncond_cache_interval=2),
-                                dict(joint_uncond=True)])
-def test_unported_levers_raise(params, kw):
-    _, tp = params
-    sc = SamplerConfig(num_steps=2, sequence_length=SEQ, **kw)
-    with pytest.raises(NotImplementedError):
-        teu.euler_cfg_scan(tp, CFG, sc, None, None, None, None, None, None)
-
-
 @pytest.mark.parametrize("seed", [0, 1, 12345])
 @pytest.mark.parametrize("shape", [(1, 640, 80), (2, 7, 5)])
 def test_noise_draw_matches_jax_random(seed, shape):

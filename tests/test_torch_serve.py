@@ -8,7 +8,7 @@ tests/test_serve.py holds its own), keys that split batches, the speaker
 cache (one encode; keys equal the JAX package's), sample_fn and the vocoder
 timing key, ae_reconstruct and Engine.reconstruct, set_lora from an npz the
 JAX package wrote, the stream micro-batch against solo streams, close()
-with a queued stream, the levers not ported, the HTTP endpoints, the mp3
+with a queued stream, the serving options not ported, the HTTP endpoints, the mp3
 fallback to WAV and SamplerConfig.from_preset. Tiny configs, fp32, on the
 CPU; every wait is bounded and every Engine is closed."""
 import base64
@@ -330,8 +330,7 @@ def test_retry_reruns_the_same_path_then_fails(both, engines, monkeypatch, max_b
     assert np.isfinite(audio).all() and eng.health()["requests"] == 1
 
 
-@pytest.mark.parametrize("kw", [dict(int8=True), dict(int8_encoders=True),
-                                dict(int8_cache_path="q.npz"), dict(mesh=object())])
+@pytest.mark.parametrize("kw", [dict(int8_cache_path="q.npz"), dict(mesh=object())])
 def test_levers_not_ported_raise(both, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Engine(both[1], **kw)

@@ -464,6 +464,8 @@ def test_trace_writes_a_chrome_trace_and_families_are_named(tmp_path):
                          ("res_unit_conv7_kernel<192>", "K2 res_chain"),
                          ("res_chain_cl_kernel<192, 4>", "K2v-cl/K2s res_chain"),
                          ("res_chain_cf_kernel<96, 0>", "K2v-cf res_chain_cf"),
+                         ("int8_gemm_kernel<0>", "K4 int8_gemm"),
+                         ("quant_rows_kernel<true>", "K5 quant_rows"),
                          ("sm90_xmma_gemm_bf16", "GEMM (cuBLAS)"),
                          ("cudnn::engines::conv", "conv (cuDNN)"),
                          ("vectorized_elementwise_kernel", "other (elementwise, norms, copies)")):
