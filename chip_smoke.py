@@ -9,12 +9,16 @@ Phases, in order; any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi), torch/CUDA/nvcc versions;
   2. build every CUDA kernel from csrc/ (one nvcc per source, in parallel),
      with each source's build seconds and ptxas' registers and spills; a
-     kernel whose wgmma ptxas serialised (C7512/C7514) is flagged;
+     kernel whose wgmma ptxas serialised (C7512/C7514) is flagged, and in K2,
+     the chain kernel of K2v-cl/K2v-cf/K2s and K4 it fails the run;
   3. TF32 off for the comparisons; the attention kernels' shared wgmma core
      (csrc/attention_core.cuh) on one bare tile against torch.matmul, keys
      as (T, D) and as (D, T); the residual-unit kernels' conv core
      (csrc/conv_core.cuh) on one bare tile, the tap-shifted product at
-     d = 1, 3, 9 and row offsets that are no multiple of 8;
+     d = 1, 3, 9 and row offsets that are no multiple of 8; K4's s8 core
+     (csrc/int8_core.cuh) on one bare tile, wgmma m64nNk32 s8 at N = 64,
+     128, 256 with the tiles copied by the threads and by TMA, against
+     torch._int_mm (equal);
   4. each kernel against its plain PyTorch version at main-path shapes, bf16
      inputs, rel-L2 < 2e-2 (bf16 rounding gives ~1e-3, a wrong kernel O(1)):
      K1 forward (full and ragged shapes, both q tiles, its log-sum-exp), K2
@@ -28,10 +32,14 @@ Phases, in order; any failure exits non-zero:
      multiple of 8 and not), and K2s poly against exact; K1 with no context
      segment and with the latent segment alone (the joint-uncond branch);
      K5 quant_rows and K4 int8_gemm bit for bit against their plain versions
-     (K5 at (1920, 2048), (1920, 5888), (192, 2048), (37, 2048), bf16 and
-     fp32, an all-zero row; K4's int32 sums and bf16 output at the trunk's
-     (K, N) with M = 1920, 192, 1, 37, a ragged N and K), and the wrappers
-     refusing what the kernels do not take;
+     (K5 at D = 2048, 5888, 1280, 3328 (one read of a row) and 1000, 7000
+     (two), bf16 and fp32, ragged M, an all-zero row; K4's int32 sums and
+     bf16 and fp32 outputs at the trunk's (K, N) with M = 1920, 640, 576,
+     192, 64, 7680, 2560, 1, 37, the encoders' (K, N) at M = 768 and 1600,
+     a ragged and an odd N, K a multiple of 16 and not of 128; the grouped
+     launches q/k/v/gate, w1/w3 and a context's k/v and one of four unequal
+     N; every tile shape forced), and the wrappers refusing what the kernels
+     do not take;
   5. the one-shot slice at the full width of DiTConfig(has_latent_modules=
      False) and AEConfig() in bf16, random weights from a seed: one CFG
      forward and one decode through the kernels against the plain versions;
@@ -94,7 +102,9 @@ Phases, in order; any failure exits non-zero:
      time to quantize the params; bench/quant_snr.py's latent SNR of the
      int8 trunk against bf16, trunk only and with the encoders (>= 40 dB);
      one int8 request (i) (exact K1, K2, K4, K5 launches, peak memory, a
-     profile by family) and one int8 stream on (64, 192); Engine(int8=True)
+     profile by family beside the bf16 request's on the same weights) and
+     one int8 stream on (64, 192) beside the same stream in bf16;
+     Engine(int8=True)
      behind the HTTP server: /tts byte-equal to the direct call, set_lora
      re-quantizing the merge and reverting to the int8 base bytes, a /tts
      with "joint_uncond" in the body;
@@ -114,16 +124,20 @@ Phases, in order; any failure exits non-zero:
      of 3 chains, and call by call as well: the wrappers' host work to pack
      the weights is then included, as in the readings before); and K2v-cf
      against K2v-cl (sin) timed in turns at both widths of the entry point;
-     K4 at the trunk's (K, N) with M = 1920 and 192 beside torch._int_mm +
-     the dequantize and the bf16 torch.matmul it replaces, and K5 at a
-     layer's (M, D), over CUDA-graph replays.
+     K4, one trunk layer's products as the int8 path launches them (four
+     launches, two of them grouped) at M = 1920, 640, 576, 192 and 64, with
+     TOP/s and x bound, beside one launch a weight, each tile shape forced,
+     torch._int_mm + the dequantize and the bf16 torch.matmul it replaces,
+     and each launch alone; K5, a layer's four quantizations at the same M,
+     with GB/s and x bound; the host time a call of K4's and K5's wrappers
+     and of encoding one TMA tensor map; all over CUDA-graph replays.
 The line before the last is the kernel JSON; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX. --slices-only is for
 comparing two trees end to end in one call on one card (run them in turns:
 the host's clock moves more between calls than a kernel change moves it); it
 prints no kernel JSON. The build of the nine sources runs in parallel;
-ptxas serialising a wgmma of K2 or of the chain kernel of K2v-cl, K2v-cf and
-K2s (C7512/C7514) fails the run.
+ptxas serialising a wgmma of K2, of the chain kernel of K2v-cl, K2v-cf and
+K2s, or of K4 (C7512/C7514) fails the run.
 """
 from __future__ import annotations
 
@@ -192,7 +206,7 @@ def phase_environment():
 
 PTXAS: dict = {}  # source -> kernel -> registers, spill bytes, wgmma serialized (phase 2)
 SERIALIZED = ("C7512", "C7514")  # ptxas: "wgmma.mma_async instructions are serialized"
-SERIAL_FREE = ("res_chain", "res_chain_variants")  # must show none: the run fails
+SERIAL_FREE = ("res_chain", "res_chain_variants", "int8_gemm")  # must show none: the run fails
 
 
 def _kernel_name(mangled: str) -> str:
@@ -320,6 +334,33 @@ def phase_conv_core_check(dev) -> None:
         f"worst rel-L2 {worst:.3e}")
     if failures:
         raise SystemExit("the conv core disagrees with torch.matmul: " + "; ".join(failures))
+
+
+def phase_int8_core_check(dev) -> None:
+    """The s8 side of the core (csrc/int8_core.cuh), K4's products, on one
+    bare tile before K4 is checked: a (64, 128) . b (N, 128)^T in int32 from
+    four k32 slices of wgmma s8 at every width K4 issues (N = 64, 128, 256),
+    the tiles copied into swizzled shared memory by the threads and by TMA,
+    against torch._int_mm: equal (the sums are exact)."""
+    from echo_tts_tpu_torch.ops import int8_gemm as ig
+
+    gen = torch.Generator(device=dev).manual_seed(14)
+    failures = []
+    for n in (64, 128, 256):
+        a = torch.randint(-127, 128, (64, 128), generator=gen, device=dev, dtype=torch.int8)
+        b = torch.randint(-127, 128, (n, 128), generator=gen, device=dev, dtype=torch.int8)
+        ref = torch._int_mm(a, b.t().contiguous())
+        for use_tma in (False, True):
+            got = ig.core_products_s8(a, b, use_tma)
+            torch.cuda.synchronize()
+            same = torch.equal(got, ref)
+            log(f"# check int8_core [wgmma m64n{n}k32 s8, tiles by "
+                f"{'TMA' if use_tma else 'the threads'}]: equal to torch._int_mm: {same}; "
+                f"{int((got != ref).sum())} sums differ")
+            if not same:
+                failures.append(f"N={n} tma={use_tma}")
+    if failures:
+        raise SystemExit("the s8 wgmma core disagrees with torch._int_mm: " + "; ".join(failures))
 
 
 # ---------------------------------------------------------------------------
@@ -614,70 +655,147 @@ def phase_kernel_checks(dev) -> dict:
     return errs
 
 
-def int8_operands(gen, m, k, n, dev):
-    """K4's and K5's operands as the int8 trunk makes them: bf16 activation
-    rows (M, K) and their codes and scales (the plain K5 on the CPU), and a
-    quantized (K, N) weight of the initializer's scale, stored (N, K)."""
-    from echo_tts_tpu_torch.models.quant import quantize_weight
+def int8_rows(gen, m, k, dev):
+    """bf16 activation rows (M, K) and their codes and scales (M,) from the
+    plain K5, as the int8 trunk hands them to K4."""
     from echo_tts_tpu_torch.ops.quant_rows import quant_rows_plain
 
     h = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+    a, s_row = quant_rows_plain(h)
+    return h, a, s_row.reshape(-1)
+
+
+def int8_weight(gen, k, n, dev):
+    """A random bf16 (K, N) weight of the initializer's scale and its
+    quantized leaf (codes (N, K), scales (N,))."""
+    from echo_tts_tpu_torch.models.quant import quantize_weight
+
     w = ((torch.rand(k, n, generator=gen, device=dev) * 2 - 1) * k ** -0.5).to(torch.bfloat16)
-    a, s_row = (x.to(dev) for x in quant_rows_plain(h.cpu()))
-    qw = quantize_weight(w)
-    return h, w, a, s_row.reshape(-1), qw["q"], qw["s"]
+    return w, quantize_weight(w)
 
 
 # the trunk's projections (K, N) a layer: wq wk wv gate wo, w1 w3, w2
 INT8_KN = ((2048, 2048), (2048, 5888), (5888, 2048))
-INT8_PER_LAYER = {(2048, 2048): 5, (2048, 5888): 2, (5888, 2048): 1}
+# the encoders' (K, N): wq..wo, w1 w3, w2, and the context K/V projections
+INT8_ENC_KN = ((1280, 1280), (1280, 3328), (3328, 1280), (1280, 2048))
+# a trunk layer as the int8 path launches K4: the weights of each launch
+INT8_LAYER_LAUNCHES = (((2048, 2048),) * 4, ((2048, 2048),), ((2048, 5888),) * 2,
+                       ((5888, 2048),))
+# M the int8 paths launch: one-shot CFG / outside the window, stream blocks of
+# 64 and 192 inside and outside the window, a one-shot batch of four
+INT8_M = (1920, 640, 576, 192, 64, 7680, 2560)
+
+
+def near_ties(gen, m, d, dev) -> torch.Tensor:
+    """fp32 rows whose quotients x / s lie on half-integers or a few ulps
+    from them (where K5 divides instead of multiplying by 1 / s): each row's
+    amax is its first element (127 in the first half of the rows, so s = 1
+    and the ties are exact), the rest (k + 0.5) * s moved by -2..2 ulps."""
+    amax = torch.rand(m, 1, generator=gen, device=dev) * 10 + 0.01
+    amax[: m // 2] = 127.0
+    k = torch.randint(-127, 127, (m, d), generator=gen, device=dev).float() + 0.5
+    x = k * (amax / 127.0)
+    for _ in range(2):
+        step = torch.randint(-1, 2, (m, d), generator=gen, device=dev).float()
+        x = torch.where(step == 0, x, torch.nextafter(x, step * torch.inf))
+    x[:, :1] = amax
+    return x
+
+
+def int8_gemm_case(what, gen, m, k, ns, dev, failures, tile=None, dtypes=None):
+    """K4 on one activation against the weights (K, n) for n in `ns` (one
+    weight: int8_gemm; several: one int8_gemm_grouped launch) against the
+    plain version, int32 sums and bf16 and fp32 outputs bit for bit, one
+    launch a call; a failure is appended to `failures`."""
+    from echo_tts_tpu_torch.ops import int8_gemm as ig
+
+    _, a, s_row = int8_rows(gen, m, k, dev)
+    ws = [(qw["q"], qw["s"]) for qw in (int8_weight(gen, k, n, dev)[1] for n in ns)]
+    bad = []
+    for dtype in dtypes or (torch.int32, torch.bfloat16, torch.float32):
+        before = ig.int8_gemm.launches
+        if len(ws) == 1:
+            got = [ig.int8_gemm(a, s_row, *ws[0], dtype, tile=tile)]
+        else:
+            got = ig.int8_gemm_grouped(a, s_row, ws, dtype, tile=tile)
+        torch.cuda.synchronize()
+        ref = ig.int8_gemm_grouped_plain(a, s_row, ws, dtype)
+        if ig.int8_gemm.launches - before != 1:
+            bad.append(f"{dtype} launches {ig.int8_gemm.launches - before}")
+        bad += [f"{str(dtype)[6:]} out {i}" for i, (x, y) in enumerate(zip(got, ref))
+                if not torch.equal(x, y)]
+    log(f"# check int8_gemm [{what}: M {m}, K {k}, N {list(ns)}"
+        f"{'' if tile is None else f', tile {tile}'}]: equal to the plain version: "
+        f"{not bad}{'' if not bad else ' ' + ', '.join(bad)}")
+    if bad:
+        failures.append(f"int8_gemm {what} ({m}, {k}, {list(ns)}, tile {tile})")
 
 
 def phase_int8_checks(dev) -> dict:
     """K5 (row quantize) and K4 (int8 GEMM + dequantize) against their plain
-    versions, bit for bit: K5 at (1920, 2048), (1920, 5888), (192, 2048) and
-    a ragged (37, 2048), bf16 and fp32, with an all-zero row, against the
-    plain version on the CPU (IEEE division, round half to even); K4's int32
-    sums and its bf16 output at the trunk's (K, N) with M = 1920, 192, 1 and
-    37, a ragged N and K, against the plain version (float64 sums, exact
-    here); the wrappers refuse what the kernels do not take."""
+    versions, bit for bit. K5 at the widths the paths quantize (2048, 5888,
+    1280, 3328: one read of a row) and at two others (1000, 7000: two reads),
+    bf16 and fp32, ragged M, an all-zero row, and rows whose quotients lie
+    on or a few ulps from half-integers (where the kernel divides), against
+    the plain version on the CPU (IEEE division, round half to even). K4's int32 sums and bf16
+    and fp32 outputs against the plain version (float64 sums, exact here):
+    every trunk (K, N) at every M the int8 paths launch (and 1, 37), the
+    encoders' (K, N) at M = 768 and 1600, a ragged and an odd N, K a
+    multiple of 16 and not of 128; every grouped launch the paths make
+    (q/k/v/gate, w1/w3, a context's k/v) and one of four unequal N; each
+    tile shape forced. The wrappers refuse what the kernels do not take."""
     from echo_tts_tpu_torch.ops import int8_gemm as ig
     from echo_tts_tpu_torch.ops import quant_rows as qr
 
     gen = torch.Generator(device=dev).manual_seed(12)
     failures = []
-    for m, d in ((1920, 2048), (1920, 5888), (192, 2048), (37, 2048)):
+    for m, d, ties in ((1920, 2048, False), (1920, 5888, False), (192, 2048, False),
+                       (37, 2048, False), (768, 1280, False), (1600, 3328, False),
+                       (37, 5888, False), (37, 1000, False), (64, 7000, False),
+                       (256, 2048, True), (64, 1000, True)):
         for dtype in (torch.bfloat16, torch.float32):
-            h = (torch.randn(m, d, generator=gen, device=dev) * 3).to(dtype)
+            h = near_ties(gen, m, d, dev) if ties else torch.randn(m, d, generator=gen,
+                                                                    device=dev) * 3
+            h = h.to(dtype)
             h[3] = 0
             before = qr.quant_rows.launches
             q, s = qr.quant_rows(h)
             torch.cuda.synchronize()
             rq, rs = qr.quant_rows_plain(h.cpu())
             same = torch.equal(q.cpu(), rq) and torch.equal(s.cpu(), rs)
-            log(f"# check quant_rows [({m}, {d}) {str(dtype)[6:]}, row 3 all zero]: codes and "
-                f"scales equal to the plain version: {same}; "
+            log(f"# check quant_rows [({m}, {d}) {str(dtype)[6:]}, "
+                f"{'one read' if qr.one_read(d, dtype) else 'two reads'}, "
+                f"{'quotients at and near half-integers, ' if ties else ''}row 3 all zero]: "
+                f"codes and scales equal to the plain version: {same}; "
                 f"{int((q.cpu() != rq).sum())} codes differ")
             if not same or qr.quant_rows.launches - before != 1:
                 failures.append(f"quant_rows ({m}, {d}) {dtype}")
-    shapes = [(m, k, n) for m in (1920, 192, 1, 37) for k, n in INT8_KN]
-    shapes += [(37, 2048, 200), (37, 1040, 200)]  # ragged N; K a multiple of 16, not of 64
-    for m, k, n in shapes:
-        _, _, a, s_row, w, s_col = int8_operands(gen, m, k, n, dev)
-        before = ig.int8_gemm.launches
-        acc = ig.int8_gemm(a, s_row, w, s_col, torch.int32)
-        out = ig.int8_gemm(a, s_row, w, s_col, torch.bfloat16)
-        torch.cuda.synchronize()
-        r_acc = ig.int8_gemm_plain(a, s_row, w, s_col, torch.int32)
-        r_out = ig.int8_gemm_plain(a, s_row, w, s_col, torch.bfloat16)
-        same = torch.equal(acc, r_acc) and torch.equal(out, r_out)
-        log(f"# check int8_gemm [(M, K, N) = ({m}, {k}, {n})]: int32 sums equal: "
-            f"{torch.equal(acc, r_acc)}, bf16 output equal: {torch.equal(out, r_out)}")
-        if not same or ig.int8_gemm.launches - before != 2:
-            failures.append(f"int8_gemm ({m}, {k}, {n})")
+    for m in INT8_M + (1, 37):
+        for k, n in INT8_KN:
+            int8_gemm_case("trunk", gen, m, k, (n,), dev, failures)
+    for m in (768, 1600):
+        for k, n in INT8_ENC_KN:
+            int8_gemm_case("encoders", gen, m, k, (n,), dev, failures)
+    for what, m, k, ns in (("ragged N", 37, 2048, (200,)), ("odd N", 37, 1040, (203,)),
+                           ("K a multiple of 16, not of 128", 640, 2064, (2048,))):
+        int8_gemm_case(what, gen, m, k, ns, dev, failures)
+    for m in (64, 192, 576, 640, 1920, 7680):
+        int8_gemm_case("grouped q/k/v/gate", gen, m, 2048, (2048,) * 4, dev, failures)
+        int8_gemm_case("grouped w1/w3", gen, m, 2048, (5888,) * 2, dev, failures)
+    for m in (768, 1600):
+        int8_gemm_case("grouped context k/v", gen, m, 1280, (2048,) * 2, dev, failures)
+    int8_gemm_case("grouped, four unequal N", gen, 37, 1040, (200, 2048, 72, 203), dev,
+                   failures)
+    for tile in ig.TILES:
+        for what, m, k, ns in (("tile", 1920, 2048, (2048,)), ("tile", 192, 5888, (2048,)),
+                               ("tile", 37, 1040, (203,)), ("tile, grouped", 576, 2048,
+                                                            (2048,) * 4)):
+            int8_gemm_case(what, gen, m, k, ns, dev, failures, tile=tile,
+                           dtypes=(torch.int32, torch.bfloat16))
     a8 = torch.zeros(4, 40, dtype=torch.int8, device=dev)
     sv = torch.ones(4, device=dev)
     w16 = torch.zeros(16, 64, dtype=torch.int8, device=dev)
+    a32 = torch.zeros(4, 64, dtype=torch.int8, device=dev)
     for what, call, exc in (
             ("K not a multiple of 16", lambda: ig.int8_gemm(a8, sv, a8, sv, torch.bfloat16),
              ValueError),
@@ -686,6 +804,15 @@ def phase_int8_checks(dev) -> dict:
             ("a transposed weight", lambda: ig.int8_gemm(
                 torch.zeros(64, 16, dtype=torch.int8, device=dev), torch.ones(64, device=dev),
                 w16.t(), torch.ones(64, device=dev), torch.bfloat16), ValueError),
+            ("five weights in one launch", lambda: ig.int8_gemm_grouped(
+                a32, sv, [(w16, torch.ones(16, device=dev))] * 5, torch.bfloat16), ValueError),
+            ("weights of another K", lambda: ig.int8_gemm_grouped(
+                a32, sv, [(w16, torch.ones(16, device=dev)), (w16[:, :32].contiguous(),
+                                                              torch.ones(16, device=dev))],
+                torch.bfloat16), ValueError),
+            ("a tile it has no instance of", lambda: ig.int8_gemm(
+                a32, sv, w16, torch.ones(16, device=dev), torch.bfloat16, tile=(64, 64)),
+             ValueError),
             ("D not a multiple of 8", lambda: qr.quant_rows(torch.zeros(4, 12, device=dev)),
              ValueError),
             ("int8 rows", lambda: qr.quant_rows(a8), TypeError)):
@@ -1236,101 +1363,188 @@ def variant_times(dev, errs: dict, launches: dict) -> list:
     return rows
 
 
+def int8_layer(gen, m, dev) -> list:
+    """One trunk layer's operands at M rows, launch by launch as the int8
+    path makes them (INT8_LAYER_LAUNCHES): the bf16 rows, their codes and
+    scales, and each weight in bf16, quantized, and transposed for
+    torch._int_mm."""
+    out = []
+    for kns in INT8_LAYER_LAUNCHES:
+        k = kns[0][0]
+        h, a, s_row = int8_rows(gen, m, k, dev)
+        ws = [int8_weight(gen, k, n, dev) for _, n in kns]
+        out.append({"h": h, "a": a, "s_row": s_row, "k": k, "ns": [n for _, n in kns],
+                    "w_bf": [w for w, _ in ws], "ws": [(q["q"], q["s"]) for _, q in ws],
+                    "wt": [q["q"].t().contiguous() for _, q in ws]})
+    return out
+
+
+def layer_work(m: int, launches=INT8_LAYER_LAUNCHES):
+    """Operations and bytes (inputs read once, bf16 outputs written once)
+    of a layer's int8 products at M rows."""
+    flops = sum(2.0 * m * k * n for kns in launches for k, n in kns)
+    nbytes = sum(m * kns[0][0] + 4 * m + sum(n * k + 4 * n + 2 * m * n for k, n in kns)
+                 for kns in launches)
+    return flops, nbytes
+
+
+def int8_host_us(dev, gen, calls: int = 400) -> dict:
+    """What a call costs the host: K4's wrapper with one weight and with the
+    four of q/k/v/gate, and K5's, at M = 192 (each shorter on the card than
+    on the host, so the queue never fills), `calls` calls on the host's
+    clock up to the last return, one synchronize after; and the encoding of
+    one TMA tensor map (K4 makes one for the activation and one a weight on
+    every call) inside the library."""
+    from echo_tts_tpu_torch.ops import int8_gemm as ig
+    from echo_tts_tpu_torch.ops import quant_rows as qr
+
+    (qkvg, wo, *_) = int8_layer(gen, 192, dev)
+    runs = {"int8_gemm, one weight": lambda: ig.int8_gemm(wo["a"], wo["s_row"], *wo["ws"][0],
+                                                           torch.bfloat16),
+            "int8_gemm_grouped, four weights": lambda: ig.int8_gemm_grouped(
+                qkvg["a"], qkvg["s_row"], qkvg["ws"], torch.bfloat16),
+            "quant_rows": lambda: qr.quant_rows(qkvg["h"])}
+    out = {}
+    with torch.no_grad():
+        for name, run in runs.items():
+            for _ in range(20):
+                run()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                run()
+            out[name] = (time.perf_counter() - t0) / calls * 1e6
+            torch.cuda.synchronize()
+    out["tensor map encode"] = ig.tensor_map_us(qkvg["a"])
+    log("# int8 wrappers, host time a call (M = 192, " + str(calls) + " calls, one synchronize "
+        "after): " + ", ".join(f"{k} {v:.2f} us" for k, v in out.items()))
+    return out
+
+
 def int8_times(dev, errs: dict, launches: dict) -> list:
-    """K4 and K5 at the trunk's shapes, over CUDA-graph replays (both are
-    shorter than their wrappers' host time at M = 192): K4 at each (K, N) of
-    a layer's projections with M = 1920 (a one-shot CFG forward) and 192 (a
-    stream block's), beside the plain version, the bound (1979 TOP/s int8,
-    3.35 TB/s) and two yardsticks the port never calls: torch._int_mm then
-    the dequantize (the library's int8 product), and the bf16 torch.matmul
-    that int8 replaces; K5 at the (M, D) of a layer's four quantizations.
-    The JSON rows' times are one trunk layer's at M = 1920: K4's eight
-    projections and K5's four row quantizations, summed."""
+    """K4 and K5 at the trunk's shapes, over CUDA-graph replays: at each M
+    the int8 paths launch (1920, 640, 576, 192, 64), one trunk layer's
+    products as the path launches them (four K4 launches: q/k/v/gate
+    grouped, wo, w1/w3 grouped, w2) timed as one unit, so the 57 MB of
+    weights a layer stream from memory as in a forward; beside them the same
+    layer with one launch a weight, with each tile shape forced, the bf16
+    torch.matmul of the same eight products (what int8 replaces) and
+    torch._int_mm + the dequantize (the library's int8 product), the bound
+    (1979 TOP/s int8, 3.35 TB/s); each launch alone; K5 at the layer's four
+    (M, D); the host time a call. The JSON rows' times are one layer's at
+    M = 1920."""
     from echo_tts_tpu_torch.bench.timing import cuda_ms
     from echo_tts_tpu_torch.ops import int8_gemm as ig
     from echo_tts_tpu_torch.ops import quant_rows as qr
 
     gen = torch.Generator(device=dev).manual_seed(13)
-    k4_shapes, k5_shapes = [], []
-    sums = {m: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bf16_matmul_ms": 0.0,
-                "int_mm_ms": 0.0, "flops": 0.0, "bytes": 0.0} for m in (1920, 192)}
+    bf = torch.bfloat16
+    at_m, k5_at_m, per_launch = {}, {}, []
+
+    def layer(ops, tile=None):
+        def run():
+            for op in ops:
+                ig.int8_gemm_grouped(op["a"], op["s_row"], op["ws"], bf, tile=tile)
+        return run
+
+    def layer_ungrouped(ops):
+        def run():
+            for op in ops:
+                for w, s_col in op["ws"]:
+                    ig.int8_gemm(op["a"], op["s_row"], w, s_col, bf)
+        return run
+
+    def layer_bf16(ops):
+        def run():
+            for op in ops:
+                for w in op["w_bf"]:
+                    torch.matmul(op["h"], w)
+        return run
+
+    def layer_library(ops):
+        def run():
+            for op in ops:
+                for wt, (_, s_col) in zip(op["wt"], op["ws"]):
+                    (torch._int_mm(op["a"], wt).float()
+                     * (op["s_row"][:, None] * s_col)).to(bf)
+        return run
+
     with torch.no_grad():
-        for m in (1920, 192):
-            for k, n in INT8_KN:
-                h, w_bf, a, s_row, w, s_col = int8_operands(gen, m, k, n, dev)
-                wt = w.t().contiguous()  # torch._int_mm's (K, N)
-                ms = cuda_ms(lambda: ig.int8_gemm(a, s_row, w, s_col, torch.bfloat16),
-                             graph_iters=GRAPH_ITERS)
-                plain_ms = cuda_ms(lambda: ig.int8_gemm_plain(a, s_row, w, s_col,
-                                                              torch.bfloat16), reps=3)
-                int_mm_ms = cuda_ms(lambda: torch._int_mm(a, wt), graph_iters=GRAPH_ITERS)
-                lib_ms = cuda_ms(lambda: (torch._int_mm(a, wt).float()
-                                          * (s_row[:, None] * s_col)).to(torch.bfloat16),
-                                 graph_iters=GRAPH_ITERS)
-                bf_ms = cuda_ms(lambda: torch.matmul(h, w_bf), graph_iters=GRAPH_ITERS)
-                flops = 2.0 * m * k * n
-                nbytes = m * k + n * k + 4 * (m + n) + 2 * m * n
-                b_ms, b_by = bound(flops, nbytes, PEAK_INT8_OPS)
-                log(f"# time int8_gemm (M, K, N) = ({m}, {k}, {n}): kernel {ms:.4f} ms "
-                    f"({flops / ms / 1e9:.0f} TOP/s, {ms / b_ms:.2f}x its bound), plain "
-                    f"{plain_ms:.3f} ms, torch._int_mm {int_mm_ms:.4f} ms (+ dequantize "
-                    f"{lib_ms:.4f}), bf16 matmul {bf_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-                k4_shapes.append({"M": m, "K": k, "N": n, "ms": ms, "plain_ms": plain_ms,
-                                  "library_ms": lib_ms, "int_mm_ms": int_mm_ms,
-                                  "bf16_matmul_ms": bf_ms, "bound_ms": b_ms, "bound_by": b_by})
-                per = INT8_PER_LAYER[(k, n)]
-                for key, val in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
-                                 ("bf16_matmul_ms", bf_ms), ("int_mm_ms", int_mm_ms),
-                                 ("flops", flops), ("bytes", nbytes)):
-                    sums[m][key] += per * val
-            for d, per in ((2048, 3), (5888, 1)):
-                h = torch.randn(m, d, generator=gen, device=dev).to(torch.bfloat16)
-                ms = cuda_ms(lambda: qr.quant_rows(h), graph_iters=GRAPH_ITERS)
-                plain_ms = cuda_ms(lambda: qr.quant_rows_plain(h), reps=5)
-                nbytes = 2 * m * d + m * d + 4 * m
-                b_ms, b_by = bound(5.0 * m * d, nbytes)
-                log(f"# time quant_rows ({m}, {d}) bf16: kernel {ms:.4f} ms "
-                    f"({nbytes / ms / 1e6:.0f} GB/s, {ms / b_ms:.2f}x its bound), plain "
-                    f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-                k5_shapes.append({"M": m, "D": d, "ms": ms, "plain_ms": plain_ms,
-                                  "bound_ms": b_ms, "bound_by": b_by, "per_layer": per})
-    for m in sums:
-        sums[m]["bound_ms"], sums[m]["bound_by"] = bound(sums[m]["flops"], sums[m]["bytes"],
-                                                         PEAK_INT8_OPS)
-    layer = sums[1920]
-    b4_ms, b4_by = layer["bound_ms"], layer["bound_by"]
-    l5 = [r for r in k5_shapes if r["M"] == 1920]
-    k5 = {key: sum(r[key] * r["per_layer"] for r in l5) for key in ("ms", "plain_ms", "bound_ms")}
-    log(f"# time int8_gemm, the eight projections of one trunk layer at M = 1920: kernel "
-        f"{layer['ms']:.4f} ms, torch._int_mm + dequantize {layer['library_ms']:.4f} ms, bf16 "
-        f"matmul {layer['bf16_matmul_ms']:.4f} ms, bound {b4_ms:.4f} ms; at M = 192: kernel "
-        f"{sums[192]['ms']:.4f} ms, bf16 matmul {sums[192]['bf16_matmul_ms']:.4f} ms, bound "
-        f"{sums[192]['bound_ms']:.4f} ms ({sums[192]['bound_by']})")
-    log(f"# time quant_rows, the four quantizations of one trunk layer at M = 1920: kernel "
-        f"{k5['ms']:.4f} ms, plain {k5['plain_ms']:.4f} ms, bound {k5['bound_ms']:.4f} ms")
+        for m in (1920, 640, 576, 192, 64):
+            ops = int8_layer(gen, m, dev)
+            flops, nbytes = layer_work(m)
+            b_ms, b_by = bound(flops, nbytes, PEAK_INT8_OPS)
+            row = {"M": m, "ms": cuda_ms(layer(ops), graph_iters=GRAPH_ITERS),
+                   "ungrouped_ms": cuda_ms(layer_ungrouped(ops), graph_iters=GRAPH_ITERS),
+                   "bf16_matmul_ms": cuda_ms(layer_bf16(ops), graph_iters=GRAPH_ITERS),
+                   "library_ms": cuda_ms(layer_library(ops), graph_iters=GRAPH_ITERS),
+                   "tiles": {f"{t[0]}x{t[1]}": cuda_ms(layer(ops, t), graph_iters=GRAPH_ITERS)
+                             for t in ig.TILES},
+                   "bound_ms": b_ms, "bound_by": b_by, "flops": flops, "bytes": nbytes}
+            if m == 1920:
+                row["plain_ms"] = cuda_ms(lambda: [ig.int8_gemm_grouped_plain(
+                    op["a"], op["s_row"], op["ws"], bf) for op in ops], reps=3)
+            at_m[m] = row
+            log(f"# time int8_gemm, one trunk layer at M = {m} (4 launches): kernel "
+                f"{row['ms']:.4f} ms ({flops / row['ms'] / 1e9:.0f} TOP/s, "
+                f"{row['ms'] / b_ms:.2f}x its bound {b_ms:.4f} ms ({b_by})); one launch a weight "
+                f"{row['ungrouped_ms']:.4f} ms; bf16 torch.matmul {row['bf16_matmul_ms']:.4f} ms; "
+                f"torch._int_mm + dequantize {row['library_ms']:.4f} ms; tiles "
+                + ", ".join(f"{k} {v:.4f}" for k, v in row["tiles"].items()))
+            for op, kns in zip(ops, INT8_LAYER_LAUNCHES):
+                f1, b1 = layer_work(m, (kns,))
+                ms = cuda_ms(layer([op]), graph_iters=GRAPH_ITERS)
+                bl_ms, bl_by = bound(f1, b1, PEAK_INT8_OPS)
+                per_launch.append({"M": m, "K": op["k"], "N": op["ns"], "ms": ms,
+                                   "bound_ms": bl_ms, "bound_by": bl_by})
+                log(f"# time int8_gemm (M, K, N) = ({m}, {op['k']}, {op['ns']}): kernel "
+                    f"{ms:.4f} ms ({f1 / ms / 1e9:.0f} TOP/s, {ms / bl_ms:.2f}x its bound "
+                    f"{bl_ms:.4f} ms, {bl_by})")
+            hs = [op["h"] for op in ops]  # the layer's four quantized activations
+            k5_bytes = sum(3 * h.numel() + 4 * h.shape[0] for h in hs)
+            k5_b_ms, _ = bound(5.0 * sum(h.numel() for h in hs), k5_bytes)
+            k5 = {"M": m, "ms": cuda_ms(lambda: [qr.quant_rows(h) for h in hs],
+                                        graph_iters=GRAPH_ITERS),
+                  "bound_ms": k5_b_ms, "bound_by": "bytes", "bytes": k5_bytes}
+            if m == 1920:
+                k5["plain_ms"] = cuda_ms(lambda: [qr.quant_rows_plain(h) for h in hs], reps=5)
+            k5_at_m[m] = k5
+            log(f"# time quant_rows, one trunk layer's four quantizations at M = {m} "
+                f"(3 x ({m}, 2048) + ({m}, 5888) bf16): kernel {k5['ms']:.4f} ms "
+                f"({k5_bytes / k5['ms'] / 1e6:.0f} GB/s, {k5['ms'] / k5_b_ms:.2f}x its bound "
+                f"{k5_b_ms:.4f} ms)")
+            del ops, hs
+    host = int8_host_us(dev, gen)
+    layer_row, k5 = at_m[1920], k5_at_m[1920]
+    log(f"# time int8_gemm, one trunk layer at M = 1920: kernel {layer_row['ms']:.4f} ms, bf16 "
+        f"matmul {layer_row['bf16_matmul_ms']:.4f} ms, bound {layer_row['bound_ms']:.4f} ms; at "
+        f"M = 192: kernel {at_m[192]['ms']:.4f} ms, bf16 matmul "
+        f"{at_m[192]['bf16_matmul_ms']:.4f} ms, bound {at_m[192]['bound_ms']:.4f} ms "
+        f"({at_m[192]['bound_by']})")
     return [{"name": "int8_gemm", "route": "cuda",
              "source": "echo_tts_tpu_torch/csrc/int8_gemm.cu",
-             "replaces": "echo_tts_tpu/models/quant.py:114 (qdot: no Pallas kernel, XLA fuses "
+             "replaces": "echo_tts_tpu/models/quant.py:113 (qdot: no Pallas kernel, XLA fuses "
                          "the int8 dot and its dequantize)",
              "launches": launches.get("int8", {}).get("int8_gemm", 0),
              "launches_by_path": by_path(launches, "int8_gemm"),
-             "max_abs_err": errs["int8_gemm"], "ms": layer["ms"], "plain_ms": layer["plain_ms"],
-             "bound_ms": b4_ms, "bound_by": b4_by, "library_ms": layer["library_ms"],
+             "max_abs_err": errs["int8_gemm"], "ms": layer_row["ms"],
+             "plain_ms": layer_row["plain_ms"], "bound_ms": layer_row["bound_ms"],
+             "bound_by": layer_row["bound_by"], "library_ms": layer_row["library_ms"],
              "library": "torch._int_mm + the dequantize in PyTorch ops",
-             "bf16_matmul_ms": layer["bf16_matmul_ms"], "int_mm_ms": layer["int_mm_ms"],
-             "at_m192": sums[192], "shapes": k4_shapes, "ptxas": PTXAS.get("int8_gemm", {}),
-             "shape": "the eight projections of one trunk layer at M = 1920: 5 x (2048 -> "
-                      "2048), 2 x (2048 -> 5888), 1 x (5888 -> 2048), summed"},
+             "bf16_matmul_ms": layer_row["bf16_matmul_ms"], "at_m": at_m,
+             "per_launch": per_launch, "host_us": host, "ptxas": PTXAS.get("int8_gemm", {}),
+             "shape": "one trunk layer's eight projections at M = 1920 in four launches: "
+                      "4 x (2048 -> 2048), 2048 -> 2048, 2 x (2048 -> 5888), 5888 -> 2048"},
             {"name": "quant_rows", "route": "cuda",
              "source": "echo_tts_tpu_torch/csrc/quant_rows.cu",
-             "replaces": "echo_tts_tpu/models/quant.py:105 (quant_rows: no Pallas kernel, XLA "
+             "replaces": "echo_tts_tpu/models/quant.py:104 (quant_rows: no Pallas kernel, XLA "
                          "fuses it into the int8 dot)",
              "launches": launches.get("int8", {}).get("quant_rows", 0),
              "launches_by_path": by_path(launches, "quant_rows"),
              "max_abs_err": errs["quant_rows"], "ms": k5["ms"], "plain_ms": k5["plain_ms"],
              "bound_ms": k5["bound_ms"], "bound_by": "bytes",
              # no single PyTorch call quantizes rows with their own dynamic scales
-             "library_ms": None, "shapes": k5_shapes, "ptxas": PTXAS.get("quant_rows", {}),
+             "library_ms": None, "at_m": k5_at_m, "ptxas": PTXAS.get("quant_rows", {}),
              "shape": "the four row quantizations of one trunk layer at M = 1920: 3 x "
                       "(1920, 2048) + 1 x (1920, 5888) bf16, summed"}]
 
@@ -2701,8 +2915,10 @@ def phase_levers(dev, wrappers: dict, tts) -> dict:
     quantize the params; bench/quant_snr.py's latent SNR of the int8 trunk
     against bf16 on the same noise, trunk only and with the encoders (gate
     >= 40 dB); one int8 request (i): wall, device time, busy share, peak
-    memory, exact launches, one profile by family; one int8 stream on (64,
-    192); (e) Engine(int8=True) behind the HTTP server: /tts byte-equal to
+    memory, exact launches, one profile by family beside the bf16 request's
+    on the same weights, the host time spent inside the trunk's GEMM calls
+    of either; one int8 stream on (64, 192) beside the bf16 one; (e)
+    Engine(int8=True) behind the HTTP server: /tts byte-equal to
     the direct call on its quantized params, set_lora (r16) re-quantizing
     the merge and set_lora(None) giving the int8 base bytes back, one /tts
     with "joint_uncond" in the body. Returns {path: launches}."""
@@ -2710,6 +2926,7 @@ def phase_levers(dev, wrappers: dict, tts) -> dict:
 
     from echo_tts_tpu_torch.bench import quant_snr as qs
     from echo_tts_tpu_torch.core.config import SamplerConfig
+    from echo_tts_tpu_torch.models import quant
     from echo_tts_tpu_torch.models.quant import is_quantized, quantize_dit_params
     from echo_tts_tpu_torch.pipeline import pipeline as pl
     from echo_tts_tpu_torch.serve.engine import Engine
@@ -2795,8 +3012,10 @@ def phase_levers(dev, wrappers: dict, tts) -> dict:
     audio, wall, ev, got = counted(lambda: request(qparams, sc))
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     per_fwd = sc.num_steps * L
+    # a trunk layer: K4 q/k/v/gate (one grouped launch), wo, w1/w3 (grouped),
+    # w2; K5 before q/k/v/gate, wo, w1/w3 and w2
     want = {"joint_attention": k1_launches(sc, L), "res_chain": k2_decode,
-            "int8_gemm": 8 * per_fwd, "quant_rows": 4 * per_fwd}
+            "int8_gemm": 4 * per_fwd, "quant_rows": 4 * per_fwd}
     secs = audio.shape[-1] / sr
     log(f"# int8 (d) request (i) on the int8 trunk: wall {wall:.1f} ms, CUDA events {ev:.1f} ms, "
         f"{secs / wall * 1e3:.2f} audio-s/s, peak memory {peak:.2f} GiB; launches {got} (expected "
@@ -2805,12 +3024,45 @@ def phase_levers(dev, wrappers: dict, tts) -> dict:
         raise SystemExit(f"int8 (d): launches {got}, expected {want}, or non-finite audio")
     out["int8"] = got
     prof = profile_families("request (i) on the int8 trunk", lambda: request(qparams, sc))
+    prof_bf = profile_families("request (i) on the bf16 trunk, the same weights",
+                               lambda: request(tts.dit_params, sc))
     log(f"# int8 (d) request (i): device time {prof['device_ms']:.1f} ms, busy "
-        f"{prof['busy']:.1%} of the unprofiled wall")
+        f"{prof['busy']:.1%} of the unprofiled wall; the bf16 request on the same weights: "
+        f"{prof_bf['device_ms']:.1f} ms, busy {prof_bf['busy']:.1%}")
 
-    def stream():
+    def host_in_gemms(params):
+        """(host ms inside the trunk's GEMM calls, quant.mm and
+        quant.proj_shared, which the forward calls through the module; the
+        request's wall ms) for one request (i)."""
+        spent, orig = [0.0], {n: getattr(quant, n) for n in ("mm", "proj_shared")}
+
+        def timed(fn):
+            def run(*args):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*args)
+                finally:
+                    spent[0] += time.perf_counter() - t0
+            return run
+
+        for n, fn in orig.items():
+            setattr(quant, n, timed(fn))
+        try:
+            _, wall, _ = events_ms(lambda: request(params, sc))
+        finally:
+            for n, fn in orig.items():
+                setattr(quant, n, fn)
+        return spent[0] * 1e3, wall
+
+    for turn in range(2):
+        (h_bf, w_bf), (h_q, w_q) = host_in_gemms(tts.dit_params), host_in_gemms(qparams)
+        log(f"# int8 (d) host time inside the trunk's GEMM calls (quant.mm, quant.proj_shared), "
+            f"turn {turn}: bf16 {h_bf:.1f} ms of a {w_bf:.1f} ms wall, int8 {h_q:.1f} ms of a "
+            f"{w_q:.1f} ms wall")
+
+    def stream(params=qparams):
         t0, walls, chunks = time.perf_counter(), [], []
-        for chunk in pl.sample_pipeline_stream(dataclasses.replace(tts, dit_params=qparams),
+        for chunk in pl.sample_pipeline_stream(dataclasses.replace(tts, dit_params=params),
                                                SHORT_TEXT, None, 0, sc=sc,
                                                block_size=[64, 192], normalize_text=True,
                                                stop_at_flattening=False):
@@ -2819,7 +3071,7 @@ def phase_levers(dev, wrappers: dict, tts) -> dict:
         return walls, np.concatenate(chunks, -1)
 
     (walls, s_audio), wall, ev, got = counted(stream)
-    want_s = {"int8_gemm": 4 * 8 * per_fwd, "quant_rows": 4 * 4 * per_fwd}
+    want_s = {"int8_gemm": 4 * 4 * per_fwd, "quant_rows": 4 * 4 * per_fwd}
     log(f"# int8 (d) sample_pipeline_stream on the int8 trunk, (64, 192): first audio "
         f"{walls[0] * 1e3:.1f} ms, total {walls[-1] * 1e3:.1f} ms, CUDA events {ev:.1f} ms, "
         f"{s_audio.shape[-1] / sr / walls[-1]:.2f} audio-s/s; launches {got} (expected K4/K5 "
@@ -2827,6 +3079,10 @@ def phase_levers(dev, wrappers: dict, tts) -> dict:
     if {k: got[k] for k in want_s} != want_s or not np.isfinite(s_audio).all():
         raise SystemExit(f"int8 (d): stream launches {got}, expected {want_s}")
     out["int8_stream"] = got
+    (walls, s_audio), wall, ev, got = counted(lambda: stream(tts.dit_params))
+    log(f"# int8 (d) the same stream on the bf16 trunk: first audio {walls[0] * 1e3:.1f} ms, "
+        f"total {walls[-1] * 1e3:.1f} ms, CUDA events {ev:.1f} ms, "
+        f"{s_audio.shape[-1] / sr / walls[-1]:.2f} audio-s/s")
     split = lap("int8 d", split)
 
     # (e) Engine(int8=True) behind the HTTP server
@@ -2842,7 +3098,7 @@ def phase_levers(dev, wrappers: dict, tts) -> dict:
         same = status == 200 and body == wav_bytes(direct[0], sr)
         log(f"# int8 (e) Engine(int8=True) POST /tts (i): client wall {cwall:.1f} ms, equal to "
             f"the direct call on the engine's int8 params: {same}; launches {got}")
-        if not same or got["int8_gemm"] != 8 * per_fwd:
+        if not same or got["int8_gemm"] != 4 * per_fwd:
             raise SystemExit("int8 (e): the int8 /tts differs from the direct call")
         sc_j = dataclasses.replace(sc, joint_uncond=True)
         (status, _, body_j, cwall), _, _, got = counted(
@@ -3081,6 +3337,7 @@ def main(argv) -> int:
         phase_build()
         phase_core_check(dev)
         phase_conv_core_check(dev)
+        phase_int8_core_check(dev)
         errs = phase_kernel_checks(dev)
         errs.update(phase_int8_checks(dev))
         errs.update(phase_variant_checks(dev))

@@ -9,7 +9,9 @@ symmetric, with no calibration data:
 * activations: per-row int8 codes, `scale = amax_D |h| / 127`, computed on
   the fly (`quant_rows`: kernel K5 on the card, `ops/quant_rows.py`);
 * product: int8 x int8 -> int32, dequantized as `acc · (s_row · s_col)` into
-  the activation's dtype (`qdot`: kernel K4 on the card, `ops/int8_gemm.py`).
+  the activation's dtype (`qdot`: kernel K4 on the card, `ops/int8_gemm.py`);
+  the projections of one activation (`proj_shared`) share one quantization
+  and one K4 launch (`int8_gemm_grouped`, up to four weights a launch).
 
 A quantized leaf is the dict `{"q": int8, "s": fp32 (…, N)}` and the forward
 dispatches on it structurally (`mm`, `proj_shared`, `swiglu_mlp_q`), so the
@@ -33,7 +35,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from echo_tts_tpu_torch.ops.int8_gemm import int8_gemm
+from echo_tts_tpu_torch.ops.int8_gemm import MAX_GROUPS, int8_gemm, int8_gemm_grouped
 from echo_tts_tpu_torch.ops.quant_rows import quant_rows
 
 _ATTN_KEYS = ("wq", "wk", "wv", "gate", "wo")
@@ -108,12 +110,19 @@ def mm(h: torch.Tensor, w) -> torch.Tensor:
 
 
 def proj_shared(h: torch.Tensor, ws: list) -> list:
-    """Several projections of the same activation (q/k/v/gate; w1/w3):
-    quantized weights share one row quantization of h."""
-    if is_quantized(ws[0]):
-        q, s = quant_rows(h)
-        return [qdot(q, s, w, h.dtype) for w in ws]
-    return [h @ w for w in ws]
+    """Several projections of the same activation (q/k/v/gate; w1/w3; a
+    context's k/v): quantized weights share one row quantization of h and
+    one grouped K4 launch for up to four of them."""
+    if not is_quantized(ws[0]):
+        return [h @ w for w in ws]
+    q, s = quant_rows(h)
+    lead = q.shape[:-1]
+    q2, s2 = q.reshape(-1, q.shape[-1]), s.reshape(-1)
+    outs = []
+    for i in range(0, len(ws), MAX_GROUPS):
+        outs += int8_gemm_grouped(q2, s2, [(w["q"], w["s"]) for w in ws[i:i + MAX_GROUPS]],
+                                  h.dtype)
+    return [o.reshape(*lead, o.shape[-1]) for o in outs]
 
 
 def swiglu_mlp_q(x: torch.Tensor, p: dict) -> torch.Tensor:

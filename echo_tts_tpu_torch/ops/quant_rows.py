@@ -10,15 +10,37 @@ For h (…, D) in bf16 or fp32, cast to fp32, per row:
 `quant_rows` runs the hand-written CUDA kernel (`csrc/quant_rows.cu`) for
 CUDA tensors and `quant_rows_plain` for CPU tensors; anything the kernel
 does not take raises. `quant_rows.launches` counts kernel launches. The
-kernel divides (no reciprocal) and rounds with `rintf`, and the build keeps
-IEEE division (no fast math), so its codes and scales equal the plain
-version's bit for bit.
+kernel's codes are `rintf` of the IEEE quotient (the build has no fast
+math): it multiplies by 1 / s, which lies within 1e-4 of the quotient, and
+divides only where that product is so close to a half-integer that the two
+could round apart; so its codes and scales equal the plain version's bit
+for bit. Rows of the widths the trunk and the encoders
+quantize (`one_read`: D = 1280, 2048, 3328, 5888) are read once and held in
+registers; any other D (a multiple of 8) is read twice.
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+
+# the kernel's (chunks a lane, warps a row) instances that hold a row in
+# registers: D = 1280, 2048, 3328, 5888 in each type
+ONE_READ = {torch.bfloat16: {(3, 2), (4, 2), (4, 4), (3, 8)},
+            torch.float32: {(3, 4), (4, 4), (4, 8), (6, 8)}}
+
+
+def one_read(d: int, dtype: torch.dtype) -> bool:
+    """Whether the kernel reads rows of width d once (held in registers):
+    the least of 1, 2, 4, 8 warps a row that leaves a lane at most four
+    16-byte chunks, and an instance for that split."""
+    if d < 8 or d % 8 or dtype not in ONE_READ:
+        return False
+    chunks = d * dtype.itemsize // 16
+    wpr = 1
+    while wpr < 8 and chunks > 4 * 32 * wpr:
+        wpr *= 2
+    return (-(-chunks // (32 * wpr)), wpr) in ONE_READ[dtype]
 
 
 def quant_rows_plain(h: torch.Tensor):
@@ -70,13 +92,13 @@ def quant_rows(h: torch.Tensor):
     """(…, D) -> (int8 codes (…, D), fp32 scales (…, 1)). CPU tensors take
     the plain version; CUDA tensors launch the kernel or raise. No
     gradient: int8 is inference only."""
-    if h.device.type == "cpu":
+    if not h.is_cuda:
+        if h.device.type != "cpu":
+            raise ValueError(f"unsupported device {h.device}")
         return quant_rows_plain(h)
     if torch.is_grad_enabled() and h.requires_grad:
         raise RuntimeError("quant_rows: kernel K5 has no backward (int8 is inference only); "
                            "call it under torch.no_grad()")
-    if h.device.type != "cuda":
-        raise ValueError(f"unsupported device {h.device}")
     return _quant_rows_cuda(h)
 
 

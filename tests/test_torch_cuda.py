@@ -3,8 +3,9 @@ K2 residual units, K3 the attention backward, and the measurement variants
 K1v, K2v-cl, K2v-cf, K2s; the bare checks of the attention and conv cores;
 K1 and K2 at the streaming path's shapes and one stateful decode step, K1
 and K2 at a continuous group's B=4 with one position a row, K1 with no
-context segment or the latent one alone; the int8 kernels K4 and K5 bit for
-bit, and an int8 forward against bf16),
+context segment or the latent one alone; the int8 kernels K4 (one weight,
+grouped, every tile shape, its bare s8 core) and K5 bit for bit, and an int8
+forward against bf16),
 each against its plain
 PyTorch version in fp32 on the same bf16 inputs (rel-L2 < 2e-2: bf16
 rounding gives ~1e-3, a wrong kernel O(1)). Every test needs a CUDA card and skips without one. The
@@ -674,10 +675,12 @@ def test_joint_attention_kernel_with_no_context_segment(cuda_device, latent, g, 
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
-@pytest.mark.parametrize("m,d", [(1920, 2048), (192, 5888), (37, 2048)])
+@pytest.mark.parametrize("m,d", [(1920, 2048), (192, 5888), (37, 2048), (768, 1280), (1600, 3328),
+                                 (37, 1000), (64, 7000)])
 def test_quant_rows_kernel_matches_plain_bit_for_bit(cuda_device, m, d, dtype):
     """K5's codes and scales equal the plain version's (on the CPU: IEEE
-    division, round half to even), an all-zero row included."""
+    division, round half to even), an all-zero row included: the four
+    widths the paths quantize (one read of a row) and two others (two)."""
     from echo_tts_tpu_torch.ops import quant_rows as tqr
 
     gen = torch.Generator(device=cuda_device).manual_seed(m + d)
@@ -691,24 +694,115 @@ def test_quant_rows_kernel_matches_plain_bit_for_bit(cuda_device, m, d, dtype):
     assert torch.equal(q.cpu(), rq) and torch.equal(s.cpu(), rs)
 
 
-@pytest.mark.parametrize("m,k,n", [(1920, 2048, 5888), (192, 5888, 2048), (1, 2048, 2048),
-                                   (37, 1040, 200)])
-def test_int8_gemm_kernel_matches_plain_bit_for_bit(cuda_device, m, k, n):
-    """K4's int32 sums and its bf16 and fp32 outputs equal the plain
-    version's (float64 sums, exact at these K)."""
+def _int8_case(device, m, k, ns, seed):
     from echo_tts_tpu_torch.models.quant import quantize_weight
-    from echo_tts_tpu_torch.ops import int8_gemm as tig
     from echo_tts_tpu_torch.ops.quant_rows import quant_rows_plain
 
-    gen = torch.Generator(device=cuda_device).manual_seed(m + k + n)
-    a, s_row = quant_rows_plain(torch.randn(m, k, generator=gen, device=cuda_device))
-    w = quantize_weight((torch.rand(k, n, generator=gen, device=cuda_device) - 0.5) * k ** -0.5)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    a, s_row = quant_rows_plain(torch.randn(m, k, generator=gen, device=device))
+    ws = [quantize_weight((torch.rand(k, n, generator=gen, device=device) - 0.5) * k ** -0.5)
+          for n in ns]
+    return a, s_row.reshape(-1), [(w["q"], w["s"]) for w in ws]
+
+
+_TRUNK = [(2048, 2048), (2048, 5888), (5888, 2048)]
+_ENCODERS = [(1280, 1280), (1280, 3328), (3328, 1280), (1280, 2048)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("d", [2048, 1000])
+def test_quant_rows_kernel_at_half_integer_quotients(cuda_device, d, dtype):
+    """K5 multiplies by 1 / s and divides only where the product lies within
+    1e-4 of a half-integer: rows whose quotients sit on half-integers (s = 1:
+    exact ties, half to even) or a few ulps from them still give the plain
+    version's codes, in the one-read and the two-read instance."""
+    from echo_tts_tpu_torch.ops import quant_rows as tqr
+
+    gen = torch.Generator(device=cuda_device).manual_seed(d)
+    m = 256
+    amax = torch.rand(m, 1, generator=gen, device=cuda_device) * 10 + 0.01
+    amax[: m // 2] = 127.0
+    k = torch.randint(-127, 127, (m, d), generator=gen, device=cuda_device).float() + 0.5
+    x = k * (amax / 127.0)
+    for _ in range(2):
+        step = torch.randint(-1, 2, (m, d), generator=gen, device=cuda_device).float()
+        x = torch.where(step == 0, x, torch.nextafter(x, step * torch.inf))
+    x[:, :1] = amax
+    h = x.to(dtype)
+    q, s = tqr.quant_rows(h)
+    torch.cuda.synchronize()
+    rq, rs = tqr.quant_rows_plain(h.cpu())
+    assert torch.equal(q.cpu(), rq) and torch.equal(s.cpu(), rs)
+
+
+@pytest.mark.parametrize("m,k,n", [(1920, 2048, 5888), (192, 5888, 2048), (1, 2048, 2048),
+                                   (37, 1040, 200)]
+                         + [(m, k, n) for m in (64, 576, 640, 2560, 7680) for k, n in _TRUNK]
+                         + [(m, k, n) for m in (768, 1600) for k, n in _ENCODERS]
+                         + [(640, 2064, 2048), (37, 1040, 203)])
+def test_int8_gemm_kernel_matches_plain_bit_for_bit(cuda_device, m, k, n):
+    """K4's int32 sums and its bf16 and fp32 outputs equal the plain
+    version's (float64 sums, exact at these K): every M the int8 paths
+    launch, the encoders' shapes, K a multiple of 16 and not of 128, an odd
+    N."""
+    from echo_tts_tpu_torch.ops import int8_gemm as tig
+
+    a, s_row, ((w, s_col),) = _int8_case(cuda_device, m, k, (n,), m + k + n)
     for dtype in (torch.int32, torch.bfloat16, torch.float32):
         before = tig.int8_gemm.launches
-        got = tig.int8_gemm(a, s_row.reshape(-1), w["q"], w["s"], dtype)
+        got = tig.int8_gemm(a, s_row, w, s_col, dtype)
         torch.cuda.synchronize()
         assert tig.int8_gemm.launches == before + 1
-        assert torch.equal(got, tig.int8_gemm_plain(a, s_row.reshape(-1), w["q"], w["s"], dtype))
+        assert torch.equal(got, tig.int8_gemm_plain(a, s_row, w, s_col, dtype))
+
+
+@pytest.mark.parametrize("m,k,ns", [(m, 2048, (2048,) * 4) for m in (64, 192, 576, 1920, 7680)]
+                         + [(m, 2048, (5888,) * 2) for m in (64, 576, 1920)]
+                         + [(m, 1280, (2048,) * 2) for m in (768, 1600)]
+                         + [(37, 1040, (200, 2048, 72, 203))])
+def test_int8_gemm_grouped_kernel_matches_plain_bit_for_bit(cuda_device, m, k, ns):
+    """One grouped K4 launch (q/k/v/gate, w1/w3, a context's k/v; four
+    unequal N) equals the plain GEMM a weight, in every output type."""
+    from echo_tts_tpu_torch.ops import int8_gemm as tig
+
+    a, s_row, ws = _int8_case(cuda_device, m, k, ns, m + k + sum(ns))
+    for dtype in (torch.int32, torch.bfloat16, torch.float32):
+        before = tig.int8_gemm.launches
+        got = tig.int8_gemm_grouped(a, s_row, ws, dtype)
+        torch.cuda.synchronize()
+        assert tig.int8_gemm.launches == before + 1
+        for out, ref in zip(got, tig.int8_gemm_grouped_plain(a, s_row, ws, dtype)):
+            assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("tile", [(128, 256), (128, 128), (64, 256), (64, 128)])
+@pytest.mark.parametrize("m,k,ns", [(1920, 2048, (2048,)), (192, 5888, (2048,)),
+                                    (37, 1040, (203,)), (576, 2048, (2048,) * 4)])
+def test_int8_gemm_kernel_every_tile(cuda_device, tile, m, k, ns):
+    """Each tile shape of K4, forced, gives the plain version's bits."""
+    from echo_tts_tpu_torch.ops import int8_gemm as tig
+
+    a, s_row, ws = _int8_case(cuda_device, m, k, ns, 7 + m + k)
+    for dtype in (torch.int32, torch.bfloat16):
+        got = tig.int8_gemm_grouped(a, s_row, ws, dtype, tile=tile)
+        torch.cuda.synchronize()
+        for out, ref in zip(got, tig.int8_gemm_grouped_plain(a, s_row, ws, dtype)):
+            assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("use_tma", [False, True], ids=["threads", "tma"])
+@pytest.mark.parametrize("n", [64, 128, 256])
+def test_int8_core_products_match_int_mm(cuda_device, n, use_tma):
+    """The s8 wgmma core bare on one tile (csrc/int8_core.cuh through
+    int8_gemm.cu's check entry) equals torch._int_mm."""
+    from echo_tts_tpu_torch.ops import int8_gemm as tig
+
+    gen = torch.Generator(device=cuda_device).manual_seed(n)
+    a = torch.randint(-127, 128, (64, 128), generator=gen, device=cuda_device, dtype=torch.int8)
+    b = torch.randint(-127, 128, (n, 128), generator=gen, device=cuda_device, dtype=torch.int8)
+    got = tig.core_products_s8(a, b, use_tma)
+    torch.cuda.synchronize()
+    assert torch.equal(got, torch._int_mm(a, b.t().contiguous()))
 
 
 def test_int8_wrappers_refuse_bad_inputs(cuda_device):
@@ -731,13 +825,23 @@ def test_int8_wrappers_refuse_bad_inputs(cuda_device):
         tqr.quant_rows(a)
     with pytest.raises(RuntimeError, match="no backward"):
         tqr.quant_rows(torch.zeros(4, 16, device=cuda_device, requires_grad=True))
+    a32 = torch.zeros(4, 64, dtype=torch.int8, device=cuda_device)
+    w = (torch.zeros(16, 64, dtype=torch.int8, device=cuda_device),
+         torch.ones(16, device=cuda_device))
+    with pytest.raises(ValueError):
+        tig.int8_gemm_grouped(a32, s, [w] * 5, torch.bfloat16)  # more than a launch takes
+    with pytest.raises(ValueError):
+        tig.int8_gemm_grouped(a32, s, [w, (w[0][:, :32].contiguous(), w[1])], torch.bfloat16)
+    with pytest.raises(ValueError):
+        tig.int8_gemm(a32, s, *w, torch.bfloat16, tile=(64, 64))  # no such instance
     assert (tig.int8_gemm.launches, tqr.quant_rows.launches) == before
 
 
 def test_int8_forward_on_the_card_tracks_bf16(cuda_device):
     """A small DiT's joint-uncond CFG forward on the int8 trunk (K4 and K5,
-    eight K4 launches a layer) tracks the bf16 forward within 5 % a branch,
-    the bound of the JAX package's own test."""
+    four K4 launches a layer: q/k/v/gate and w1/w3 grouped, wo, w2) tracks
+    the bf16 forward within 5 % a branch, the bound of the JAX package's own
+    test."""
     from echo_tts_tpu_torch.core.config import DiTConfig
     from echo_tts_tpu_torch.models.quant import quantize_dit_params
     from echo_tts_tpu_torch.ops import int8_gemm as tig
@@ -760,7 +864,7 @@ def test_int8_forward_on_the_card_tracks_bf16(cuda_device):
         ks = tdit.get_kv_cache_speaker(p, cfg, spk)
         before = tig.int8_gemm.launches
         got = tdit.dit_forward_cfg(qp, cfg, x, t_b, tm, sm, kt, ks, joint_uncond=True)
-        assert tig.int8_gemm.launches - before == 8 * cfg.num_layers
+        assert tig.int8_gemm.launches - before == 4 * cfg.num_layers
         ref = tdit.dit_forward_cfg(p, cfg, x, t_b, tm, sm, kt, ks, joint_uncond=True)
     assert got.shape == (2, 1, 64, cfg.latent_size) and torch.isfinite(got).all()
     for i in range(2):

@@ -244,3 +244,114 @@ def test_int8_wrappers_refuse_other_devices():
     s = torch.zeros(4, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         tig.int8_gemm(a, s, a, s, torch.bfloat16)
+
+
+def _grouped_operands(rng, m, k, ns):
+    a = rng.integers(-127, 128, (m, k)).astype(np.int8)
+    sr = rng.random(m).astype(np.float32)
+    ws = [(t(rng.integers(-127, 128, (n, k)).astype(np.int8)), t(rng.random(n).astype(np.float32)))
+          for n in ns]
+    return t(a), t(sr), ws
+
+
+@pytest.mark.parametrize("ns", [(72,), (48, 48), (200, 128, 72, 203)])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32, torch.bfloat16])
+def test_int8_gemm_grouped_equals_one_product_a_weight(ns, dtype):
+    """int8_gemm_grouped's outputs, each its own tensor, equal int8_gemm once
+    a weight bit for bit (unequal N, int32 sums and both float outputs)."""
+    a, sr, ws = _grouped_operands(np.random.default_rng(len(ns)), 9, 48, ns)
+    got = tig.int8_gemm_grouped(a, sr, ws, dtype)
+    assert len(got) == len(ws)
+    for out, (w, sc) in zip(got, ws):
+        assert out.dtype == dtype and tuple(out.shape) == (9, w.shape[0])
+        assert torch.equal(out, tig.int8_gemm(a, sr, w, sc, dtype))
+    assert len({o.data_ptr() for o in got}) == len(got)
+
+
+def test_int8_gemm_grouped_refuses_what_no_launch_takes():
+    a, sr, ws = _grouped_operands(np.random.default_rng(7), 4, 32, (16,) * 5)
+    with pytest.raises(ValueError, match="1 to 4 weights"):
+        tig.int8_gemm_grouped(a, sr, [], torch.float32)
+    with pytest.raises(ValueError, match="1 to 4 weights"):
+        tig.int8_gemm_grouped(a, sr, ws, torch.float32)
+    other_k = (t(np.zeros((16, 48), np.int8)), ws[0][1])
+    with pytest.raises(ValueError, match="one K"):
+        tig.int8_gemm_grouped(a, sr, [ws[0], other_k], torch.float32)
+    with pytest.raises(ValueError, match="unsupported device"):
+        meta = torch.zeros(4, 32, dtype=torch.int8, device="meta")
+        tig.int8_gemm_grouped(meta, torch.zeros(4, device="meta"),
+                              [(torch.zeros(16, 32, dtype=torch.int8, device="meta"),
+                                torch.zeros(16, device="meta"))], torch.float32)
+
+
+@pytest.mark.parametrize("count", [2, 4, 6])
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_proj_shared_grouped_matches_qdot_and_jax(count, dtype):
+    """The grouped proj_shared (one quantization, launches of up to four
+    weights) equals one qdot a weight bit for bit, and the JAX package's
+    proj_shared (run op by op) bit for bit in fp32."""
+    rng = np.random.default_rng(10 + count)
+    h = rng.standard_normal((2, 5, 32)).astype(np.float32)
+    ws = [rng.standard_normal((32, n)).astype(np.float32) * 0.2
+          for n in (48, 24, 48, 40, 16, 48)[:count]]
+    _, jh, th = _as(h, dtype)
+    tws = [tquant.quantize_weight(t(w).to(th.dtype)) for w in ws]
+    got = tquant.proj_shared(th, tws)
+    q, s = tquant.quant_rows(th)
+    for out, w in zip(got, tws):
+        assert out.dtype == th.dtype and torch.equal(out, tquant.qdot(q, s, w, th.dtype))
+    if dtype == "fp32":
+        jws = [jquant.quantize_weight(jnp.asarray(w)) for w in ws]
+        for out, ref in zip(got, jquant.proj_shared(jh, jws)):
+            np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+
+
+def test_int8_forward_launch_schedule(fp32_params, monkeypatch):
+    """A layer of the int8 trunk makes four K4 calls (q/k/v/gate and w1/w3
+    grouped, wo and w2 alone) and four K5 calls; the context K/V of each
+    layer one grouped call when the encoders are quantized."""
+    _, tp = fp32_params
+    tq = tquant.quantize_dit_params(tp, encoders=True)
+    calls = {"grouped": [], "single": 0, "rows": 0}
+    grouped, single, rows = tquant.int8_gemm_grouped, tquant.int8_gemm, tquant.quant_rows
+
+    def count_grouped(a, s, ws, dtype):
+        calls["grouped"].append(len(ws))
+        return grouped(a, s, ws, dtype)
+
+    def count_single(*args):
+        calls["single"] += 1
+        return single(*args)
+
+    def count_rows(h):
+        calls["rows"] += 1
+        return rows(h)
+
+    monkeypatch.setattr(tquant, "int8_gemm_grouped", count_grouped)
+    monkeypatch.setattr(tquant, "int8_gemm", count_single)
+    monkeypatch.setattr(tquant, "quant_rows", count_rows)
+    d = _forward_inputs(8)
+    n = CFG.num_layers
+    with torch.no_grad():
+        kt = tdit.get_kv_cache_text(tq, CFG, t(d["ids"]), t(d["tmask"]))
+        ks = tdit.get_kv_cache_speaker(tq, CFG, t(d["spk"]))
+        enc = (CFG.text_num_layers + CFG.speaker_num_layers)
+        assert calls["grouped"] == [4, 2] * CFG.text_num_layers + [2] * n + \
+            [4, 2] * CFG.speaker_num_layers + [2] * n
+        assert calls["single"] == 2 * enc and calls["rows"] == 4 * enc + 2 * n
+        calls.update(grouped=[], single=0, rows=0)
+        tdit.dit_forward_cfg(tq, CFG, t(d["x"]), t(d["t"]), t(d["tmask"]), t(d["smask"]), kt,
+                             ks)
+    assert calls["grouped"] == [4, 2] * n and calls["single"] == 2 * n
+    assert calls["rows"] == 4 * n
+
+
+@pytest.mark.parametrize("d,dtype,once", [
+    (1280, torch.bfloat16, True), (2048, torch.bfloat16, True), (3328, torch.bfloat16, True),
+    (5888, torch.bfloat16, True), (1280, torch.float32, True), (5888, torch.float32, True),
+    (1000, torch.bfloat16, False), (7000, torch.bfloat16, False), (7000, torch.float32, False),
+    (48, torch.float32, False)])
+def test_quant_rows_reads_the_paths_widths_once(d, dtype, once):
+    """K5 holds a row in registers (one read) at the four widths the trunk
+    and the encoders quantize, in both types, and reads any other row twice."""
+    assert tqr.one_read(d, dtype) == once
