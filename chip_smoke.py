@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py                 # every phase
     python3 chip_smoke.py --kernels-only  # build + kernel checks + kernel times
-    python3 chip_smoke.py --slices-only   # phases 1, 5, 6, 9-12 only (K1-K5 built)
+    python3 chip_smoke.py --slices-only   # phases 1, 5, 6, 9-13 only (K1-K5 built)
+    python3 chip_smoke.py --checkpoints-only  # phases 1, 2 (K1-K5) and 13
 
 Phases, in order; any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi), torch/CUDA/nvcc versions;
@@ -87,7 +88,7 @@ Phases, in order; any failure exits non-zero:
      (64, 192), its chunks equal to sample_pipeline_stream's PCM16 (time to
      first chunk at the client); four concurrent /tts of one batch key on
      Engine(max_batch=4): one batch, one request's K1 and decode K2, every
-     row equal to its solo run, aggregate audio-s/s; run_trace (6 streams of
+     row equal to its solo run, aggregate audio-s/s; run_trace (4 streams of
      640 latents at 0.5/s, 64-latent blocks) on a continuous, a dispatch and
      a continuous engine without the fast join: TTFA and completion p50/p95,
      achieved audio-s/s, one continuous
@@ -108,6 +109,23 @@ Phases, in order; any failure exits non-zero:
      behind the HTTP server: /tts byte-equal to the direct call, set_lora
      re-quantizing the merge and reverting to the int8 base bytes, a /tts
      with "joint_uncond" in the body;
+ 13. (run after 12, on weights of its own) checkpoints and the entry points
+     that load them: DiTConfig() with its latent modules in bf16 (random
+     values from bench/fast_init.py), AEConfig() in fp32 with weight-norm
+     pairs and a PCA state, written under the reference's tensor names by
+     the port's safetensors writer and loaded back (the DiT with and without
+     its blockwise modules), every leaf against what was written, with
+     write and load seconds and the peak host RSS; serve --dit/--ae/--pca
+     behind HTTP (/tts request (i) equal to the direct call, K1 1920 and K2
+     12; the same as "format": "mp3", decoded by libmpg123, correlation >
+     0.99); --int8 --int8-cache twice (quantize and save, then load; equal
+     bodies, K4 and K5 3840 each); batch_synthesize at --max-batch 4 with a
+     20 s 48 kHz prompt as WAV and as MP3, every WAV equal to its row of the
+     direct batch call; finetune_lora one epoch over three 29.72 s clips (K3)
+     and its adapter through /lora and back; convert_checkpoint ae and dit
+     reloaded to the same bits; the native resampler against scipy,
+     get_delay, and decode_codes against decode_zq (K2 12). The MP3 steps
+     print "mp3: skipped" where the libraries are missing;
   7. the measurement path: the entry points of echo_tts_tpu_torch/bench/
      (attention_variants, conv_kernel_variants, conv_variants, attention,
      profile_breakdown) at their full shapes, each printing its JSON line,
@@ -201,6 +219,13 @@ def phase_environment():
                           text=True, check=True).stdout.strip().splitlines()[-1]
     log(f"# card: {smi}")
     log(f"# torch {torch.__version__}, CUDA {torch.version.cuda}, nvcc: {nvcc}")
+    from echo_tts_tpu_torch.native import mp3_py
+
+    gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True,
+                         check=True).stdout.splitlines()[0]
+    log(f"# host codecs: g++ {gxx}; libmpg123 "
+        f"{'loaded' if mp3_py.mp3_available() else 'not found'}, libmp3lame "
+        f"{'loaded' if mp3_py.mp3_encode_available() else 'not found'}")
     return smi
 
 
@@ -2512,6 +2537,11 @@ def phase_batch(dev, wrappers: dict, tts) -> dict:
 # ---------------------------------------------------------------------------
 
 
+# phase 11 (d): streams in a trace; four keep the first arrivals' burst of
+# three and hold the whole script well inside its time limit
+TRACE_STREAMS = 4
+
+
 def http_call(port: int, method: str, path: str, body=None):
     """(status, headers, body bytes, client wall ms) of one request."""
     import http.client
@@ -2565,7 +2595,7 @@ def phase_serve(dev, wrappers: dict, tts) -> dict:
     server decodes it; (b) /tts_stream of (ii) on (64, 192), its chunks equal
     to the PCM16 of sample_pipeline_stream's; (c) four concurrent /tts of one
     batch key on Engine(max_batch=4): one batch, K1 and the decode's K2 as one
-    request's, every row equal to its solo run; (d) run_trace, 6 streams of
+    request's, every row equal to its solo run; (d) run_trace, 4 streams of
     640 latents at 0.5 requests/s on 64-latent blocks, on a continuous, a
     dispatch and a continuous engine without the fast join, one continuous
     row against its solo stream; (e)
@@ -2744,11 +2774,12 @@ def phase_serve(dev, wrappers: dict, tts) -> dict:
 
             eng_t.generate_stream = tee
             torch.cuda.reset_peak_memory_stats(dev)
-            s, got = serving(lambda: run_trace(eng_t, sc, 6, 0.5, block_size=64, seed=0,
-                                               timeout_s=600))
+            s, got = serving(lambda: run_trace(eng_t, sc, TRACE_STREAMS, 0.5, block_size=64,
+                                               seed=0, timeout_s=600))
             st = eng_t.health()
             traces[mode] = dict(s, batches=st["batches"], launches=got)
-            log(f"# serving (d) run_trace {mode}, 6 streams of 640 latents at 0.5/s, 64-latent "
+            log(f"# serving (d) run_trace {mode}, {TRACE_STREAMS} streams of 640 latents at 0.5/s, "
+                f"64-latent "
                 f"blocks: TTFA p50 {s['ttfa_p50_s'] * 1e3:.1f} / p95 {s['ttfa_p95_s'] * 1e3:.1f} "
                 f"ms, completion p50 {s['completion_p50_s'] * 1e3:.1f} / p95 "
                 f"{s['completion_p95_s'] * 1e3:.1f} ms, **{s['achieved_audio_s_per_s']} "
@@ -2756,9 +2787,9 @@ def phase_serve(dev, wrappers: dict, tts) -> dict:
                 f"{s['makespan_s']} s; n_ok {s['n_ok']}, n_hung {s['n_hung']}, errors "
                 f"{s['errors']}; batches {st['batches']}; peak memory "
                 f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; launches {got}")
-            need(s["n_ok"] == 6 and s["n_hung"] == 0, f"(d) {mode}: {s}")
+            need(s["n_ok"] == TRACE_STREAMS and s["n_hung"] == 0, f"(d) {mode}: {s}")
             if mode == "continuous":
-                seed = 1005
+                seed = 1000 + TRACE_STREAMS - 1
                 text, parts = streams[seed]
                 row = np.concatenate(parts, -1)
                 ref = np.concatenate(list(pl.sample_pipeline_stream(
@@ -3303,12 +3334,437 @@ def phase_train_grad_check(tts, dev, lora, lc, batch) -> None:
         raise SystemExit("the full-width LoRA gradient disagrees with the plain attention's")
 
 
+# ---------------------------------------------------------------------------
+# phase 13: checkpoints, the native host codecs and the checkpoint-driven
+# entry points at full width
+# ---------------------------------------------------------------------------
+
+CKPT_DIR = os.path.join(HERE, "build", "echo_tts_tpu_torch", "ckpt")
+CKPT_MIN_FREE_GB = 20.0
+
+
+def peak_rss_gib() -> float:
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+
+
+def wav_pcm(body: bytes) -> np.ndarray:
+    """A /tts WAV body's samples as float in [-1, 1]."""
+    return np.frombuffer(body[44:], "<i2").astype(np.float64) / 32768.0
+
+
+def mp3_against_wav(mp3: bytes, wav: bytes, sr: int, tmp: str) -> dict:
+    """Decode an MP3 body with the port's libmpg123 route and hold it
+    against the WAV body of the same audio: the lengths (the MP3 longer by
+    the codec's delay and padding, up to three 1152-sample frames) and the
+    correlation after aligning out the delay (the lag of the largest
+    cross-correlation), over the whole band and below 16 kHz (the band the
+    192 kb/s encoder keeps: above its lowpass a noise-like signal loses
+    what no MP3 carries). The gate is the second above 0.99."""
+    from scipy.signal import butter, correlate, sosfiltfilt
+
+    from echo_tts_tpu_torch.native.mp3_py import decode_mp3
+
+    path = os.path.join(tmp, "body.mp3")
+    with open(path, "wb") as f:
+        f.write(mp3)
+    y, sr_y = decode_mp3(path)
+    x, y = wav_pcm(wav), y[0].astype(np.float64)
+    head = min(x.size, 10 * sr)
+    lag = int(np.argmax(correlate(y[:head + 3 * 1152], x[:head], mode="valid", method="fft")))
+    n = min(x.size, y.size - lag)
+    full = float(np.corrcoef(x[:n], y[lag:lag + n])[0, 1])
+    sos = butter(8, 16000, fs=sr, output="sos")
+    band = float(np.corrcoef(sosfiltfilt(sos, x[:n]), sosfiltfilt(sos, y[lag:lag + n]))[0, 1])
+    return {"sr": sr_y, "wav_samples": x.size, "mp3_samples": y.size, "lag": lag,
+            "corr": full, "corr_below_16khz": band, "wav_peak": float(np.abs(x).max()),
+            "ok": sr_y == sr and 0 <= y.size - x.size <= 3 * 1152 and band > 0.99}
+
+
+def phase_checkpoints(dev, wrappers: dict) -> dict:
+    """The checkpoint layer and its entry points at full width, from files
+    written here under the reference's tensor names (no published weights
+    are in the repo): (a) DiTConfig() with its latent modules in bf16 (fast
+    random values, bench/fast_init.py), AEConfig() in fp32 with weight-norm
+    pairs (the port's initializer) and a PCA state, written by the port's
+    safetensors writer and loaded back (the DiT stripped and whole), every
+    leaf against what was written; (b) `serve --dit/--ae/--pca` behind HTTP:
+    /tts request (i) equal to the direct sample_pipeline, and as MP3; (c)
+    `--int8 --int8-cache` twice: quantize and save, then load; equal bodies;
+    (d) `batch_synthesize` (four requests at --max-batch 4, a 20 s 48 kHz
+    WAV prompt and the same prompt as MP3), every WAV equal to its row of
+    the direct sample_pipeline_batch; (e) `finetune_lora` one epoch over
+    three 29.72 s clips, its adapter through /lora and back; (f)
+    `convert_checkpoint` ae and dit, reloaded to the same bits; (g) the
+    native resampler against scipy, get_delay / get_output_length, and
+    decode_codes against decode_zq(codes_to_zq). Files go to
+    build/echo_tts_tpu_torch/ckpt/ and are deleted when their step is done.
+    Returns the launches of the driven entry points."""
+    import base64
+    import shutil
+    import tempfile
+
+    from echo_tts_tpu_torch.bench.fast_init import fast_random_like
+    from echo_tts_tpu_torch.bench.init_ae import init_ae_params
+    from echo_tts_tpu_torch.checkpoints import convert as cv
+    from echo_tts_tpu_torch.checkpoints import io as cio
+    from echo_tts_tpu_torch.checkpoints.from_jax import ae_params_from_numpy, dit_params_from_numpy
+    from echo_tts_tpu_torch.checkpoints.safetensors import SafeTensorsFile, load_numpy, save_file
+    from echo_tts_tpu_torch.core.config import AEConfig, DiTConfig, SamplerConfig
+    from echo_tts_tpu_torch.models import s1dac
+    from echo_tts_tpu_torch.models.dit import init_dit_params
+    from echo_tts_tpu_torch.models.pca import PCAState
+    from echo_tts_tpu_torch.native import mp3_py
+    from echo_tts_tpu_torch.native.resample_py import resample_native
+    from echo_tts_tpu_torch.pipeline import pipeline as pl
+    from echo_tts_tpu_torch.pipeline.audio_io import load_audio, write_wav
+    from echo_tts_tpu_torch.scripts import batch_synthesize, convert_checkpoint, finetune_lora
+    from echo_tts_tpu_torch.serve import __main__ as serve_main
+    from echo_tts_tpu_torch.serve.server import serve, wav_bytes
+    from echo_tts_tpu_torch.train.loop import tree_leaves
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from torch_parity import reference_ae_state, reference_dit_state, tree_diffs
+
+    t_phase = time.perf_counter()
+    os.makedirs(CKPT_DIR, exist_ok=True)
+    free_gb = shutil.disk_usage(CKPT_DIR).free / 1e9
+    log(f"# checkpoints: {free_gb:.1f} GB free under {CKPT_DIR}")
+    if free_gb < CKPT_MIN_FREE_GB:
+        raise SystemExit(f"checkpoints: {free_gb:.1f} GB free under {CKPT_DIR}, the phase "
+                         f"writes about 7.2 GB at once and needs {CKPT_MIN_FREE_GB:.0f} GB")
+    tmp = tempfile.mkdtemp(prefix="ckpt_", dir=CKPT_DIR)
+    paths = {k: os.path.join(tmp, f"{k}.safetensors") for k in ("dit", "ae", "pca")}
+    mp3_enc, mp3_dec = mp3_py.mp3_encode_available(), mp3_py.mp3_available()
+    driven = {k: 0 for k in wrappers}
+
+    def counted(fn):
+        for w in wrappers.values():
+            w.launches = 0
+        out = fn()
+        torch.cuda.synchronize(dev)
+        got = {k: w.launches for k, w in wrappers.items()}
+        for k in driven:
+            driven[k] += got[k]
+        return out, got
+
+    def need(ok, what):
+        if not ok:
+            raise SystemExit(f"checkpoints {what}")
+
+    def lap13(name, since):
+        now = time.perf_counter()
+        log(f"# checkpoints ({name}) took {now - since:.1f} s")
+        return now
+
+    def timed(fn):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize(dev)
+        return out, time.perf_counter() - t0
+
+    dit_cfg, ae_cfg = DiTConfig(), AEConfig()
+    sr, L = ae_cfg.sample_rate, dit_cfg.num_layers
+    sc = SamplerConfig(num_steps=40, cfg_scale_text=3.0, cfg_scale_speaker=8.0, cfg_min_t=0.5,
+                       cfg_max_t=1.0, truncation_factor=0.8, sequence_length=640)
+    fields = {k: getattr(sc, k) for k in ("num_steps", "cfg_scale_text", "cfg_scale_speaker",
+                                          "cfg_min_t", "cfg_max_t", "truncation_factor",
+                                          "sequence_length")}
+    want_req = dict({k: 0 for k in wrappers}, joint_attention=k1_launches(sc, L),
+                    res_chain=3 * len(ae_cfg.decoder_rates))
+    files = ["--dit", paths["dit"], "--ae", paths["ae"], "--pca", paths["pca"]]
+    engines, servers = [], []
+    try:
+        # (a) write, then load back
+        (dit_tree, t_init) = timed(lambda: fast_random_like(
+            lambda d: init_dit_params(dit_cfg, torch.bfloat16, d), seed=0, device=dev))
+        ae_tree = init_ae_params(ae_cfg, torch.float32, dev, seed=1)
+        n_dit, n_ae = param_count(dit_tree), param_count(ae_tree)
+        ref_pca = PCAState.random(2, ae_cfg.latent_dim, dit_cfg.latent_size, device="cpu")
+        pca = {"pca_components": ref_pca.components.numpy(), "pca_mean": ref_pca.mean.numpy(),
+               "latent_scale": np.asarray(ref_pca.latent_scale, np.float32)}
+        writes = {}
+        for name, state in (("dit", lambda: reference_dit_state(dit_tree)),
+                            ("ae", lambda: reference_ae_state(ae_tree)), ("pca", lambda: pca)):
+            t0 = time.perf_counter()
+            nbytes = save_file(state(), paths[name])
+            writes[name] = (nbytes, time.perf_counter() - t0)
+        log(f"# checkpoints (a) fast_random_like DiTConfig() with latent modules: "
+            f"{n_dit / 1e9:.3f} "
+            f"B params in {t_init:.1f} s; AEConfig() {n_ae / 1e6:.1f} M (init_ae_params); written "
+            + ", ".join(f"{k} {b / 1e9:.3f} GB in {s:.1f} s ({b / s / 1e9:.2f} GB/s)"
+                        for k, (b, s) in writes.items())
+            + f"; peak host RSS {peak_rss_gib():.2f} GiB")
+        rss0 = peak_rss_gib()
+        for strip in (True, False):
+            (loaded, cfg), secs = timed(lambda: cio.load_dit_from_safetensors(
+                paths["dit"], delete_blockwise_modules=strip, device=dev))
+            ref = {k: v for k, v in dit_tree.items()
+                   if not (strip and k in ("latent_encoder", "latent_norm"))}
+            if strip:
+                ref["blocks"] = dict(ref["blocks"], attention={
+                    k: v for k, v in ref["blocks"]["attention"].items()
+                    if k not in ("wk_latent", "wv_latent")})
+            bad = tree_diffs(loaded, ref)
+            want_cfg = DiTConfig(has_latent_modules=not strip)
+            log(f"# checkpoints (a) load_dit_from_safetensors(delete_blockwise_modules={strip}): "
+                f"{param_count(loaded) / 1e9:.3f} B params in {secs:.1f} s "
+                f"({writes['dit'][0] / secs / 1e9:.2f} GB/s of file), inferred config equal to "
+                f"DiTConfig(has_latent_modules={not strip}): {cfg == want_cfg}, leaves differing "
+                f"from the written tree: {bad[:5]}; "
+                f"peak host RSS {peak_rss_gib():.2f} GiB")
+            need(cfg == want_cfg and not bad, f"(a): the DiT loaded with strip={strip} differs")
+            del loaded
+        del dit_tree
+        torch.cuda.empty_cache()
+        with SafeTensorsFile(paths["dit"]) as f:
+            need(cv.infer_dit_config(f) == dit_cfg, "(a): infer_dit_config from the header")
+        (ae_loaded, acfg), secs = timed(lambda: cio.load_ae_from_safetensors(paths["ae"],
+                                                                            device=dev))
+        # the written AE is its weight-norm pairs; what they hold is their
+        # fold (float64 on the host), and the loader must give exactly that
+        folded = ae_params_from_numpy(cv.convert_ae_state(cv.fold_weight_norm(
+            load_numpy(paths["ae"])), ae_cfg), ae_cfg, device=dev)
+        bad = tree_diffs(ae_loaded, folded)
+        worst = max(float(((a - b).abs() / b.abs().clamp_min(1e-30)).max())
+                    for a, b in zip(tree_leaves(ae_loaded), tree_leaves(ae_tree))
+                    if a.numel())
+        pca_state = PCAState.from_safetensors(paths["pca"], device=dev)
+        pca_ok = (np.array_equal(pca_state.components.cpu().numpy(), pca["pca_components"])
+                  and np.array_equal(pca_state.mean.cpu().numpy(), pca["pca_mean"]))
+        log(f"# checkpoints (a) load_ae_from_safetensors: {secs:.1f} s, cfg == AEConfig(): "
+            f"{acfg == ae_cfg}, leaves differing from the fold of the written pairs: {bad[:5]}, "
+            f"largest relative difference from the initializer's tree {worst:.3e} (the float64 "
+            f"fold); PCAState.from_safetensors equal: {pca_ok}; peak host RSS "
+            f"{peak_rss_gib():.2f} GiB (before the loads {rss0:.2f})")
+        need(acfg == ae_cfg and not bad and worst < 1e-6 and pca_ok, "(a): the AE or PCA differ")
+        del ae_loaded, folded, ae_tree
+        torch.cuda.empty_cache()
+        split = lap13("a", t_phase)
+
+        # (b) serve --dit --ae --pca
+        def start(argv):
+            args = serve_main.parse_args(argv)
+            (eng, secs) = timed(lambda: serve_main.build_engine(args))
+            httpd = serve(eng, host="127.0.0.1", port=0, background=True)
+            engines.append(eng)
+            servers.append(httpd)
+            return eng, httpd.server_address[1], secs
+
+        eng_b, port_b, secs = start(files)
+        want_dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
+        need(not eng_b.tts.dit_cfg.has_latent_modules and eng_b.tts.model_dtype == want_dtype
+             and s1dac.params_dtype(eng_b.tts.ae_params) == want_dtype,
+             "(b): the server did not load the one-shot DiT and the AE in their dtype")
+        req_i = {"text": SHORT_TEXT, "seed": 0, **fields}
+        http_call(port_b, "POST", "/tts", dict(req_i, num_steps=2))  # warm-up
+        (status, _, body_i, wall), got = counted(lambda: http_call(port_b, "POST", "/tts", req_i))
+        direct = pl.sample_pipeline(eng_b.tts, SHORT_TEXT, None, 0, sc=sc, normalize_text=True)[0]
+        same = body_i == wav_bytes(direct[0], sr)
+        log(f"# checkpoints (b) serve --dit --ae --pca: engine built from the files in {secs:.1f} "
+            f"s; POST /tts request (i): status {status}, client wall {wall:.1f} ms, audio "
+            f"{direct.shape[-1] / sr:.2f} s; launches {got} (expected {want_req}); equal to the "
+            f"WAV of a direct sample_pipeline: {same}")
+        need(status == 200 and same and got == want_req, "(b): /tts from the files")
+        if mp3_enc and mp3_dec:
+            (status, headers, mp3, wall), got = counted(lambda: http_call(
+                port_b, "POST", "/tts", dict(req_i, format="mp3")))
+            m = mp3_against_wav(mp3, body_i, sr, tmp)
+            log(f"# checkpoints (b) POST /tts request (i) as mp3: status {status}, "
+                f"{headers.get('Content-Type')}, {len(mp3)} bytes, client wall {wall:.1f} ms; "
+                f"decoded (libmpg123) {json.dumps(m)}; launches {got}")
+            need(status == 200 and headers.get("Content-Type") == "audio/mpeg" and m["ok"]
+                 and got == want_req, "(b): the mp3 response")
+        else:
+            log(f"mp3: skipped (libmp3lame {'found' if mp3_enc else 'not found'}, libmpg123 "
+                f"{'found' if mp3_dec else 'not found'})")
+        split = lap13("b", split)
+
+        # (c) --int8 --int8-cache twice
+        cache = os.path.join(tmp, "int8_base.npz")
+        want_int8 = dict(want_req, int8_gemm=4 * sc.num_steps * L,
+                         quant_rows=4 * sc.num_steps * L)
+        int8_bodies = []
+        for run in ("first", "second"):
+            eng_c, port_c, secs = start(files + ["--int8", "--int8-cache", cache])
+            http_call(port_c, "POST", "/tts", dict(req_i, num_steps=2))  # warm-up
+            (status, _, body, wall), got = counted(lambda: http_call(port_c, "POST", "/tts",
+                                                                     req_i))
+            int8_bodies.append(body)
+            log(f"# checkpoints (c) serve --int8 --int8-cache, {run} start: engine in {secs:.1f} "
+                f"s, int8 base {json.dumps(eng_c.int8_base)}, cache file "
+                f"{os.path.getsize(cache) / 1e9:.3f} GB; POST /tts (i) client wall {wall:.1f} "
+                f"ms; launches {got} (expected {want_int8})")
+            need(status == 200 and got == want_int8, f"(c) {run}: /tts")
+            need(eng_c.int8_base["how"] == ("quantized" if run == "first" else "loaded"),
+                 f"(c) {run}: the base was {eng_c.int8_base['how']}")
+            httpd = servers.pop()
+            httpd.shutdown()
+            httpd.server_close()
+            engines.pop().close()
+            del eng_c
+            torch.cuda.empty_cache()
+        log(f"# checkpoints (c) the two int8 bodies equal byte for byte: "
+            f"{int8_bodies[0] == int8_bodies[1]}")
+        need(int8_bodies[0] == int8_bodies[1], "(c): the cached base serves other bytes")
+        os.unlink(cache)
+        split = lap13("c", split)
+
+        # (d) batch_synthesize
+        prompt48 = synthetic_speech(20.0, 48000, 7)
+        wav48 = os.path.join(tmp, "prompt48k.wav")
+        write_wav(wav48, prompt48[0], 48000)
+        reqs = [{"id": f"u{i}", "text": text, "speaker": None, "seed": i}
+                for i, text in enumerate((SHORT_TEXT, SPEAKER_TEXT, LONG_TEXT, SHORT_TEXT))]
+        reqs.append({"id": "wav_prompt", "text": SPEAKER_TEXT, "speaker": wav48, "seed": 4})
+        if mp3_enc and mp3_dec:
+            mp3_48 = os.path.join(tmp, "prompt48k.mp3")
+            need(mp3_py.encode_mp3(mp3_48, prompt48[0], 48000), "(d): encode the mp3 prompt")
+            reqs.append({"id": "mp3_prompt", "text": SPEAKER_TEXT, "speaker": mp3_48, "seed": 5})
+        else:
+            log("mp3: skipped (the mp3 prompt of batch synthesis)")
+        inp = os.path.join(tmp, "requests.jsonl")
+        with open(inp, "w") as f:
+            f.write("\n".join(json.dumps(r) for r in reqs))
+        outdir = os.path.join(tmp, "batch_out")
+        summary, got = counted(lambda: batch_synthesize.main(
+            ["--input", inp, "--outdir", outdir, "--max-batch", "4"] + files))
+        log(f"# checkpoints (d) batch_synthesize --max-batch 4, {len(reqs)} requests: "
+            f"{json.dumps(summary)}; launches {got}")
+        want_k1 = 2 * k1_launches(SamplerConfig(), L)
+        need(summary["files"] == len(reqs) and got["joint_attention"] == want_k1,
+             f"(d): files {summary['files']}, K1 {got['joint_attention']} (expected {want_k1})")
+        same = {}
+        for lo in range(0, len(reqs), 4):
+            chunk = reqs[lo:lo + 4]
+            batch = [(r["text"], load_audio(r["speaker"]) if r["speaker"] else None, r["seed"])
+                     for r in chunk]
+            for r, (audio, _, _) in zip(chunk, pl.sample_pipeline_batch(eng_b.tts, batch)):
+                with open(os.path.join(outdir, f"{r['id']}.wav"), "rb") as f:
+                    same[r["id"]] = f.read() == wav_bytes(audio[0], sr)
+        log(f"# checkpoints (d) each WAV equal to its row of the direct sample_pipeline_batch: "
+            f"{same}")
+        need(all(same.values()), "(d): a WAV differs from the direct batch call")
+        split = lap13("d", split)
+
+        # (e) finetune_lora, then /lora on the server of (b)
+        clip_dir = os.path.join(tmp, "clips")
+        os.makedirs(clip_dir)
+        texts = {}
+        for i in range(3):
+            p = os.path.join(clip_dir, f"clip{i}.wav")
+            write_wav(p, synthetic_speech(CLIP_LATENTS * ae_cfg.frame_length / sr, sr, 30 + i)[0],
+                      sr)
+            texts[p] = f"[S1] Clip number {i} of the finetune says a sentence of its own."
+        tr = os.path.join(tmp, "transcripts.json")
+        with open(tr, "w") as f:
+            json.dump(texts, f)
+        lora_path = os.path.join(tmp, "lora_best.npz")
+        ft, got = counted(lambda: finetune_lora.main(
+            ["--audio-dir", clip_dir, "--transcripts", tr, "--out", lora_path, "--epochs", "1",
+             "--batch-size", "2"] + files))
+        log(f"# checkpoints (e) finetune_lora, 1 epoch, 3 clips of {CLIP_LATENTS} latents, batch "
+            f"2: {json.dumps(ft)}; launches {got}")
+        need(ft["steps"] >= 1 and all(math.isfinite(x) for x in ft["step_losses"])
+             and os.path.exists(lora_path) and got["joint_attention_bwd"] == ft["steps"] * L,
+             "(e): the finetune")
+
+        def lora_round():
+            out = [http_call(port_b, "POST", "/lora", {"path": lora_path})]
+            out.append(http_call(port_b, "POST", "/tts", req_i))
+            out.append(http_call(port_b, "POST", "/lora", {"path": None}))
+            out.append(http_call(port_b, "POST", "/tts", req_i))
+            return out
+
+        (set_, merged, unset, back), got = counted(lora_round)
+        log(f"# checkpoints (e) POST /lora the finetuned adapter ({set_[3]:.1f} ms), /tts, revert "
+            f"({unset[3]:.1f} ms), /tts: statuses {[r[0] for r in (set_, merged, unset, back)]}; "
+            f"back to the bytes of (b): {back[2] == body_i}; launches {got}")
+        need(all(r[0] == 200 for r in (set_, merged, unset, back)) and back[2] == body_i,
+             "(e): /lora and back")
+        shutil.rmtree(clip_dir)
+        split = lap13("e", split)
+
+        # (f) convert_checkpoint ae, then dit
+        ae_f32, _ = cio.load_ae_from_safetensors(paths["ae"], device=dev)
+        for kind, extra, ref_params, to_port in (
+                ("ae", [], ae_f32,
+                 lambda t_: ae_params_from_numpy(t_, ae_cfg, device=dev, dtype=torch.float32)),
+                ("dit", ["--delete-blockwise"], eng_b._base_params,
+                 lambda t_: dit_params_from_numpy(t_, eng_b.tts.dit_cfg, device=dev,
+                                                  dtype=want_dtype))):
+            npz = os.path.join(tmp, f"{kind}.npz")
+            (out, secs) = timed(lambda: convert_checkpoint.main(
+                [kind, paths[kind], npz] + extra + (["--dtype", "f32"] if want_dtype ==
+                                                    torch.float32 and kind == "dit" else [])))
+            (back_tree, load_secs) = timed(lambda: to_port(cio.load_pytree(npz)))
+            bad = tree_diffs(back_tree, ref_params)
+            log(f"# checkpoints (f) convert_checkpoint {kind}: {out['params'] / 1e6:.1f} M params, "
+                f"npz {os.path.getsize(npz) / 1e9:.3f} GB in {secs:.1f} s; load_pytree + "
+                f"from_jax {load_secs:.1f} s; leaves differing from the server's: {bad[:5]}")
+            need(not bad, f"(f): the {kind} npz reloads to other bits")
+            del back_tree
+            os.unlink(npz)
+        del ae_f32
+        split = lap13("f", split)
+
+        # (g) the native routes and the rest of the S1-DAC API
+        from scipy.signal import resample_poly
+
+        prompt16 = synthetic_speech(20.0, 16000, 8)
+        for x, rate in ((prompt48, 48000), (prompt16, 16000)):
+            t0 = time.perf_counter()
+            mine = resample_native(x, rate, sr)
+            secs = time.perf_counter() - t0
+            g = math.gcd(rate, sr)
+            t0 = time.perf_counter()
+            ref = resample_poly(x.astype(np.float64), sr // g, rate // g, axis=-1,
+                                window=("kaiser", 5.0))
+            ref_secs = time.perf_counter() - t0
+            err = float(np.abs(mine - ref).max())
+            log(f"# checkpoints (g) resample_native {rate} -> {sr} of 20 s: {secs * 1e3:.1f} ms "
+                f"(scipy {ref_secs * 1e3:.1f} ms), max |native - scipy| {err:.3e}")
+            need(mine.shape == ref.shape and err < 1e-5, f"(g): resample {rate} -> {sr}")
+        n_in = prompt48.shape[-1] * sr // 48000
+        log(f"# checkpoints (g) get_delay(AEConfig()) = {s1dac.get_delay(ae_cfg)} samples; "
+            f"get_output_length(AEConfig(), {n_in}) = {s1dac.get_output_length(ae_cfg, n_in)}")
+        spk = load_audio(wav48)
+        chunk = 640 * ae_cfg.frame_length
+        spk = spk[:, :chunk]
+        x = torch.as_tensor(np.pad(spk, ((0, 0), (0, chunk - spk.shape[-1]))), device=dev)[None]
+        with torch.no_grad():
+            codes, got_enc = counted(lambda: s1dac.encode_codes(eng_b.tts.ae_params, ae_cfg, x))
+            audio_c, got = counted(lambda: s1dac.decode_codes(eng_b.tts.ae_params, ae_cfg, codes))
+            audio_z = s1dac.decode_zq(eng_b.tts.ae_params, ae_cfg,
+                                      s1dac.codes_to_zq(eng_b.tts.ae_params, ae_cfg, codes))
+        same = torch.equal(audio_c, audio_z)
+        log(f"# checkpoints (g) encode_codes of the prompt ({tuple(codes.shape)}; launches "
+            f"{got_enc}), decode_codes -> {tuple(audio_c.shape)}: equal to "
+            f"decode_zq(codes_to_zq): {same}; launches {got}")
+        need(same and got["res_chain"] == 3 * len(ae_cfg.decoder_rates)
+             and bool(torch.isfinite(audio_c).all()), "(g): decode_codes")
+        lap13("g", split)
+    finally:
+        for httpd in servers:
+            httpd.shutdown()
+            httpd.server_close()
+        for eng in engines:
+            eng.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"# checkpoint phase: {time.perf_counter() - t_phase:.1f} s, peak host RSS "
+        f"{peak_rss_gib():.2f} GiB; launches {driven}")
+    return driven
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a GPU",
               file=sys.stderr)
         return 2
     kernels_only, slices_only = "--kernels-only" in argv, "--slices-only" in argv
+    checkpoints_only = "--checkpoints-only" in argv
     dev = torch.device("cuda", 0)
     smi = phase_environment()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3322,7 +3778,12 @@ def main(argv) -> int:
     slice_wrappers = {"joint_attention": joint_attention, "res_chain": res_units_cl}
     train_wrappers = {**slice_wrappers, "joint_attention_bwd": joint_attention_bwd}
     int8_wrappers = {**slice_wrappers, "int8_gemm": int8_gemm, "quant_rows": quant_rows}
-    if slices_only:
+    ckpt_wrappers = {**int8_wrappers, "joint_attention_bwd": joint_attention_bwd}
+    if checkpoints_only:
+        phase_build(("joint_attention", "joint_attention_bwd", "res_chain", "int8_gemm",
+                     "quant_rows"))
+        phase_checkpoints(dev, ckpt_wrappers)
+    elif slices_only:
         phase_build(("joint_attention", "joint_attention_bwd", "res_chain", "int8_gemm",
                      "quant_rows"))
         tts, _ = phase_slice(dev, slice_wrappers)
@@ -3333,6 +3794,8 @@ def main(argv) -> int:
         phase_serve(dev, slice_wrappers, tts)
         phase_levers(dev, int8_wrappers, tts)
         del tts
+        torch.cuda.empty_cache()
+        phase_checkpoints(dev, ckpt_wrappers)
     else:
         phase_build()
         phase_core_check(dev)
@@ -3359,10 +3822,11 @@ def main(argv) -> int:
             launches.update(lever_paths)
             del tts
             torch.cuda.empty_cache()
+            launches["checkpoints"] = phase_checkpoints(dev, ckpt_wrappers)
             launches["measurement"] = phase_measurement(dev)
         rows = phase_kernel_times(dev, errs, launches)
     log(f"# {smi}")
-    if not slices_only:
+    if not (slices_only or checkpoints_only):
         print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -14,7 +14,9 @@ from echo_tts_tpu_torch.core.device import resolve_device
 class _Init:
     def __init__(self, device, seed: int, dtype):
         self.device, self.dtype = device, dtype
-        self.gen = torch.Generator(device=device).manual_seed(seed)
+        # meta tensors (shapes alone, bench/fast_init.py) take no generator
+        self.gen = (None if device.type == "meta"
+                    else torch.Generator(device=device).manual_seed(seed))
 
     def trunc(self, shape, std=0.02):
         w = torch.empty(shape, dtype=torch.float32, device=self.device)

@@ -11,6 +11,11 @@ A tree quantized by the JAX package's `quantize_dit_params` carries over as
 it is: each `{"q": int8 (…, K, N), "s": fp32 (…, N)}` leaf keeps int8 codes
 and fp32 scales whatever `dtype` asks, and its codes are laid K-major,
 (…, N, K), the port's layout (`models/quant.py`), here once.
+
+Leaves may also be torch tensors already (the safetensors loaders of
+`checkpoints/io.py` convert on the device): they are moved and cast the same
+way. A leaf of raw bf16 bits (2-byte void items, how npz holds bf16) is read
+as the bf16 values it holds.
 """
 from __future__ import annotations
 
@@ -19,6 +24,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from echo_tts_tpu_torch.checkpoints.safetensors import bf16_bits_to_f32
 from echo_tts_tpu_torch.core.config import AEConfig, DiTConfig
 from echo_tts_tpu_torch.core.device import resolve_device
 from echo_tts_tpu_torch.models.quant import is_quantized
@@ -33,8 +39,13 @@ def _convert(tree, device, dtype):
         return {k: _convert(v, device, dtype) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [_convert(v, device, dtype) for v in tree]
+    if isinstance(tree, torch.Tensor):
+        t = tree.to(device)
+        return t.to(dtype) if dtype is not None and t.is_floating_point() else t
     arr = np.asarray(tree)
-    if arr.dtype.kind == "V" or str(arr.dtype) == "bfloat16":
+    if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
+        arr = bf16_bits_to_f32(arr)
+    elif str(arr.dtype) == "bfloat16":
         arr = arr.astype(np.float32)  # ml_dtypes bf16 has no torch buffer path
     t = torch.from_numpy(np.array(arr)).to(device)
     return t.to(dtype) if dtype is not None and t.is_floating_point() else t

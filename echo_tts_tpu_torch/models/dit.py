@@ -484,7 +484,9 @@ def dit_forward_cfg(params: dict, cfg: DiTConfig, x, t, text_mask, speaker_mask,
 class _Init:
     def __init__(self, device: torch.device, seed: int, dtype: torch.dtype):
         self.device, self.dtype = device, dtype
-        self.gen = torch.Generator(device=device).manual_seed(seed)
+        # meta tensors (shapes alone, bench/fast_init.py) take no generator
+        self.gen = (None if device.type == "meta"
+                    else torch.Generator(device=device).manual_seed(seed))
 
     def linear(self, fan_in: int, shape) -> torch.Tensor:
         bound = fan_in ** -0.5

@@ -25,6 +25,16 @@ class PCAState:
                         float(latent_scale))
 
     @staticmethod
+    def from_safetensors(path: str, device=None) -> "PCAState":
+        """The reference's `pca_state.safetensors` (`pca_components`,
+        `pca_mean`, `latent_scale`) on `device` (default cuda)."""
+        from echo_tts_tpu_torch.checkpoints.safetensors import load_numpy
+
+        t = load_numpy(path)
+        return PCAState.from_arrays(t["pca_components"], t["pca_mean"],
+                                    float(np.asarray(t["latent_scale"])), device=device)
+
+    @staticmethod
     def random(key_seed: int = 0, latent_dim: int = 1024, out_dim: int = 80,
                device=None) -> "PCAState":
         """The JAX package's random projection, drawn by the same numpy

@@ -130,3 +130,53 @@ def swiglu_mlp_q(x: torch.Tensor, p: dict) -> torch.Tensor:
     again for w2."""
     u, g = proj_shared(x, [p["w1"], p["w3"]])
     return mm(F.silu(u) * g, p["w2"])
+
+
+# ---------------------------------------------------------------------------
+# A saved quantized base (Engine(int8_cache_path=...), serve --int8-cache)
+# ---------------------------------------------------------------------------
+
+INT8_CACHE_FORMAT = "echo_tts_tpu_torch int8 base: q int8 (..., N, K), s fp32 (..., N)"
+
+
+def _meta_like(tree):
+    if isinstance(tree, dict):
+        return {k: _meta_like(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_meta_like(v) for v in tree]
+    return torch.empty_like(tree, device="meta")
+
+
+def _cache_meta(cfg, encoders: bool) -> str:
+    import dataclasses
+    import json
+
+    return json.dumps({"format": INT8_CACHE_FORMAT, "encoders": bool(encoders),
+                       "dit_config": dataclasses.asdict(cfg)}, sort_keys=True)
+
+
+def save_quantized(path: str, qparams: dict, cfg, encoders: bool = False) -> None:
+    """The quantized params of `quantize_dit_params(..., encoders)` for the
+    DiT of `cfg`, in the leaf-order npz of `checkpoints/io.py`, with the
+    format, the flag and the config beside them. The file is the port's own:
+    its codes are K-major, which is not the JAX package's layout."""
+    from echo_tts_tpu_torch.checkpoints.io import save_tree_leaves
+
+    save_tree_leaves(path, qparams, meta=_cache_meta(cfg, encoders))
+
+
+def load_quantized(path: str, base_params: dict, cfg, encoders: bool = False) -> dict:
+    """A `save_quantized` file for `base_params` (the plain params of `cfg`),
+    on their device, without quantizing: the structure, shapes and dtypes
+    come from `quantize_dit_params` run on meta tensors. Raises ValueError
+    when the file was written for another config, another `encoders` or
+    another format, or a leaf's shape differs."""
+    from echo_tts_tpu_torch.checkpoints.io import load_pytree_like, read_tree_meta
+    from echo_tts_tpu_torch.train.loop import tree_leaves
+
+    want, got = _cache_meta(cfg, encoders), read_tree_meta(path)
+    if got != want:
+        raise ValueError(f"int8 cache {path} does not match this model: it was written for "
+                         f"{got}, this engine needs {want}")
+    template = quantize_dit_params(_meta_like(base_params), encoders=encoders)
+    return load_pytree_like(path, template, device=tree_leaves(base_params)[0].device)

@@ -220,6 +220,38 @@ def rvq_decode(codes: torch.Tensor, quantizers: list) -> torch.Tensor:
     return z_q
 
 
+def vq_decode_latents(z_e: torch.Tensor, q: dict) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Nearest code for already-projected codebook latents (B, Dc, T), with
+    no in_proj. Returns (z_p (B, Dc, T) the embedded codes, indices (B, T)
+    int32)."""
+    enc = _l2_normalize(z_e.transpose(1, 2))
+    cb = _l2_normalize(q["codebook"])
+    idx = torch.einsum("btd,kd->btk", enc.float(), cb.float()).argmax(dim=-1).to(torch.int32)
+    return q["codebook"][idx.long()].transpose(1, 2), idx
+
+
+def rvq_from_latents(latents: torch.Tensor, quantizers: list
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Decode from concatenated projected latents (B, sum(Dc), T), the
+    reference's third RVQ decode path: each codebook's channel slice is
+    quantized to its nearest code (no in_proj) and out_proj'd into the
+    running sum. Channels beyond the last whole codebook slice are ignored.
+    Returns (z_q (B, D, T), z_p (B, sum(Dc), T), codes (B, N, T))."""
+    dims = [0]
+    for q in quantizers:
+        dims.append(dims[-1] + q["codebook"].shape[1])
+    n_codebooks = max(i for i in range(len(dims)) if dims[i] <= latents.shape[1])
+    z_q = None
+    z_ps, codes = [], []
+    for i in range(n_codebooks):
+        z_p_i, idx = vq_decode_latents(latents[:, dims[i]:dims[i + 1]], quantizers[i])
+        z_ps.append(z_p_i)
+        codes.append(idx)
+        z_q_i = conv1d(z_p_i, quantizers[i]["out_proj"]["w"], quantizers[i]["out_proj"]["b"])
+        z_q = z_q_i if z_q is None else z_q + z_q_i
+    return z_q, torch.cat(z_ps, dim=1), torch.stack(codes, dim=1)
+
+
 # ---------------------------------------------------------------------------
 # Encoder / decoder stacks
 # ---------------------------------------------------------------------------
@@ -345,6 +377,72 @@ def decode_zq(params: dict, cfg: AEConfig, z_q: torch.Tensor) -> torch.Tensor:
     z = quantizer_transformer(params, cfg, "post_module", z_q)
     z = quantizer_upsample(params, cfg, z)
     return decoder_forward(params, cfg, z)
+
+
+def decode_codes(params: dict, cfg: AEConfig, codes: torch.Tensor) -> torch.Tensor:
+    """The whole codec decode: code indices (B, 1+n_codebooks, T) ->
+    waveform, through `decode_zq` (K2 on the card)."""
+    return decode_zq(params, cfg, codes_to_zq(params, cfg, codes))
+
+
+def get_output_length(cfg: AEConfig, input_length: int) -> int:
+    """Encoder frames for `input_length` samples, before the quantizer's
+    downsample."""
+    length = input_length
+    for stride in cfg.encoder_rates:
+        length = -(-length // stride)
+    return length
+
+
+def get_delay(cfg: AEConfig) -> int:
+    """The codec's analytic latency in samples: the reference's walk over
+    the (kernel, stride, dilation) of every conv, in module order (encoder,
+    quantizer, decoder), taken in reverse."""
+    layers = []
+
+    def conv(k, s=1, d=1):
+        layers.append(("conv", k, s, d))
+
+    def tconv(k, s):
+        layers.append(("tconv", k, s, 1))
+
+    conv(7)  # encoder stem
+    for stride in cfg.encoder_rates:
+        for dil in (1, 3, 9):
+            conv(7, 1, dil)
+            conv(1)
+        conv(2 * stride, stride)
+    conv(3)  # encoder head
+    # quantizer convs, in registration order: semantic VQ, residual VQs,
+    # downsample, upsample
+    conv(1)  # semantic in_proj
+    conv(1)  # semantic out_proj
+    for _ in range(cfg.n_codebooks):
+        conv(1)
+        conv(1)
+    for f in cfg.downsample_factor:
+        conv(f, f)
+        conv(7)  # convnext dwconv
+    for f in reversed(cfg.downsample_factor):
+        tconv(f, f)
+        conv(7)  # convnext dwconv
+    conv(7)  # decoder stem
+    for stride in cfg.decoder_rates:
+        tconv(2 * stride, stride)
+        for dil in (1, 3, 9):
+            conv(7, 1, dil)
+            conv(1)
+    conv(7)  # decoder head
+
+    l_out = get_output_length(cfg, 0)
+    length = l_out
+    for kind, k, s, d in reversed(layers):
+        if kind == "tconv":
+            length = (length - d * (k - 1) - 1) / s + 1
+        else:
+            length = (length - 1) * s + d * (k - 1) + 1
+        length = math.ceil(length)
+    return (length - l_out) // 2
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,13 @@
 """Host-side audio I/O: WAV read/write, resampling and decoding (counterpart
 of echo_tts_tpu/pipeline/audio_io.py).
 
-Stdlib WAV codec and scipy's polyphase resampler (kaiser 5.0). The JAX
-package's native upfirdn and libmpg123 routes are not ported yet: every
-resample goes through scipy, and an .mp3 goes to `decode_with_ffmpeg`, as
-the JAX package falls back when libmpg123 is absent.
+Host work, never on the device. The routes are the JAX package's:
+* resampling: the native upfirdn core (`native/resample_py.py`, built with
+  g++ at first use), else scipy's `resample_poly` (kaiser 5.0, the design the
+  native core matches to ~1e-7) when the core cannot be built;
+* decoding: WAV by the standard library, MP3 by the system libmpg123
+  (`native/mp3_py.py`), else, and for every other format, the ffmpeg
+  command line.
 """
 from __future__ import annotations
 
@@ -51,10 +54,17 @@ def write_wav(path: str, audio: np.ndarray, sample_rate: int = 44100) -> None:
 
 
 def resample(audio: np.ndarray, sr_from: int, sr_to: int) -> np.ndarray:
-    """Polyphase resampling on the last axis: scipy.signal.resample_poly with
-    a kaiser(5.0) window, the design the JAX package's native core matches."""
+    """Polyphase resampling on the last axis: the native upfirdn core, or
+    scipy.signal.resample_poly with a kaiser(5.0) window where the core
+    cannot be built."""
     if sr_from == sr_to:
         return audio
+    try:
+        from echo_tts_tpu_torch.native.resample_py import resample_native
+
+        return resample_native(audio, sr_from, sr_to).astype(np.float32)
+    except (OSError, RuntimeError):  # no compiler, a failed build or load
+        pass
     from scipy.signal import resample_poly
 
     g = gcd(sr_from, sr_to)
@@ -80,10 +90,15 @@ def load_audio(path: str, max_duration: float = 300.0,
                target_sr: int = 44100) -> np.ndarray:
     """Decode, truncate to max_duration, mix to mono, resample to 44.1 kHz,
     peak-normalise only if the peak exceeds 1. Returns (1, samples) float32.
-    WAV is decoded here; every other format (.mp3 included, until the
-    libmpg123 route is ported) goes through ffmpeg."""
+    WAV is decoded here, MP3 by libmpg123 (ffmpeg where the library is
+    missing), every other format by ffmpeg."""
     if path.lower().endswith(".wav"):
         x, sr = read_wav(path)
+    elif path.lower().endswith(".mp3"):
+        from echo_tts_tpu_torch.native.mp3_py import decode_mp3
+
+        decoded = decode_mp3(path, max_duration=max_duration)
+        x, sr = decoded if decoded is not None else decode_with_ffmpeg(path, max_duration)
     else:
         x, sr = decode_with_ffmpeg(path, max_duration)
     x = x[:, : int(max_duration * sr)]

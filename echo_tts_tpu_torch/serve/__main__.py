@@ -1,19 +1,24 @@
-"""Start the HTTP TTS server on random weights (counterpart of the
-random-weight half of scripts/serve.py).
+"""Start the HTTP TTS server (counterpart of scripts/serve.py).
 
-    python -m echo_tts_tpu_torch.serve --random --port 7861           # the card
-    python -m echo_tts_tpu_torch.serve --random --int8 --port 7861    # W8A8 int8 trunk
+    python -m echo_tts_tpu_torch.serve --dit dit.safetensors --ae ae.safetensors \
+        --pca pca_state.safetensors [--port 7860] [--ae-bf16] [--keep-blockwise]
+    python -m echo_tts_tpu_torch.serve --dit ... --int8 --int8-cache q.npz  # W8A8 int8
+    python -m echo_tts_tpu_torch.serve --random --port 7861           # random weights
     python -m echo_tts_tpu_torch.serve --cpu --random-tiny --port 7861
     curl -s -X POST localhost:7861/tts -d '{"text": "hello", "seed": 1}' -o out.wav
 
---random serves DiTConfig() with the latent modules and AEConfig() in bf16
-(random weights from seeds 0 and 1) on the card; --random-tiny serves the
-tiny configs in fp32. Without --cpu it needs a CUDA card. --int8 serves the
-W8A8 int8 trunk (kernels K4 and K5 on the card), --int8-encoders the
-encoders and context-KV projections in int8 too. Loading checkpoints
-(--dit/--ae/--pca), a saved int8 base (--int8-cache), tensor parallelism
-(--tp) and the Gradio UI (--gradio) are not ported: each raises, naming the
-ROADMAP.md item it waits for.
+--dit/--ae/--pca load the reference's safetensors checkpoints (the DiT in
+bf16 without its blockwise modules unless --keep-blockwise; the AE in bf16,
+as kernel K2 takes it; on the CPU both in fp32, the AE in bf16 with
+--ae-bf16). --random serves DiTConfig() with the latent
+modules and AEConfig() in bf16 (random weights from seeds 0 and 1);
+--random-tiny serves the tiny configs in fp32. Without --cpu it needs a CUDA
+card. --int8 serves the W8A8 int8 trunk (kernels K4 and K5 on the card),
+--int8-encoders the encoders and context-KV projections in int8 too;
+--int8-cache keeps the quantized base in a file (quantized and saved on the
+first start, loaded on the next). Tensor parallelism (--tp) and the Gradio
+UI (--gradio) are not ported: each raises, naming the ROADMAP.md item it
+waits for.
 """
 from __future__ import annotations
 
@@ -21,11 +26,9 @@ import argparse
 import os
 from typing import Optional, Sequence
 
+import torch
+
 _NOT_PORTED = {
-    "dit": "checkpoint loading is not ported yet (ROADMAP.md §1 item 9)",
-    "ae": "checkpoint loading is not ported yet (ROADMAP.md §1 item 9)",
-    "pca": "checkpoint loading is not ported yet (ROADMAP.md §1 item 9)",
-    "int8_cache": "a saved int8 base needs checkpoint I/O, not ported yet (ROADMAP.md §1 item 9)",
     "tp": "tensor-parallel serving is not ported yet (ROADMAP.md §1 item 8)",
     "gradio": "the Gradio UI is not ported: gradio is not installed (ROADMAP.md §1 item 7)",
 }
@@ -38,9 +41,13 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                          help="random full-width weights (DiTConfig(), AEConfig(), bf16)")
     weights.add_argument("--random-tiny", action="store_true",
                          help="random tiny weights (fp32)")
-    weights.add_argument("--dit", help="not ported: DiT checkpoint")
-    ap.add_argument("--ae", help="not ported: AE checkpoint")
-    ap.add_argument("--pca", help="not ported: PCA checkpoint")
+    weights.add_argument("--dit", help="the DiT's pytorch_model.safetensors")
+    ap.add_argument("--ae", help="the S1-DAC's pytorch_model.safetensors (with --dit)")
+    ap.add_argument("--pca", help="pca_state.safetensors (with --dit)")
+    ap.add_argument("--ae-bf16", action="store_true",
+                    help="the AE in bf16 on the CPU too (on the card it always is: K2 takes bf16)")
+    ap.add_argument("--keep-blockwise", action="store_true",
+                    help="keep the DiT's blockwise (latent) modules: streaming continuations")
     ap.add_argument("--cpu", action="store_true", help="serve on the CPU (plain versions)")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=7860)
@@ -62,10 +69,38 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--int8-encoders", action="store_true",
                     help="--int8, and the encoders and context-KV projections in int8 too")
     ap.add_argument("--int8-cache", default=None, metavar="PATH",
-                    help="not ported: a saved quantized base")
+                    help="npz of the quantized base: the first start quantizes and saves it, "
+                         "the next loads it")
     ap.add_argument("--tp", type=int, default=1, help="not ported above 1")
     ap.add_argument("--gradio", action="store_true", help="not ported")
-    return ap.parse_args(argv)
+    args = ap.parse_args(argv)
+    if args.dit and not (args.ae and args.pca):
+        ap.error("--dit needs --ae and --pca")
+    return args
+
+
+def load_tts(dit: str, ae: str, pca: str, device, ae_bf16: bool = False,
+             keep_blockwise: bool = False):
+    """An EchoTTS on `device` from the reference's three safetensors files:
+    the DiT in bf16 (fp32 on the CPU, whose matmuls have no bf16 product
+    with fp32 accumulation), without its blockwise modules unless
+    keep_blockwise; the AE in bf16 on the card (kernel K2 takes bf16
+    activations), in fp32 on the CPU unless ae_bf16."""
+    from echo_tts_tpu_torch.checkpoints.io import (
+        load_ae_from_safetensors,
+        load_dit_from_safetensors,
+    )
+    from echo_tts_tpu_torch.models.pca import PCAState
+    from echo_tts_tpu_torch.pipeline.pipeline import EchoTTS
+
+    dtype = torch.float32 if device.type == "cpu" else torch.bfloat16
+    dit_params, dit_cfg = load_dit_from_safetensors(
+        dit, dtype=dtype, delete_blockwise_modules=not keep_blockwise, device=device)
+    ae_dtype = torch.bfloat16 if ae_bf16 or device.type == "cuda" else torch.float32
+    ae_params, ae_cfg = load_ae_from_safetensors(ae, dtype=ae_dtype, device=device)
+    return EchoTTS(dit_params, dit_cfg, ae_params, ae_cfg,
+                   PCAState.from_safetensors(pca, device=device), model_dtype=dtype,
+                   device=device)
 
 
 def build_engine(args: argparse.Namespace):
@@ -74,16 +109,21 @@ def build_engine(args: argparse.Namespace):
     from echo_tts_tpu_torch.bench.trace import random_tts
     from echo_tts_tpu_torch.serve.engine import Engine
 
-    for flag in ("dit", "ae", "pca", "int8_cache", "gradio"):
-        if getattr(args, flag):
-            raise NotImplementedError(_NOT_PORTED[flag])
+    if args.gradio:
+        raise NotImplementedError(_NOT_PORTED["gradio"])
     if args.tp > 1:
         raise NotImplementedError(_NOT_PORTED["tp"])
-    tts = random_tts(entry_device(args.cpu), tiny=args.random_tiny)
+    device = entry_device(args.cpu)
+    if args.dit:
+        tts = load_tts(args.dit, args.ae, args.pca, device, ae_bf16=args.ae_bf16,
+                       keep_blockwise=args.keep_blockwise)
+    else:
+        tts = random_tts(device, tiny=args.random_tiny)
     return Engine(tts, int8=args.int8, int8_encoders=args.int8_encoders,
                   max_batch=args.max_batch, batch_wait_ms=args.batch_wait_ms,
                   continuous=args.continuous, continuous_block=args.continuous_block,
-                  continuous_fast_join=not args.no_fast_join)
+                  continuous_fast_join=not args.no_fast_join,
+                  int8_cache_path=args.int8_cache)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:

@@ -33,6 +33,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import logging
+import os
 import queue as _queue
 import threading
 import time
@@ -185,18 +186,18 @@ class Engine:
         int8 serves the W8A8 int8 trunk (models/quant.py; int8_encoders also
         quantizes the encoders and the context-KV projections): the
         effective params are quantized once, the base here and every LoRA
-        merge in `set_lora`, under the device lock. int8_cache_path (a
-        saved quantized base) needs checkpoint I/O and mesh (tensor
-        parallelism) multi-GPU, neither ported: they raise
+        merge in `set_lora`, under the device lock. int8_cache_path: a file
+        of the quantized base. The first engine quantizes and saves it; once
+        it exists, the base is loaded from it without quantizing (equal bit
+        for bit to a fresh quantization), after a check that it was written
+        for this config and flag. A LoRA merge always quantizes anew.
+        `int8_base` says which happened and what it took. mesh (tensor
+        parallelism) needs multi-GPU, not ported: it raises
         NotImplementedError.
 
         On cuda the kernels K1 and K2 (and, with int8, K4 and K5) are built
         here (nvcc, at first use in the process), so that no request pays
         the build under the lock."""
-        if int8_cache_path is not None:
-            raise NotImplementedError(
-                "a saved int8 base (int8_cache_path) needs checkpoint I/O, which is not "
-                "ported yet (ROADMAP.md §1 item 9)")
         if mesh is not None:
             raise NotImplementedError(
                 "tensor-parallel serving (mesh) is not ported yet (ROADMAP.md §1 item 8)")
@@ -211,6 +212,8 @@ class Engine:
             for name in names:
                 _build.load(name)
         self._base_params = tts.dit_params
+        self._int8_cache_path = int8_cache_path
+        self.int8_base: Optional[dict] = None
         # own container: a LoRA swap never leaks into the caller's EchoTTS
         self.tts = dataclasses.replace(tts)
         self.max_retries = max_retries
@@ -272,12 +275,30 @@ class Engine:
             s.thread.join(timeout=30)
 
     def _effective(self, params: dict) -> dict:
-        """The params requests run on: quantized when the engine serves int8."""
+        """The params requests run on: quantized when the engine serves int8
+        (the base from `int8_cache_path` when that file exists)."""
         if not self.int8:
             return params
-        from echo_tts_tpu_torch.models.quant import quantize_dit_params
+        from echo_tts_tpu_torch.models import quant
 
-        return quantize_dit_params(params, encoders=self.int8_encoders)
+        cacheable = self._int8_cache_path is not None and params is self._base_params
+        cfg, path = self.tts.dit_cfg, self._int8_cache_path
+        t0 = time.perf_counter()
+        if cacheable and os.path.exists(path):
+            out = quant.load_quantized(path, params, cfg, encoders=self.int8_encoders)
+            how = "loaded"
+        else:
+            out = quant.quantize_dit_params(params, encoders=self.int8_encoders)
+            how = "quantized"
+        if params is self._base_params:
+            if self.tts.device.type == "cuda":
+                torch.cuda.synchronize(self.tts.device)
+            self.int8_base = {"how": how, "seconds": time.perf_counter() - t0}
+            if cacheable and how == "quantized":
+                t0 = time.perf_counter()
+                quant.save_quantized(path, out, cfg, encoders=self.int8_encoders)
+                self.int8_base["save_seconds"] = time.perf_counter() - t0
+        return out
 
     # -- LoRA hot-swap -------------------------------------------------------
     def set_lora(self, lora_path: Optional[str], strength: float = 1.0) -> None:

@@ -11,8 +11,8 @@ echo_tts_tpu/serve/server.py): the same endpoints over one `Engine`.
                        "speaker_wav_b64": base64 WAV or MP3 bytes (optional),
                        "speaker_path": a path on the server (optional),
                        "format": "wav" (default) or "mp3"} -> audio/wav (16-bit
-                      PCM). "mp3" falls back to WAV: the port has no MP3 encoder
-                      until the native codecs are ported (ROADMAP.md §1 item 9).
+                      PCM), or audio/mpeg for "mp3" (libmp3lame, 192 kb/s; WAV
+                      where the library is missing, as the JAX server does).
   POST /tts_stream    the /tts body plus "block_size" (default [64, 192]: an int,
                       or a list whose last entry repeats) and an optional
                       "continuation_wav_b64" / "continuation_path" (audio to go on
@@ -20,7 +20,7 @@ echo_tts_tpu/serve/server.py): the same endpoints over one `Engine`.
                       audio/L16 (raw mono PCM16, X-Sample-Rate header), one chunk
                       a decoded latent block; it stops at the flattening point.
 
-MP3 input is decoded by `pipeline/audio_io.py:load_audio` (ffmpeg).
+MP3 input is decoded by `pipeline/audio_io.py:load_audio` (libmpg123).
 """
 from __future__ import annotations
 
@@ -71,6 +71,27 @@ def wav_bytes(audio: np.ndarray, sr: int) -> bytes:
         os.unlink(path)
 
 
+def mp3_bytes(audio: np.ndarray, sr: int, bitrate_kbps: int = 192) -> Optional[bytes]:
+    """audio (channels, samples) as MP3 bytes (libmp3lame) of the samples
+    the WAV holds, clipped to [-1, 1] (the encoder takes that range; beyond
+    it, its own clipping would differ from the WAV's); None when the library
+    is missing or the encode fails (the caller sends WAV)."""
+    from echo_tts_tpu_torch.native.mp3_py import encode_mp3
+
+    with tempfile.NamedTemporaryFile(suffix=".mp3", delete=False) as f:
+        path = f.name
+    try:
+        if not encode_mp3(path, np.clip(audio, -1.0, 1.0), sr, bitrate_kbps):
+            return None
+        with open(path, "rb") as f:
+            return f.read()
+    except Exception as e:
+        log.warning("mp3 encode failed, sending WAV: %s", e)
+        return None
+    finally:
+        os.unlink(path)
+
+
 def pcm16_bytes(chunk: np.ndarray) -> bytes:
     """A (1, 1, n) chunk as /tts_stream sends it: little-endian PCM16."""
     return np.clip(chunk[0, 0] * 32767.0, -32768, 32767).astype("<i2").tobytes()
@@ -94,9 +115,9 @@ def make_handler(engine: Engine, presets: Dict[str, SamplerConfig],
             self.end_headers()
             self.wfile.write(body)
 
-        def _wav(self, body: bytes, headers=()) -> None:
+        def _wav(self, body: bytes, headers=(), ctype: str = "audio/wav") -> None:
             self.send_response(200)
-            self.send_header("Content-Type", "audio/wav")
+            self.send_header("Content-Type", ctype)
             self.send_header("Content-Length", str(len(body)))
             for k, v in headers:
                 self.send_header(k, v)
@@ -198,11 +219,13 @@ def make_handler(engine: Engine, presets: Dict[str, SamplerConfig],
 
                 audio, normalized, timings = engine.generate(text, speaker, seed=seed, sc=sc,
                                                              normalize_text=normalize)
-                # "format": "mp3" gets WAV too: no MP3 encoder is ported (the JAX
-                # server sends WAV the same way where libmp3lame is missing)
-                self._wav(wav_bytes(audio[0], engine.tts.ae_cfg.sample_rate), [
+                sr = engine.tts.ae_cfg.sample_rate
+                body = mp3_bytes(audio[0], sr) if req.get("format") == "mp3" else None
+                ctype = "audio/mpeg" if body is not None else "audio/wav"
+                self._wav(body if body is not None else wav_bytes(audio[0], sr), [
                     ("X-Normalized-Text", base64.b64encode(normalized.encode()).decode()),
-                    ("X-Timings", json.dumps({k: round(v, 4) for k, v in timings.items()}))])
+                    ("X-Timings", json.dumps({k: round(v, 4) for k, v in timings.items()}))],
+                    ctype)
             except Exception as e:
                 self._json(500, {"error": str(e)})
 

@@ -64,11 +64,16 @@ def cosine_schedule_with_warmup(tc: TrainConfig):
 
 
 def tree_leaves(tree) -> List[torch.Tensor]:
-    """Leaves in the JAX package's flatten order (dict keys sorted)."""
+    """Leaves in the JAX package's flatten order (dict keys sorted, lists in
+    order); a dataclass (`OptState`) by its fields, None an empty subtree."""
+    if tree is None:
+        return []
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
     if isinstance(tree, (list, tuple)):
         return [x for v in tree for x in tree_leaves(v)]
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return [x for f in dataclasses.fields(tree) for x in tree_leaves(getattr(tree, f.name))]
     return [tree]
 
 

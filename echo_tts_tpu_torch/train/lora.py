@@ -15,7 +15,7 @@ recomputed under remat instead of saved.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -123,9 +123,12 @@ def count_lora_params(lora: dict) -> int:
     return sum(int(ab[k].numel()) for ab in lora.values() for k in ("a", "b"))
 
 
-def save_lora_checkpoint(path: str, lora: dict, lc: LoRAConfig) -> None:
+def save_lora_checkpoint(path: str, lora: dict, lc: LoRAConfig,
+                         extra: Optional[dict] = None) -> None:
     """npz side-car checkpoint in the JAX package's format: `<target>.a`,
-    `<target>.b` (fp32), `__rank__`, `__alpha__`."""
+    `<target>.b` (fp32), `__rank__`, `__alpha__`. `extra` (the epoch and
+    validation loss a finetune saves with) is accepted and, as in the JAX
+    package, not written: the format is unchanged."""
     flat = {}
     for tgt, ab in lora.items():
         flat[f"{tgt}.a"] = ab["a"].detach().float().cpu().numpy()

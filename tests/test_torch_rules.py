@@ -46,10 +46,13 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+sys.path.insert(0, "tests")
+import torch_parity
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "echo_tts_tpu" or m.startswith("echo_tts_tpu.")
-             or m == "scripts" or m.startswith("scripts."))
+             or m == "scripts" or m.startswith("scripts.")
+             or m == "safetensors" or m.startswith("safetensors."))
 print(len(names), bad)
 assert not bad, bad
 assert len(names) >= 20, names
@@ -58,7 +61,11 @@ for new in ("bench.attention", "bench.attention_variants", "bench.conv_kernel_va
             "ops.attention_variants", "ops.res_chain_variants", "utils.profiling",
             "ops.conv_core", "sampling.jax_random", "sampling.blockwise", "core.rope",
             "models.s1dac", "pipeline.pipeline", "serve.engine", "serve.continuous",
-            "serve.server", "serve.presets", "serve.__main__", "utils.locks", "bench.trace"):
+            "serve.server", "serve.presets", "serve.__main__", "utils.locks", "bench.trace",
+            "checkpoints.safetensors", "checkpoints.convert", "checkpoints.io",
+            "native.build", "native.resample_py", "native.mp3_py", "bench.fast_init",
+            "scripts.convert_checkpoint", "scripts.batch_synthesize", "scripts.finetune_lora",
+            "scripts.bench_train"):
     assert "echo_tts_tpu_torch." + new in names, new
 """
 
@@ -115,12 +122,66 @@ def test_serve_and_trace_entry_points_on_the_cpu_flag(capsys):
     assert res["n_ok"] == 2 and res["n_hung"] == 0 and not any(res["launches"].values())
 
 
-@pytest.mark.parametrize("argv", [["--dit", "dit.safetensors"],
-                                  ["--random", "--int8-cache", "q.npz"],
-                                  ["--random", "--tp", "2"], ["--random", "--gradio"]])
+@pytest.mark.parametrize("argv", [["--random", "--tp", "2"], ["--random", "--gradio"]])
 def test_serve_flags_not_ported_raise(argv):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         serve_main.build_engine(serve_main.parse_args(["--cpu"] + argv))
+
+
+def test_serve_builds_an_engine_from_checkpoint_files(tmp_path):
+    """--dit/--ae/--pca load the reference's safetensors (here the tiny
+    configs written by tests/torch_parity.py) onto the asked device: the
+    one-shot DiT unless --keep-blockwise, fp32 on the CPU; --int8-cache
+    writes the quantized base; without a card and without --cpu it raises;
+    --dit without --ae and --pca is refused."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from torch_parity import write_tiny_checkpoints
+
+    p = write_tiny_checkpoints(tmp_path, 2, 3)["paths"]
+    files = ["--dit", p["dit"], "--ae", p["ae"], "--pca", p["pca"]]
+    for extra, latent in (([], False), (["--keep-blockwise", "--int8", "--int8-cache",
+                                         str(tmp_path / "q.npz")], True)):
+        eng = serve_main.build_engine(serve_main.parse_args(["--cpu"] + files + extra))
+        try:
+            assert eng.tts.device.type == "cpu" and eng.tts.model_dtype == torch.float32
+            assert eng.tts.dit_cfg == DiTConfig(has_latent_modules=latent).tiny()
+            assert eng.int8 == latent
+        finally:
+            eng.close()
+    assert os.path.exists(tmp_path / "q.npz")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            serve_main.build_engine(serve_main.parse_args(files))
+    with pytest.raises(SystemExit):
+        serve_main.parse_args(["--cpu", "--dit", p["dit"]])
+
+
+def test_native_build_stays_under_build_and_never_loads_the_jax_library(tmp_path, monkeypatch):
+    """native/build.py compiles its own copy of resample.cc into the build
+    directory it is given (build/echo_tts_tpu_torch/ at the repo root by
+    default), names the library by a hash of the source, and loads only
+    that file: never echo_tts_tpu/native/libecho_native.so."""
+    from echo_tts_tpu_torch.native import build as nb
+
+    assert nb.BUILD_DIR == type(nb.BUILD_DIR)(REPO) / "build" / "echo_tts_tpu_torch"
+    assert nb.SRC.parent.name == "native" and nb.SRC.parent.parent.name == "echo_tts_tpu_torch"
+    runs, loads = [], []
+    real_run, real_cdll = nb.subprocess.run, nb.ctypes.CDLL
+    monkeypatch.setattr(nb, "BUILD_DIR", tmp_path / "build" / "echo_tts_tpu_torch")
+    monkeypatch.setattr(nb, "_lib", None)
+    monkeypatch.setattr(nb.subprocess, "run", lambda cmd, **kw: runs.append(cmd) or
+                        real_run(cmd, **kw))
+    monkeypatch.setattr(nb.ctypes, "CDLL", lambda path, *a, **kw: loads.append(str(path)) or
+                        real_cdll(path, *a, **kw))
+    lib = nb.load()
+    assert lib.upfirdn_f32 is not None and len(runs) == 1 and len(loads) == 1
+    out = runs[0][runs[0].index("-o") + 1]
+    assert out.startswith(str(tmp_path / "build" / "echo_tts_tpu_torch"))
+    assert loads[0] == str(nb.lib_path()) and loads[0].startswith(str(tmp_path / "build"))
+    assert "libecho_native-" in loads[0] and "echo_tts_tpu/native" not in loads[0]
+    assert all("echo_tts_tpu/native" not in part for part in runs[0])
+    assert sorted(p.name for p in (tmp_path / "build" / "echo_tts_tpu_torch").iterdir()) == \
+        [nb.lib_path().name]
 
 
 BENCH_ENTRY_POINTS = ("attention_variants", "conv_kernel_variants", "conv_variants", "attention",

@@ -8,8 +8,8 @@ tests/test_serve.py holds its own), keys that split batches, the speaker
 cache (one encode; keys equal the JAX package's), sample_fn and the vocoder
 timing key, ae_reconstruct and Engine.reconstruct, set_lora from an npz the
 JAX package wrote, the stream micro-batch against solo streams, close()
-with a queued stream, the serving options not ported, the HTTP endpoints, the mp3
-fallback to WAV and SamplerConfig.from_preset. Tiny configs, fp32, on the
+with a queued stream, the serving options not ported, the HTTP endpoints, MP3
+output and its fallback to WAV and SamplerConfig.from_preset. Tiny configs, fp32, on the
 CPU; every wait is bounded and every Engine is closed."""
 import base64
 import dataclasses
@@ -330,7 +330,7 @@ def test_retry_reruns_the_same_path_then_fails(both, engines, monkeypatch, max_b
     assert np.isfinite(audio).all() and eng.health()["requests"] == 1
 
 
-@pytest.mark.parametrize("kw", [dict(int8_cache_path="q.npz"), dict(mesh=object())])
+@pytest.mark.parametrize("kw", [dict(mesh=object())])
 def test_levers_not_ported_raise(both, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Engine(both[1], **kw)
@@ -418,11 +418,22 @@ def test_http_tts_and_presets(both, server, tmp_path):
     assert again == body and eng.health()["speaker_cache_hits"] == 1
 
 
-def test_http_mp3_falls_back_to_wav(server):
+def test_http_mp3_falls_back_to_wav(server, monkeypatch):
+    """"format": "mp3" sends MP3 (libmp3lame) of the WAV request's audio;
+    where the library is missing it sends the WAV, as the JAX server does."""
+    from echo_tts_tpu_torch.native import mp3_py
+
     _, base = server
-    headers, body = _post(base, "/tts", {"text": "MP3 test.", "seed": 5, "format": "mp3",
-                                          **SAMPLER})
-    assert headers["Content-Type"] == "audio/wav" and body[:4] == b"RIFF"
+    req = {"text": "MP3 test.", "seed": 5, "format": "mp3", **SAMPLER}
+    _, wav = _post(base, "/tts", dict(req, format="wav"))
+    headers, body = _post(base, "/tts", req)
+    if mp3_py.mp3_encode_available():
+        assert headers["Content-Type"] == "audio/mpeg" and body[:4] != b"RIFF" and len(body) > 0
+    else:
+        assert headers["Content-Type"] == "audio/wav" and body == wav
+    monkeypatch.setattr(mp3_py, "_load_lame", lambda: None)
+    headers, body = _post(base, "/tts", req)
+    assert headers["Content-Type"] == "audio/wav" and body == wav
 
 
 def test_http_tts_stream(both, server):
