@@ -5,6 +5,7 @@
     python3 chip_smoke.py --kernels-only  # build + kernel checks + kernel times
     python3 chip_smoke.py --slices-only   # phases 1, 5, 6, 9-13 only (K1-K5 built)
     python3 chip_smoke.py --checkpoints-only  # phases 1, 2 (K1-K5) and 13
+    python3 chip_smoke.py --mesh-only     # phases 1, 2 (K1-K5) and 14
 
 Phases, in order; any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi), torch/CUDA/nvcc versions;
@@ -39,8 +40,9 @@ Phases, in order; any failure exits non-zero:
      192, 64, 7680, 2560, 1, 37, the encoders' (K, N) at M = 768 and 1600,
      a ragged and an odd N, K a multiple of 16 and not of 128; the grouped
      launches q/k/v/gate, w1/w3 and a context's k/v and one of four unequal
-     N; every tile shape forced), and the wrappers refusing what the kernels
-     do not take;
+     N; every tile shape forced; K5's scale-only and codes-at-a-scale modes
+     at the tp=2 widths and K4 at every tp=2 (K, N)), and the wrappers
+     refusing what the kernels do not take;
   5. the one-shot slice at the full width of DiTConfig(has_latent_modules=
      False) and AEConfig() in bf16, random weights from a seed: one CFG
      forward and one decode through the kernels against the plain versions;
@@ -88,7 +90,7 @@ Phases, in order; any failure exits non-zero:
      (64, 192), its chunks equal to sample_pipeline_stream's PCM16 (time to
      first chunk at the client); four concurrent /tts of one batch key on
      Engine(max_batch=4): one batch, one request's K1 and decode K2, every
-     row equal to its solo run, aggregate audio-s/s; run_trace (4 streams of
+     row equal to its solo run, aggregate audio-s/s; run_trace (3 streams of
      640 latents at 0.5/s, 64-latent blocks) on a continuous, a dispatch and
      a continuous engine without the fast join: TTFA and completion p50/p95,
      achieved audio-s/s, one continuous
@@ -126,6 +128,24 @@ Phases, in order; any failure exits non-zero:
      reloaded to the same bits; the native resampler against scipy,
      get_delay, and decode_codes against decode_zq (K2 12). The MP3 steps
      print "mp3: skipped" where the libraries are missing;
+ 14. (run after 13, on weights of its own) the mesh and the fleet
+     (echo_tts_tpu_torch/parallel/) at the full width of
+     DiTConfig(has_latent_modules=False) and AEConfig() in bf16, seeds 0 and 1
+     in every process: (a) a world-size-1 NCCL mesh, request (i) through the
+     sharded tree equal to the direct call; (b) tp=2 as two ranks on cuda:0
+     over gloo (NCCL takes one rank a card): request (i) at 640 latents and 40
+     steps against tp=1 (rel-L2 of latents and audio < 2e-2), each rank's
+     launches (K1 1920, K2 12), peak memory and all-reduce seconds; the int8
+     trunk the same way (K4 3840, K5 1920 and each tp mode 1920) with one
+     layer's row-sharded products bit for bit; a B=2 training batch's loss
+     and gradients through K1 + K3 against tp=1 and one step; `serve --tp 2
+     --dist-backend gloo` over HTTP, /tts of (i) and a /lora swap, bodies
+     equal to the direct tp=2 calls; (c) dp=2, four rows two a rank against
+     sample_pipeline_batch at B=4 (rel-L2 < 2e-2), run_weak_scaling as
+     information (the ranks share one card); (d) batch_synthesize --workers
+     2 --worker-die-after 1:1 --max-batch 1 on four 640-latent requests,
+     byte-equal to one process, dead_workers [1], reassigned >= 1; (e) a
+     sharded torch.distributed.checkpoint save and load at tp=2, equal bits;
   7. the measurement path: the entry points of echo_tts_tpu_torch/bench/
      (attention_variants, conv_kernel_variants, conv_variants, attention,
      profile_breakdown) at their full shapes, each printing its JSON line,
@@ -811,6 +831,44 @@ def phase_int8_checks(dev) -> dict:
         int8_gemm_case("grouped context k/v", gen, m, 1280, (2048,) * 2, dev, failures)
     int8_gemm_case("grouped, four unequal N", gen, 37, 1040, (200, 2048, 72, 203), dev,
                    failures)
+    # tensor parallelism: K5's scale-only and codes-at-a-scale modes at the
+    # widths of the row-sharded products at tp=2, and K4 at every (K, N) a
+    # tp=2 rank launches (int32 out for the row-sharded ones)
+    for m, d in ((1920, 1024), (1920, 2944), (640, 1024), (768, 640), (1600, 1664),
+                 (37, 1000)):
+        for dtype in (torch.bfloat16, torch.float32):
+            h = (torch.randn(m, 2 * d, generator=gen, device=dev) * 3).to(dtype)
+            h[3] = 0
+            halves = [h[:, :d].contiguous(), h[:, d:].contiguous()]
+            before = (qr.quant_rows_scale.launches, qr.quant_rows_at.launches)
+            scales = [qr.quant_rows_scale(x) for x in halves]
+            s_max = torch.maximum(*scales)
+            codes = [qr.quant_rows_at(x, s_max) for x in halves]
+            torch.cuda.synchronize()
+            same = all(torch.equal(sx.cpu(), qr.quant_rows_scale_plain(x.cpu()))
+                       and torch.equal(qx.cpu(), qr.quant_rows_at_plain(x.cpu(), s_max.cpu()))
+                       for x, sx, qx in zip(halves, scales, codes))
+            rq, rs = qr.quant_rows_plain(h.cpu())
+            whole = torch.equal(s_max.cpu(), rs) and torch.equal(torch.cat(codes, 1).cpu(), rq)
+            log(f"# check quant_rows_scale / quant_rows_at [two halves of ({m}, {2 * d}) "
+                f"{str(dtype)[6:]}, row 3 all zero]: each equal to the plain version: {same}; "
+                f"the max of the halves' scales and the codes at it equal the whole row's: "
+                f"{whole}")
+            launched = (qr.quant_rows_scale.launches - before[0],
+                        qr.quant_rows_at.launches - before[1])
+            if not (same and whole) or launched != (2, 2):
+                failures.append(f"quant_rows tp modes ({m}, {d}) {dtype} {launched}")
+    for m in (1920, 640):
+        for what, k, ns in (("tp=2 q/k/v/gate", 2048, (1024,) * 4), ("tp=2 wo", 1024, (2048,)),
+                            ("tp=2 w1/w3", 2048, (2944,) * 2), ("tp=2 w2", 2944, (2048,))):
+            int8_gemm_case(what, gen, m, k, ns, dev, failures)
+    for m in (768, 1600):
+        for what, k, ns in (("tp=2 encoders q/k/v/gate", 1280, (640,) * 4),
+                            ("tp=2 encoders wo", 640, (1280,)),
+                            ("tp=2 encoders w1/w3", 1280, (1664,) * 2),
+                            ("tp=2 encoders w2", 1664, (1280,)),
+                            ("tp=2 context k/v", 1280, (1024,) * 2)):
+            int8_gemm_case(what, gen, m, k, ns, dev, failures)
     for tile in ig.TILES:
         for what, m, k, ns in (("tile", 1920, 2048, (2048,)), ("tile", 192, 5888, (2048,)),
                                ("tile", 37, 1040, (203,)), ("tile, grouped", 576, 2048,
@@ -852,7 +910,7 @@ def phase_int8_checks(dev) -> dict:
             failures.append(f"a refused call ({what}) launched")
     if failures:
         raise SystemExit("int8 kernel checks failed: " + "; ".join(failures))
-    return {"int8_gemm": 0.0, "quant_rows": 0.0}
+    return {"int8_gemm": 0.0, "quant_rows": 0.0, "quant_rows_scale": 0.0, "quant_rows_at": 0.0}
 
 
 # ---------------------------------------------------------------------------
@@ -1539,6 +1597,28 @@ def int8_times(dev, errs: dict, launches: dict) -> list:
                 f"({k5_bytes / k5['ms'] / 1e6:.0f} GB/s, {k5['ms'] / k5_b_ms:.2f}x its bound "
                 f"{k5_b_ms:.4f} ms)")
             del ops, hs
+        # K5's tp modes: one tp=2 layer's two row-sharded inputs (wo's 1024
+        # and w2's 2944 columns of each of M = 1920 rows), scales and codes
+        tp_h = [torch.randn(1920, d, generator=gen, device=dev).to(bf) for d in (1024, 2944)]
+        tp_s = [qr.quant_rows_scale(h) for h in tp_h]
+        n_el = sum(h.numel() for h in tp_h)
+        modes = {}
+        for name, run, plain, nbytes in (
+                ("quant_rows_scale", lambda: [qr.quant_rows_scale(h) for h in tp_h],
+                 lambda: [qr.quant_rows_scale_plain(h) for h in tp_h], 2 * n_el + 4 * 2 * 1920),
+                ("quant_rows_at", lambda: [qr.quant_rows_at(h, s) for h, s in zip(tp_h, tp_s)],
+                 lambda: [qr.quant_rows_at_plain(h, s) for h, s in zip(tp_h, tp_s)],
+                 3 * n_el + 4 * 2 * 1920)):
+            b_ms, b_by = bound(3.0 * n_el, nbytes)
+            modes[name] = {"ms": cuda_ms(run, graph_iters=GRAPH_ITERS),
+                           "plain_ms": cuda_ms(plain, reps=5), "bound_ms": b_ms,
+                           "bound_by": b_by, "bytes": nbytes}
+            log(f"# time {name}, one tp=2 layer's row-sharded inputs ((1920, 1024) + (1920, "
+                f"2944) bf16): kernel {modes[name]['ms']:.4f} ms "
+                f"({nbytes / modes[name]['ms'] / 1e6:.0f} GB/s, "
+                f"{modes[name]['ms'] / b_ms:.2f}x its bound {b_ms:.4f} ms); plain "
+                f"{modes[name]['plain_ms']:.4f} ms")
+        del tp_h, tp_s
     host = int8_host_us(dev, gen)
     layer_row, k5 = at_m[1920], k5_at_m[1920]
     log(f"# time int8_gemm, one trunk layer at M = 1920: kernel {layer_row['ms']:.4f} ms, bf16 "
@@ -1571,7 +1651,18 @@ def int8_times(dev, errs: dict, launches: dict) -> list:
              # no single PyTorch call quantizes rows with their own dynamic scales
              "library_ms": None, "at_m": k5_at_m, "ptxas": PTXAS.get("quant_rows", {}),
              "shape": "the four row quantizations of one trunk layer at M = 1920: 3 x "
-                      "(1920, 2048) + 1 x (1920, 5888) bf16, summed"}]
+                      "(1920, 2048) + 1 x (1920, 5888) bf16, summed"}] + [
+            {"name": name, "route": "cuda", "source": "echo_tts_tpu_torch/csrc/quant_rows.cu",
+             "replaces": "echo_tts_tpu/models/quant.py:104 (quant_rows over the whole K, which "
+                         "GSPMD gives the row-sharded products: no Pallas kernel)",
+             "launches": launches.get("mesh tp=2 int8", {}).get(name, 0),
+             "launches_by_path": by_path(launches, name), "max_abs_err": errs[name],
+             **modes[name],
+             # no PyTorch call takes row scales alone or codes at given scales
+             "library_ms": None,
+             "shape": "one tp=2 layer's row-sharded inputs at M = 1920: (1920, 1024) + "
+                      "(1920, 2944) bf16"}
+            for name in ("quant_rows_scale", "quant_rows_at")]
 
 
 def layout_in_turns(dev, c, t) -> dict:
@@ -2537,9 +2628,9 @@ def phase_batch(dev, wrappers: dict, tts) -> dict:
 # ---------------------------------------------------------------------------
 
 
-# phase 11 (d): streams in a trace; four keep the first arrivals' burst of
-# three and hold the whole script well inside its time limit
-TRACE_STREAMS = 4
+# phase 11 (d): streams in a trace; three keep the first arrivals' burst of
+# three and hold the whole script, phase 14 included, inside its time limit
+TRACE_STREAMS = 3
 
 
 def http_call(port: int, method: str, path: str, body=None):
@@ -2595,7 +2686,7 @@ def phase_serve(dev, wrappers: dict, tts) -> dict:
     server decodes it; (b) /tts_stream of (ii) on (64, 192), its chunks equal
     to the PCM16 of sample_pipeline_stream's; (c) four concurrent /tts of one
     batch key on Engine(max_batch=4): one batch, K1 and the decode's K2 as one
-    request's, every row equal to its solo run; (d) run_trace, 4 streams of
+    request's, every row equal to its solo run; (d) run_trace, 3 streams of
     640 latents at 0.5 requests/s on 64-latent blocks, on a continuous, a
     dispatch and a continuous engine without the fast join, one continuous
     row against its solo stream; (e)
@@ -3758,13 +3849,655 @@ def phase_checkpoints(dev, wrappers: dict) -> dict:
     return driven
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the mesh and the fleet
+# ---------------------------------------------------------------------------
+
+MESH_DIR = os.path.join(HERE, "build", "echo_tts_tpu_torch", "mesh")
+# the weights flags of the entry points phase 14 starts (serve, batch_synthesize)
+MESH_WEIGHTS_FLAGS = ["--random"]
+MESH_WRAPPERS = ("joint_attention", "joint_attention_bwd", "res_chain", "int8_gemm",
+                 "quant_rows", "quant_rows_scale", "quant_rows_at")
+
+
+def mesh_wrappers() -> dict:
+    """Every kernel wrapper the mesh path launches, by name."""
+    from echo_tts_tpu_torch.ops.int8_gemm import int8_gemm
+    from echo_tts_tpu_torch.ops.joint_attention import joint_attention, joint_attention_bwd
+    from echo_tts_tpu_torch.ops.quant_rows import quant_rows, quant_rows_at, quant_rows_scale
+    from echo_tts_tpu_torch.ops.res_chain import res_units_cl
+
+    return {"joint_attention": joint_attention, "joint_attention_bwd": joint_attention_bwd,
+            "res_chain": res_units_cl, "int8_gemm": int8_gemm, "quant_rows": quant_rows,
+            "quant_rows_scale": quant_rows_scale, "quant_rows_at": quant_rows_at}
+
+
+def mesh_sc():
+    from echo_tts_tpu_torch.core.config import SamplerConfig
+
+    return SamplerConfig(num_steps=40, cfg_scale_text=3.0, cfg_scale_speaker=8.0, cfg_min_t=0.5,
+                         cfg_max_t=1.0, truncation_factor=0.8, sequence_length=640)
+
+
+def mesh_tts(dev):
+    """DiTConfig(has_latent_modules=False) and AEConfig() in bf16 from seeds 0
+    and 1 with random_tts's PCA state: `serve --random`'s weights without its
+    latent modules, which init_dit_params draws last, so a one-shot request
+    gives the same bytes on both."""
+    from echo_tts_tpu_torch.bench.init_ae import init_ae_params
+    from echo_tts_tpu_torch.core.config import AEConfig, DiTConfig, PipelineConfig
+    from echo_tts_tpu_torch.models.dit import init_dit_params
+    from echo_tts_tpu_torch.models.pca import PCAState
+    from echo_tts_tpu_torch.pipeline.pipeline import EchoTTS
+
+    dit_cfg, ae_cfg = DiTConfig(has_latent_modules=False), AEConfig()
+    return EchoTTS(init_dit_params(dit_cfg, torch.bfloat16, dev, seed=0), dit_cfg,
+                   init_ae_params(ae_cfg, torch.bfloat16, dev, seed=1), ae_cfg,
+                   PCAState.random(0, ae_cfg.latent_dim, dit_cfg.latent_size, device=dev),
+                   model_dtype=torch.bfloat16, pipe_cfg=PipelineConfig(), device=dev)
+
+
+def request_i(tts, sc, seed: int = 0):
+    """Request (i) (SHORT_TEXT, no speaker, normalized as the server does) on
+    `tts`: (latents fp32 on the host, audio, the server's WAV bytes), the
+    audio as `sample_pipeline` makes it."""
+    from echo_tts_tpu_torch.pipeline.pipeline import sample_pipeline
+    from echo_tts_tpu_torch.sampling.euler_cfg import (
+        draw_noise,
+        sample_euler_cfg_independent_guidances,
+    )
+    from echo_tts_tpu_torch.serve.server import wav_bytes
+
+    box = {}
+
+    def sample(spk, smask, ids, tmask, rng_seed):
+        noise = draw_noise(rng_seed, (1, sc.sequence_length, tts.dit_cfg.latent_size),
+                           tts.device)
+        box["lat"] = sample_euler_cfg_independent_guidances(
+            tts.dit_params, tts.dit_cfg, sc, spk, smask, ids, tmask, noise,
+            model_dtype=tts.model_dtype)
+        return box["lat"]
+
+    with torch.no_grad():
+        audio, _, _ = sample_pipeline(tts, SHORT_TEXT, None, seed, sc=sc, normalize_text=True,
+                                      sample_fn=sample)
+    return box["lat"].float().cpu(), audio, wav_bytes(audio[0], tts.ae_cfg.sample_rate)
+
+
+def counted(wrappers: dict, fn, dev):
+    """fn() with every launch count at 0 before, the tp collectives' stats
+    and the peak memory reset; (result, launches, all-reduce stats, peak
+    GiB, wall s) read just after."""
+    from echo_tts_tpu_torch.parallel.tp import STATS, reset_stats
+
+    cuda = dev.type == "cuda"
+    for w in wrappers.values():
+        w.launches = 0
+    reset_stats()
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (out, {k: w.launches for k, w in wrappers.items()}, dict(STATS),
+            torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0, wall)
+
+
+def mesh_train_batch(b: int, seed: int) -> dict:
+    """A training batch at the path's shapes: B clips of 640 latents (the
+    second ragged), 768 text tokens (60 real), a 640-latent speaker
+    prompt."""
+    rng = np.random.default_rng(seed)
+    lm = np.ones((b, 640), bool)
+    lm[1:, 600:] = False
+    tm = np.zeros((b, 768), bool)
+    tm[:, :60] = True
+    return {"latent": rng.standard_normal((b, 640, 80)).astype(np.float32), "latent_mask": lm,
+            "text_input_ids": rng.integers(0, 256, (b, 768)).astype(np.int32), "text_mask": tm,
+            "speaker_latent": rng.standard_normal((b, 640, 80)).astype(np.float32),
+            "speaker_mask": np.ones((b, 640), bool)}
+
+
+def _mesh_rank(rank: int, task: str, init: str, out_dir: str, dev_type: str) -> None:
+    """One rank of a phase-14 group: two ranks on cuda:0 over gloo."""
+    from echo_tts_tpu_torch.parallel.mesh import destroy, initialize_multihost
+
+    dev = torch.device(dev_type, 0) if dev_type == "cuda" else torch.device(dev_type)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    initialize_multihost(init, 2, rank, backend="gloo", device=dev)
+    try:
+        res = {"tp": _mesh_tp_work, "dp": _mesh_dp_work}[task](rank, dev, out_dir)
+        torch.save(res, os.path.join(out_dir, f"{task}_rank{rank}.pt"))
+    finally:
+        destroy()
+
+
+def _grad_parts(loss_fn, full: dict, shard: dict, rank: int):
+    """(loss full, loss shard, sum of squared differences and of squared
+    reference values over this rank's part of the gradients): the shard's
+    gradients against the slices of the full tree's, each replicated leaf
+    counted by rank 0 alone."""
+    from echo_tts_tpu_torch.parallel.sharding import shard_slice, spec_for
+    from echo_tts_tpu_torch.parallel.tp import current_mesh
+    from echo_tts_tpu_torch.train.loop import tree_leaves
+
+    def named(tree, names=()):
+        if isinstance(tree, dict):
+            return [x for k in sorted(tree) for x in named(tree[k], names + (k,))]
+        return [(names, tree)]
+
+    out = []
+    for tree in (full, shard):
+        leaves = tree_leaves(tree)
+        for p in leaves:
+            p.requires_grad_(True)
+        loss = loss_fn(tree)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        for p in leaves:
+            p.requires_grad_(False)
+        out.append((float(loss.detach()), list(grads)))
+    (l1, g1), (l2, g2) = out
+    diff2 = ref2 = 0.0
+    mesh = current_mesh()
+    for (names, p), a, b in zip(named(full), g1, g2):
+        if a is None and b is None:
+            continue
+        a = torch.zeros_like(p) if a is None else a
+        spec = spec_for(names, a.dim())
+        if "tp" in spec:
+            a = shard_slice(a, spec, mesh, names)
+        elif rank != 0:
+            continue
+        b = torch.zeros_like(a) if b is None else b
+        diff2 += float((b.double() - a.double()).square().sum())
+        ref2 += float(a.double().square().sum())
+    return l1, l2, diff2, ref2
+
+
+def clone_tree(tree):
+    return ({k: clone_tree(v) for k, v in tree.items()} if isinstance(tree, dict)
+            else tree.clone())
+
+
+def _mesh_tp_work(rank: int, dev, out_dir: str) -> dict:
+    """(b) and (e) on one rank of tp=2: request (i) in bf16 and int8 against
+    the tp=1 references, each row-sharded int8 product of one layer bit for
+    bit, the gradients of a B=2 training loss against tp=1's and one train
+    step, the direct tp=2 calls the server's bodies are held to, and a
+    sharded torch.distributed.checkpoint save and load."""
+    import dataclasses
+    import shutil
+
+    from echo_tts_tpu_torch.checkpoints.io import load_sharded, save_sharded
+    from echo_tts_tpu_torch.core.config import MeshConfig
+    from echo_tts_tpu_torch.models import quant
+    from echo_tts_tpu_torch.parallel.mesh import make_mesh
+    from echo_tts_tpu_torch.parallel.multihost import barrier, feed_process_local_batch
+    from echo_tts_tpu_torch.parallel.sharding import shard_params
+    from echo_tts_tpu_torch.pipeline.pipeline import sample_pipeline
+    from echo_tts_tpu_torch.serve.server import wav_bytes
+    from echo_tts_tpu_torch.train.loop import TrainConfig, make_train_step
+    from echo_tts_tpu_torch.train.loss import compute_diffusion_loss
+    from echo_tts_tpu_torch.train.lora import load_lora_checkpoint, merge_lora
+
+    inp = torch.load(os.path.join(out_dir, "inputs.pt"), weights_only=False)
+    wrappers = mesh_wrappers()
+    sc = mesh_sc()
+    mesh = make_mesh(MeshConfig(dp=1, tp=2), dev)
+    tts = mesh_tts(dev)
+    res = {"rank": rank}
+    stts = dataclasses.replace(tts, dit_params=shard_params(tts.dit_params, mesh))
+    res["heads"] = stts.dit_params["blocks"]["attention"]["k_norm"].shape[1]
+    (lat, audio, wav), res["launches"], res["all_reduce"], res["peak_gib"], res["wall_s"] = \
+        counted(wrappers, lambda: request_i(stts, sc), dev)
+    res["wav"] = wav
+    res["rel_latents"], res["rel_audio"] = rel_l2(lat, inp["lat"]), rel_l2(
+        torch.as_tensor(audio), torch.as_tensor(inp["audio"]))
+    res["finite"] = bool(np.isfinite(audio).all())
+
+    # int8, the trunk quantized on the full tree and then sharded
+    qfull = quant.quantize_dit_params(tts.dit_params)
+    q8 = dataclasses.replace(tts, dit_params=shard_params(qfull, mesh))
+    (lat8, audio8, _), res["int8_launches"], res["int8_all_reduce"], res["int8_peak_gib"], \
+        res["int8_wall_s"] = counted(wrappers, lambda: request_i(q8, sc), dev)
+    res["int8_rel_latents"] = rel_l2(lat8, inp["lat8"])
+    res["int8_rel_audio"] = rel_l2(torch.as_tensor(audio8), torch.as_tensor(inp["audio8"]))
+    gen = torch.Generator(device=dev).manual_seed(21)
+    rows = {}
+    with torch.no_grad():
+        for name, w in (("wo", qfull["blocks"]["attention"]["wo"]),
+                        ("w2", qfull["blocks"]["mlp"]["w2"])):
+            w0 = {"q": w["q"][0], "s": w["s"][0]}
+            k = w0["q"].shape[1] // 2
+            h = torch.randn((1920, 2 * k), generator=gen, device=dev).to(torch.bfloat16)
+            mine = {"q": w0["q"][:, rank * k:(rank + 1) * k].contiguous(), "s": w0["s"]}
+            got = quant.mm(h[:, rank * k:(rank + 1) * k].contiguous(), mine, mesh.tp_group)
+            rows[name] = bool(torch.equal(got, quant.mm(h, w0)))
+    res["int8_rows_equal"] = rows
+    del q8, qfull
+    torch.cuda.empty_cache()
+
+    # training: the loss and gradients at B=2 through K1 + K3 against tp=1,
+    # then one full-param step on the shard
+    batch = mesh_train_batch(2, 22)
+    b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    draw = torch.Generator(device=dev).manual_seed(23)
+    t_d = torch.rand(b["latent"].shape[0], generator=draw, device=dev) ** 2.0
+    noise = torch.randn(b["latent"].shape, generator=draw, device=dev)
+
+    def loss_fn(params):
+        return compute_diffusion_loss(params, tts.dit_cfg, None, b["latent"], b["latent_mask"],
+                                      b["text_input_ids"], b["text_mask"], b["speaker_latent"],
+                                      b["speaker_mask"], model_dtype=tts.model_dtype, t=t_d,
+                                      noise=noise)
+
+    (l1, l2, d2, r2), res["train_launches"], res["train_all_reduce"], res["train_peak_gib"], \
+        res["train_wall_s"] = counted(wrappers, lambda: _grad_parts(
+            loss_fn, tts.dit_params, stts.dit_params, rank), dev)
+    res.update(loss_tp1=l1, loss_tp2=l2, grad_diff2=d2, grad_ref2=r2)
+    tc = TrainConfig(learning_rate=1e-5, warmup_steps=0, total_steps=10)
+    opt, step = make_train_step(tts.dit_cfg, tc, model_dtype=tts.model_dtype, mesh=mesh)
+    # a copy: the shard's replicated leaves are the full tree's own tensors,
+    # and the step updates them in place
+    train_params = clone_tree(shard_params(tts.dit_params, mesh))
+    state = opt.init(train_params)
+    (_, _, loss), res["step_launches"], _, _, res["step_wall_s"] = counted(
+        wrappers, lambda: step(train_params, state, torch.Generator(device=dev).manual_seed(24),
+                               feed_process_local_batch(mesh, batch)), dev)
+    res["step_loss"] = float(loss)
+    del train_params, state, opt, step
+    torch.cuda.empty_cache()
+
+    # the direct tp=2 calls the server is held to: request (i), and the same
+    # with the LoRA merged on the full tree
+    res["direct"] = wav
+    lora, lc = load_lora_checkpoint(inp["lora"], dev)
+    merged = dataclasses.replace(tts, dit_params=shard_params(
+        merge_lora(tts.dit_params, lora, lc), mesh))
+    with torch.no_grad():
+        audio_l, _, _ = sample_pipeline(merged, SHORT_TEXT, None, 0, sc=sc, normalize_text=True)
+    res["direct_lora"] = wav_bytes(audio_l[0], tts.ae_cfg.sample_rate)
+    del merged
+    torch.cuda.empty_cache()
+
+    # (e) a sharded save and load
+    ckpt = os.path.join(out_dir, "dcp")
+    barrier()
+    t0 = time.perf_counter()
+    save_sharded(ckpt, stts.dit_params, mesh)
+    res["dcp_save_s"] = time.perf_counter() - t0
+    def zeros(tree):
+        return ({k: zeros(v) for k, v in tree.items()} if isinstance(tree, dict)
+                else torch.zeros_like(tree))
+
+    t0 = time.perf_counter()
+    back = load_sharded(ckpt, zeros(stts.dit_params), mesh)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    res["dcp_load_s"] = time.perf_counter() - t0
+
+    def equal(a, bb):
+        if isinstance(a, dict):
+            return all(equal(a[k], bb[k]) for k in a)
+        return bool(torch.equal(a, bb))
+
+    res["dcp_equal"] = equal(stts.dit_params, back)
+    res["dcp_bytes"] = sum(os.path.getsize(os.path.join(r, f))
+                           for r, _, fs in os.walk(ckpt) for f in fs)
+    barrier()
+    if rank == 0:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    return res
+
+
+def _mesh_dp_work(rank: int, dev, out_dir: str) -> dict:
+    """(c) on one rank of dp=2: its two rows of the four requests through
+    sample_pipeline_dp, and run_weak_scaling (information: both ranks share
+    the card)."""
+    from echo_tts_tpu_torch.bench.scaling import run_weak_scaling, sample_pipeline_dp
+    from echo_tts_tpu_torch.core.config import MeshConfig
+    from echo_tts_tpu_torch.parallel.mesh import make_mesh
+
+    inp = torch.load(os.path.join(out_dir, "inputs.pt"), weights_only=False)
+    wrappers = mesh_wrappers()
+    mesh = make_mesh(MeshConfig(dp=2, tp=1), dev)
+    tts = mesh_tts(dev)
+    rows, launches, _, peak, wall = counted(wrappers, lambda: sample_pipeline_dp(
+        tts, inp["dp_requests"], mesh, sc=mesh_sc(), normalize_text=True), dev)
+    scaling = run_weak_scaling(tts, mesh, mesh_sc(), repeats=1)
+    return {"rows": [(i, a) for i, (a, _n, _t) in rows], "launches": launches, "peak_gib": peak,
+            "wall_s": wall, "scaling": scaling}
+
+
+def spawn_mesh(task: str, out_dir: str, timeout: float, dev) -> list:
+    """Two ranks of `task` on `dev` (cuda:0) over gloo (spawned; a file://
+    store); their results in rank order. A rank's failure or a hang fails
+    the run."""
+    import torch.multiprocessing as mp
+
+    store = os.path.join(out_dir, f"{task}.store")
+    ctx = mp.start_processes(_mesh_rank, args=(task, "file://" + store, out_dir, dev.type),
+                             nprocs=2, join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout
+    while not ctx.join(timeout=max(0.1, deadline - time.monotonic())):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+            raise SystemExit(f"mesh ({task}): the ranks still ran after {timeout} s")
+    return [torch.load(os.path.join(out_dir, f"{task}_rank{r}.pt"), weights_only=False)
+            for r in range(2)]
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def serve_tp2(out_dir: str, lora_path: str, smi: str) -> dict:
+    """`python -m echo_tts_tpu_torch.serve --random --tp 2 --dist-backend
+    gloo`: rank 0 serves HTTP and starts rank 1; /tts of request (i), /lora
+    to the adapter, /tts again, /lora back; then SIGTERM, and every process
+    it started is gone."""
+    import signal
+
+    port = free_port()
+    log_path = os.path.join(out_dir, "serve_tp2.log")
+    t0 = time.perf_counter()
+    with open(log_path, "w") as logf:
+        proc = subprocess.Popen([sys.executable, "-m", "echo_tts_tpu_torch.serve",
+                                 *MESH_WEIGHTS_FLAGS, "--tp", "2", "--dist-backend", "gloo",
+                                 "--port", str(port)],
+                                cwd=HERE, stdout=logf, stderr=subprocess.STDOUT,
+                                start_new_session=True)
+        try:
+            while True:
+                if proc.poll() is not None:
+                    raise SystemExit(f"mesh (b): serve --tp 2 exited with {proc.returncode}:\n"
+                                     + open(log_path).read()[-3000:])
+                try:
+                    status, _, _, _ = http_call(port, "GET", "/health")
+                    if status == 200:
+                        break
+                except OSError:
+                    pass
+                if time.perf_counter() - t0 > 300:
+                    raise SystemExit("mesh (b): serve --tp 2 did not answer within 300 s")
+                time.sleep(1.0)
+            out = {"start_s": time.perf_counter() - t0}
+            body = {"text": SHORT_TEXT, "seed": 0, **dataclasses.asdict(mesh_sc())}
+            status, _, out["tts"], out["tts_ms"] = http_call(port, "POST", "/tts", body)
+            if status != 200:
+                raise SystemExit(f"mesh (b): /tts answered {status}: {out['tts'][:300]}")
+            status, _, _, _ = http_call(port, "POST", "/lora", {"path": lora_path})
+            if status != 200:
+                raise SystemExit(f"mesh (b): /lora answered {status}")
+            status, _, out["tts_lora"], out["tts_lora_ms"] = http_call(port, "POST", "/tts", body)
+            http_call(port, "POST", "/lora", {"path": None})
+        finally:
+            proc.send_signal(signal.SIGTERM)
+            try:
+                proc.wait(timeout=90)
+            except subprocess.TimeoutExpired:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait(timeout=30)
+    left = processes_with(f"--port {port}")
+    if left:
+        for pid in left:
+            os.kill(pid, signal.SIGKILL)
+        raise SystemExit(f"mesh (b): serve --tp 2 left processes {left}")
+    return out
+
+
+def processes_with(arg: str) -> list:
+    """The pids whose command line holds `arg` and names the server."""
+    out = []
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit():
+            continue
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:
+            continue
+        if "echo_tts_tpu_torch.serve" in cmd and arg in cmd:
+            out.append(int(pid))
+    return out
+
+
+def phase_mesh(dev, smi: str) -> dict:
+    """Phase 14: the mesh and the fleet at the full width of
+    DiTConfig(has_latent_modules=False) and AEConfig() in bf16 (weights from
+    seeds 0 and 1 in every process). (a) a world-size-1 NCCL mesh here;
+    (b) tp=2, two ranks on cuda:0 over gloo (NCCL refuses two ranks on one
+    device): request (i) at 640 latents and 40 steps against tp=1 (rel-L2
+    of latents and audio), the launches, peak memory and all-reduce seconds
+    a rank, int8 the same way with the row-sharded products of one layer bit
+    for bit, the loss and gradients of a B=2 training batch through K1 + K3
+    against tp=1 and one step, `serve --tp 2` over HTTP (/tts and a /lora
+    swap) against the direct tp=2 calls; (c) dp=2: four rows, two a rank,
+    against sample_pipeline_batch at B=4, run_weak_scaling as information;
+    (d) batch_synthesize --workers 2 --worker-die-after 1:1 --max-batch 1 on
+    four 640-latent requests, byte-equal to the one-process run; (e) a
+    sharded torch.distributed.checkpoint save and load at tp=2 (in (b)'s
+    ranks), bit for bit. Returns rank 0's launches of (b)'s bf16 and int8
+    requests and training step."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from echo_tts_tpu_torch.core.config import MeshConfig
+    from echo_tts_tpu_torch.models import quant
+    from echo_tts_tpu_torch.parallel.mesh import destroy, initialize_multihost, make_mesh
+    from echo_tts_tpu_torch.parallel.sharding import shard_params
+    from echo_tts_tpu_torch.pipeline.pipeline import sample_pipeline_batch
+    from echo_tts_tpu_torch.train.lora import LoRAConfig, init_lora, save_lora_checkpoint
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    os.makedirs(MESH_DIR)
+    sc = mesh_sc()
+    tts = mesh_tts(dev)
+    sr = tts.ae_cfg.sample_rate
+
+    # (a) a world-size-1 NCCL mesh: request (i) through the sharded tree
+    initialize_multihost(f"tcp://localhost:{free_port()}", 1, 0,
+                         backend="nccl" if dev.type == "cuda" else "gloo", device=dev)
+    try:
+        mesh1 = make_mesh(MeshConfig(dp=1, tp=1), dev)
+        one = torch.ones(4, device=dev)
+        dist.all_reduce(one)
+        lat, audio, wav = request_i(tts, sc)
+        _, _, wav_mesh = request_i(dataclasses.replace(
+            tts, dit_params=shard_params(tts.dit_params, mesh1)), sc)
+        if wav_mesh != wav or not torch.equal(one, torch.ones(4, device=dev)):
+            raise SystemExit("mesh (a): request (i) on the world-size-1 nccl mesh differs from "
+                             "the direct call")
+        backend = dist.get_backend()
+    finally:
+        destroy()
+    log(f"# mesh (a) world-size-1 {backend} mesh (dp=1, tp=1): request (i) through the sharded "
+        f"tree equal to the direct call, {len(wav)} bytes [{smi}]")
+
+    # tp=1 references, (c)'s B=4 reference, the adapter
+    qtts = dataclasses.replace(tts, dit_params=quant.quantize_dit_params(tts.dit_params))
+    lat8, audio8, _ = request_i(qtts, sc)
+    del qtts
+    dp_requests = [(SHORT_TEXT, None, seed) for seed in range(4)]
+    with torch.no_grad():
+        batch4 = [a for a, _n, _t in sample_pipeline_batch(tts, dp_requests, sc=sc,
+                                                          normalize_text=True)]
+    gen = torch.Generator(device=dev).manual_seed(16)
+    lc = LoRAConfig(rank=16, alpha=16.0)
+    lora = init_lora(gen, tts.dit_params, lc)
+    for ab in lora.values():
+        ab["b"].normal_(0.0, 0.5, generator=gen)
+    lora_path = os.path.join(MESH_DIR, "lora_r16.npz")
+    save_lora_checkpoint(lora_path, lora, lc)
+    torch.save({"lat": lat, "audio": audio, "lat8": lat8, "audio8": audio8, "lora": lora_path,
+                "dp_requests": dp_requests}, os.path.join(MESH_DIR, "inputs.pt"))
+    n_layers, steps = tts.dit_cfg.num_layers, sc.num_steps
+    k2_expected = 3 * len(tts.ae_cfg.decoder_rates)  # one launch a unit, three a block
+    del tts, lora
+    torch.cuda.empty_cache()
+
+    # (b), (e): tp=2
+    t0 = time.perf_counter()
+    ranks = spawn_mesh("tp", MESH_DIR, 900, dev)
+    spawn_s = time.perf_counter() - t0
+    fails = []
+    k1_expected = k1_launches(sc, n_layers)
+    for r in ranks:
+        n = r["rank"]
+        lb = r["launches"]
+        log(f"# mesh (b) tp=2 rank {n} ({r['heads']} of {2 * r['heads']} heads) request (i), "
+            f"{sc.sequence_length} latents, {steps} steps: wall {r['wall_s']:.2f} s, rel-L2 against tp=1 latents {r['rel_latents']:.3e} "
+            f"audio {r['rel_audio']:.3e}; launches {lb}; all-reduce {r['all_reduce']['all_reduce_calls']} "
+            f"calls, {r['all_reduce']['all_reduce_seconds']:.2f} s, "
+            f"{r['all_reduce']['all_reduce_bytes'] / 2**30:.2f} GiB; peak memory "
+            f"{r['peak_gib']:.2f} GiB [{smi}]")
+        li = r["int8_launches"]
+        log(f"# mesh (b) tp=2 rank {n} int8 request (i): wall {r['int8_wall_s']:.2f} s, rel-L2 "
+            f"against int8 tp=1 latents {r['int8_rel_latents']:.3e} audio "
+            f"{r['int8_rel_audio']:.3e}; launches {li}; all-reduce "
+            f"{r['int8_all_reduce']['all_reduce_calls']} calls, "
+            f"{r['int8_all_reduce']['all_reduce_seconds']:.2f} s; peak memory "
+            f"{r['int8_peak_gib']:.2f} GiB; one layer's row-sharded products equal to tp=1's: "
+            f"{r['int8_rows_equal']} [{smi}]")
+        log(f"# mesh (b) tp=2 rank {n} training B=2 through K1 + K3: loss tp=1 {r['loss_tp1']:.6f} "
+            f"tp=2 {r['loss_tp2']:.6f}; gradients {r['train_wall_s']:.2f} s (both runs), launches "
+            f"{r['train_launches']}, all-reduce {r['train_all_reduce']['all_reduce_calls']} calls "
+            f"{r['train_all_reduce']['all_reduce_seconds']:.2f} s, peak {r['train_peak_gib']:.2f} "
+            f"GiB; one step {r['step_wall_s']:.2f} s, loss {r['step_loss']:.6f}, launches "
+            f"{r['step_launches']} [{smi}]")
+        log(f"# mesh (e) tp=2 rank {n} torch.distributed.checkpoint: save {r['dcp_save_s']:.2f} s, "
+            f"load {r['dcp_load_s']:.2f} s, {r['dcp_bytes'] / 2**30:.2f} GiB on disk, equal bits "
+            f"{r['dcp_equal']} [{smi}]")
+        if lb["joint_attention"] != k1_expected or lb["res_chain"] != k2_expected:
+            fails.append(f"rank {n}: K1 {lb['joint_attention']} (expected {k1_expected}), K2 "
+                         f"{lb['res_chain']} (expected {k2_expected})")
+        per = n_layers * steps
+        want8 = (4 * per, 2 * per, 2 * per, 2 * per)
+        if (li["int8_gemm"], li["quant_rows"], li["quant_rows_scale"],
+                li["quant_rows_at"]) != want8:
+            fails.append(f"rank {n}: int8 launches {li}, expected K4, K5 and each tp mode "
+                         f"{want8}")
+        if r["train_launches"]["joint_attention_bwd"] != 2 * n_layers or \
+                r["train_launches"]["joint_attention"] != 4 * n_layers:
+            fails.append(f"rank {n}: training launches {r['train_launches']}, expected K1 "
+                         f"{4 * n_layers} and K3 {2 * n_layers} over the tp=1 and tp=2 "
+                         f"gradients")
+        if not r["finite"] or r["rel_latents"] > REL_L2_BOUND or r["rel_audio"] > REL_L2_BOUND:
+            fails.append(f"rank {n}: request (i) tp=2 against tp=1 rel-L2 {r['rel_latents']:.3e} "
+                         f"/ {r['rel_audio']:.3e} (bound {REL_L2_BOUND})")
+        if r["int8_rel_latents"] > REL_L2_BOUND or r["int8_rel_audio"] > REL_L2_BOUND:
+            fails.append(f"rank {n}: int8 tp=2 against tp=1 rel-L2 {r['int8_rel_latents']:.3e}")
+        if not all(r["int8_rows_equal"].values()):
+            fails.append(f"rank {n}: a row-sharded int8 product differs: {r['int8_rows_equal']}")
+        if not (np.isfinite(r["step_loss"]) and abs(r["loss_tp2"] - r["loss_tp1"])
+                <= REL_L2_BOUND * abs(r["loss_tp1"])):
+            fails.append(f"rank {n}: training loss tp=2 {r['loss_tp2']} against tp=1 "
+                         f"{r['loss_tp1']}, step loss {r['step_loss']}")
+        if not r["dcp_equal"]:
+            fails.append(f"rank {n}: the checkpoint did not restore the same bits")
+    grad_rel = math.sqrt(sum(r["grad_diff2"] for r in ranks)
+                         / max(sum(r["grad_ref2"] for r in ranks), 1e-30))
+    log(f"# mesh (b) tp=2 training: gradients rel-L2 against tp=1 {grad_rel:.3e} over every "
+        f"parameter (bound {REL_L2_BOUND}); spawn to results {spawn_s:.1f} s [{smi}]")
+    if grad_rel > REL_L2_BOUND:
+        fails.append(f"gradients rel-L2 {grad_rel:.3e}")
+    if ranks[0]["wav"] != ranks[1]["wav"]:
+        fails.append("the two tp ranks' audio differ")
+    if fails:
+        raise SystemExit("mesh (b)/(e) failed: " + "; ".join(fails))
+
+    served = serve_tp2(MESH_DIR, lora_path, smi)
+    same = (served["tts"] == ranks[0]["direct"], served["tts_lora"] == ranks[0]["direct_lora"],
+            ranks[0]["direct_lora"] != ranks[0]["direct"])
+    log(f"# mesh (b) serve --tp 2 --dist-backend gloo: up in {served['start_s']:.1f} s; /tts (i) "
+        f"{served['tts_ms'] / 1e3:.2f} s, body equal to the direct tp=2 call: {same[0]}; after "
+        f"/lora {served['tts_lora_ms'] / 1e3:.2f} s, equal to the direct tp=2 call on the merged "
+        f"tree: {same[1]} (and differs from the base: {same[2]}) [{smi}]")
+    if not all(same):
+        raise SystemExit(f"mesh (b): serve --tp 2 bodies differ from the direct calls: {same}")
+
+    # (c) dp=2
+    dps = spawn_mesh("dp", MESH_DIR, 600, dev)
+    rows = dict(ia for r in dps for ia in r["rows"])
+    rels = {i: rel_l2(torch.as_tensor(rows[i]), torch.as_tensor(batch4[i])) for i in range(4)}
+    bits = {i: bool(np.array_equal(rows[i], batch4[i])) for i in range(4)}
+    for n, r in enumerate(dps):
+        log(f"# mesh (c) dp=2 rank {n}: rows {[i for i, _ in r['rows']]} in {r['wall_s']:.2f} s, "
+            f"launches {r['launches']}, peak {r['peak_gib']:.2f} GiB [{smi}]")
+    log(f"# mesh (c) dp=2 rows against sample_pipeline_batch at B=4: rel-L2 "
+        f"{ {i: f'{v:.2e}' for i, v in rels.items()} }, equal bits {bits} (bound "
+        f"{REL_L2_BOUND}: a B=2 batch may round apart from B=4) [{smi}]")
+    log(f"# mesh (c) run_weak_scaling (information: both ranks share one card) "
+        f"{json.dumps(dps[0]['scaling'])} [{smi}]")
+    if sorted(rows) != [0, 1, 2, 3] or max(rels.values()) > REL_L2_BOUND:
+        raise SystemExit(f"mesh (c): dp rows {sorted(rows)} rel-L2 {rels}")
+
+    # (d) the fleet with a killed worker, byte-equal to one process
+    phase_fleet(smi)
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    log(f"# mesh phase: {time.perf_counter() - t_phase:.1f} s [{smi}]")
+    r0 = ranks[0]
+    return {"mesh tp=2 request (i)": r0["launches"], "mesh tp=2 int8": r0["int8_launches"],
+            "mesh tp=2 train step": r0["step_launches"]}
+
+
+def phase_fleet(smi: str) -> dict:
+    """(d): batch_synthesize --random --max-batch 1 on four 640-latent
+    requests as one process, then with --workers 2 --worker-die-after 1:1,
+    each run a process of its own with the same defaults: every WAV equal,
+    dead_workers [1], reassigned >= 1."""
+    d = os.path.join(MESH_DIR, "fleet")
+    os.makedirs(d)
+    inp = os.path.join(d, "reqs.jsonl")
+    with open(inp, "w") as f:
+        for i in range(4):
+            f.write(json.dumps({"id": f"u{i}", "text": SHORT_TEXT, "speaker": None,
+                                "seed": i}) + "\n")
+    sc = mesh_sc()
+    common = ["--input", inp, *MESH_WEIGHTS_FLAGS, "--max-batch", "1", "--num-steps",
+              str(sc.num_steps), "--sequence-length", str(sc.sequence_length)]
+    def run(extra):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "echo_tts_tpu_torch.scripts.batch_synthesize",
+                               *common, *extra], cwd=HERE, capture_output=True, text=True,
+                              timeout=600)
+        if proc.returncode != 0:
+            raise SystemExit(f"mesh (d): batch_synthesize {extra} failed:\n{proc.stderr[-3000:]}")
+        return json.loads(proc.stdout.strip().splitlines()[-1]), time.perf_counter() - t0
+
+    one, one_s = run(["--outdir", os.path.join(d, "one")])
+    summary, fleet_s = run(["--outdir", os.path.join(d, "fleet"), "--workers", "2",
+                            "--worker-die-after", "1:1", "--stale-after-s", "300"])
+    equal = {f"u{i}": open(os.path.join(d, "one", f"u{i}.wav"), "rb").read()
+             == open(os.path.join(d, "fleet", f"u{i}.wav"), "rb").read() for i in range(4)}
+    log(f"# mesh (d) batch_synthesize --workers 2 --worker-die-after 1:1 --max-batch 1, four "
+        f"640-latent requests: {fleet_s:.1f} s (one process {one_s:.1f} s, {one['files']} "
+        f"files); summary {json.dumps(summary)}; WAVs byte-equal to one process {equal} [{smi}]")
+    if (summary["files"] != 4 or summary["dead_workers"] != [1] or summary["reassigned"] < 1
+            or not all(equal.values())):
+        raise SystemExit(f"mesh (d): fleet summary {summary}, equal {equal}")
+    return {"summary": summary, "equal": equal}
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a GPU",
               file=sys.stderr)
         return 2
     kernels_only, slices_only = "--kernels-only" in argv, "--slices-only" in argv
-    checkpoints_only = "--checkpoints-only" in argv
+    checkpoints_only, mesh_only = "--checkpoints-only" in argv, "--mesh-only" in argv
     dev = torch.device("cuda", 0)
     smi = phase_environment()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3779,7 +4512,11 @@ def main(argv) -> int:
     train_wrappers = {**slice_wrappers, "joint_attention_bwd": joint_attention_bwd}
     int8_wrappers = {**slice_wrappers, "int8_gemm": int8_gemm, "quant_rows": quant_rows}
     ckpt_wrappers = {**int8_wrappers, "joint_attention_bwd": joint_attention_bwd}
-    if checkpoints_only:
+    if mesh_only:
+        phase_build(("joint_attention", "joint_attention_bwd", "res_chain", "int8_gemm",
+                     "quant_rows"))
+        phase_mesh(dev, smi)
+    elif checkpoints_only:
         phase_build(("joint_attention", "joint_attention_bwd", "res_chain", "int8_gemm",
                      "quant_rows"))
         phase_checkpoints(dev, ckpt_wrappers)
@@ -3823,10 +4560,11 @@ def main(argv) -> int:
             del tts
             torch.cuda.empty_cache()
             launches["checkpoints"] = phase_checkpoints(dev, ckpt_wrappers)
+            launches.update(phase_mesh(dev, smi))
             launches["measurement"] = phase_measurement(dev)
         rows = phase_kernel_times(dev, errs, launches)
     log(f"# {smi}")
-    if not (slices_only or checkpoints_only):
+    if not (slices_only or checkpoints_only or mesh_only):
         print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

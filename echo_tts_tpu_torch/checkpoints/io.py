@@ -22,8 +22,17 @@ Formats:
     tensor copied from the mapped file and cast to the target dtype as it is
     read, so the host never holds a second copy of the weights.
 
-Sharded loading (`load_pytree_sharded`) and Orbax belong to multi-GPU
-(ROADMAP.md §1 item 8) and are not ported.
+Sharded formats (multi-GPU, `parallel/`):
+  * `load_pytree_sharded`: a `save_pytree` npz, or a safetensors file with
+    the same `//` names, straight onto a (dp, tp) mesh: each rank keeps only
+    its slice of every leaf (`parallel/sharding.py`). From safetensors the
+    rank reads only the bytes of its slice (the file is mapped); an npz
+    member is read whole, one leaf at a time.
+  * `save_sharded` / `load_sharded`, the counterpart of the JAX package's
+    Orbax pair, on `torch.distributed.checkpoint`: each rank writes its own
+    shards (a leaf split over tp under a name of its shard; replicated
+    leaves once) and reads them back into a template of the same mesh
+    shape, bit for bit.
 """
 from __future__ import annotations
 
@@ -65,16 +74,17 @@ def _from_numpy(arr: np.ndarray, like: torch.Tensor, device=None) -> torch.Tenso
     return t.to(device=like.device if device is None else device, dtype=like.dtype)
 
 
-def _flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
+def _flatten(tree: Any, prefix: str = "", leaf=to_numpy) -> Dict[str, Any]:
+    """{path joined by `//`: leaf(x)} of a nested dict/list tree."""
     out = {}
     if isinstance(tree, dict):
         for k, v in tree.items():
-            out.update(_flatten(v, f"{prefix}{SEP}{k}" if prefix else str(k)))
+            out.update(_flatten(v, f"{prefix}{SEP}{k}" if prefix else str(k), leaf))
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
-            out.update(_flatten(v, f"{prefix}{SEP}{i}" if prefix else str(i)))
+            out.update(_flatten(v, f"{prefix}{SEP}{i}" if prefix else str(i), leaf))
     else:
-        out[prefix] = to_numpy(tree)
+        out[prefix] = leaf(tree)
     return out
 
 
@@ -257,6 +267,81 @@ def load_ae_from_safetensors(path: str, cfg: Optional[AEConfig] = None,
                                       dtype=dtype)
         del state
     return params, cfg
+
+
+# ---------------------------------------------------------------------------
+# Sharded: straight onto a mesh, and torch.distributed.checkpoint
+# ---------------------------------------------------------------------------
+
+
+def _leaf_tensor(arr: np.ndarray) -> torch.Tensor:
+    """An npz/safetensors leaf as a CPU tensor (raw bf16 bits as bf16)."""
+    if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
+        return torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(np.array(arr))
+
+
+def load_pytree_sharded(path: str, mesh, dtype: Optional[torch.dtype] = None) -> Any:
+    """A params tree from a `save_pytree` npz (or a safetensors file of the
+    same `//` names) with each rank's tp slice alone, on the mesh's device:
+    the tree `shard_params(load_pytree(path), mesh)` would give, without a
+    full copy on the device. `dtype` casts the floating leaves."""
+    from echo_tts_tpu_torch.parallel.sharding import shard_slice, spec_for
+
+    def put(key: str, arr) -> torch.Tensor:
+        names = key.split(SEP)
+        arr = shard_slice(arr, spec_for(names, arr.ndim), mesh, names)
+        t = _leaf_tensor(arr)
+        if dtype is not None and t.is_floating_point():
+            t = t.to(dtype)
+        return t.to(mesh.device)
+
+    flat = {}
+    if str(path).endswith(".safetensors"):
+        with SafeTensorsFile(path) as f:
+            for key in f:
+                arr = f.numpy(key) if f.dtype(key) != "BF16" else np.frombuffer(
+                    f._bytes(key), BF16_BITS).reshape(f.shape(key))
+                flat[key] = put(key, arr)
+    else:
+        with np.load(path) as z:
+            for key in z.files:
+                flat[key] = put(key, z[key])
+    return _unflatten(flat)
+
+
+def _dcp_state(tree: Any, mesh) -> Dict[str, torch.Tensor]:
+    """{name: tensor} of a (sharded) tree for torch.distributed.checkpoint:
+    a leaf split over tp is named after its shard, so that the ranks' shards
+    never share a name; replicated leaves keep theirs and are written once."""
+    from echo_tts_tpu_torch.parallel.sharding import spec_for
+
+    out = {}
+    for key, x in _flatten(tree, leaf=lambda t: t).items():
+        if mesh.tp > 1 and "tp" in spec_for(key.split(SEP), x.dim()):
+            key = f"{key}@tp{mesh.tp_rank}of{mesh.tp}"
+        out[key] = x
+    return out
+
+
+def save_sharded(path: str, tree: Any, mesh) -> None:
+    """Every rank writes its shards of `tree` (its `shard_params` tree) into
+    the directory `path` (torch.distributed.checkpoint); every rank calls it."""
+    import torch.distributed.checkpoint as dcp
+
+    dcp.save({k: v.detach() for k, v in _dcp_state(tree, mesh).items()}, checkpoint_id=path)
+
+
+def load_sharded(path: str, like: Any, mesh) -> Any:
+    """The shards `save_sharded` wrote for this rank, in a new tree with the
+    structure, shapes, dtypes and devices of `like` (this rank's tree on a
+    mesh of the same shape); every rank calls it."""
+    import torch.distributed.checkpoint as dcp
+
+    flat = {k: torch.empty_like(v) for k, v in _flatten(like, leaf=lambda t: t).items()}
+    state = _dcp_state(_unflatten(flat), mesh)
+    dcp.load(state, checkpoint_id=path)
+    return _unflatten(flat)
 
 
 def maybe_hf_download(repo_id: str, filename: str, token: Optional[str] = None) -> str:

@@ -206,6 +206,23 @@ class PipelineConfig:
     latent_buckets: Tuple[int, ...] = (640,)
 
 
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Process-mesh layout (`parallel/mesh.py`): one process a rank.
+
+    dp: independent utterances (sampling needs no collective). tp: Megatron
+    sharding of the DiT's heads and MLP columns, one all-reduce after each
+    row-sharded product.
+    """
+
+    dp: int = 1
+    tp: int = 1
+
+    @property
+    def num_devices(self) -> int:
+        return self.dp * self.tp
+
+
 DTYPE_POLICY = {
     "dit": torch.bfloat16,
     "ae": torch.float32,

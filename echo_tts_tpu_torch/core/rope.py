@@ -7,6 +7,8 @@ positions; `row_slots` gives such rows' own slices of a buffer.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
@@ -63,8 +65,16 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return out.to(dtype)
 
 
-def apply_rope_half_heads(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+def apply_rope_half_heads(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+                          head_offset: int = 0, total_heads: Optional[int] = None) -> torch.Tensor:
     """RoPE on the first half of the heads only (the DiT's joint-attention
-    variant). x: (..., S, H, D)."""
-    h = x.shape[-2] // 2
+    variant). x: (..., S, H, D). Under tensor parallelism x holds the H
+    local heads [head_offset, head_offset + H) of `total_heads`: the heads
+    rotated are the global first half, so a rank may hold all of them, some
+    or none."""
+    n = x.shape[-2]
+    total = n if total_heads is None else total_heads
+    h = max(0, min(n, total // 2 - head_offset))
+    if h == 0:
+        return x
     return torch.cat([apply_rope(x[..., :h, :], cos, sin), x[..., h:, :]], dim=-2)

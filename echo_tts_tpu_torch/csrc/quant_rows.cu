@@ -33,6 +33,13 @@
 // width (a multiple of 8) with no instance takes the CPL = 0 one: one warp a
 // row, which reads the row twice, for the amax and then for the codes (the
 // second read from L1/L2).
+//
+// Two more modes serve tensor parallelism, where a row is split over the tp
+// ranks and its scale must be the whole row's: quant_rows_scale writes the
+// scales alone (the ranks then take the max of theirs), and quant_rows_at
+// the codes at given scales, each element's code as above. One warp a row,
+// reading it once; they are right and bit-exact, not tuned (each moves
+// M·D·(2 or 4) bytes, plus M·D codes for the second).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -155,6 +162,36 @@ quant_rows_kernel(const void* __restrict__ h, int8_t* __restrict__ q, float* __r
   }
 }
 
+// one warp a row: its scale alone
+template <bool BF16>
+__global__ void __launch_bounds__(THREADS)
+quant_rows_scale_kernel(const void* __restrict__ h, float* __restrict__ s, int M, int D) {
+  constexpr int PER = BF16 ? 8 : 4;
+  const int row = blockIdx.x * (THREADS / 32) + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (row >= M) return;
+  const uint4* src = reinterpret_cast<const uint4*>(static_cast<const char*>(h) +
+                                                    static_cast<size_t>(row) * D * (BF16 ? 2 : 4));
+  uint32_t m = 0;
+  for (int c = lane; c < D / PER; c += 32) m = abs_max_bits<BF16>(__ldg(src + c), m);
+  const float sc = fmaxf(warp_amax<BF16>(m), 1e-8f) / 127.f;
+  if (lane == 0) s[row] = sc;
+}
+
+// one warp a row: its codes at the given scale
+template <bool BF16>
+__global__ void __launch_bounds__(THREADS)
+quant_rows_at_kernel(const void* __restrict__ h, const float* __restrict__ s,
+                     int8_t* __restrict__ q, int M, int D) {
+  constexpr int PER = BF16 ? 8 : 4;
+  const int row = blockIdx.x * (THREADS / 32) + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (row >= M) return;
+  const uint4* src = reinterpret_cast<const uint4*>(static_cast<const char*>(h) +
+                                                    static_cast<size_t>(row) * D * (BF16 ? 2 : 4));
+  int8_t* dst = q + static_cast<size_t>(row) * D;
+  const float sc = s[row], r = 1.f / sc;
+  for (int c = lane; c < D / PER; c += 32) store_codes<BF16>(dst, c, __ldg(src + c), sc, r);
+}
+
 template <bool BF16, int CPL, int WPR>
 cudaError_t launch(const void* h, void* q, void* s, int M, int D, cudaStream_t st) {
   constexpr int ROWS = THREADS / 32 / WPR;
@@ -200,3 +237,30 @@ extern "C" int quant_rows(const void* h, void* q, void* s, int M, int D, int bf1
   return (int)(bf16 ? dispatch<true>(h, q, s, M, D, st) : dispatch<false>(h, q, s, M, D, st));
 }
 
+
+// the scales alone: h (M, D) as above, s (M,) fp32
+extern "C" int quant_rows_scale(const void* h, void* s, int M, int D, int bf16, void* stream) {
+  if (M < 1 || D < 8 || D % 8) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int blocks = (M + THREADS / 32 - 1) / (THREADS / 32);
+  if (bf16)
+    quant_rows_scale_kernel<true><<<blocks, THREADS, 0, st>>>(h, static_cast<float*>(s), M, D);
+  else
+    quant_rows_scale_kernel<false><<<blocks, THREADS, 0, st>>>(h, static_cast<float*>(s), M, D);
+  return (int)cudaGetLastError();
+}
+
+// the codes at given scales: h (M, D) as above, s (M,) fp32, q (M, D) int8
+extern "C" int quant_rows_at(const void* h, const void* s, void* q, int M, int D, int bf16,
+                             void* stream) {
+  if (M < 1 || D < 8 || D % 8) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int blocks = (M + THREADS / 32 - 1) / (THREADS / 32);
+  const float* sc = static_cast<const float*>(s);
+  int8_t* qc = static_cast<int8_t*>(q);
+  if (bf16)
+    quant_rows_at_kernel<true><<<blocks, THREADS, 0, st>>>(h, sc, qc, M, D);
+  else
+    quant_rows_at_kernel<false><<<blocks, THREADS, 0, st>>>(h, sc, qc, M, D);
+  return (int)cudaGetLastError();
+}

@@ -22,6 +22,15 @@ layer forms its own w + s·a@b where it uses it, so under remat the merged
 weight is recomputed, never saved. A leaf may also be an int8 quantized
 weight (`models/quant.py`, inference only), on which `quant.mm` and
 `quant.proj_shared` dispatch.
+
+Tensor parallelism: every forward here runs on a tree sharded by
+`parallel/sharding.py:shard_params`. Its attentions hold H/tp contiguous
+heads (read from the head norms' shape, never from `cfg`), K1 runs over the
+local heads, half-head RoPE rotates the global first half (the local heads
+carry their global offset), and one all-reduce on the tp group sums the
+partial products of wo and of w2 before the residual add (`quant.mm`), and
+nowhere else. Under autograd the column products' input sums its gradient
+over the group (`parallel/tp.py:copy_to_tp`).
 """
 from __future__ import annotations
 
@@ -51,6 +60,7 @@ from echo_tts_tpu_torch.core.rope import (
 from echo_tts_tpu_torch.models import quant
 from echo_tts_tpu_torch.ops.attention import sdpa
 from echo_tts_tpu_torch.ops.joint_attention import joint_attention, joint_attention_trainable
+from echo_tts_tpu_torch.parallel.tp import head_split
 
 _NEG = -1e30
 
@@ -65,6 +75,15 @@ def layer_slices(tree) -> list:
         n = len(next(iter(per.values())))
         return [{k: v[l] for k, v in per.items()} for l in range(n)]
     return list(tree.unbind(0))
+
+
+def local_heads(attn: dict, num_heads: int):
+    """(heads this tree holds, global index of its first, tp group or None)
+    of an attention dict (stacked or one layer's) of a model with
+    `num_heads` heads: the heads are the k_norm's second-to-last axis."""
+    h = attn["k_norm"].shape[-2]
+    off, group = head_split(h, num_heads)
+    return h, off, group
 
 
 def layer_weights(tree):
@@ -83,24 +102,26 @@ def layer_weights(tree):
 def encoder_forward(blocks: dict, x: torch.Tensor, mask: Optional[torch.Tensor],
                     cos: torch.Tensor, sin: torch.Tensor, *, num_heads: int,
                     is_causal: bool, eps: float) -> torch.Tensor:
-    """Stack of encoder transformer blocks; blocks are stacked over layers."""
+    """Stack of encoder transformer blocks; blocks are stacked over layers.
+    `num_heads` is the model's; a sharded tree holds a part of them."""
     b, s, d = x.shape
     hd = d // num_heads
+    heads, _, group = local_heads(blocks["attention"], num_heads)
     for p in layer_slices(blocks):
         p = layer_weights(p)
         a = p["attention"]
         h = rms_norm(x, p["attention_norm"], eps)
-        q, k, v, gate = quant.proj_shared(h, [a["wq"], a["wk"], a["wv"], a["gate"]])
-        q = rms_norm(q.reshape(b, s, num_heads, hd), a["q_norm"], eps)
-        k = rms_norm(k.reshape(b, s, num_heads, hd), a["k_norm"], eps)
-        v = v.reshape(b, s, num_heads, hd)
+        q, k, v, gate = quant.proj_shared(h, [a["wq"], a["wk"], a["wv"], a["gate"]], group)
+        q = rms_norm(q.reshape(b, s, heads, hd), a["q_norm"], eps)
+        k = rms_norm(k.reshape(b, s, heads, hd), a["k_norm"], eps)
+        v = v.reshape(b, s, heads, hd)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-        o = sdpa(q, k, v, mask=mask, is_causal=is_causal).reshape(b, s, d)
+        o = sdpa(q, k, v, mask=mask, is_causal=is_causal).reshape(b, s, heads * hd)
         o = o * torch.sigmoid(gate)
-        x = x + quant.mm(o, a["wo"])
+        x = x + quant.mm(o, a["wo"], group)
         h = rms_norm(x, p["mlp_norm"], eps)
-        x = x + quant.swiglu_mlp_q(h, p["mlp"])
+        x = x + quant.swiglu_mlp_q(h, p["mlp"], group)
     return x
 
 
@@ -137,19 +158,21 @@ def _patch_encoder_forward(enc: dict, cfg: DiTConfig, latent: torch.Tensor) -> t
 def _project_kv(blocks_attn: dict, state: torch.Tensor, wk_name: str, wv_name: str,
                 num_heads: int, eps: float, rope=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-layer K/V projections of an encoder state, stacked to
-    (L, B, H, S, Dh); k_norm on the keys, then half-head RoPE when `rope`
-    (cos, sin) of the S positions is given (the latent prefix), else none."""
+    (L, B, H, S, Dh) (H the heads the tree holds); k_norm on the keys, then
+    half-head RoPE when `rope` (cos, sin) of the S positions is given (the
+    latent prefix), else none."""
     b, s, _ = state.shape
+    heads, off, group = local_heads(blocks_attn, num_heads)
+    hd = blocks_attn["k_norm"].shape[-1]
     ks, vs = [], []
     for p in layer_slices({n: blocks_attn[n] for n in (wk_name, wv_name, "k_norm")}):
         p = layer_weights(p)
-        hd = quant.out_dim(p[wk_name]) // num_heads
-        k, v = quant.proj_shared(state, [p[wk_name], p[wv_name]])
-        k = rms_norm(k.reshape(b, s, num_heads, hd), p["k_norm"], eps)
+        k, v = quant.proj_shared(state, [p[wk_name], p[wv_name]], group)
+        k = rms_norm(k.reshape(b, s, heads, hd), p["k_norm"], eps)
         if rope is not None:
-            k = apply_rope_half_heads(k, *rope)
+            k = apply_rope_half_heads(k, *rope, head_offset=off, total_heads=num_heads)
         ks.append(k.transpose(1, 2))
-        vs.append(v.reshape(b, s, num_heads, hd).transpose(1, 2))
+        vs.append(v.reshape(b, s, heads, hd).transpose(1, 2))
     return torch.stack(ks), torch.stack(vs)
 
 
@@ -199,8 +222,10 @@ def init_latent_kv_state(params: dict, cfg: DiTConfig, batch: int, total_len: in
     latent cache in `get_kv_cache_latent`'s layout."""
     dev = params["latent_norm"].device
     n_pat = total_len // cfg.speaker_patch_size
-    enc = (cfg.speaker_num_layers, batch, n_pat, cfg.speaker_num_heads, cfg.speaker_head_dim)
-    trunk = (cfg.num_layers, batch, cfg.num_heads, n_pat, cfg.head_dim)
+    enc_heads = params["latent_encoder"]["blocks"]["attention"]["k_norm"].shape[-2]
+    heads = params["blocks"]["attention"]["k_norm"].shape[-2]
+    enc = (cfg.speaker_num_layers, batch, n_pat, enc_heads, cfg.speaker_head_dim)
+    trunk = (cfg.num_layers, batch, heads, n_pat, cfg.head_dim)
     return {"enc_k": torch.zeros(enc, dtype=dtype, device=dev),
             "enc_v": torch.zeros(enc, dtype=dtype, device=dev),
             "k": torch.zeros(trunk, dtype=dtype, device=dev),
@@ -223,7 +248,8 @@ def extend_latent_kv(params: dict, cfg: DiTConfig, state: dict, new_latent: torc
     b, s_lat, d_lat = new_latent.shape
     n = s_lat // p
     eps = cfg.norm_eps
-    heads, hd = cfg.speaker_num_heads, cfg.speaker_head_dim
+    heads, _, group = local_heads(enc["blocks"]["attention"], cfg.speaker_num_heads)
+    hd = cfg.speaker_head_dim
     t_pat = state["enc_k"].shape[2]
     dev = new_latent.device
     rows = per_row(start_pos)
@@ -251,7 +277,7 @@ def extend_latent_kv(params: dict, cfg: DiTConfig, state: dict, new_latent: torc
         lp = layer_weights(lp)
         a = lp["attention"]
         h = rms_norm(x, lp["attention_norm"], eps)
-        q, k, v, gate = quant.proj_shared(h, [a["wq"], a["wk"], a["wv"], a["gate"]])
+        q, k, v, gate = quant.proj_shared(h, [a["wq"], a["wk"], a["wv"], a["gate"]], group)
         q = apply_rope(rms_norm(q.reshape(b, n, heads, hd), a["q_norm"], eps), cos, sin)
         k = apply_rope(rms_norm(k.reshape(b, n, heads, hd), a["k_norm"], eps), cos, sin)
         kbuf, vbuf = state["enc_k"][l], state["enc_v"][l]
@@ -265,8 +291,8 @@ def extend_latent_kv(params: dict, cfg: DiTConfig, state: dict, new_latent: torc
         logits = torch.einsum("bnhd,bthd->bhnt", q.float(), kbuf.float()) / math.sqrt(hd)
         w = torch.softmax(logits.masked_fill(hidden, _NEG), dim=-1).to(vbuf.dtype)
         o = torch.einsum("bhnt,bthd->bnhd", w.float(), vbuf.float()).to(vbuf.dtype)
-        x = x + quant.mm(o.reshape(b, n, heads * hd) * torch.sigmoid(gate), a["wo"])
-        x = x + quant.swiglu_mlp_q(rms_norm(x, lp["mlp_norm"], eps), lp["mlp"])
+        x = x + quant.mm(o.reshape(b, n, heads * hd) * torch.sigmoid(gate), a["wo"], group)
+        x = x + quant.swiglu_mlp_q(rms_norm(x, lp["mlp_norm"], eps), lp["mlp"], group)
 
     # the trunk's cache of the new patches, as get_kv_cache_latent builds it
     x = rms_norm(x, params["latent_norm"], eps)
@@ -356,7 +382,8 @@ def _dit_forward_grouped(
     if attn_impl not in (None, "trainable"):
         raise ValueError(f"attn_impl must be None or 'trainable', got {attn_impl!r}")
     g, b, s, _ = x.shape
-    h_, dh = cfg.num_heads, cfg.head_dim
+    dh = cfg.head_dim
+    h_, h_off, group = local_heads(params["blocks"]["attention"], cfg.num_heads)
     eps = cfg.norm_eps
     cos_q, sin_q = rope_q if rope_q is not None else precompute_rope(dh, s, device=x.device)
 
@@ -383,12 +410,13 @@ def _dit_forward_grouped(
         p = layer_weights(p)
         a = p["attention"]
         h = modulate_rms(x, a_shift, a_scale, eps)
-        q, k_self, v_self, gate = quant.proj_shared(h, [a["wq"], a["wk"], a["wv"], a["gate"]])
+        q, k_self, v_self, gate = quant.proj_shared(h, [a["wq"], a["wk"], a["wv"], a["gate"]],
+                                                    group)
         q = rms_norm(q.reshape(g, b, s, h_, dh), a["q_norm"], eps)
         k_self = rms_norm(k_self.reshape(g, b, s, h_, dh), a["k_norm"], eps)
         v_self = v_self.reshape(g, b, s, h_, dh)
-        q = apply_rope_half_heads(q, cos_q, sin_q)
-        k_self = apply_rope_half_heads(k_self, cos_q, sin_q)
+        q = apply_rope_half_heads(q, cos_q, sin_q, h_off, cfg.num_heads)
+        k_self = apply_rope_half_heads(k_self, cos_q, sin_q, h_off, cfg.num_heads)
         # segment order [latent | text | speaker]
         segments = [] if kl_k is None else [(kl_k, kl_v, lat_bias, None, ())]
         segments += [(kt_k, kt_v, text_bias, None, branch_skips[0]),
@@ -399,10 +427,10 @@ def _dit_forward_grouped(
         else:
             o = _joint_attention_grouped(q, k_self, v_self, segments, layout="sm",
                                          self_len=self_len)
-        o = o.reshape(g, b, s, cfg.model_size) * torch.sigmoid(gate)
-        x = x + a_gate * quant.mm(o, a["wo"])
+        o = o.reshape(g, b, s, h_ * dh) * torch.sigmoid(gate)
+        x = x + a_gate * quant.mm(o, a["wo"], group)
         h = modulate_rms(x, m_shift, m_scale, eps)
-        return x + m_gate * quant.swiglu_mlp_q(h, p["mlp"])
+        return x + m_gate * quant.swiglu_mlp_q(h, p["mlp"], group)
 
     for l, args in enumerate(per):
         if kv_latent is None:

@@ -13,6 +13,14 @@ symmetric, with no calibration data:
   the projections of one activation (`proj_shared`) share one quantization
   and one K4 launch (`int8_gemm_grouped`, up to four weights a launch).
 
+Under tensor parallelism (`parallel/tp.py`) the products take the tp
+group of a sharded tree: a row-sharded weight (wo, w2) sees its rows' K
+split over the ranks, so `mm` takes each row's scale as the max of the
+ranks' (K5's scale-only mode), codes it at that scale (K5's codes mode),
+sums the ranks' int32 products (exact) and dequantizes as K4's epilogue
+does, `float(acc) · (s_row · s_col)`: tp=2 gives tp=1's bits. A plain
+weight's partial products are summed in its dtype.
+
 A quantized leaf is the dict `{"q": int8, "s": fp32 (…, N)}` and the forward
 dispatches on it structurally (`mm`, `proj_shared`, `swiglu_mlp_q`), so the
 samplers, the pipelines and the engine take quantized params unchanged.
@@ -35,8 +43,11 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+import torch.distributed as dist
+
 from echo_tts_tpu_torch.ops.int8_gemm import MAX_GROUPS, int8_gemm, int8_gemm_grouped
-from echo_tts_tpu_torch.ops.quant_rows import quant_rows
+from echo_tts_tpu_torch.ops.quant_rows import quant_rows, quant_rows_at, quant_rows_scale
+from echo_tts_tpu_torch.parallel.tp import all_reduce_, copy_to_tp, reduce_from_tp
 
 _ATTN_KEYS = ("wq", "wk", "wv", "gate", "wo")
 _MLP_KEYS = ("w1", "w3", "w2")
@@ -101,18 +112,40 @@ def qdot(q: torch.Tensor, s_row: torch.Tensor, w: dict, out_dtype: torch.dtype) 
     return out.reshape(*lead, out.shape[-1])
 
 
-def mm(h: torch.Tensor, w) -> torch.Tensor:
-    """h @ w for a plain or a quantized weight leaf; h's dtype out."""
+def qdot_tp(h: torch.Tensor, w: dict, group) -> torch.Tensor:
+    """h @ w for a quantized row-sharded weight whose K is split over
+    `group`: one scale for each whole row (the max of the ranks' K5
+    scales), the codes at it, K4's int32 sums added over the ranks, then
+    K4's epilogue. Equal bit for bit to `qdot` of the unsharded product."""
+    s = all_reduce_(quant_rows_scale(h), op=dist.ReduceOp.MAX, group=group)
+    q = quant_rows_at(h, s)
+    lead = q.shape[:-1]
+    s_row = s.reshape(-1)
+    acc = all_reduce_(int8_gemm(q.reshape(-1, q.shape[-1]), s_row, w["q"], w["s"], torch.int32),
+                      group=group)
+    out = (acc.float() * (s_row[:, None] * w["s"].float()[None, :])).to(h.dtype)
+    return out.reshape(*lead, out.shape[-1])
+
+
+def mm(h: torch.Tensor, w, group=None) -> torch.Tensor:
+    """h @ w for a plain or a quantized weight leaf; h's dtype out. With a
+    tp `group`, w is row-sharded and h holds this rank's part of K: the
+    result is the sum over the group."""
     if is_quantized(w):
+        if group is not None:
+            return qdot_tp(h, w, group)
         q, s = quant_rows(h)
         return qdot(q, s, w, h.dtype)
-    return h @ w
+    return reduce_from_tp(h @ w, group)
 
 
-def proj_shared(h: torch.Tensor, ws: list) -> list:
+def proj_shared(h: torch.Tensor, ws: list, group=None) -> list:
     """Several projections of the same activation (q/k/v/gate; w1/w3; a
     context's k/v): quantized weights share one row quantization of h and
-    one grouped K4 launch for up to four of them."""
+    one grouped K4 launch for up to four of them. With a tp `group` the
+    weights are column-sharded and h is replicated: its gradient is summed
+    over the group."""
+    h = copy_to_tp(h, group)
     if not is_quantized(ws[0]):
         return [h @ w for w in ws]
     q, s = quant_rows(h)
@@ -125,11 +158,12 @@ def proj_shared(h: torch.Tensor, ws: list) -> list:
     return [o.reshape(*lead, o.shape[-1]) for o in outs]
 
 
-def swiglu_mlp_q(x: torch.Tensor, p: dict) -> torch.Tensor:
+def swiglu_mlp_q(x: torch.Tensor, p: dict, group=None) -> torch.Tensor:
     """w2(silu(w1 x) * w3 x); quantized, the gated product is quantized
-    again for w2."""
-    u, g = proj_shared(x, [p["w1"], p["w3"]])
-    return mm(F.silu(u) * g, p["w2"])
+    again for w2. With a tp `group`, w1/w3 hold this rank's columns and w2
+    the matching rows: the result is summed over the group."""
+    u, g = proj_shared(x, [p["w1"], p["w3"]], group)
+    return mm(F.silu(u) * g, p["w2"], group)
 
 
 # ---------------------------------------------------------------------------

@@ -647,9 +647,10 @@ def init_stream_group(tts: EchoTTS, batch: int, total_len: int, text_len: int,
     all-False masks (a fully masked segment adds exact zeros)."""
     cfg, md, dev = tts.dit_cfg, tts.model_dtype, tts.device
     n_spk = spk_len // cfg.speaker_patch_size
+    heads = tts.dit_params["blocks"]["attention"]["k_norm"].shape[-2]  # local under tp
 
     def z(t):
-        return torch.zeros((cfg.num_layers, batch, cfg.num_heads, t, cfg.head_dim), dtype=md,
+        return torch.zeros((cfg.num_layers, batch, heads, t, cfg.head_dim), dtype=md,
                            device=dev)
 
     return {"kv_text": (z(text_len), z(text_len)),

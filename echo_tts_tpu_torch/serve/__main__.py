@@ -16,21 +16,39 @@ modules and AEConfig() in bf16 (random weights from seeds 0 and 1);
 card. --int8 serves the W8A8 int8 trunk (kernels K4 and K5 on the card),
 --int8-encoders the encoders and context-KV projections in int8 too;
 --int8-cache keeps the quantized base in a file (quantized and saved on the
-first start, loaded on the next). Tensor parallelism (--tp) and the Gradio
-UI (--gradio) are not ported: each raises, naming the ROADMAP.md item it
-waits for.
+first start, loaded on the next).
+
+--tp N serves the DiT tensor-parallel over N ranks (`parallel/mesh.py`):
+this process is rank 0 and serves HTTP, and it starts ranks 1..N-1 as
+processes of this module that follow its device calls (`Engine.follow`).
+The process group's backend is nccl on the card and gloo with --cpu;
+`--dist-backend gloo` shares one card between the ranks (nccl refuses two
+ranks on one device, and says so). Every rank builds the same weights and
+keeps its slice. The continuous scheduler does not follow a tp engine yet.
+
+    python -m echo_tts_tpu_torch.serve --random --tp 2 --dist-backend gloo --port 7861
+    python -m echo_tts_tpu_torch.serve --cpu --random-tiny --tp 2 --port 7861
+
+The Gradio UI (--gradio) is not ported: it raises, naming the ROADMAP.md
+entry that says why.
 """
 from __future__ import annotations
 
 import argparse
 import os
+import signal
+import subprocess
+import sys
+import tempfile
+import threading
+import time
 from typing import Optional, Sequence
 
 import torch
 
 _NOT_PORTED = {
-    "tp": "tensor-parallel serving is not ported yet (ROADMAP.md §1 item 8)",
-    "gradio": "the Gradio UI is not ported: gradio is not installed (ROADMAP.md §1 item 7)",
+    "gradio": "the Gradio UI is not ported: gradio is not installed (ROADMAP.md, "
+              "\"Not ported, and why\")",
 }
 
 
@@ -71,7 +89,13 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--int8-cache", default=None, metavar="PATH",
                     help="npz of the quantized base: the first start quantizes and saves it, "
                          "the next loads it")
-    ap.add_argument("--tp", type=int, default=1, help="not ported above 1")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel ranks (this process serves, the others follow)")
+    ap.add_argument("--dist-backend", choices=("nccl", "gloo"), default=None,
+                    help="the process group's backend under --tp: nccl on the card, gloo on "
+                         "the CPU by default; gloo shares one card between ranks")
+    ap.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--dist-init", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--gradio", action="store_true", help="not ported")
     args = ap.parse_args(argv)
     if args.dit and not (args.ae and args.pca):
@@ -103,17 +127,16 @@ def load_tts(dit: str, ae: str, pca: str, device, ae_bf16: bool = False,
                    device=device)
 
 
-def build_engine(args: argparse.Namespace):
-    """The Engine the flags describe; raises for the flags not ported."""
+def build_engine(args: argparse.Namespace, mesh=None):
+    """The Engine the flags describe, on this rank's device and slice of
+    `mesh` when given; raises for the flags not ported."""
     from echo_tts_tpu_torch.bench.timing import entry_device
     from echo_tts_tpu_torch.bench.trace import random_tts
     from echo_tts_tpu_torch.serve.engine import Engine
 
     if args.gradio:
         raise NotImplementedError(_NOT_PORTED["gradio"])
-    if args.tp > 1:
-        raise NotImplementedError(_NOT_PORTED["tp"])
-    device = entry_device(args.cpu)
+    device = mesh.device if mesh is not None else entry_device(args.cpu)
     if args.dit:
         tts = load_tts(args.dit, args.ae, args.pca, device, ae_bf16=args.ae_bf16,
                        keep_blockwise=args.keep_blockwise)
@@ -123,16 +146,75 @@ def build_engine(args: argparse.Namespace):
                   max_batch=args.max_batch, batch_wait_ms=args.batch_wait_ms,
                   continuous=args.continuous, continuous_block=args.continuous_block,
                   continuous_fast_join=not args.no_fast_join,
-                  int8_cache_path=args.int8_cache)
+                  int8_cache_path=args.int8_cache, mesh=mesh)
 
 
-def main(argv: Optional[Sequence[str]] = None) -> None:
+def _rank_device(args: argparse.Namespace, rank: int) -> torch.device:
+    from echo_tts_tpu_torch.bench.timing import entry_device
+
+    dev = entry_device(args.cpu)
+    return dev if dev.type == "cpu" else torch.device("cuda", rank % torch.cuda.device_count())
+
+
+def _exit_with_parent() -> None:
+    """A follower ends when the process that started it is gone (a server
+    killed without its shutdown would leave it waiting forever)."""
+    parent = os.getppid()
+
+    def watch():
+        while os.getppid() == parent:
+            time.sleep(1.0)
+        os._exit(1)
+
+    threading.Thread(target=watch, daemon=True, name="echo-tts-parent-watch").start()
+
+
+def _run_rank(args: argparse.Namespace, rank: int, init: str) -> None:
+    """Rank `rank` of a --tp group: join the process group, build the engine
+    on this rank's slice, serve (rank 0) or follow (the others)."""
+    from echo_tts_tpu_torch.core.config import MeshConfig
+    from echo_tts_tpu_torch.parallel.mesh import destroy, initialize_multihost, make_mesh
+
+    dev = _rank_device(args, rank)
+    initialize_multihost(init, args.tp, rank, backend=args.dist_backend, device=dev)
+    try:
+        engine = build_engine(args, make_mesh(MeshConfig(dp=1, tp=args.tp), dev))
+        if rank == 0:
+            _serve(args, engine)
+        else:
+            try:
+                engine.follow()
+            finally:
+                engine.close()
+    finally:
+        destroy()
+
+
+def _launch_tp(args: argparse.Namespace, argv: Sequence[str]) -> None:
+    """Start ranks 1..tp-1 as processes of this module, be rank 0, and stop
+    the others when this one ends (SIGTERM included)."""
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(0))
+    with tempfile.TemporaryDirectory(prefix="echo-tts-tp-") as tmp:
+        init = "file://" + os.path.join(tmp, "store")
+        procs = [subprocess.Popen([sys.executable, "-m", "echo_tts_tpu_torch.serve", *argv,
+                                   "--rank", str(r), "--dist-init", init])
+                 for r in range(1, args.tp)]
+        try:
+            _run_rank(args, 0, init)
+        finally:
+            for p in procs:
+                try:
+                    p.wait(timeout=60)
+                except subprocess.TimeoutExpired:
+                    p.terminate()
+                    p.wait(timeout=10)
+
+
+def _serve(args: argparse.Namespace, engine) -> None:
     from echo_tts_tpu_torch.core.config import SamplerConfig
     from echo_tts_tpu_torch.serve.presets import load_sampler_presets
     from echo_tts_tpu_torch.serve.server import serve
 
-    args = parse_args(argv)
-    engine = build_engine(args)
     try:
         if args.warmup:
             wall = engine.warmup(SamplerConfig(),
@@ -145,6 +227,20 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         serve(engine, host=args.host, port=args.port, presets=presets)
     finally:
         engine.close()
+
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    args = parse_args(argv)
+    if args.gradio:
+        raise NotImplementedError(_NOT_PORTED["gradio"])
+    if args.tp <= 1:
+        _serve(args, build_engine(args))
+    elif args.rank is None:
+        _launch_tp(args, argv)
+    else:
+        _exit_with_parent()
+        _run_rank(args, args.rank, args.dist_init)
 
 
 if __name__ == "__main__":

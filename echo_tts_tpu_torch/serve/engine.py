@@ -27,11 +27,24 @@ each is ordered after the last. Every tensor is made on `tts.device`. Each
 device entry copies its results to the host before it lets go of the lock,
 so an asynchronous CUDA error surfaces in the request that caused it and
 `total_sample_s` counts the device's time.
+
+Tensor parallelism (`Engine(tts, mesh=...)`, `parallel/mesh.py`): each
+rank builds its own Engine on the same weights and keeps its tp slice of
+every effective tree (`shard_params` after the int8 quantization and after
+each LoRA merge, both done on the full tree). Rank 0 serves; the other
+ranks run `follow()`. Every device call of rank 0 runs under the device
+lock through `_dispatch`, which first sends a small descriptor (the call,
+its host-side arguments and seeds) on the mesh's gloo control group; the
+followers run the same call in the same order, so the collectives of the
+sharded forward meet. The one-shot, micro-batched and stream paths and
+`set_lora` go this way; `reconstruct` (the AE, replicated) runs on rank 0
+alone. The continuous scheduler does not follow yet and raises under tp.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import logging
 import os
 import queue as _queue
@@ -191,16 +204,29 @@ class Engine:
         it exists, the base is loaded from it without quantizing (equal bit
         for bit to a fresh quantization), after a check that it was written
         for this config and flag. A LoRA merge always quantizes anew.
-        `int8_base` says which happened and what it took. mesh (tensor
-        parallelism) needs multi-GPU, not ported: it raises
-        NotImplementedError.
+        `int8_base` says which happened and what it took.
+
+        mesh: a (dp=1, tp) `parallel/mesh.py` Mesh for tensor parallelism,
+        `tts` holding the full weights on this rank's device (see the module
+        doc); rank 0 serves and the others call `follow()`. Under tp > 1 the
+        continuous scheduler raises NotImplementedError (ROADMAP.md §1
+        item 11), and only rank 0 writes the int8 cache.
 
         On cuda the kernels K1 and K2 (and, with int8, K4 and K5) are built
         here (nvcc, at first use in the process), so that no request pays
         the build under the lock."""
-        if mesh is not None:
+        if mesh is not None and mesh.dp != 1:
+            raise ValueError(f"an Engine serves one tp group (dp=1), got {mesh.shape}: "
+                             f"replicas over dp are engines of their own (parallel/fleet.py)")
+        self._mesh = mesh if mesh is not None and mesh.tp > 1 else None
+        if self._mesh is not None and continuous and max_batch > 1:
             raise NotImplementedError(
-                "tensor-parallel serving (mesh) is not ported yet (ROADMAP.md §1 item 8)")
+                "the continuous scheduler does not follow a tensor-parallel engine yet "
+                "(ROADMAP.md §1 item 11)")
+        self._leads = self._mesh is not None and self._mesh.rank == 0
+        self._streams = {}
+        self._stream_ids = itertools.count()
+        self._stopped = False
         self.int8 = int8 or int8_encoders
         self.int8_encoders = int8_encoders
         if tts.device.type == "cuda":
@@ -273,15 +299,106 @@ class Engine:
             scheds = list(self._cont_scheds.values())
         for s in scheds:
             s.thread.join(timeout=30)
+        if self._leads:
+            with self._device():
+                if not self._stopped:
+                    self._stopped = True
+                    try:
+                        self._send(("stop", ()))
+                    except RuntimeError as e:  # a follower that is gone already
+                        log.warning("could not stop the followers: %s", e)
+
+    # -- device calls (and their mirror on the followers of a tp engine) ---------
+    def _send(self, desc) -> None:
+        import torch.distributed as dist
+
+        dist.broadcast_object_list([desc], src=0, group=self._mesh.control)
+
+    def _dispatch(self, op: str, *args):
+        """Run device call `op` (a `_op_<op>` method) with host-side `args`;
+        the caller holds the device lock. Rank 0 of a tp engine first sends
+        the descriptor to the followers, which run the same call."""
+        if self._leads:
+            if self._stopped:
+                raise RuntimeError("engine is closed")
+            self._send((op, args))
+        return getattr(self, "_op_" + op)(*args)
+
+    def follow(self) -> None:
+        """The loop of a tp engine's ranks other than 0: receive rank 0's
+        descriptors and run each call, in order, until rank 0 closes. A
+        failed call is logged (rank 0 sees its own failure of it)."""
+        import torch.distributed as dist
+
+        if self._mesh is None or self._leads:
+            raise RuntimeError("follow() runs on the ranks other than 0 of a tp engine")
+        while True:
+            box = [None]
+            dist.broadcast_object_list(box, src=0, group=self._mesh.control)
+            op, args = box[0]
+            if op == "stop":
+                self._stopped = True
+                return
+            try:
+                with self._device():
+                    getattr(self, "_op_" + op)(*args)
+            except Exception:
+                log.exception("follower %d: %s failed", self._mesh.rank, op)
+
+    def _op_pipeline(self, text, speaker_audio, seed, sc, normalize_text, cached):
+        return sample_pipeline(self.tts, text, speaker_audio, seed, sc=sc,
+                               normalize_text=normalize_text,
+                               speaker_cache=self._speaker_cache if cached else None)
+
+    def _op_batch(self, requests, sc, normalize_text, cached):
+        return sample_pipeline_batch(self.tts, requests, sc=sc, normalize_text=normalize_text,
+                                     speaker_cache=self._speaker_cache if cached else None)
+
+    def _op_stream_next(self, sid, kind, kwargs):
+        """The next chunk of stream `sid` (None at its end), its generator
+        made at the first call: kind "solo" is `sample_pipeline_stream`,
+        "batch" `sample_pipeline_stream_batch`, on this rank's tts."""
+        gen = self._streams.get(sid)
+        if gen is None:
+            kw = dict(kwargs)
+            if kw.pop("cached"):
+                kw["speaker_cache"] = self._speaker_cache
+            fn = sample_pipeline_stream if kind == "solo" else sample_pipeline_stream_batch
+            gen = self._streams[sid] = fn(self.tts, **kw)
+        return next(gen, None)
+
+    def _op_stream_close(self, sid):
+        gen = self._streams.pop(sid, None)
+        if gen is not None:
+            gen.close()
+
+    def _stream(self, kind: str, **kwargs):
+        """A device stream whose every step takes the device lock: a
+        generator of `_op_stream_next`'s chunks, closed (on every rank) when
+        it ends or its consumer leaves."""
+        sid = next(self._stream_ids)
+        try:
+            while True:
+                with self._device():
+                    out = self._dispatch("stream_next", sid, kind, kwargs)
+                if out is None:
+                    return
+                yield out
+        finally:
+            with self._device():
+                if not self._stopped:
+                    self._dispatch("stream_close", sid)
 
     def _effective(self, params: dict) -> dict:
         """The params requests run on: quantized when the engine serves int8
         (the base from `int8_cache_path` when that file exists)."""
         if not self.int8:
-            return params
+            return self._shard(params)
         from echo_tts_tpu_torch.models import quant
 
         cacheable = self._int8_cache_path is not None and params is self._base_params
+        if self._mesh is not None and self._mesh.rank != 0:
+            cacheable = cacheable and os.path.exists(self._int8_cache_path)
         cfg, path = self.tts.dit_cfg, self._int8_cache_path
         t0 = time.perf_counter()
         if cacheable and os.path.exists(path):
@@ -298,7 +415,15 @@ class Engine:
                 t0 = time.perf_counter()
                 quant.save_quantized(path, out, cfg, encoders=self.int8_encoders)
                 self.int8_base["save_seconds"] = time.perf_counter() - t0
-        return out
+        return self._shard(out)
+
+    def _shard(self, params: dict) -> dict:
+        """This rank's tp slice of an effective tree (the tree itself at tp=1)."""
+        if self._mesh is None:
+            return params
+        from echo_tts_tpu_torch.parallel.sharding import shard_params
+
+        return shard_params(params, self._mesh)
 
     # -- LoRA hot-swap -------------------------------------------------------
     def set_lora(self, lora_path: Optional[str], strength: float = 1.0) -> None:
@@ -310,16 +435,18 @@ class Engine:
         started after it, uses the new params. Under int8 the merge is
         quantized here; None gives the quantized base back as it was."""
         with self._device():
-            if lora_path == self._current_lora_path:
-                return
-            if lora_path is None:
-                self.tts.dit_params = self._effective_base
-            else:
-                lora, lc = load_lora_checkpoint(lora_path, self.tts.device)
-                if strength != 1.0:
-                    lc = dataclasses.replace(lc, alpha=lc.alpha * strength)
-                self.tts.dit_params = self._effective(merge_lora(self._base_params, lora, lc))
-            self._current_lora_path = lora_path
+            if lora_path != self._current_lora_path:
+                self._dispatch("set_lora", lora_path, strength)
+
+    def _op_set_lora(self, lora_path, strength):
+        if lora_path is None:
+            self.tts.dit_params = self._effective_base
+        else:
+            lora, lc = load_lora_checkpoint(lora_path, self.tts.device)
+            if strength != 1.0:
+                lc = dataclasses.replace(lc, alpha=lc.alpha * strength)
+            self.tts.dit_params = self._effective(merge_lora(self._base_params, lora, lc))
+        self._current_lora_path = lora_path
 
     # -- generation ----------------------------------------------------------
     def generate(self, text: str, speaker_audio: Optional[np.ndarray], seed: int = 0,
@@ -333,9 +460,8 @@ class Engine:
             try:
                 with self._device():
                     t0 = time.perf_counter()
-                    audio, normalized, timings = sample_pipeline(
-                        self.tts, text, speaker_audio, seed, sc=sc, normalize_text=normalize_text,
-                        speaker_cache=self._speaker_cache)
+                    audio, normalized, timings = self._dispatch(
+                        "pipeline", text, speaker_audio, seed, sc, normalize_text, True)
                     wall = time.perf_counter() - t0
                 self._bump(requests=1, total_sample_s=wall,
                            total_audio_s=audio.shape[-1] / self.tts.ae_cfg.sample_rate)
@@ -440,9 +566,7 @@ class Engine:
             try:
                 with self._device():
                     t0 = time.perf_counter()
-                    results = sample_pipeline_batch(self.tts, requests, sc=sc,
-                                                    normalize_text=normalize,
-                                                    speaker_cache=self._speaker_cache)
+                    results = self._dispatch("batch", requests, sc, normalize, True)
                     wall = time.perf_counter() - t0
                 self._bump(requests=n, batches=1, total_sample_s=wall,
                            total_audio_s=sum(a.shape[-1] for a, _, _ in results[:n])
@@ -477,14 +601,10 @@ class Engine:
         try:
             if n == 1:
                 r = batch[0]
-                gen = sample_pipeline_stream(self.tts, r.text, r.speaker, r.seed, sc=sc,
-                                             block_size=block_size, normalize_text=normalize,
-                                             speaker_cache=self._speaker_cache)
-                while True:
-                    with self._device():
-                        chunk = next(gen, None)
-                    if chunk is None:
-                        break
+                gen = self._stream("solo", text_prompt=r.text, speaker_audio=r.speaker,
+                                   rng_seed=r.seed, sc=sc, block_size=block_size,
+                                   normalize_text=normalize, cached=True)
+                for chunk in gen:
                     n_samples[0] += chunk.shape[-1]
                     r.push(chunk)
                     if r.gone.is_set():
@@ -492,14 +612,9 @@ class Engine:
             else:
                 reqs = [(r.text, r.speaker, r.seed) for r in batch]
                 reqs += [reqs[0]] * (_pow2_ceil(n) - n)
-                gen = sample_pipeline_stream_batch(self.tts, reqs, sc=sc, block_size=block_size,
-                                                   normalize_text=normalize,
-                                                   speaker_cache=self._speaker_cache)
-                while True:
-                    with self._device():
-                        out = next(gen, None)
-                    if out is None:
-                        break
+                gen = self._stream("batch", requests=reqs, sc=sc, block_size=block_size,
+                                   normalize_text=normalize, cached=True)
+                for out in gen:
                     for i, chunk in out.items():
                         if i >= n:
                             continue  # a pad row
@@ -634,16 +749,11 @@ class Engine:
         t0 = time.perf_counter()
         n_samples = 0
         done = False
-        gen = sample_pipeline_stream(self.tts, text, speaker_audio, seed, sc=sc,
-                                     block_size=block_size, normalize_text=normalize_text,
-                                     continuation_audio=continuation_audio,
-                                     speaker_cache=self._speaker_cache)
+        gen = self._stream("solo", text_prompt=text, speaker_audio=speaker_audio, rng_seed=seed,
+                           sc=sc, block_size=block_size, normalize_text=normalize_text,
+                           continuation_audio=continuation_audio, cached=True)
         try:
-            while True:
-                with self._device():
-                    chunk = next(gen, None)
-                if chunk is None:
-                    break
+            for chunk in gen:
                 n_samples += chunk.shape[-1]
                 yield chunk
                 if gone.is_set():
@@ -711,7 +821,7 @@ class Engine:
                 prompts.append(0.1 * rng.standard_normal((1, n)).astype(np.float32))
         for audio in prompts:
             with self._device():
-                sample_pipeline(tts, "Warmup.", audio, 0, sc=sc, normalize_text=True)
+                self._dispatch("pipeline", "Warmup.", audio, 0, sc, True, False)
         n_combos = len(prompts)
         streaming = include_streaming and tts.dit_cfg.has_latent_modules
         if streaming and self.continuous:
@@ -756,23 +866,20 @@ class Engine:
                     del gs
         elif streaming:
             for audio in prompts:
-                with self._device():
-                    for _ in sample_pipeline_stream(tts, "Warmup.", audio, 0, sc=sc,
-                                                    block_size=stream_block_size,
-                                                    normalize_text=True,
-                                                    stop_at_flattening=False):
-                        pass
+                for _ in self._stream("solo", text_prompt="Warmup.", speaker_audio=audio,
+                                      rng_seed=0, sc=sc, block_size=stream_block_size,
+                                      normalize_text=True, stop_at_flattening=False,
+                                      cached=False):
+                    pass
                 n_combos += 1
             b = 2
             while b <= _pow2_ceil(self.max_batch):
                 for audio in prompts:
                     reqs = [("Warmup.", audio, i) for i in range(b)]
-                    with self._device():
-                        for _ in sample_pipeline_stream_batch(tts, reqs, sc=sc,
-                                                              block_size=stream_block_size,
-                                                              normalize_text=True,
-                                                              stop_at_flattening=False):
-                            pass
+                    for _ in self._stream("batch", requests=reqs, sc=sc,
+                                          block_size=stream_block_size, normalize_text=True,
+                                          stop_at_flattening=False, cached=False):
+                        pass
                     n_combos += 1
                 b *= 2
         if self.max_batch > 1:
@@ -780,7 +887,7 @@ class Engine:
             while b <= _pow2_ceil(self.max_batch):
                 reqs = [("Warmup.", None, i) for i in range(b)]
                 with self._device():
-                    sample_pipeline_batch(tts, reqs, sc=sc, normalize_text=True)
+                    self._dispatch("batch", reqs, sc, True, False)
                 n_combos += 1
                 b *= 2
         wall = time.perf_counter() - t0

@@ -21,6 +21,16 @@ the JAX package, step for step:
   LoRA adapters), and every optimised tensor is updated, with a zero
   gradient where autograd gives none (weight decay still applies).
 The parameters are updated in place.
+
+On a (dp, tp) mesh (`make_train_step(..., mesh=...)`, `parallel/mesh.py`):
+every rank draws t and the noise of the global batch from the same
+generator and keeps its own rows, so the rows match one process's draws;
+the loss is the mean over the global batch (each rank's masked sum over the
+global count of valid elements, summed over dp, as are the gradients); a
+tree sharded over tp (`parallel/sharding.py`) runs the Megatron forward and
+backward of `models/dit.py`, and the optimizer's global norm and finite
+check take the shards' parts over the tp group. LoRA runs on dp alone, as
+the JAX package's LoRA finetuning has no mesh.
 """
 from __future__ import annotations
 
@@ -29,6 +39,7 @@ import math
 from typing import List, Optional
 
 import torch
+import torch.distributed as dist
 
 from echo_tts_tpu_torch.core.config import DiTConfig
 from echo_tts_tpu_torch.train.loss import compute_diffusion_loss
@@ -91,9 +102,34 @@ class OptState:
 class Optimizer:
     """optax's chain above, on flat lists of tensors (see module doc)."""
 
-    def __init__(self, tc: TrainConfig):
+    def __init__(self, tc: TrainConfig, tp_group=None):
+        """tp_group: the group over which the leaves marked in `sharded`
+        (one bool a leaf, `tree_leaves` order, set by the step) are split;
+        their squares and finiteness are summed over it for the global norm
+        and the finite check."""
         self.tc = tc
         self.schedule = cosine_schedule_with_warmup(tc)
+        self.tp_group = tp_group
+        self.sharded: Optional[List[bool]] = None
+
+    def _all_finite(self, grads) -> bool:
+        ok = torch.stack([torch.isfinite(g).all() for g in grads]).all()
+        if self.tp_group is not None:
+            from echo_tts_tpu_torch.parallel.tp import all_reduce_
+
+            ok = all_reduce_(ok.float(), op=dist.ReduceOp.MIN, group=self.tp_group)
+        return bool(ok)
+
+    def _global_norm(self, grads) -> torch.Tensor:
+        sq = [g.float().square().sum() for g in grads]
+        if self.tp_group is None:
+            return torch.sqrt(sum(sq))
+        from echo_tts_tpu_torch.parallel.tp import all_reduce_
+
+        zero = torch.zeros((), dtype=torch.float32, device=sq[0].device)
+        shards = all_reduce_(sum((x for x, sh in zip(sq, self.sharded) if sh), zero),
+                             group=self.tp_group)
+        return torch.sqrt(sum((x for x, sh in zip(sq, self.sharded) if not sh), zero) + shards)
 
     def init(self, params) -> OptState:
         leaves = tree_leaves(params)
@@ -114,7 +150,7 @@ class Optimizer:
             n = state.mini_step
             grads = [a + (g.to(a.dtype) - a) / (n + 1) for a, g in zip(state.acc, grads)]
             emit = n == k - 1
-        finite = bool(torch.stack([torch.isfinite(g).all() for g in grads]).all())
+        finite = self._all_finite(grads)
         notfinite = 0 if finite else state.notfinite_count + 1
         if emit:
             state.notfinite_count = notfinite
@@ -128,7 +164,7 @@ class Optimizer:
 
     def _adamw(self, params, grads, state: OptState) -> None:
         tc = self.tc
-        norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+        norm = self._global_norm(grads)
         if not bool(norm < tc.max_grad_norm):
             grads = [(g / norm.to(g.dtype)) * tc.max_grad_norm for g in grads]
         step_size = -self.schedule(state.count)
@@ -145,8 +181,8 @@ class Optimizer:
         state.count = count
 
 
-def make_optimizer(tc: TrainConfig) -> Optimizer:
-    return Optimizer(tc)
+def make_optimizer(tc: TrainConfig, tp_group=None) -> Optimizer:
+    return Optimizer(tc, tp_group)
 
 
 def _to_device(batch: dict, device) -> dict:
@@ -161,8 +197,22 @@ def _grads(loss: torch.Tensor, leaves: List[torch.Tensor]) -> List[torch.Tensor]
     return [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
 
 
+def _global_draws(generator, batch: dict, mesh, device):
+    """t (B,) and noise (B, T, D) of this dp rank's B rows, cut from the
+    draws of the global batch (dp·B rows) in the order one process makes
+    them, so every row gets one process's numbers."""
+    latent = torch.as_tensor(batch["latent"])
+    b = latent.shape[0]
+    t = torch.rand(b * mesh.dp, generator=generator, device=device) ** 2.0
+    noise = torch.randn((b * mesh.dp,) + tuple(latent.shape[1:]), generator=generator,
+                        device=device)
+    rows = slice(mesh.dp_rank * b, (mesh.dp_rank + 1) * b)
+    return t[rows], noise[rows]
+
+
 def make_train_step(cfg: DiTConfig, tc: TrainConfig, model_dtype=torch.bfloat16,
-                    lora_cfg: Optional[LoRAConfig] = None, train_encoders: bool = False):
+                    lora_cfg: Optional[LoRAConfig] = None, train_encoders: bool = False,
+                    mesh=None):
     """Returns (optimizer, step).
 
     Full mode:  step(params, opt_state, generator, batch) -> (params, opt_state, loss)
@@ -171,27 +221,58 @@ def make_train_step(cfg: DiTConfig, tc: TrainConfig, model_dtype=torch.bfloat16,
     text_input_ids, text_mask, speaker_latent, speaker_mask (moved to the
     parameters' device). `generator` draws t and the noise. The trained
     tensors are updated in place and returned; loss is a detached scalar.
+
+    mesh: a `parallel/mesh.py` Mesh. The batch is then this dp rank's rows
+    (`parallel/multihost.py:feed_process_local_batch`), every rank passes a
+    generator in the same state, and the loss returned is the global
+    batch's. With tp > 1 the params are this rank's `shard_params` tree;
+    LoRA takes dp alone.
     """
-    opt = make_optimizer(tc)
+    tp_group = None
+    if mesh is not None and mesh.tp > 1:
+        if lora_cfg is not None:
+            raise ValueError("LoRA training runs on dp alone: give it a mesh with tp=1")
+        tp_group = mesh.tp_group
+    opt = make_optimizer(tc, tp_group)
+    dp_group = mesh.dp_group if mesh is not None and mesh.dp > 1 else None
 
     def loss_from(params, generator, batch, device):
         b = _to_device(batch, device)
+        kw = {}
+        if mesh is not None:
+            kw["t"], kw["noise"] = _global_draws(generator, b, mesh, device)
         return compute_diffusion_loss(
             params, cfg, generator, b["latent"], b["latent_mask"], b["text_input_ids"],
             b["text_mask"], b["speaker_latent"], b["speaker_mask"],
-            model_dtype=model_dtype, train_encoders=train_encoders)
+            model_dtype=model_dtype, train_encoders=train_encoders, **kw)
 
     def train(trained, params, opt_state, generator, batch):
         leaves = tree_leaves(trained)
         for p in leaves:
             p.requires_grad_(True)
         loss = loss_from(params, generator, batch, leaves[0].device)
-        opt_state = opt.apply(leaves, _grads(loss, leaves), opt_state)
+        if dp_group is not None:
+            from echo_tts_tpu_torch.parallel.tp import all_reduce_
+
+            # this rank's share of the global mean: its masked sum over the
+            # global count of valid elements
+            n_local = torch.as_tensor(batch["latent_mask"]).sum().to(torch.float32)
+            n_global = all_reduce_(n_local.clone().to(loss.device), group=dp_group)
+            loss = loss * (n_local.to(loss.device) / n_global.clamp(min=1))
+            grads = [all_reduce_(g, group=dp_group) for g in _grads(loss, leaves)]
+            loss = all_reduce_(loss.detach().clone(), group=dp_group)
+        else:
+            grads = _grads(loss, leaves)
+        opt_state = opt.apply(leaves, grads, opt_state)
         return opt_state, loss.detach()
 
     if lora_cfg is None:
 
         def step(params, opt_state, generator, batch):
+            if tp_group is not None:
+                from echo_tts_tpu_torch.parallel.sharding import sharded_leaf_mask
+
+                opt.sharded = sharded_leaf_mask(params)
             opt_state, loss = train(params, params, opt_state, generator, batch)
             return params, opt_state, loss
 

@@ -157,3 +157,16 @@ def speed_of_light(cfg: DiTConfig, batch: int, seq: int, ctx: int,
 def metrics_line(name: str, values: dict) -> None:
     """Structured one-line JSON metric (each process logs its own)."""
     log.info("%s", json.dumps({"metric": name, **values}))
+
+
+def allgather_metric(value) -> list:
+    """Every rank's `value` (any picklable object), in rank order, on every
+    rank (`dist.all_gather_object`; [value] for one process): weak-scaling
+    aggregation."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        return [value]
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, value)
+    return out

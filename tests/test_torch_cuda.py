@@ -869,3 +869,52 @@ def test_int8_forward_on_the_card_tracks_bf16(cuda_device):
     assert got.shape == (2, 1, 64, cfg.latent_size) and torch.isfinite(got).all()
     for i in range(2):
         assert _rel(got[i], ref[i]) < 5e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,d", [(1920, 1024), (1920, 2944), (768, 640), (1600, 1664),
+                                 (37, 1000)])
+def test_quant_rows_tp_modes_match_plain_bit_for_bit(cuda_device, m, d, dtype):
+    """K5's scale-only and codes-at-a-scale modes at the widths of the
+    row-sharded products at tp=2 (wo's K 1024 and w2's 2944 in the trunk,
+    640 and 1664 in the encoders) and a ragged one: equal to the plain
+    version bit for bit, an all-zero row included; codes at the max of two
+    halves' scales equal the whole row's codes."""
+    from echo_tts_tpu_torch.ops import quant_rows as tqr
+
+    gen = torch.Generator(device=cuda_device).manual_seed(m + d)
+    h = (torch.randn(m, 2 * d, generator=gen, device=cuda_device) * 3).to(dtype)
+    h[1] = 0
+    halves = [h[:, :d].contiguous(), h[:, d:].contiguous()]
+    b_s, b_a = tqr.quant_rows_scale.launches, tqr.quant_rows_at.launches
+    scales = [tqr.quant_rows_scale(x) for x in halves]
+    s = torch.maximum(*scales)
+    codes = [tqr.quant_rows_at(x, s) for x in halves]
+    torch.cuda.synchronize()
+    assert tqr.quant_rows_scale.launches == b_s + 2 and tqr.quant_rows_at.launches == b_a + 2
+    for x, sx, qx in zip(halves, scales, codes):
+        assert torch.equal(sx.cpu(), tqr.quant_rows_scale_plain(x.cpu()))
+        assert torch.equal(qx.cpu(), tqr.quant_rows_at_plain(x.cpu(), s.cpu()))
+    rq, rs = tqr.quant_rows_plain(h.cpu())
+    assert torch.equal(s.cpu(), rs) and torch.equal(torch.cat(codes, 1).cpu(), rq)
+
+
+@pytest.mark.parametrize("m,k,ns,dtype", [
+    (1920, 2048, (1024,) * 4, torch.bfloat16),   # q/k/v/gate at tp=2
+    (1920, 1024, (2048,), torch.int32),          # wo's partial sums
+    (1920, 2048, (2944,) * 2, torch.bfloat16),   # w1/w3
+    (1920, 2944, (2048,), torch.int32),          # w2's partial sums
+    (768, 1280, (640,) * 4, torch.bfloat16),     # the encoders
+    (768, 640, (1280,), torch.int32),
+    (1600, 1280, (1664,) * 2, torch.bfloat16),
+    (1600, 1664, (1280,), torch.int32)])
+def test_int8_gemm_at_tp2_shapes_matches_plain(cuda_device, m, k, ns, dtype):
+    """K4 at every (K, N) a tp=2 rank launches, in the type the path asks
+    for (int32 for the row-sharded products), equal to the plain version."""
+    from echo_tts_tpu_torch.ops import int8_gemm as tig
+
+    a, s_row, ws = _int8_case(cuda_device, m, k, ns, m + k + sum(ns))
+    got = tig.int8_gemm_grouped(a, s_row, ws, dtype)
+    torch.cuda.synchronize()
+    for out, ref in zip(got, tig.int8_gemm_grouped_plain(a, s_row, ws, dtype)):
+        assert torch.equal(out, ref)

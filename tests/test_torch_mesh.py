@@ -1,0 +1,601 @@
+"""The port's (dp, tp) mesh on torch.distributed (echo_tts_tpu_torch/parallel/)
+against the JAX package's unsharded functions on the same weights: ranks of
+a gloo group on the CPU (tests/torch_mesh_workers.py, spawned, each join
+bounded), the JAX references computed here in the parent.
+
+* tp=2: the text, speaker and latent KV caches (each rank's heads), the
+  one-branch forward, the CFG forward with the force-speaker scale, the
+  [latent | text | speaker] forward and the incremental latent state, the
+  sampler, all fp32 with rel-L2 <= 1e-5; a forward with half-head RoPE over
+  the local heads, which must fail that check (the trap the global head
+  offset avoids); the int8 trunk and encoders against JAX's
+  quantize_dit_params forward (rel-L2 <= 1e-3, as the one-process int8 test
+  holds it: a code that rounds the other way) and against the port's
+  one-process int8 forward (rel-L2 <= 1e-6), each row-sharded product of a
+  layer bit for bit against the unsharded one; a bf16 tree against the
+  one-process bf16 forward (rel-L2 <= 2e-2, bf16 rounding);
+* dp=2: the sampler's rows against JAX's batch, `sample_pipeline_dp`'s rows
+  against one process's `sample_pipeline_batch`, the weak-scaling fields;
+* dp=2 x tp=2: one full-param train step against one process (loss rel
+  1e-5, every weight within 1e-5, a hundredth of the step size);
+* tp=2 checkpoints: torch.distributed.checkpoint save/load and the sharded
+  npz/safetensors loads, bit for bit;
+* Engine(mesh) at tp=2 (one-shot, stream, LoRA swap and back, micro-batch)
+  and `serve --tp 2 --cpu --random-tiny` over HTTP, bodies equal to the
+  direct tp=2 call;
+* the pieces that need no group: specs, shard_params, auto_mesh_config, the
+  nccl refusal, K5's scale-only and codes-at-a-scale modes.
+"""
+import json
+import os
+import socket
+import subprocess
+import sys
+import time
+import urllib.request
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from echo_tts_tpu.core import config as jc
+from echo_tts_tpu.core.rope import precompute_rope as j_rope
+from echo_tts_tpu.models import dit as jdit
+from echo_tts_tpu.models import quant as jquant
+from echo_tts_tpu.sampling.euler_cfg import (
+    sample_euler_cfg_independent_guidances as j_sample,
+)
+from echo_tts_tpu_torch.checkpoints.from_jax import dit_params_from_numpy
+from echo_tts_tpu_torch.core import config as tc
+from echo_tts_tpu_torch.models import dit as tdit
+from echo_tts_tpu_torch.models import quant as tquant
+from echo_tts_tpu_torch.ops.quant_rows import quant_rows_at, quant_rows_plain, quant_rows_scale
+from echo_tts_tpu_torch.parallel import mesh as tmesh
+from echo_tts_tpu_torch.parallel import sharding as tsh
+
+from torch_mesh_workers import run_ranks, spawn_ranks
+from torch_parity import np_tree, rel_l2
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CFG = tc.DiTConfig().tiny()
+JCFG = jc.DiTConfig().tiny()
+SC = dict(num_steps=3, sequence_length=16, truncation_factor=0.8)
+TOL = 1e-5
+
+
+def _arrays(seed=0, b=1):
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, 256, (b, 24)).astype(np.int32)
+    text_mask = np.broadcast_to(np.arange(24) < 19, (b, 24)).copy()
+    spk = rng.standard_normal((b, 16, 80)).astype(np.float32)
+    spk_mask = np.broadcast_to(np.arange(16) < 12, (b, 16)).copy()
+    return {"ids": ids, "text_mask": text_mask, "spk": spk, "spk_mask": spk_mask,
+            "noise": rng.standard_normal((b, 16, 80)).astype(np.float32)}
+
+
+@pytest.fixture(scope="module")
+def weights():
+    jp = jdit.init_dit_params(jax.random.PRNGKey(5), JCFG, dtype=jnp.float32)
+    return jp, dit_params_from_numpy(np_tree(jp), CFG, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# tp=2 forwards
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def tp_run(weights, tmp_path_factory):
+    """Both ranks' results and the JAX references."""
+    jp, tp = weights
+    rng = np.random.default_rng(1)
+    arr = _arrays(1)
+    total, start = 24, 8
+    arr.update(x=rng.standard_normal((1, 8, 80)).astype(np.float32),
+               t=np.full((1,), 0.7, np.float32),
+               prefix=rng.standard_normal((1, 20, 80)).astype(np.float32),
+               latent_mask=(np.arange(total // 4) * 4 < start)[None],
+               h_wo=rng.standard_normal((5, CFG.model_size)).astype(np.float32),
+               h_w2=rng.standard_normal((5, CFG.intermediate_size)).astype(np.float32))
+    scale = [1.5, 1.0]
+    d = tmp_path_factory.mktemp("tp")
+    torch.save({"cfg": CFG, "params": tp, "arrays": arr, "scale": scale, "total": total,
+                "start_pos": start, "sc": tc.SamplerConfig(**SC)}, d / "inputs.pt")
+    collect = spawn_ranks("forward", 2, d / "run")
+
+    j = {k: jnp.asarray(v) for k, v in arr.items()}
+    kvt = jdit.get_kv_cache_text(jp, JCFG, j["ids"], j["text_mask"])
+    kvs = jdit.get_kv_cache_speaker(jp, JCFG, j["spk"])
+    js = jdit.init_latent_kv_state(jp, JCFG, 1, total, jnp.float32)
+    js = jdit.extend_latent_kv(jp, JCFG, js, j["prefix"][:, :8], 0)
+    js = jdit.extend_latent_kv(jp, JCFG, js, j["prefix"][:, 8:], 8)
+    cos, sin = j_rope(JCFG.head_dim, total)
+    jscale = jnp.asarray(scale)
+    jq = jquant.quantize_dit_params(jp, encoders=True)
+    ref = {
+        "kv_text": kvt, "kv_speaker": kvs,
+        "kv_latent": jdit.get_kv_cache_latent(jp, JCFG, j["prefix"]),
+        "fwd": jdit.dit_forward(jp, JCFG, j["x"], j["t"], j["text_mask"], j["spk_mask"],
+                                kvt, kvs),
+        "fwd_cfg": jdit.dit_forward_cfg(jp, JCFG, j["x"], j["t"], j["text_mask"],
+                                        j["spk_mask"], kvt, kvs, speaker_kv_scale=jscale),
+        "latent_state": js,
+        "fwd_latent": jdit.dit_forward_cfg(
+            jp, JCFG, j["x"], j["t"], j["text_mask"], j["spk_mask"], kvt, kvs,
+            rope_q=(cos[start:start + 8], sin[start:start + 8]), kv_latent=(js["k"], js["v"]),
+            latent_mask=j["latent_mask"], speaker_kv_scale=jscale),
+        "fwd_int8": jdit.dit_forward_cfg(
+            jq, JCFG, j["x"], j["t"], j["text_mask"], j["spk_mask"],
+            jdit.get_kv_cache_text(jq, JCFG, j["ids"], j["text_mask"]),
+            jdit.get_kv_cache_speaker(jq, JCFG, j["spk"])),
+        "sample": j_sample(jp, JCFG, jc.SamplerConfig(**SC), j["spk"], j["spk_mask"], j["ids"],
+                           j["text_mask"], j["noise"], model_dtype=jnp.float32),
+    }
+    own = {}
+    tt = {k: torch.from_numpy(v) for k, v in arr.items()}
+    with torch.no_grad():
+        tq = tquant.quantize_dit_params(tp, encoders=True)
+        own["fwd_int8"] = tdit.dit_forward_cfg(
+            tq, CFG, tt["x"], tt["t"], tt["text_mask"], tt["spk_mask"],
+            tdit.get_kv_cache_text(tq, CFG, tt["ids"], tt["text_mask"]),
+            tdit.get_kv_cache_speaker(tq, CFG, tt["spk"])).numpy()
+        q1 = tquant.quantize_dit_params(tp)
+        for name, w in (("wo", q1["blocks"]["attention"]["wo"]), ("w2", q1["blocks"]["mlp"]["w2"])):
+            own[f"row_{name}"] = tquant.mm(tt[f"h_{name}"], {"q": w["q"][0], "s": w["s"][0]}).numpy()
+        bp = _to(tp, torch.bfloat16)
+        own["fwd_bf16"] = tdit.dit_forward(
+            bp, CFG, tt["x"].bfloat16(), tt["t"].bfloat16(), tt["text_mask"], tt["spk_mask"],
+            tdit.get_kv_cache_text(bp, CFG, tt["ids"], tt["text_mask"]),
+            tdit.get_kv_cache_speaker(bp, CFG, tt["spk"].bfloat16())).float().numpy()
+    return collect(), jax.tree_util.tree_map(np.asarray, ref), own
+
+
+def _clone(tree):
+    return ({k: _clone(v) for k, v in tree.items()} if isinstance(tree, dict)
+            else tree.detach().clone())
+
+
+def _to(tree, dtype):
+    if isinstance(tree, dict):
+        return {k: _to(v, dtype) for k, v in tree.items()}
+    return tree.to(dtype) if tree.is_floating_point() else tree
+
+
+def _heads(ref, rank, axis, local):
+    idx = [slice(None)] * ref.ndim
+    idx[axis] = slice(rank * local, (rank + 1) * local)
+    return ref[tuple(idx)]
+
+
+@pytest.mark.parametrize("name", ["kv_text", "kv_speaker", "kv_latent"])
+def test_tp_kv_caches_hold_each_ranks_heads(tp_run, name):
+    """(L, B, H, T, Dh) caches: rank r holds heads [2r, 2r + 2) of 4."""
+    ranks, ref, _ = tp_run
+    for r, out in enumerate(ranks):
+        assert out["heads"] == CFG.num_heads // 2
+        for got, want in zip(out[name], ref[name]):
+            assert got.shape[2] == CFG.num_heads // 2
+            assert rel_l2(got, _heads(want, r, 2, 2)) <= TOL, (name, r)
+
+
+@pytest.mark.parametrize("name", ["fwd", "fwd_cfg", "fwd_latent"])
+def test_tp_forward_matches_jax(tp_run, name):
+    """The one-branch forward, the CFG forward with the force-speaker scale
+    and the [latent | text | speaker] forward at start_pos 8: every rank's
+    output equals the unsharded JAX forward."""
+    ranks, ref, _ = tp_run
+    for out in ranks:
+        assert out[name].shape == ref[name].shape
+        assert rel_l2(out[name], ref[name]) <= TOL, (name, rel_l2(out[name], ref[name]))
+
+
+def test_tp_latent_state_holds_each_ranks_heads(tp_run):
+    """Two appends into the incremental latent state: the encoder buffers
+    (L_enc, B, T, H_enc, Dh) and the trunk cache (L, B, H, T, Dh) hold each
+    rank's heads of JAX's."""
+    ranks, ref, _ = tp_run
+    for r, out in enumerate(ranks):
+        st, js = out["latent_state"], ref["latent_state"]
+        for name, axis, local in (("enc_k", 3, 1), ("enc_v", 3, 1), ("k", 2, 2), ("v", 2, 2)):
+            assert rel_l2(st[name], _heads(js[name], r, axis, local)) <= TOL, (name, r)
+
+
+def test_tp_local_half_heads_rope_fails(tp_run):
+    """Half-head RoPE over each rank's local heads (rank 0 rotating one of
+    its two heads, rank 1 one of its, where the global first half is rank
+    0's two) misses the JAX forward by a hundred times the tolerance and
+    the latent cache's keys by far: the global head offset is what makes
+    test_tp_forward_matches_jax and the cache tests pass."""
+    ranks, ref, _ = tp_run
+    for r, out in enumerate(ranks):
+        assert rel_l2(out["fwd_local_rope"], ref["fwd"]) > 100 * TOL
+        k = _heads(ref["kv_latent"][0], r, 2, 2)
+        assert rel_l2(out["kv_latent_local_rope"][0], k) > 0.1
+
+
+def test_tp_int8_forward(tp_run):
+    """int8 trunk and encoders at tp=2 against JAX's quantize_dit_params
+    forward and against the port's one-process int8 forward."""
+    ranks, ref, own = tp_run
+    for out in ranks:
+        assert out["int8_q_shape"] == {"wq": (2, 32, 64), "wq_s": (2, 32), "w2": (2, 64, 48),
+                                       "w2_s": (2, 64)}
+        assert rel_l2(out["fwd_int8"], ref["fwd_int8"]) <= 1e-3
+        assert rel_l2(out["fwd_int8"], own["fwd_int8"]) <= 1e-6
+
+
+@pytest.mark.parametrize("name", ["wo", "w2"])
+def test_tp_int8_row_products_bit_for_bit(tp_run, name):
+    """A row-sharded int8 product over K split in two (MAX of the ranks'
+    scales, codes at it, int32 sums added, K4's epilogue) equals the
+    unsharded product bit for bit."""
+    ranks, _, own = tp_run
+    for out in ranks:
+        np.testing.assert_array_equal(out[f"row_{name}"], own[f"row_{name}"])
+
+
+def test_tp_sampler_matches_jax(tp_run):
+    """Three Euler CFG steps at tp=2: latents equal JAX's, with two
+    all-reduces a trunk layer and encoder layer."""
+    ranks, ref, _ = tp_run
+    for out in ranks:
+        assert rel_l2(out["sample"], ref["sample"]) <= TOL
+        # per forward: 2 a trunk layer; text and speaker encoders 2 a layer
+        enc = 2 * (CFG.text_num_layers + CFG.speaker_num_layers)
+        assert out["sample_all_reduces"] == enc + 3 * 2 * CFG.num_layers
+
+
+def test_tp_bf16_forward(tp_run):
+    ranks, _, own = tp_run
+    for out in ranks:
+        assert rel_l2(out["fwd_bf16"], own["fwd_bf16"]) <= 2e-2
+
+
+# ---------------------------------------------------------------------------
+# dp=2 sampling, dp x tp training
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def dp_run(weights, tmp_path_factory):
+    from echo_tts_tpu_torch.bench.trace import random_tts
+
+    jp, tp = weights
+    arr = _arrays(2, b=4)
+    tts = random_tts(torch.device("cpu"), tiny=True)
+    requests = [(f"Row {i}.", None, 10 + i) for i in range(4)]
+    sc = tc.SamplerConfig(**SC)
+    d = tmp_path_factory.mktemp("dp")
+    torch.save({"cfg": CFG, "params": tp, "arrays": arr, "sc": sc, "tts": tts,
+                "requests": requests}, d / "inputs.pt")
+    collect = spawn_ranks("sample_dp", 2, d / "run")
+    j = {k: jnp.asarray(v) for k, v in arr.items()}
+    ref = np.asarray(j_sample(jp, JCFG, jc.SamplerConfig(**SC), j["spk"], j["spk_mask"],
+                              j["ids"], j["text_mask"], j["noise"], model_dtype=jnp.float32))
+    from echo_tts_tpu_torch.pipeline.pipeline import sample_pipeline_batch
+
+    with torch.no_grad():
+        one = [a for a, _n, _t in sample_pipeline_batch(tts, requests, sc=sc)]
+    return collect(), ref, one
+
+
+def test_dp_sampler_rows_match_jax(dp_run):
+    ranks, ref, _ = dp_run
+    got = np.concatenate([r["latents"] for r in ranks])
+    assert got.shape == ref.shape and rel_l2(got, ref) <= TOL
+
+
+def test_dp_pipeline_rows_match_one_process(dp_run):
+    """sample_pipeline_dp: rank r samples rows 2r, 2r + 1 of the four; each
+    equals its row of one process's batch of four."""
+    ranks, _, one = dp_run
+    rows = dict(i_a for r in ranks for i_a in r["rows"])
+    assert sorted(rows) == [0, 1, 2, 3]
+    for i, a in rows.items():
+        assert a.shape == one[i].shape and rel_l2(a, one[i]) <= 1e-4, i
+
+
+def test_weak_scaling_reports_on_every_rank(dp_run):
+    ranks, _, _ = dp_run
+    s0, s1 = ranks[0]["scaling"], ranks[1]["scaling"]
+    assert s0 == s1 and s0["devices"] == 2 and s0["device"] == "cpu"
+    assert s0["t_dp1_s"] > 0 and s0["t_dpN_s"] > 0 and s0["weak_scaling_efficiency"] > 0
+
+
+@pytest.fixture(scope="module")
+def train_run(tmp_path_factory):
+    from echo_tts_tpu_torch.models.dit import init_dit_params
+    from echo_tts_tpu_torch.train.loop import TrainConfig, make_train_step
+
+    cfg = tc.DiTConfig(has_latent_modules=False).tiny()
+    params = init_dit_params(cfg, torch.float32, "cpu", seed=3)
+    rng = np.random.default_rng(4)
+    lm = np.ones((4, 16), bool)
+    lm[1, 12:] = False
+    lm[3, 9:] = False
+    batch = {"latent": rng.standard_normal((4, 16, 80)).astype(np.float32), "latent_mask": lm,
+             "text_input_ids": rng.integers(0, 256, (4, 24)).astype(np.int32),
+             "text_mask": np.ones((4, 24), bool),
+             "speaker_latent": rng.standard_normal((4, 16, 80)).astype(np.float32),
+             "speaker_mask": np.ones((4, 16), bool)}
+    tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=0, total_steps=10)
+    d = tmp_path_factory.mktemp("train")
+    torch.save({"cfg": cfg, "params": params, "batch": batch, "tc": tcfg, "seed": 7},
+               d / "inputs.pt")
+    collect = spawn_ranks("train", 4, d / "run")
+    ref = _clone(params)
+    opt, step = make_train_step(cfg, tcfg, model_dtype=torch.float32)
+    ref, _, loss = step(ref, opt.init(ref), torch.Generator().manual_seed(7), batch)
+    return collect(), ref, float(loss)
+
+
+def test_train_step_tp_dp_loss(train_run):
+    """The dp=2 x tp=2 step's loss is the global batch's (ragged masks on
+    both dp ranks), equal on every rank and to one process's."""
+    ranks, _, loss = train_run
+    assert np.isfinite(loss)
+    for r in ranks:
+        assert abs(r["loss"] - loss) <= 1e-5 * abs(loss), (r["loss"], loss)
+
+
+def test_train_step_tp_dp_params(train_run):
+    """After the step every rank holds its tp slice of one process's
+    updated params (the dp replicas equal), each within a hundredth of the
+    step size (lr 1e-3): the shards sum their gradients in another order,
+    and Adam's first step divides each gradient by its own magnitude plus
+    1e-8, so a gradient near 1e-8 moves its weight by a part of lr that
+    its last bits decide."""
+    from echo_tts_tpu_torch.parallel.sharding import spec_for
+
+    ranks, ref, _ = train_run
+
+    def walk(got, want, names):
+        if isinstance(want, dict):
+            for k in want:
+                walk(got[k], want[k], names + (k,))
+            return
+        w = want.detach().numpy()
+        spec = spec_for(names, w.ndim)
+        if "tp" in spec:
+            w = _heads(w, r["tp_rank"], spec.index("tp"), w.shape[spec.index("tp")] // 2)
+        assert got.shape == w.shape and np.abs(got - w).max() <= 1e-5, names
+
+    for r in ranks:
+        walk(r["params"], ref, ())
+
+
+# ---------------------------------------------------------------------------
+# checkpoints
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def ckpt_run(tmp_path_factory):
+    from echo_tts_tpu_torch.checkpoints.io import save_pytree
+    from echo_tts_tpu_torch.checkpoints.safetensors import save_file
+    from echo_tts_tpu_torch.models.dit import init_dit_params
+
+    params = init_dit_params(CFG, torch.bfloat16, "cpu", seed=6)
+    d = tmp_path_factory.mktemp("ckpt")
+    save_pytree(str(d / "p.npz"), params)
+    flat = {}
+
+    def walk(tree, prefix):
+        for k, v in tree.items():
+            key = f"{prefix}//{k}" if prefix else k
+            walk(v, key) if isinstance(v, dict) else flat.__setitem__(key, v)
+
+    walk(params, "")
+    save_file(flat, str(d / "p.safetensors"))
+    torch.save({"params": params, "zeros": _zeros(params), "npz": str(d / "p.npz"),
+                "safetensors": str(d / "p.safetensors")}, d / "inputs.pt")
+    return run_ranks("checkpoint", 2, d / "run")
+
+
+def _zeros(tree):
+    return ({k: _zeros(v) for k, v in tree.items()} if isinstance(tree, dict)
+            else torch.zeros_like(tree))
+
+
+@pytest.mark.parametrize("how", ["dcp", "npz", "safetensors"])
+def test_sharded_checkpoint_round_trip(ckpt_run, how):
+    """torch.distributed.checkpoint restores each rank's shards bit for bit
+    into a zero template; the sharded loads give shard_params' slices."""
+    def eq(a, b, names=()):
+        if isinstance(b, dict):
+            assert set(a) == set(b), names
+            for k in b:
+                eq(a[k], b[k], names + (k,))
+        else:
+            np.testing.assert_array_equal(a, b, err_msg=str(names))
+
+    for out in ckpt_run:
+        eq(out[how], out["mine"])
+
+
+# ---------------------------------------------------------------------------
+# Engine(mesh) and serve --tp 2
+# ---------------------------------------------------------------------------
+
+
+TEXT = "[S1] Two ranks."
+HTTP_SC = {"num_steps": 2, "sequence_length": 32}
+
+
+@pytest.fixture(scope="module")
+def engine_run(tmp_path_factory):
+    from echo_tts_tpu_torch.bench.trace import random_tts
+    from echo_tts_tpu_torch.train.lora import LoRAConfig, init_lora, save_lora_checkpoint
+
+    tts = random_tts(torch.device("cpu"), tiny=True)
+    gen = torch.Generator().manual_seed(16)
+    lc = LoRAConfig(rank=4, alpha=4.0)
+    lora = init_lora(gen, tts.dit_params, lc)
+    for ab in lora.values():
+        ab["b"].normal_(0.0, 0.5, generator=gen)
+    d = tmp_path_factory.mktemp("engine")
+    save_lora_checkpoint(str(d / "lora.npz"), lora, lc)
+    torch.save({"sc": tc.SamplerConfig(**HTTP_SC), "text": TEXT, "lora": str(d / "lora.npz")},
+               d / "inputs.pt")
+    return run_ranks("engine", 2, d / "run")
+
+
+def test_engine_tp_one_shot_and_lora(engine_run):
+    """Engine(mesh) at tp=2, rank 1 following: the one-shot body equals the
+    direct tp=2 call's WAV, set_lora gives the merged model's and None the
+    base's again."""
+    out = engine_run[0]
+    assert engine_run[1] == {"followed": True}
+    assert out["one"] == out["direct"] and out["back"] == out["direct"]
+    assert out["lora"] == out["direct_lora"] and out["lora"] != out["direct"]
+
+
+def test_engine_tp_stream(engine_run):
+    out = engine_run[0]
+    assert len(out["stream"]) == len(out["direct_stream"]) > 1
+    for a, b in zip(out["stream"], out["direct_stream"]):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_engine_tp_micro_batch(engine_run):
+    """Two concurrent requests on Engine(mesh, max_batch=2) run as one batch
+    whose rows equal the direct tp=2 batch's."""
+    out = engine_run[0]
+    assert out["batches"] == 1 and out["batch"] == out["direct_batch"]
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def test_serve_tp2_cpu_matches_the_direct_call(engine_run):
+    """`python -m echo_tts_tpu_torch.serve --cpu --random-tiny --tp 2`
+    starts its follower, serves /tts with the direct tp=2 call's body, and
+    leaves no process behind."""
+    port = _free_port()
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""),
+               OMP_NUM_THREADS="2")
+    proc = subprocess.Popen([sys.executable, "-m", "echo_tts_tpu_torch.serve", "--cpu",
+                             "--random-tiny", "--tp", "2", "--port", str(port)], cwd=REPO,
+                            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            start_new_session=True)
+    try:
+        deadline = time.monotonic() + 240
+        while True:
+            assert proc.poll() is None, proc.stdout.read().decode()
+            try:
+                with urllib.request.urlopen(f"http://127.0.0.1:{port}/health", timeout=2):
+                    break
+            except OSError:
+                assert time.monotonic() < deadline, "the tp server did not come up"
+                time.sleep(0.5)
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/tts", method="POST",
+                                     data=json.dumps({"text": TEXT, "seed": 1,
+                                                      **HTTP_SC}).encode())
+        with urllib.request.urlopen(req, timeout=240) as r:
+            body = r.read()
+        assert body == engine_run[0]["direct"]
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, 9)
+            proc.wait(timeout=10)
+    assert proc.returncode is not None
+
+
+# ---------------------------------------------------------------------------
+# no group needed
+# ---------------------------------------------------------------------------
+
+
+def test_param_pspecs_of_int8_leaves(weights):
+    """int8 leaves shard by the weight's name in the port's (L, N, K)
+    layout: column-sharded q on N with s following, row-sharded q on K with
+    s whole; plain weights and head norms as JAX's specs say."""
+    _, tp = weights
+    specs = tsh.param_pspecs(tquant.quantize_dit_params(tp, encoders=True))
+    a, m = specs["blocks"]["attention"], specs["blocks"]["mlp"]
+    assert a["wq"] == {"q": (None, "tp", None), "s": (None, "tp")}
+    assert a["wk_text"] == {"q": (None, "tp", None), "s": (None, "tp")}
+    assert m["w2"] == {"q": (None, None, "tp"), "s": ()}
+    assert a["wo"] == {"q": (None, None, "tp"), "s": ()}
+    assert a["q_norm"] == (None, "tp", None)
+    plain = tsh.param_pspecs(tp)
+    assert plain["blocks"]["attention"]["wq"] == (None, None, "tp")
+    assert plain["blocks"]["mlp"]["w2"] == (None, "tp", None)
+    assert plain["text_encoder"]["blocks"]["attention"]["k_norm"] == (None, "tp", None)
+    assert plain["blocks"]["attention_adaln"]["shift_down"] == ()
+    assert plain["out_proj"]["w"] == ()
+
+
+def test_shard_params_refuses_heads_that_do_not_divide(weights):
+    _, tp = weights
+    mesh3 = tmesh.Mesh(tc.MeshConfig(dp=1, tp=3), torch.device("cpu"), tp_rank=0)
+    with pytest.raises(ValueError, match="does not divide"):
+        tsh.shard_params(tp, mesh3)
+    one = tmesh.make_mesh(tc.MeshConfig(), "cpu")
+    try:
+        assert tsh.shard_params(tp, one) is not tp
+        assert tsh.shard_params(tp, one)["blocks"]["attention"]["wq"] is tp["blocks"][
+            "attention"]["wq"]
+    finally:
+        tmesh.destroy()
+
+
+def test_mesh_configs_and_backend_rules():
+    assert tmesh.auto_mesh_config(8) == tc.MeshConfig(dp=4, tp=2)
+    assert tmesh.auto_mesh_config(3) == tc.MeshConfig(dp=3, tp=1)
+    assert tmesh.auto_mesh_config(1).num_devices == 1
+    assert tmesh.default_backend(torch.device("cpu")) == "gloo"
+    assert tmesh.default_backend(torch.device("cuda", 0)) == "nccl"
+    tmesh.initialize_multihost()  # one process: nothing to do
+    with pytest.raises(RuntimeError, match="process group of 2"):
+        tmesh.make_mesh(tc.MeshConfig(dp=1, tp=2), "cpu")
+    with pytest.raises(ValueError, match="nccl needs CUDA"):
+        tmesh.initialize_multihost("tcp://localhost:1", 2, 0, backend="nccl", device="cpu")
+
+
+def test_nccl_refuses_two_ranks_on_one_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(torch.cuda, "set_device", lambda d: None)
+    with pytest.raises(RuntimeError, match="NCCL refuses two ranks on one device"):
+        tmesh.initialize_multihost("tcp://localhost:1", 2, 0, device="cuda:0")
+
+
+def test_a_sharded_tree_needs_its_mesh(weights):
+    from echo_tts_tpu_torch.parallel.tp import current_mesh
+
+    _, tp = weights
+    assert current_mesh() is None
+    mesh = tmesh.Mesh(tc.MeshConfig(dp=1, tp=2), torch.device("cpu"), tp_rank=1)
+    sp = tsh.shard_params(tp, mesh)
+    assert sp["blocks"]["attention"]["q_norm"].shape[1] == 2
+    np.testing.assert_array_equal(sp["blocks"]["mlp"]["w2"].numpy(),
+                                  tp["blocks"]["mlp"]["w2"][:, 48:].numpy())
+    with pytest.raises(RuntimeError, match="needs a registered mesh"):
+        tdit.get_kv_cache_text(sp, CFG, torch.zeros((1, 4), dtype=torch.int32),
+                               torch.ones((1, 4), dtype=torch.bool))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quant_rows_modes_match_plain_and_split(dtype):
+    """K5's scale-only and codes-at-a-scale modes equal quant_rows_plain
+    bit for bit, and the max of two halves' scales is the whole row's, so
+    codes at it equal the whole row's codes."""
+    gen = torch.Generator().manual_seed(0)
+    h = (torch.randn((7, 96), generator=gen) * 3).to(dtype)
+    h[2] = 0
+    q, s = quant_rows_plain(h)
+    assert torch.equal(quant_rows_scale(h), s)
+    assert torch.equal(quant_rows_at(h, s), q)
+    halves = [h[:, :48], h[:, 48:]]
+    s_max = torch.maximum(*[quant_rows_scale(x) for x in halves])
+    assert torch.equal(s_max, s)
+    assert torch.equal(torch.cat([quant_rows_at(x, s_max) for x in halves], dim=1), q)

@@ -65,7 +65,8 @@ for new in ("bench.attention", "bench.attention_variants", "bench.conv_kernel_va
             "checkpoints.safetensors", "checkpoints.convert", "checkpoints.io",
             "native.build", "native.resample_py", "native.mp3_py", "bench.fast_init",
             "scripts.convert_checkpoint", "scripts.batch_synthesize", "scripts.finetune_lora",
-            "scripts.bench_train"):
+            "scripts.bench_train", "parallel.mesh", "parallel.sharding", "parallel.tp",
+            "parallel.multihost", "parallel.fleet", "bench.scaling", "scripts.ablate_dit"):
     assert "echo_tts_tpu_torch." + new in names, new
 """
 
@@ -122,7 +123,7 @@ def test_serve_and_trace_entry_points_on_the_cpu_flag(capsys):
     assert res["n_ok"] == 2 and res["n_hung"] == 0 and not any(res["launches"].values())
 
 
-@pytest.mark.parametrize("argv", [["--random", "--tp", "2"], ["--random", "--gradio"]])
+@pytest.mark.parametrize("argv", [["--random", "--gradio"]])
 def test_serve_flags_not_ported_raise(argv):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         serve_main.build_engine(serve_main.parse_args(["--cpu"] + argv))

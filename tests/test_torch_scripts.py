@@ -7,7 +7,7 @@ files on the CPU.
 * batch_synthesize --cpu: each WAV equal to its row of the direct
   `sample_pipeline_batch` call, and within the whole-pipeline rel-L2 1e-4 of
   tests/test_torch_pipeline.py of the JAX script's WAV on the same files and
-  seeds (both in fp32); the fleet flags raise, naming ROADMAP.md item 8;
+  seeds (both in fp32) (its fleet mode: tests/test_torch_fleet.py);
 * finetune_lora --cpu, one epoch: finite losses, the first equal to
   `make_train_step` called directly on the first batch, an adapter (saved
   with `extra`) that both packages load and `Engine.set_lora` swaps in;
@@ -123,14 +123,6 @@ def test_batch_synthesize_from_files(files, tmp_path, monkeypatch, capsys):
         ref, sr_ref = read_wav(str(tmp_path / "jax" / f"{r['id']}.wav"))
         assert sr == sr_ref and got.shape == ref.shape, r["id"]
         assert rel_l2(got, ref) < 1e-4, (r["id"], rel_l2(got, ref))
-
-
-@pytest.mark.parametrize("extra", [["--workers", "2"], ["--worker-id", "0", "--fleet-dir", "f"],
-                                   ["--fleet-dir", "f"]])
-def test_batch_synthesize_fleet_mode_raises(tmp_path, extra):
-    with pytest.raises(NotImplementedError, match="item 8"):
-        batch_synthesize.main(["--input", "x.jsonl", "--outdir", str(tmp_path), "--cpu",
-                               "--random-tiny"] + extra)
 
 
 def _clips(tmp_path, n=3, seconds=1.0):

@@ -330,12 +330,6 @@ def test_retry_reruns_the_same_path_then_fails(both, engines, monkeypatch, max_b
     assert np.isfinite(audio).all() and eng.health()["requests"] == 1
 
 
-@pytest.mark.parametrize("kw", [dict(mesh=object())])
-def test_levers_not_ported_raise(both, kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine(both[1], **kw)
-
-
 @pytest.mark.parametrize("continuous", [False, True])
 def test_warmup_runs_every_shape(both, engines, monkeypatch, continuous):
     """warmup runs the one-shot path at the no-speaker shape and each
