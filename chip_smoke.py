@@ -41,8 +41,9 @@ Phases, in order; any failure exits non-zero:
      a ragged and an odd N, K a multiple of 16 and not of 128; the grouped
      launches q/k/v/gate, w1/w3 and a context's k/v and one of four unequal
      N; every tile shape forced; K5's scale-only and codes-at-a-scale modes
-     at the tp=2 widths and K4 at every tp=2 (K, N)), and the wrappers
-     refusing what the kernels do not take;
+     at the tp=2 and tp=4 widths, quotients at and near half-integers too,
+     and K4 at every tp=2 (K, N)), and the wrappers refusing what the kernels
+     do not take;
   5. the one-shot slice at the full width of DiTConfig(has_latent_modules=
      False) and AEConfig() in bf16, random weights from a seed: one CFG
      forward and one decode through the kernels against the plain versions;
@@ -91,7 +92,7 @@ Phases, in order; any failure exits non-zero:
      first chunk at the client); four concurrent /tts of one batch key on
      Engine(max_batch=4): one batch, one request's K1 and decode K2, every
      row equal to its solo run, aggregate audio-s/s; run_trace (3 streams of
-     640 latents at 0.5/s, 64-latent blocks) on a continuous, a dispatch and
+     320 latents at 0.5/s, 64-latent blocks) on a continuous, a dispatch and
      a continuous engine without the fast join: TTFA and completion p50/p95,
      achieved audio-s/s, one continuous
      row against its solo stream (rel-L2 < 2e-2); /reconstruct equal to
@@ -133,10 +134,10 @@ Phases, in order; any failure exits non-zero:
      DiTConfig(has_latent_modules=False) and AEConfig() in bf16, seeds 0 and 1
      in every process: (a) a world-size-1 NCCL mesh, request (i) through the
      sharded tree equal to the direct call; (b) tp=2 as two ranks on cuda:0
-     over gloo (NCCL takes one rank a card): request (i) at 640 latents and 40
-     steps against tp=1 (rel-L2 of latents and audio < 2e-2), each rank's
-     launches (K1 1920, K2 12), peak memory and all-reduce seconds; the int8
-     trunk the same way (K4 3840, K5 1920 and each tp mode 1920) with one
+     over gloo (NCCL takes one rank a card): request (i) at 640 latents and
+     MESH_STEPS (20) steps against tp=1 (rel-L2 of latents and audio < 2e-2),
+     each rank's launches (K1 960, K2 12), peak memory and all-reduce seconds;
+     the int8 trunk the same way (K4 1920, K5 960 and each tp mode 960) with one
      layer's row-sharded products bit for bit; a B=2 training batch's loss
      and gradients through K1 + K3 against tp=1 and one step; `serve --tp 2
      --dist-backend gloo` over HTTP, /tts of (i) and a /lora swap, bodies
@@ -146,6 +147,14 @@ Phases, in order; any failure exits non-zero:
      2 --worker-die-after 1:1 --max-batch 1 on four 640-latent requests,
      byte-equal to one process, dead_workers [1], reassigned >= 1; (e) a
      sharded torch.distributed.checkpoint save and load at tp=2, equal bits;
+     (f) continuous stream groups on a tp=2 engine, two ranks on cuda:0 over
+     gloo with `serve --random`'s weights (DiTConfig() with its latent
+     modules): Engine(mesh, max_batch=4, continuous=True), three 128-latent
+     streams on 64-latent blocks (the second and third admitted into the
+     first's group at one boundary: one resize, two fast joins), each row
+     within 2e-2 of the tp=2 solo stream of its seed, rank 1's launches
+     (K1, K2) and all-reduce calls equal to rank 0's and to the count from
+     the group's samplings;
   7. the measurement path: the entry points of echo_tts_tpu_torch/bench/
      (attention_variants, conv_kernel_variants, conv_variants, attention,
      profile_breakdown) at their full shapes, each printing its JSON line,
@@ -832,32 +841,41 @@ def phase_int8_checks(dev) -> dict:
     int8_gemm_case("grouped, four unequal N", gen, 37, 1040, (200, 2048, 72, 203), dev,
                    failures)
     # tensor parallelism: K5's scale-only and codes-at-a-scale modes at the
-    # widths of the row-sharded products at tp=2, and K4 at every (K, N) a
-    # tp=2 rank launches (int32 out for the row-sharded ones)
-    for m, d in ((1920, 1024), (1920, 2944), (640, 1024), (768, 640), (1600, 1664),
-                 (37, 1000)):
+    # widths of the row-sharded products at tp=2 and tp=4 (a row split in
+    # `parts`), quotients at and near half-integers too, and K4 at every
+    # (K, N) a tp=2 rank launches (int32 out for the row-sharded ones)
+    for m, d, parts, ties in ((1920, 1024, 2, False), (1920, 2944, 2, False),
+                              (640, 1024, 2, False), (768, 640, 2, False),
+                              (1600, 1664, 2, False), (37, 1000, 2, False),
+                              (1920, 512, 4, False), (1920, 1472, 4, False),
+                              (768, 320, 4, False), (1600, 832, 4, False),
+                              (1920, 1024, 2, True), (1920, 2944, 2, True),
+                              (1920, 512, 4, True), (1920, 1472, 4, True)):
         for dtype in (torch.bfloat16, torch.float32):
-            h = (torch.randn(m, 2 * d, generator=gen, device=dev) * 3).to(dtype)
+            h = (near_ties(gen, m, parts * d, dev) if ties
+                 else torch.randn(m, parts * d, generator=gen, device=dev) * 3).to(dtype)
             h[3] = 0
-            halves = [h[:, :d].contiguous(), h[:, d:].contiguous()]
+            pieces = [x.contiguous() for x in h.split(d, dim=1)]
             before = (qr.quant_rows_scale.launches, qr.quant_rows_at.launches)
-            scales = [qr.quant_rows_scale(x) for x in halves]
-            s_max = torch.maximum(*scales)
-            codes = [qr.quant_rows_at(x, s_max) for x in halves]
+            scales = [qr.quant_rows_scale(x) for x in pieces]
+            s_max = torch.stack(scales).amax(0)
+            codes = [qr.quant_rows_at(x, s_max) for x in pieces]
             torch.cuda.synchronize()
             same = all(torch.equal(sx.cpu(), qr.quant_rows_scale_plain(x.cpu()))
                        and torch.equal(qx.cpu(), qr.quant_rows_at_plain(x.cpu(), s_max.cpu()))
-                       for x, sx, qx in zip(halves, scales, codes))
+                       for x, sx, qx in zip(pieces, scales, codes))
             rq, rs = qr.quant_rows_plain(h.cpu())
             whole = torch.equal(s_max.cpu(), rs) and torch.equal(torch.cat(codes, 1).cpu(), rq)
-            log(f"# check quant_rows_scale / quant_rows_at [two halves of ({m}, {2 * d}) "
-                f"{str(dtype)[6:]}, row 3 all zero]: each equal to the plain version: {same}; "
-                f"the max of the halves' scales and the codes at it equal the whole row's: "
-                f"{whole}")
+            log(f"# check quant_rows_scale / quant_rows_at [{parts} parts of ({m}, {parts * d}) "
+                f"{str(dtype)[6:]}, "
+                f"{'codes in registers' if qr.at_registers(d, dtype) else 'codes streamed'}, "
+                f"{'quotients at and near half-integers, ' if ties else ''}row 3 all zero]: each "
+                f"equal to the plain version: {same}; the max of the parts' scales and the codes "
+                f"at it equal the whole row's: {whole}")
             launched = (qr.quant_rows_scale.launches - before[0],
                         qr.quant_rows_at.launches - before[1])
-            if not (same and whole) or launched != (2, 2):
-                failures.append(f"quant_rows tp modes ({m}, {d}) {dtype} {launched}")
+            if not (same and whole) or launched != (parts, parts):
+                failures.append(f"quant_rows tp modes ({m}, {d}) x {parts} {dtype} {launched}")
     for m in (1920, 640):
         for what, k, ns in (("tp=2 q/k/v/gate", 2048, (1024,) * 4), ("tp=2 wo", 1024, (2048,)),
                             ("tp=2 w1/w3", 2048, (2944,) * 2), ("tp=2 w2", 2944, (2048,))):
@@ -2030,7 +2048,7 @@ def phase_stream(dev, wrappers: dict) -> dict:
     against the plain chain and the audio against decode_zq, and 1- and
     2-frame first chunks; (c) sample_pipeline_stream with the (64, 192)
     schedule and phase 5's prompts, warm-up and timed, exact launch counts,
-    one profile of its first two blocks; (d) stream_blocks_fused at bench.py
+    one profile of its first block; (d) stream_blocks_fused at bench.py
     --blockwise's shapes;
     (e) a continuation from 5 s of audio. Returns the launches of (c) and
     the weights, which phase 10 goes on with."""
@@ -2224,10 +2242,11 @@ def phase_stream(dev, wrappers: dict) -> dict:
             or launches["joint_attention"] != k1_expected
             or launches["res_chain"] != k2_expected):
         raise SystemExit("stream (c): wrong audio length, non-finite audio or launch counts")
-    # the profile reads the first two blocks (64 + 192 latents) only: the
-    # profiler's own processing of a whole stream's ~350k launches took ~100 s
-    prof = profile_families("the first two blocks of one stream again",
-                            lambda: run_stream(5, n_chunks=2))
+    # the profile reads the first block (64 latents, the prompt's encode and
+    # KV build with it) only: the profiler's own processing of a whole
+    # stream's ~350k launches took ~100 s
+    prof = profile_families("the first block of one stream again",
+                            lambda: run_stream(5, n_chunks=1))
     for k, w in wrappers.items():  # the profile's launches are not the path's
         w.launches = launches[k]
     split = lap("c", split)
@@ -2629,8 +2648,10 @@ def phase_batch(dev, wrappers: dict, tts) -> dict:
 
 
 # phase 11 (d): streams in a trace; three keep the first arrivals' burst of
-# three and hold the whole script, phase 14 included, inside its time limit
+# three and hold the whole script, phase 14 included, inside its time limit;
+# each 320 latents (five 64-latent blocks) since phase 14 (f) was added
 TRACE_STREAMS = 3
+TRACE_LATENTS = 320
 
 
 def http_call(port: int, method: str, path: str, body=None):
@@ -2687,7 +2708,7 @@ def phase_serve(dev, wrappers: dict, tts) -> dict:
     to the PCM16 of sample_pipeline_stream's; (c) four concurrent /tts of one
     batch key on Engine(max_batch=4): one batch, K1 and the decode's K2 as one
     request's, every row equal to its solo run; (d) run_trace, 3 streams of
-    640 latents at 0.5 requests/s on 64-latent blocks, on a continuous, a
+    320 latents at 0.5 requests/s on 64-latent blocks, on a continuous, a
     dispatch and a continuous engine without the fast join, one continuous
     row against its solo stream; (e)
     /reconstruct against ae_reconstruct, /lora with an r16 LoRA (the audio
@@ -2847,7 +2868,8 @@ def phase_serve(dev, wrappers: dict, tts) -> dict:
         split = lap("serving c", split)
 
         # (d) the arrival trace on a continuous and on a dispatch engine, each
-        # stream as long as the one-shot requests above (640 latents)
+        # stream TRACE_LATENTS long
+        sc_trace = dataclasses.replace(sc, sequence_length=TRACE_LATENTS)
         traces = {}
         for mode, kw in (("continuous", dict(continuous=True, continuous_block=64)),
                          ("dispatch", {}),
@@ -2865,11 +2887,12 @@ def phase_serve(dev, wrappers: dict, tts) -> dict:
 
             eng_t.generate_stream = tee
             torch.cuda.reset_peak_memory_stats(dev)
-            s, got = serving(lambda: run_trace(eng_t, sc, TRACE_STREAMS, 0.5, block_size=64,
-                                               seed=0, timeout_s=600))
+            s, got = serving(lambda: run_trace(eng_t, sc_trace, TRACE_STREAMS, 0.5,
+                                               block_size=64, seed=0, timeout_s=600))
             st = eng_t.health()
             traces[mode] = dict(s, batches=st["batches"], launches=got)
-            log(f"# serving (d) run_trace {mode}, {TRACE_STREAMS} streams of 640 latents at 0.5/s, "
+            log(f"# serving (d) run_trace {mode}, {TRACE_STREAMS} streams of {TRACE_LATENTS} "
+                f"latents at 0.5/s, "
                 f"64-latent "
                 f"blocks: TTFA p50 {s['ttfa_p50_s'] * 1e3:.1f} / p95 {s['ttfa_p95_s'] * 1e3:.1f} "
                 f"ms, completion p50 {s['completion_p50_s'] * 1e3:.1f} / p95 "
@@ -2884,7 +2907,7 @@ def phase_serve(dev, wrappers: dict, tts) -> dict:
                 text, parts = streams[seed]
                 row = np.concatenate(parts, -1)
                 ref = np.concatenate(list(pl.sample_pipeline_stream(
-                    tts, text, None, seed, sc=sc, block_size=64, normalize_text=True)), -1)
+                    tts, text, None, seed, sc=sc_trace, block_size=64, normalize_text=True)), -1)
                 need(row.shape == ref.shape, f"(d): row {seed} has {row.shape[-1]} samples, its "
                      f"solo stream {ref.shape[-1]}")
                 r = rel_l2(torch.from_numpy(row), torch.from_numpy(ref))
@@ -2964,8 +2987,10 @@ def phase_serve(dev, wrappers: dict, tts) -> dict:
             t0 = time.perf_counter()
             eng_g.set_lora(lora_path)
             swap_ms = (time.perf_counter() - t0) * 1e3
+            group = eng_g._groups.get(sched.gid)  # the params it took when it opened
             alive = sched.thread.is_alive()
-            need(sched.params is tts.dit_params and eng_g.tts.dit_params is not tts.dit_params,
+            need(group is not None and group["params"] is tts.dit_params
+                 and eng_g.tts.dit_params is not tts.dit_params,
                  "(e): the live group's params were replaced, or the swap did nothing")
             t_.join(timeout=600)
             need(not t_.is_alive(), "(e): the live stream hung")
@@ -3872,11 +3897,19 @@ def mesh_wrappers() -> dict:
             "quant_rows_scale": quant_rows_scale, "quant_rows_at": quant_rows_at}
 
 
-def mesh_sc():
+# the sampler steps of phase 14's (a)-(e): 20 since (f) was added, to keep the
+# script inside its budget (each tp=2 request is a host all-reduce a layer a
+# step); (f) runs the default 40
+MESH_STEPS = 20
+
+
+def mesh_sc(num_steps: int = MESH_STEPS):
+    """The default sampler (dual CFG, 640 latents) at `num_steps`."""
     from echo_tts_tpu_torch.core.config import SamplerConfig
 
-    return SamplerConfig(num_steps=40, cfg_scale_text=3.0, cfg_scale_speaker=8.0, cfg_min_t=0.5,
-                         cfg_max_t=1.0, truncation_factor=0.8, sequence_length=640)
+    return SamplerConfig(num_steps=num_steps, cfg_scale_text=3.0, cfg_scale_speaker=8.0,
+                         cfg_min_t=0.5, cfg_max_t=1.0, truncation_factor=0.8,
+                         sequence_length=640)
 
 
 def mesh_tts(dev):
@@ -3970,7 +4003,8 @@ def _mesh_rank(rank: int, task: str, init: str, out_dir: str, dev_type: str) -> 
     torch.backends.cudnn.allow_tf32 = False
     initialize_multihost(init, 2, rank, backend="gloo", device=dev)
     try:
-        res = {"tp": _mesh_tp_work, "dp": _mesh_dp_work}[task](rank, dev, out_dir)
+        res = {"tp": _mesh_tp_work, "dp": _mesh_dp_work,
+               "cont": _mesh_cont_work}[task](rank, dev, out_dir)
         torch.save(res, os.path.join(out_dir, f"{task}_rank{rank}.pt"))
     finally:
         destroy()
@@ -4154,6 +4188,109 @@ def _mesh_tp_work(rank: int, dev, out_dir: str) -> dict:
     return res
 
 
+# (f): three 128-latent streams (two 64-latent blocks each) on a tp=2
+# continuous engine; the first alone, the other two once its group is live
+CONT_STREAMS = {3000: SHORT_TEXT, 3001: SPEAKER_TEXT,
+                3002: "[S1] A third stream joins the group at a block boundary."}
+CONT_LATENTS, CONT_BLOCK = 128, 64
+
+
+def _mesh_cont_work(rank: int, dev, out_dir: str) -> dict:
+    """(f) on one rank of tp=2: `serve --random`'s weights (DiTConfig() with
+    its latent modules, AEConfig(), bf16); each stream of CONT_STREAMS alone
+    through `sample_pipeline_stream` on the sharded tree at the uniform
+    block (the reference), then Engine(mesh, max_batch=4, continuous=True):
+    rank 0 streams the first request, and the other two once the first's
+    group is live, which admits both at one boundary (one resize 1 -> 2,
+    two fast joins); rank 1 follows. Launches, all-reduces and wall a rank
+    over the engine's life (rank 1: its follow())."""
+    import dataclasses
+    import threading
+
+    from echo_tts_tpu_torch.bench.trace import random_tts
+    from echo_tts_tpu_torch.core.config import MeshConfig
+    from echo_tts_tpu_torch.parallel.mesh import make_mesh
+    from echo_tts_tpu_torch.parallel.multihost import barrier
+    from echo_tts_tpu_torch.parallel.sharding import shard_params
+    from echo_tts_tpu_torch.pipeline import pipeline as pl
+    from echo_tts_tpu_torch.serve.engine import Engine
+
+    wrappers = mesh_wrappers()
+    sc = dataclasses.replace(mesh_sc(40), sequence_length=CONT_LATENTS)
+    mesh = make_mesh(MeshConfig(dp=1, tp=2), dev)
+    tts = random_tts(dev, tiny=False)
+    res = {"rank": rank}
+    direct = dataclasses.replace(tts, dit_params=shard_params(tts.dit_params, mesh))
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        res["solo"] = {seed: np.concatenate(list(pl.sample_pipeline_stream(
+            direct, text, None, seed, sc=sc, block_size=CONT_BLOCK, normalize_text=True)),
+            axis=-1) for seed, text in CONT_STREAMS.items()}
+    res["solo_s"] = time.perf_counter() - t0
+    del direct
+    torch.cuda.empty_cache()
+    barrier()
+    eng = Engine(tts, mesh=mesh, max_batch=4, continuous=True, continuous_block=CONT_BLOCK)
+    if rank != 0:
+        _, res["launches"], res["all_reduce"], res["peak_gib"], res["wall_s"] = counted(
+            wrappers, eng.follow, dev)
+        eng.close()
+        return res
+
+    resizes = []
+    real_resize = pl._resize_group
+
+    def resize_spy(gs, perm, keep):
+        resizes.append((int(gs["prefix"].shape[0]), len(perm)))
+        return real_resize(gs, perm, keep)
+
+    rows, errors = {}, []
+
+    def client(seed, text):
+        t = {"submit": time.perf_counter()}
+        chunks = []
+        try:
+            for c in eng.generate_stream(text, None, seed=seed, sc=sc, block_size=CONT_BLOCK):
+                t.setdefault("first", time.perf_counter())
+                chunks.append(c)
+        except Exception as e:  # reported below: the phase fails
+            errors.append(f"{seed}: {type(e).__name__}: {e}")
+        t["end"] = time.perf_counter()
+        rows[seed] = {"audio": np.concatenate(chunks, axis=-1) if chunks else None,
+                      "ttfa_s": t.get("first", t["end"]) - t["submit"],
+                      "wall_s": t["end"] - t["submit"]}
+
+    def scenario():
+        seeds = list(CONT_STREAMS)
+        first = threading.Thread(target=client, args=(seeds[0], CONT_STREAMS[seeds[0]]))
+        first.start()
+        deadline = time.monotonic() + 300
+        while not any(s.n_active >= 1 for s in list(eng._cont_scheds.values())):
+            if time.monotonic() > deadline or not first.is_alive():
+                break
+            time.sleep(0.005)
+        later = [threading.Thread(target=client, args=(s, CONT_STREAMS[s])) for s in seeds[1:]]
+        for th in later:
+            th.start()
+        for th in [first] + later:
+            th.join(timeout=600)
+        sched = max(eng._cont_scheds.values(), key=lambda s: s.n_joined)
+        stats = {"joined": sched.n_joined, "steps": sched.n_steps, "max_rows": sched.max_b,
+                 "health": eng.health()}
+        eng.close()
+        return stats
+
+    pl._resize_group = resize_spy
+    try:
+        res["group"], res["launches"], res["all_reduce"], res["peak_gib"], res["wall_s"] = \
+            counted(wrappers, scenario, dev)
+    finally:
+        pl._resize_group = real_resize
+    res["group"]["resizes"] = resizes
+    res["rows"], res["errors"] = rows, errors
+    return res
+
+
 def _mesh_dp_work(rank: int, dev, out_dir: str) -> dict:
     """(c) on one rank of dp=2: its two rows of the four requests through
     sample_pipeline_dp, and run_weak_scaling (information: both ranks share
@@ -4277,7 +4414,7 @@ def phase_mesh(dev, smi: str) -> dict:
     DiTConfig(has_latent_modules=False) and AEConfig() in bf16 (weights from
     seeds 0 and 1 in every process). (a) a world-size-1 NCCL mesh here;
     (b) tp=2, two ranks on cuda:0 over gloo (NCCL refuses two ranks on one
-    device): request (i) at 640 latents and 40 steps against tp=1 (rel-L2
+    device): request (i) at 640 latents and MESH_STEPS steps against tp=1 (rel-L2
     of latents and audio), the launches, peak memory and all-reduce seconds
     a rank, int8 the same way with the row-sharded products of one layer bit
     for bit, the loss and gradients of a B=2 training batch through K1 + K3
@@ -4446,11 +4583,71 @@ def phase_mesh(dev, smi: str) -> dict:
 
     # (d) the fleet with a killed worker, byte-equal to one process
     phase_fleet(smi)
+
+    # (f) continuous stream groups on a tp=2 engine
+    cont = phase_mesh_continuous(dev, smi, n_layers, k2_expected)
     shutil.rmtree(MESH_DIR, ignore_errors=True)
     log(f"# mesh phase: {time.perf_counter() - t_phase:.1f} s [{smi}]")
     r0 = ranks[0]
     return {"mesh tp=2 request (i)": r0["launches"], "mesh tp=2 int8": r0["int8_launches"],
-            "mesh tp=2 train step": r0["step_launches"]}
+            "mesh tp=2 train step": r0["step_launches"], "mesh tp=2 continuous": cont}
+
+
+def phase_mesh_continuous(dev, smi: str, n_layers: int, k2_per_decode: int) -> dict:
+    """(f): Engine(mesh, max_batch=4, continuous=True) at tp=2, two ranks on
+    cuda:0 over gloo, `serve --random`'s weights: three 128-latent streams
+    on 64-latent blocks with the default sampler, the second and third
+    admitted into the first's live group at one boundary (one resize, two
+    fast joins); each row against the tp=2 solo stream of its seed (rel-L2
+    bound REL_L2_BOUND), the launches and all-reduces of rank 1 equal to
+    rank 0's and to the count from the group's samplings. Returns rank 0's
+    launches."""
+    t0 = time.perf_counter()
+    ranks = spawn_mesh("cont", MESH_DIR, 600, dev)
+    wall = time.perf_counter() - t0
+    r0, r1 = ranks
+    g = r0["group"]
+    sc = dataclasses.replace(mesh_sc(40), sequence_length=CONT_LATENTS)
+    samplings = g["joined"] + g["steps"]  # a fast join samples its first block alone
+    want = {"joint_attention": samplings * k1_launches(sc, n_layers),
+            "res_chain": samplings * k2_per_decode}
+    fails = list(r0["errors"])
+    for seed, row in sorted(r0["rows"].items()):
+        ref = r0["solo"][seed]
+        a = row["audio"]
+        rel = (rel_l2(torch.as_tensor(a), torch.as_tensor(ref))
+               if a is not None and a.shape == ref.shape else float("inf"))
+        log(f"# mesh (f) tp=2 continuous row {seed}: time to first audio {row['ttfa_s']:.2f} s, "
+            f"wall {row['wall_s']:.2f} s, audio rel-L2 against the tp=2 solo stream of its seed "
+            f"{rel:.3e} (bound {REL_L2_BOUND}) [{smi}]")
+        if not (rel <= REL_L2_BOUND and np.isfinite(a).all()):
+            fails.append(f"row {seed}: rel-L2 {rel:.3e}")
+    grows = [(a, b) for a, b in g["resizes"] if b > a]
+    log(f"# mesh (f) tp=2 continuous group: {g['steps']} group steps (boundaries with a step), "
+        f"{g['joined']} joins (fast), resizes {g['resizes']}, at most {g['max_rows']} rows; "
+        f"health {json.dumps(g['health'].get('continuous_groups', []))}, requests "
+        f"{g['health']['requests']}, failures {g['health']['failures']} [{smi}]")
+    for n, r in enumerate(ranks):
+        ar = r["all_reduce"]
+        log(f"# mesh (f) tp=2 continuous rank {n}: engine wall {r['wall_s']:.2f} s, launches "
+            f"{r['launches']}, all-reduce {ar['all_reduce_calls']} calls "
+            f"{ar['all_reduce_seconds']:.2f} s {ar['all_reduce_bytes'] / 2**30:.2f} GiB, peak "
+            f"{r['peak_gib']:.2f} GiB; solo references {r['solo_s']:.2f} s [{smi}]")
+    same = (r1["launches"] == r0["launches"]
+            and r1["all_reduce"]["all_reduce_calls"] == r0["all_reduce"]["all_reduce_calls"])
+    log(f"# mesh (f) rank 1's launches and all-reduce calls equal rank 0's: {same}; K1 and K2 "
+        f"expected from {samplings} samplings: {want}; spawn to results {wall:.1f} s [{smi}]")
+    if not same:
+        fails.append(f"rank 1 launches {r1['launches']} against rank 0's {r0['launches']}")
+    if {k: r0["launches"][k] for k in want} != want:
+        fails.append(f"launches {r0['launches']}, expected {want}")
+    if g["joined"] != len(CONT_STREAMS) or grows != [(1, 2)]:
+        fails.append(f"joins {g['joined']}, grows {grows} (expected 3 and [(1, 2)])")
+    if g["health"]["failures"]:
+        fails.append(f"health {g['health']}")
+    if fails:
+        raise SystemExit("mesh (f) failed: " + "; ".join(fails))
+    return r0["launches"]
 
 
 def phase_fleet(smi: str) -> dict:

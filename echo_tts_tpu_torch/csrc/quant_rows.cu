@@ -37,9 +37,17 @@
 // Two more modes serve tensor parallelism, where a row is split over the tp
 // ranks and its scale must be the whole row's: quant_rows_scale writes the
 // scales alone (the ranks then take the max of theirs), and quant_rows_at
-// the codes at given scales, each element's code as above. One warp a row,
-// reading it once; they are right and bit-exact, not tuned (each moves
-// M·D·(2 or 4) bytes, plus M·D codes for the second).
+// the codes at given scales, each element's code as above. quant_rows_scale
+// runs one warp a row, reading it once (M·D·(2 or 4) bytes). quant_rows_at
+// (M·D·(2 or 4) + M·D bytes) takes the main mode's register layout: WPR
+// warps a row, CPL chunks a lane, every load of a lane issued before its
+// first store, so that a lane's chunks are one round trip to memory and not
+// CPL dependent ones; it needs no reduction, so the warps of a row never
+// meet. Its instances cover every row of at most 1024 chunks, the local
+// widths of the row-sharded products at tp = 2 and 4 among them (the
+// trunk's wo and w2: 1024, 2944, 512, 1472; the encoders': 640, 1664, 320,
+// 832) in both types; a longer row takes one warp a row with one chunk in
+// flight a lane.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -177,19 +185,37 @@ quant_rows_scale_kernel(const void* __restrict__ h, float* __restrict__ s, int M
   if (lane == 0) s[row] = sc;
 }
 
-// one warp a row: its codes at the given scale
-template <bool BF16>
+// the codes at the given scales. CPL > 0: WPR warps a row, each lane
+// holding at most CPL 16-byte chunks, all loaded before the first store;
+// CPL = 0: one warp a row of any D, a chunk at a time
+template <bool BF16, int CPL, int WPR>
 __global__ void __launch_bounds__(THREADS)
 quant_rows_at_kernel(const void* __restrict__ h, const float* __restrict__ s,
                      int8_t* __restrict__ q, int M, int D) {
   constexpr int PER = BF16 ? 8 : 4;
-  const int row = blockIdx.x * (THREADS / 32) + threadIdx.x / 32, lane = threadIdx.x % 32;
+  constexpr int ROWS = THREADS / 32 / (CPL ? WPR : 1), LANES = 32 * WPR;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row = blockIdx.x * ROWS + warp / (CPL ? WPR : 1);
   if (row >= M) return;
+  const int chunks = D / PER;
   const uint4* src = reinterpret_cast<const uint4*>(static_cast<const char*>(h) +
                                                     static_cast<size_t>(row) * D * (BF16 ? 2 : 4));
   int8_t* dst = q + static_cast<size_t>(row) * D;
-  const float sc = s[row], r = 1.f / sc;
-  for (int c = lane; c < D / PER; c += 32) store_codes<BF16>(dst, c, __ldg(src + c), sc, r);
+  if constexpr (CPL == 0) {
+    const float sc = s[row], r = 1.f / sc;
+    for (int c = lane; c < chunks; c += 32) store_codes<BF16>(dst, c, __ldg(src + c), sc, r);
+  } else {
+    const int first = (warp % WPR) * 32 + lane;
+    uint4 c[CPL];
+#pragma unroll
+    for (int i = 0; i < CPL; ++i)
+      c[i] = first + i * LANES < chunks ? __ldg(src + first + i * LANES)
+                                        : make_uint4(0u, 0u, 0u, 0u);
+    const float sc = __ldg(s + row), r = 1.f / sc;
+#pragma unroll
+    for (int i = 0; i < CPL; ++i)
+      if (first + i * LANES < chunks) store_codes<BF16>(dst, first + i * LANES, c[i], sc, r);
+  }
 }
 
 template <bool BF16, int CPL, int WPR>
@@ -250,17 +276,49 @@ extern "C" int quant_rows_scale(const void* h, void* s, int M, int D, int bf16, 
   return (int)cudaGetLastError();
 }
 
+namespace {
+
+template <bool BF16, int CPL, int WPR>
+cudaError_t launch_at(const void* h, const float* s, int8_t* q, int M, int D, cudaStream_t st) {
+  constexpr int ROWS = THREADS / 32 / (CPL ? WPR : 1);
+  quant_rows_at_kernel<BF16, CPL, WPR><<<(M + ROWS - 1) / ROWS, THREADS, 0, st>>>(h, s, q, M, D);
+  return cudaGetLastError();
+}
+
+// (CPL, WPR) instances of the codes mode: every split() of a row of at most
+// 1024 chunks (bf16 D <= 8192, fp32 D <= 4096). The tp widths: bf16 D =
+// 1024, 2944 | 512, 1472 | 640, 1664 | 320, 832 give (4, 1), (3, 4) | (2, 1),
+// (3, 2) | (3, 1), (4, 2) | (2, 1), (4, 1); fp32 (4, 2), (3, 8) | (4, 1),
+// (3, 4) | (3, 2), (4, 4) | (3, 1), (4, 2)
+template <bool BF16>
+cudaError_t dispatch_at(const void* h, const float* s, int8_t* q, int M, int D, cudaStream_t st) {
+  int wpr, cpl;
+  split(D / (BF16 ? 8 : 4), wpr, cpl);
+  switch (cpl * 16 + wpr) {
+    case 1 * 16 + 1: return launch_at<BF16, 1, 1>(h, s, q, M, D, st);
+    case 2 * 16 + 1: return launch_at<BF16, 2, 1>(h, s, q, M, D, st);
+    case 3 * 16 + 1: return launch_at<BF16, 3, 1>(h, s, q, M, D, st);
+    case 4 * 16 + 1: return launch_at<BF16, 4, 1>(h, s, q, M, D, st);
+    case 3 * 16 + 2: return launch_at<BF16, 3, 2>(h, s, q, M, D, st);
+    case 4 * 16 + 2: return launch_at<BF16, 4, 2>(h, s, q, M, D, st);
+    case 3 * 16 + 4: return launch_at<BF16, 3, 4>(h, s, q, M, D, st);
+    case 4 * 16 + 4: return launch_at<BF16, 4, 4>(h, s, q, M, D, st);
+    case 3 * 16 + 8: return launch_at<BF16, 3, 8>(h, s, q, M, D, st);
+    case 4 * 16 + 8: return launch_at<BF16, 4, 8>(h, s, q, M, D, st);
+    default: break;
+  }
+  return launch_at<BF16, 0, 1>(h, s, q, M, D, st);
+}
+
+}  // namespace
+
 // the codes at given scales: h (M, D) as above, s (M,) fp32, q (M, D) int8
 extern "C" int quant_rows_at(const void* h, const void* s, void* q, int M, int D, int bf16,
                              void* stream) {
   if (M < 1 || D < 8 || D % 8) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int blocks = (M + THREADS / 32 - 1) / (THREADS / 32);
   const float* sc = static_cast<const float*>(s);
   int8_t* qc = static_cast<int8_t*>(q);
-  if (bf16)
-    quant_rows_at_kernel<true><<<blocks, THREADS, 0, st>>>(h, sc, qc, M, D);
-  else
-    quant_rows_at_kernel<false><<<blocks, THREADS, 0, st>>>(h, sc, qc, M, D);
-  return (int)cudaGetLastError();
+  return (int)(bf16 ? dispatch_at<true>(h, sc, qc, M, D, st)
+                    : dispatch_at<false>(h, sc, qc, M, D, st));
 }

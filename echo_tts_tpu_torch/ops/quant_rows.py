@@ -25,6 +25,11 @@ alone, and `quant_rows_at` the codes at given scales (the max of the ranks'
 scales is the scale of the whole row, since max(·, 1e-8) / 127 is
 monotone). Each equals its part of `quant_rows_plain` bit for bit;
 `quant_rows_scale.launches` and `quant_rows_at.launches` count them.
+`quant_rows_at` holds a row's chunks in registers as the main mode does
+(`at_registers`: rows of at most 1024 16-byte chunks, the local widths of
+the trunk's and the encoders' row-sharded products at tp = 2 and 4 among
+them), all of a lane's loads before its first store; a longer row streams
+one chunk a lane at a time.
 """
 from __future__ import annotations
 
@@ -44,11 +49,31 @@ def one_read(d: int, dtype: torch.dtype) -> bool:
     16-byte chunks, and an instance for that split."""
     if d < 8 or d % 8 or dtype not in ONE_READ:
         return False
+    return _split(d, dtype) in ONE_READ[dtype]
+
+
+# quant_rows_at's (chunks a lane, warps a row) instances, either type: every
+# split of a row of at most 1024 16-byte chunks, the tp widths among them
+# (D = 1024, 2944, 512, 1472: wo and w2 at tp = 2 and 4; 640, 1664, 320,
+# 832: the encoders')
+AT_REGISTERS = {(1, 1), (2, 1), (3, 1), (4, 1), (3, 2), (4, 2), (3, 4), (4, 4), (3, 8), (4, 8)}
+
+
+def _split(d: int, dtype: torch.dtype):
+    """The kernel's (chunks a lane, warps a row) for rows of width d: the
+    least of 1, 2, 4, 8 warps a row that leaves a lane at most four 16-byte
+    chunks."""
     chunks = d * dtype.itemsize // 16
     wpr = 1
     while wpr < 8 and chunks > 4 * 32 * wpr:
         wpr *= 2
-    return (-(-chunks // (32 * wpr)), wpr) in ONE_READ[dtype]
+    return -(-chunks // (32 * wpr)), wpr
+
+
+def at_registers(d: int, dtype: torch.dtype) -> bool:
+    """Whether `quant_rows_at` holds rows of width d in registers."""
+    return (d >= 8 and not d % 8 and dtype in ONE_READ
+            and _split(d, dtype) in AT_REGISTERS)
 
 
 def quant_rows_plain(h: torch.Tensor):

@@ -24,9 +24,13 @@ processes of this module that follow its device calls (`Engine.follow`).
 The process group's backend is nccl on the card and gloo with --cpu;
 `--dist-backend gloo` shares one card between the ranks (nccl refuses two
 ranks on one device, and says so). Every rank builds the same weights and
-keeps its slice. The continuous scheduler does not follow a tp engine yet.
+keeps its slice. With --max-batch M --continuous, rank 0 runs the
+continuous scheduler and the followers run each of its group's device
+calls (open, resize, join, step, close) on their slice.
 
     python -m echo_tts_tpu_torch.serve --random --tp 2 --dist-backend gloo --port 7861
+    python -m echo_tts_tpu_torch.serve --random --tp 2 --dist-backend gloo --max-batch 4 \
+        --continuous --port 7861
     python -m echo_tts_tpu_torch.serve --cpu --random-tiny --tp 2 --port 7861
 
 The Gradio UI (--gradio) is not ported: it raises, naming the ROADMAP.md

@@ -26,7 +26,16 @@ vocoder state: pipeline._stream_step_rows).
   stays ahead of newer arrivals.
 * `Engine.close()` sets an event checked at every boundary: active clients
   get an error and END within about a block. A live group keeps the DiT
-  params it started with; `set_lora` applies to groups started after it.
+  params it started with (taken when the group opens, under the device
+  lock); `set_lora` applies to groups started after it.
+* Every device call goes through the engine (`Engine._dispatch`: the group
+  lives in the engine's table by id, `group_open`, `group_resize`,
+  `group_join`, `group_step`, `group_close`), so on a tensor-parallel
+  engine the followers run each call in the same order on their shard.
+  The host side stays here, on rank 0: admissions, the backlog, the
+  speaker encode and the noise (sent as host arrays), emission and
+  retirement. The group is closed on every rank when the scheduler ends,
+  whether it drained, failed or the engine closed.
 """
 from __future__ import annotations
 
@@ -50,14 +59,14 @@ log = logging.getLogger("echo_tts_tpu_torch.serve")
 
 def prepare_row(tts, text: str, speaker, normalize: bool, seed: int, seq: int, text_len: int,
                 spk_len: int, speaker_cache=None):
-    """One request's group-row inputs: ids, text mask, speaker latents and
-    mask on `tts.device`, padded to the group's text and speaker lengths
-    (the request's own buckets are never larger), and its seed's noise
-    (1, seq, latent) on the host."""
+    """One request's group-row inputs on the host: ids, text mask, speaker
+    latents and mask, padded to the group's text and speaker lengths (the
+    request's own buckets are never larger), and its seed's noise (1, seq,
+    latent). No collective runs here: the speaker encode is the replicated
+    AE's."""
     ids, tmask, _, spk, smask, _ = pl._prepare_inputs(tts, text, speaker, normalize, None, None,
                                                       True, speaker_cache=speaker_cache)
-    dev = tts.device
-    row = [torch.as_tensor(pl._pad_to(np.asarray(a), n), device=dev)
+    row = [pl._pad_to(np.asarray(a), n)
            for a, n in ((ids, text_len), (tmask, text_len), (spk, spk_len), (smask, spk_len))]
     noise = draw_noise(seed, (1, seq, tts.dit_cfg.latent_size), "cpu").numpy()
     return (*row, noise)
@@ -88,7 +97,8 @@ class ContinuousStreamScheduler:
                  linger_s: float = 0.05):
         self.engine = engine
         self.key = key
-        self.params = engine.tts.dit_params  # snapshot: immune to set_lora
+        self.gid = next(engine._group_ids)  # the group's id on every rank
+        self._open = False                   # the group is open on every rank
         # first_block_steps is an admission knob (the fast join honours it);
         # the group's uniform steps never use it
         self.sc = dataclasses.replace(sc or SamplerConfig(), first_block_steps=None)
@@ -154,23 +164,42 @@ class ContinuousStreamScheduler:
         with self._mu:
             self._closed = True
 
+    def _close_group(self):
+        """Free the group on every rank (once; not after the engine has
+        stopped its followers, whose groups went with them)."""
+        if not self._open:
+            return
+        self._open = False
+        eng = self.engine
+        with eng._device():
+            if eng._stopped:
+                return
+            try:
+                eng._dispatch("group_close", self.gid)
+            except Exception:
+                log.exception("could not close continuous group %d", self.gid)
+
     def _run(self):
+        try:
+            self._run_group()
+        finally:
+            self._close_group()
+
+    def _run_group(self):
         eng = self.engine
         tts = eng.tts
         cfg = tts.dit_cfg
-        params = self.params
+        gid = self.gid
         b_max = eng._continuous_group_size()
         seq = self.sc.sequence_length
         total = seq + self.bs  # headroom for a final partial block
         spl, sr = tts.ae_cfg.frame_length, tts.ae_cfg.sample_rate
         text_len = tts.pipe_cfg.text_buckets[-1]
         spk_len = self.spk_bucket if self.spk_bucket else 4  # the no-speaker shape
-        max_positions = max(1024, total)
         latent = cfg.latent_size
 
         backlog: List = []
         rows: List[Optional[_Row]] = []
-        gs = None
         B = 0
         try:
             while True:
@@ -199,9 +228,10 @@ class ContinuousStreamScheduler:
                             eng._bump(requests=1, failures=1)
                     active = sum(r is not None for r in rows)
                     if active or backlog:
-                        if gs is None:
+                        if not self._open:
                             B = 1
-                            gs = pl.init_stream_group(tts, B, total, text_len, spk_len)
+                            eng._dispatch("group_open", gid, B, total, text_len, spk_len)
+                            self._open = True
                             rows = [None]
                             eng._bump(batches=1)  # one live group is one batch
                         # burst-proof grow: to the demanded power of two in one
@@ -210,7 +240,7 @@ class ContinuousStreamScheduler:
                         if target > B:
                             perm = list(range(B)) + [0] * (target - B)
                             keep = [r is not None for r in rows] + [False] * (target - B)
-                            gs = pl._resize_group(gs, perm, keep)
+                            eng._dispatch("group_resize", gid, perm, keep)
                             rows = rows + [None] * (target - B)
                             B = self.cur_b = target
                             self.max_b = max(self.max_b, B)
@@ -225,7 +255,7 @@ class ContinuousStreamScheduler:
                                 req.push(req.END)
                                 continue
                             try:
-                                ids, tmask, spk, smask, noise = prepare_row(
+                                *inputs, noise = prepare_row(
                                     tts, req.text, req.speaker, self.normalize, req.seed, seq,
                                     text_len, spk_len, eng._speaker_cache)
                             except Exception as e:
@@ -237,15 +267,13 @@ class ContinuousStreamScheduler:
                                 fs = req.sc.first_block_steps
                                 sc_first = (dataclasses.replace(self.sc, num_steps=int(fs)) if fs
                                             else self.sc)
-                                gs, audio, block_lat = pl._join_row_first_block(
-                                    params, cfg, sc_first, tts.ae_params, tts.ae_cfg, tts.pca,
-                                    gs, slot, ids, tmask, spk, smask, noise[:, :self.bs],
-                                    self.bs, total, tts.model_dtype, max_positions)
-                                self._emit(rows, slot, audio.cpu().numpy(), block_lat[0].cpu(),
-                                           self.bs, spl, sr)
+                                audio, block_lat = eng._dispatch(
+                                    "group_join", gid, slot, inputs, noise[:, :self.bs],
+                                    sc_first, self.bs, total)
+                                self._emit(rows, slot, audio, block_lat, self.bs, spl, sr)
                             else:
-                                gs = pl._join_row(params, cfg, tts.ae_params, tts.ae_cfg, gs,
-                                                  slot, ids, tmask, spk, smask, tts.model_dtype)
+                                eng._dispatch("group_join", gid, slot, inputs, None, None,
+                                              self.bs, total)
                             self.n_joined += 1
                             slot += 1
                         self.n_active = sum(r is not None for r in rows)
@@ -257,7 +285,7 @@ class ContinuousStreamScheduler:
                             new_b = B // 2
                             perm = (act + [0] * new_b)[:new_b]
                             keep = ([True] * len(act) + [False] * new_b)[:new_b]
-                            gs = pl._resize_group(gs, perm, keep)
+                            eng._dispatch("group_resize", gid, perm, keep)
                             rows = [rows[i] for i in act] + [None] * (new_b - len(act))
                             B = self.cur_b = new_b
 
@@ -275,14 +303,13 @@ class ContinuousStreamScheduler:
                                 v = min(self.bs, r.total - r.pos)
                                 valids[slot] = v
                                 noise_b[slot, :v] = r.noise[0, r.pos:r.pos + v]
-                            gs, audio, block_lat = pl._stream_step_rows(
-                                params, cfg, self.sc, tts.ae_params, tts.ae_cfg, tts.pca, gs,
-                                starts, valids, noise_b, self.bs, total, tts.model_dtype,
-                                max_positions)
-                            self.n_steps += 1
                             # on the host before the lock goes: a device error
                             # surfaces here, in this group
-                            step_out = (audio.cpu().numpy(), block_lat.cpu(), valids)
+                            audio, block_lat = eng._dispatch(
+                                "group_step", gid, self.sc, starts, valids, noise_b, self.bs,
+                                total)
+                            self.n_steps += 1
+                            step_out = (audio, block_lat, valids)
                     eng._bump(total_sample_s=time.perf_counter() - t_lock)
                 # ---- lock released: emission on the host ----
                 if step_out is not None:

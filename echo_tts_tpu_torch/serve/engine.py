@@ -36,9 +36,18 @@ ranks run `follow()`. Every device call of rank 0 runs under the device
 lock through `_dispatch`, which first sends a small descriptor (the call,
 its host-side arguments and seeds) on the mesh's gloo control group; the
 followers run the same call in the same order, so the collectives of the
-sharded forward meet. The one-shot, micro-batched and stream paths and
-`set_lora` go this way; `reconstruct` (the AE, replicated) runs on rank 0
-alone. The continuous scheduler does not follow yet and raises under tp.
+sharded forward meet. The one-shot, micro-batched and stream paths,
+`set_lora` and the continuous groups go this way; `reconstruct` (the AE,
+replicated) runs on rank 0 alone. A continuous group lives on every rank,
+in a table by id (`_groups`): rank 0's scheduler keeps the host side
+(admissions, the backlog, emission, retirement) and sends each device call
+of a group (open, resize, join, step, close) with its host arrays, so that
+no follower encodes a speaker or draws noise. Around each of those calls
+but close, the ranks exchange their status on the control group: a rank
+that failed a call, or holds no such group, makes every rank raise (rank
+0's scheduler then fails the group's clients and closes it everywhere)
+instead of leaving the others in a collective; the group is dropped on
+every rank, and a later call of it is refused.
 """
 from __future__ import annotations
 
@@ -57,6 +66,7 @@ import numpy as np
 import torch
 
 from echo_tts_tpu_torch.core.config import SamplerConfig
+from echo_tts_tpu_torch.pipeline import pipeline as pl
 from echo_tts_tpu_torch.pipeline.pipeline import (
     EchoTTS,
     sample_pipeline,
@@ -208,9 +218,8 @@ class Engine:
 
         mesh: a (dp=1, tp) `parallel/mesh.py` Mesh for tensor parallelism,
         `tts` holding the full weights on this rank's device (see the module
-        doc); rank 0 serves and the others call `follow()`. Under tp > 1 the
-        continuous scheduler raises NotImplementedError (ROADMAP.md §1
-        item 11), and only rank 0 writes the int8 cache.
+        doc); rank 0 serves and the others call `follow()`, which also runs
+        rank 0's continuous groups. Only rank 0 writes the int8 cache.
 
         On cuda the kernels K1 and K2 (and, with int8, K4 and K5) are built
         here (nvcc, at first use in the process), so that no request pays
@@ -219,13 +228,11 @@ class Engine:
             raise ValueError(f"an Engine serves one tp group (dp=1), got {mesh.shape}: "
                              f"replicas over dp are engines of their own (parallel/fleet.py)")
         self._mesh = mesh if mesh is not None and mesh.tp > 1 else None
-        if self._mesh is not None and continuous and max_batch > 1:
-            raise NotImplementedError(
-                "the continuous scheduler does not follow a tensor-parallel engine yet "
-                "(ROADMAP.md §1 item 11)")
         self._leads = self._mesh is not None and self._mesh.rank == 0
         self._streams = {}
         self._stream_ids = itertools.count()
+        self._groups = {}  # live continuous groups by id, on every rank
+        self._group_ids = itertools.count()
         self._stopped = False
         self.int8 = int8 or int8_encoders
         self.int8_encoders = int8_encoders
@@ -288,7 +295,9 @@ class Engine:
     def close(self) -> None:
         """Stop the micro-batcher and signal the live continuous schedulers:
         they check the event at every block boundary, hand their clients an
-        error and END, and exit within about one block."""
+        error and END, close their groups (on every rank of a tp engine) and
+        exit within about one block. Rank 0 of a tp engine then stops its
+        followers."""
         self._closing.set()
         with self._qcond:
             self._shutdown = True
@@ -299,14 +308,24 @@ class Engine:
             scheds = list(self._cont_scheds.values())
         for s in scheds:
             s.thread.join(timeout=30)
-        if self._leads:
-            with self._device():
+        if not (self._leads or self._groups):
+            return
+        with self._device():
+            # a group whose scheduler did not end in time: free it on every
+            # rank before the followers stop
+            for gid in list(self._groups):
                 if not self._stopped:
-                    self._stopped = True
                     try:
-                        self._send(("stop", ()))
-                    except RuntimeError as e:  # a follower that is gone already
-                        log.warning("could not stop the followers: %s", e)
+                        self._dispatch("group_close", gid)
+                    except RuntimeError as e:
+                        log.warning("could not close continuous group %d: %s", gid, e)
+            self._groups.clear()
+            if self._leads and not self._stopped:
+                self._stopped = True
+                try:
+                    self._send(("stop", ()))
+                except RuntimeError as e:  # a follower that is gone already
+                    log.warning("could not stop the followers: %s", e)
 
     # -- device calls (and their mirror on the followers of a tp engine) ---------
     def _send(self, desc) -> None:
@@ -322,12 +341,46 @@ class Engine:
             if self._stopped:
                 raise RuntimeError("engine is closed")
             self._send((op, args))
-        return getattr(self, "_op_" + op)(*args)
+        return self._run_op(op, args)
+
+    def _run_op(self, op: str, args):
+        """This rank's part of call `op`. A continuous group's calls but
+        close run between two status exchanges of the tp ranks (`_agree`):
+        before, so that no rank enters the call's collectives while another
+        has no such group; after, so that a failure on any rank raises on
+        all. Every rank then drops the group, and refuses its later calls."""
+        fn = getattr(self, "_op_" + op)
+        if self._mesh is None or not op.startswith("group_") or op == "group_close":
+            return fn(*args)
+        gid = args[0]
+        self._agree(op, gid, None if op == "group_open" or gid in self._groups
+                    else f"group {gid} is not open")
+        try:
+            out, err = fn(*args), None
+        except Exception as e:
+            out, err = None, f"{type(e).__name__}: {e}"
+        self._agree(op, gid, err)
+        return out
+
+    def _agree(self, op: str, gid: int, err) -> None:
+        """Every tp rank's status of group call `op` (None: ready or done);
+        raise on every rank, and drop the group, if any rank reports an
+        error."""
+        import torch.distributed as dist
+
+        got = [None] * self._mesh.tp
+        dist.all_gather_object(got, err, group=self._mesh.control)
+        bad = [(r, e) for r, e in enumerate(got) if e is not None]
+        if bad:
+            self._groups.pop(gid, None)
+            raise RuntimeError(f"continuous group {gid}: {op} failed on rank "
+                               + "; rank ".join(f"{r}: {e}" for r, e in bad))
 
     def follow(self) -> None:
         """The loop of a tp engine's ranks other than 0: receive rank 0's
         descriptors and run each call, in order, until rank 0 closes. A
-        failed call is logged (rank 0 sees its own failure of it)."""
+        failed call is logged (rank 0 sees its own failure of it; for a
+        continuous group's calls every rank raises, `_run_op`)."""
         import torch.distributed as dist
 
         if self._mesh is None or self._leads:
@@ -338,10 +391,11 @@ class Engine:
             op, args = box[0]
             if op == "stop":
                 self._stopped = True
+                self._groups.clear()
                 return
             try:
                 with self._device():
-                    getattr(self, "_op_" + op)(*args)
+                    self._run_op(op, args)
             except Exception:
                 log.exception("follower %d: %s failed", self._mesh.rank, op)
 
@@ -388,6 +442,58 @@ class Engine:
             with self._device():
                 if not self._stopped:
                     self._dispatch("stream_close", sid)
+
+    # -- continuous groups (serve/continuous.py), on every rank by id -----------
+    def _group(self, gid: int) -> dict:
+        g = self._groups.get(gid)
+        if g is None:
+            raise RuntimeError(f"continuous group {gid} is not open")
+        return g
+
+    def _op_group_open(self, gid, batch, total, text_len, spk_len):
+        """Open group `gid`: `batch` free rows (`pl.init_stream_group`, the
+        caches at this rank's heads) and the DiT params it keeps for its
+        life, taken here, at the same point of every rank's call order: a
+        `set_lora` after this call leaves the group as it is."""
+        self._groups[gid] = {"params": self.tts.dit_params,
+                             "gs": pl.init_stream_group(self.tts, batch, total, text_len,
+                                                        spk_len)}
+
+    def _op_group_resize(self, gid, perm, keep):
+        g = self._group(gid)
+        g["gs"] = pl._resize_group(g["gs"], perm, keep)
+
+    def _op_group_join(self, gid, slot, inputs, first_noise, sc_first, block_size, total):
+        """Admit a request into `slot` of group `gid`. inputs: `prepare_row`'s
+        host ids, text mask, speaker latents and mask. sc_first None:
+        `pl._join_row`; else the fast join (`pl._join_row_first_block`) at
+        that SamplerConfig on first_noise (1, block, latent), returning the
+        first block's audio (1, 1, n) and latents (block, latent) on the
+        host."""
+        tts, g = self.tts, self._group(gid)
+        ids, tmask, spk, smask = (torch.as_tensor(a, device=tts.device) for a in inputs)
+        if sc_first is None:
+            g["gs"] = pl._join_row(g["params"], tts.dit_cfg, tts.ae_params, tts.ae_cfg, g["gs"],
+                                   slot, ids, tmask, spk, smask, tts.model_dtype)
+            return None
+        g["gs"], audio, block_lat = pl._join_row_first_block(
+            g["params"], tts.dit_cfg, sc_first, tts.ae_params, tts.ae_cfg, tts.pca, g["gs"],
+            slot, ids, tmask, spk, smask, first_noise, block_size, total, tts.model_dtype,
+            max(1024, total))
+        return audio.cpu().numpy(), block_lat[0].cpu()
+
+    def _op_group_step(self, gid, sc, starts, valids, noise, block_size, total):
+        """One block of every row of group `gid` (`pl._stream_step_rows`);
+        returns its audio (B, 1, n) and latents (B, block, latent) on the
+        host."""
+        tts, g = self.tts, self._group(gid)
+        g["gs"], audio, block_lat = pl._stream_step_rows(
+            g["params"], tts.dit_cfg, sc, tts.ae_params, tts.ae_cfg, tts.pca, g["gs"], starts,
+            valids, noise, block_size, total, tts.model_dtype, max(1024, total))
+        return audio.cpu().numpy(), block_lat.cpu()
+
+    def _op_group_close(self, gid):
+        self._groups.pop(gid, None)
 
     def _effective(self, params: dict) -> dict:
         """The params requests run on: quantized when the engine serves int8
@@ -783,13 +889,6 @@ class Engine:
         background_tail: run only the no-speaker set now and the rest on
         a daemon thread while the server takes requests; health() reports
         `warmup_tail_running` until it ends."""
-        from echo_tts_tpu_torch.pipeline.pipeline import (
-            _join_row,
-            _join_row_first_block,
-            _resize_group,
-            _stream_step_rows,
-            init_stream_group,
-        )
         from echo_tts_tpu_torch.serve.continuous import prepare_row
 
         sc = sc or SamplerConfig()
@@ -826,7 +925,8 @@ class Engine:
         streaming = include_streaming and tts.dit_cfg.has_latent_modules
         if streaming and self.continuous:
             # one join and one group step at each power-of-two group size,
-            # as the scheduler makes them, for each prompt shape
+            # as the scheduler makes them (through the same group calls, so
+            # a tp engine's followers run them too), for each prompt shape
             cfg = tts.dit_cfg
             p = cfg.speaker_patch_size
             bs = -(-int(self.continuous_block) // p) * p
@@ -838,32 +938,33 @@ class Engine:
                 for audio in prompts:
                     spk_len = (4 if audio is None else find_min_bucket_gte(
                         pc.speaker_buckets, audio.shape[-1] // spl))
-                    ids, tmask, spk, smask, noise = prepare_row(
+                    *inputs, noise = prepare_row(
                         tts, "Warmup.", audio, True, 0, sc_g.sequence_length,
                         pc.text_buckets[-1], spk_len, self._speaker_cache)
-                    gs = init_stream_group(tts, 1, total, pc.text_buckets[-1], spk_len)
-                    b = 1
-                    while True:
-                        if fast:
-                            gs, _, _ = _join_row_first_block(
-                                tts.dit_params, cfg, sc_g, tts.ae_params, tts.ae_cfg, tts.pca,
-                                gs, 0, ids, tmask, spk, smask, noise[:, :bs], bs, total,
-                                tts.model_dtype, max(1024, total))
-                        else:
-                            gs = _join_row(tts.dit_params, cfg, tts.ae_params, tts.ae_cfg, gs,
-                                           0, ids, tmask, spk, smask, tts.model_dtype)
-                        gs, audio_b, _ = _stream_step_rows(
-                            tts.dit_params, cfg, sc_g, tts.ae_params, tts.ae_cfg, tts.pca, gs,
-                            np.zeros((b,), np.int64), np.full((b,), bs, np.int32),
-                            np.zeros((b, bs, cfg.latent_size), np.float32), bs, total,
-                            tts.model_dtype, max(1024, total))
-                        audio_b.cpu()
-                        n_combos += 1
-                        if b >= b_max:
-                            break
-                        gs = _resize_group(gs, np.arange(2 * b) % b, np.arange(2 * b) < b)
-                        b *= 2
-                    del gs
+                    gid = next(self._group_ids)
+                    self._dispatch("group_open", gid, 1, total, pc.text_buckets[-1], spk_len)
+                    try:
+                        b = 1
+                        while True:
+                            if fast:
+                                self._dispatch("group_join", gid, 0, inputs, noise[:, :bs],
+                                               sc_g, bs, total)
+                            else:
+                                self._dispatch("group_join", gid, 0, inputs, None, None, bs,
+                                               total)
+                            self._dispatch("group_step", gid, sc_g, np.zeros((b,), np.int64),
+                                           np.full((b,), bs, np.int32),
+                                           np.zeros((b, bs, cfg.latent_size), np.float32), bs,
+                                           total)
+                            n_combos += 1
+                            if b >= b_max:
+                                break
+                            self._dispatch("group_resize", gid, np.arange(2 * b) % b,
+                                           np.arange(2 * b) < b)
+                            b *= 2
+                    finally:
+                        if not self._stopped:
+                            self._dispatch("group_close", gid)
         elif streaming:
             for audio in prompts:
                 for _ in self._stream("solo", text_prompt="Warmup.", speaker_audio=audio,

@@ -899,6 +899,40 @@ def test_quant_rows_tp_modes_match_plain_bit_for_bit(cuda_device, m, d, dtype):
     assert torch.equal(s.cpu(), rs) and torch.equal(torch.cat(codes, 1).cpu(), rq)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("d", [1024, 2944, 512, 1472, 640, 1664, 320, 832])
+def test_quant_rows_at_registers_bit_for_bit(cuda_device, d, dtype):
+    """quant_rows_at with a row held in registers (its redesign) at the
+    local widths of the row-sharded products at tp = 2 and 4 (the trunk's
+    wo and w2: 1024, 2944, 512, 1472; the encoders': 640, 1664, 320, 832):
+    the plain version's codes bit for bit, at the max of the other ranks'
+    scales too, on ragged M, an all-zero row, and quotients on and a few
+    ulps from half-integers (where the kernel divides)."""
+    from echo_tts_tpu_torch.ops import quant_rows as tqr
+
+    assert tqr.at_registers(d, dtype)
+    gen = torch.Generator(device=cuda_device).manual_seed(d)
+    m = 1937
+    amax = torch.rand(m, 1, generator=gen, device=cuda_device) * 10 + 0.01
+    amax[: m // 2] = 127.0
+    k = torch.randint(-127, 127, (m, d), generator=gen, device=cuda_device).float() + 0.5
+    x = k * (amax / 127.0)
+    for _ in range(2):
+        step = torch.randint(-1, 2, (m, d), generator=gen, device=cuda_device).float()
+        x = torch.where(step == 0, x, torch.nextafter(x, step * torch.inf))
+    x[:, :1] = amax
+    h = x.to(dtype)
+    h[5] = 0
+    own = tqr.quant_rows_scale(h)
+    wider = own * (1 + torch.rand(m, 1, generator=gen, device=cuda_device))  # another rank's
+    for s in (own, wider):
+        before = tqr.quant_rows_at.launches
+        q = tqr.quant_rows_at(h, s)
+        torch.cuda.synchronize()
+        assert tqr.quant_rows_at.launches == before + 1
+        assert torch.equal(q.cpu(), tqr.quant_rows_at_plain(h.cpu(), s.cpu()))
+
+
 @pytest.mark.parametrize("m,k,ns,dtype", [
     (1920, 2048, (1024,) * 4, torch.bfloat16),   # q/k/v/gate at tp=2
     (1920, 1024, (2048,), torch.int32),          # wo's partial sums

@@ -22,7 +22,9 @@ bounded), the JAX references computed here in the parent.
   npz/safetensors loads, bit for bit;
 * Engine(mesh) at tp=2 (one-shot, stream, LoRA swap and back, micro-batch)
   and `serve --tp 2 --cpu --random-tiny` over HTTP, bodies equal to the
-  direct tp=2 call;
+  direct tp=2 call; `serve --tp 2 --max-batch 2 --continuous`'s /tts_stream
+  equal to a tp=2 continuous Engine's chunks (the continuous group under tp
+  is held in tests/test_torch_mesh_continuous.py);
 * the pieces that need no group: specs, shard_params, auto_mesh_config, the
   nccl refusal, K5's scale-only and codes-at-a-scale modes.
 """
@@ -473,16 +475,16 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def test_serve_tp2_cpu_matches_the_direct_call(engine_run):
-    """`python -m echo_tts_tpu_torch.serve --cpu --random-tiny --tp 2`
-    starts its follower, serves /tts with the direct tp=2 call's body, and
-    leaves no process behind."""
+def _serve_tp2(flags, path, body):
+    """Start `python -m echo_tts_tpu_torch.serve --cpu --random-tiny --tp 2
+    <flags>`, POST `body` to `path` once it is up, stop it; the response's
+    body. Leaves no process behind."""
     port = _free_port()
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""),
                OMP_NUM_THREADS="2")
     proc = subprocess.Popen([sys.executable, "-m", "echo_tts_tpu_torch.serve", "--cpu",
-                             "--random-tiny", "--tp", "2", "--port", str(port)], cwd=REPO,
-                            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                             "--random-tiny", "--tp", "2", "--port", str(port), *flags],
+                            cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             start_new_session=True)
     try:
         deadline = time.monotonic() + 240
@@ -494,12 +496,10 @@ def test_serve_tp2_cpu_matches_the_direct_call(engine_run):
             except OSError:
                 assert time.monotonic() < deadline, "the tp server did not come up"
                 time.sleep(0.5)
-        req = urllib.request.Request(f"http://127.0.0.1:{port}/tts", method="POST",
-                                     data=json.dumps({"text": TEXT, "seed": 1,
-                                                      **HTTP_SC}).encode())
+        req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", method="POST",
+                                     data=json.dumps(body).encode())
         with urllib.request.urlopen(req, timeout=240) as r:
-            body = r.read()
-        assert body == engine_run[0]["direct"]
+            return r.read()
     finally:
         proc.terminate()
         try:
@@ -507,7 +507,28 @@ def test_serve_tp2_cpu_matches_the_direct_call(engine_run):
         except subprocess.TimeoutExpired:
             os.killpg(proc.pid, 9)
             proc.wait(timeout=10)
-    assert proc.returncode is not None
+        assert proc.returncode is not None
+
+
+def test_serve_tp2_cpu_matches_the_direct_call(engine_run):
+    """`python -m echo_tts_tpu_torch.serve --cpu --random-tiny --tp 2`
+    starts its follower, serves /tts with the direct tp=2 call's body, and
+    leaves no process behind."""
+    body = _serve_tp2([], "/tts", {"text": TEXT, "seed": 1, **HTTP_SC})
+    assert body == engine_run[0]["direct"]
+
+
+def test_serve_tp2_continuous_cpu_matches_the_direct_engine(engine_run):
+    """`serve --cpu --random-tiny --tp 2 --max-batch 2 --continuous`: the
+    follower runs the continuous group's calls, and /tts_stream sends the
+    PCM16 of the chunks that the same request gets from a tp=2 continuous
+    Engine called directly."""
+    from echo_tts_tpu_torch.serve.server import pcm16_bytes
+
+    body = _serve_tp2(["--max-batch", "2", "--continuous"], "/tts_stream",
+                      {"text": TEXT, "seed": 3, "block_size": [8, 8], **HTTP_SC})
+    chunks = engine_run[0]["continuous_stream"]
+    assert len(chunks) > 1 and body == b"".join(pcm16_bytes(c) for c in chunks)
 
 
 # ---------------------------------------------------------------------------
@@ -587,15 +608,21 @@ def test_a_sharded_tree_needs_its_mesh(weights):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_quant_rows_modes_match_plain_and_split(dtype):
     """K5's scale-only and codes-at-a-scale modes equal quant_rows_plain
-    bit for bit, and the max of two halves' scales is the whole row's, so
-    codes at it equal the whole row's codes."""
-    gen = torch.Generator().manual_seed(0)
-    h = (torch.randn((7, 96), generator=gen) * 3).to(dtype)
-    h[2] = 0
-    q, s = quant_rows_plain(h)
-    assert torch.equal(quant_rows_scale(h), s)
-    assert torch.equal(quant_rows_at(h, s), q)
-    halves = [h[:, :48], h[:, 48:]]
-    s_max = torch.maximum(*[quant_rows_scale(x) for x in halves])
-    assert torch.equal(s_max, s)
-    assert torch.equal(torch.cat([quant_rows_at(x, s_max) for x in halves], dim=1), q)
+    bit for bit, and the max of the parts' scales is the whole row's, so
+    codes at it equal the whole row's codes: a row split in two, and wo's
+    and w2's K (2048 and 5888) split as at tp = 2 (1024, 2944) and tp = 4
+    (512, 1472), widths the kernel holds in registers."""
+    from echo_tts_tpu_torch.ops.quant_rows import at_registers
+
+    for d, parts in ((96, 2), (2048, 2), (5888, 2), (2048, 4), (5888, 4)):
+        gen = torch.Generator().manual_seed(d + parts)
+        h = (torch.randn((7, d), generator=gen) * 3).to(dtype)
+        h[2] = 0
+        q, s = quant_rows_plain(h)
+        assert torch.equal(quant_rows_scale(h), s)
+        assert torch.equal(quant_rows_at(h, s), q)
+        pieces = list(h.chunk(parts, dim=1))
+        assert at_registers(pieces[0].shape[1], dtype)
+        s_max = torch.stack([quant_rows_scale(x) for x in pieces]).amax(0)
+        assert torch.equal(s_max, s), (d, parts)
+        assert torch.equal(torch.cat([quant_rows_at(x, s_max) for x in pieces], dim=1), q)

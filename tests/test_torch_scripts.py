@@ -9,13 +9,19 @@ files on the CPU.
   tests/test_torch_pipeline.py of the JAX script's WAV on the same files and
   seeds (both in fp32) (its fleet mode: tests/test_torch_fleet.py);
 * finetune_lora --cpu, one epoch: finite losses, the first equal to
-  `make_train_step` called directly on the first batch, an adapter (saved
-  with `extra`) that both packages load and `Engine.set_lora` swaps in;
+  `make_train_step` called directly on the first batch (from the state the
+  run's own `prepare` built: one module fixture runs the script once, with
+  torch on two threads, as its many small ops crawl when the test workers
+  oversubscribe the cores), an adapter (saved with `extra`) that both
+  packages load and `Engine.set_lora` swaps in;
 * serve --cpu --dit/--ae/--pca over HTTP, WAV and "format": "mp3";
 * bench_train --cpu --tiny.
 """
 import base64
+import contextlib
+import copy
 import importlib.util
+import io
 import json
 import os
 import urllib.request
@@ -143,31 +149,69 @@ def _clips(tmp_path, n=3, seconds=1.0):
     return str(d), str(tr)
 
 
-def test_finetune_lora_one_epoch(files, tmp_path, capsys):
+@contextlib.contextmanager
+def _two_threads():
+    """torch on at most two threads for the block: the finetune's many
+    small ops (a tiny DiT's forward and backward, the AE encodes) crawl
+    when every test worker's thread pool takes all the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def finetune_run(files, tmp_path_factory):
+    """One `finetune_lora.main` run of one epoch: its argv, stdout, summary
+    and the state its `prepare` handed the epoch (the data-order rng copied
+    before the first batch was drawn), so that the first step can be re-run
+    by hand without preparing (loading and encoding) a second time."""
+    tmp = tmp_path_factory.mktemp("finetune")
+    # a tenth of a second a clip: at the tiny AE's 16 samples a latent that
+    # is 275 latents (bucket 320) a clip and a speaker prompt, where a second
+    # (bucket 2816) made the step's attention ~80 times the work
+    audio_dir, tr = _clips(tmp, seconds=0.1)
+    argv = ["--audio-dir", audio_dir, "--transcripts", tr, "--out", str(tmp / "lora.npz"),
+            "--epochs", "1", "--batch-size", "2", "--rank", "4", "--cpu"] + _load_args(files)
+    real, seen = finetune_lora.prepare, {}
+
+    def prepare(args):
+        run = real(args)
+        seen["run"] = dict(run, rng=copy.deepcopy(run["rng"]))
+        return run
+
+    stdout = io.StringIO()
+    with pytest.MonkeyPatch.context() as mp, _two_threads(), contextlib.redirect_stdout(stdout):
+        mp.setattr(finetune_lora, "prepare", prepare)
+        summary = finetune_lora.main(argv)
+    return {"argv": argv, "stdout": stdout.getvalue(), "summary": summary, "run": seen["run"]}
+
+
+def test_finetune_lora_one_epoch(files, finetune_run):
     from echo_tts_tpu.train.lora import load_lora_checkpoint as j_load_lora
     from echo_tts_tpu_torch.serve.engine import Engine
     from echo_tts_tpu_torch.train.data import batches
     from echo_tts_tpu_torch.train.loop import make_train_step
     from echo_tts_tpu_torch.train.lora import init_lora, load_lora_checkpoint
 
-    audio_dir, tr = _clips(tmp_path)
-    out = str(tmp_path / "lora.npz")
-    argv = ["--audio-dir", audio_dir, "--transcripts", tr, "--out", out, "--epochs", "1",
-            "--batch-size", "2", "--rank", "4", "--cpu"] + _load_args(files)
-    summary = finetune_lora.main(argv)
-    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == summary
+    argv, summary, run = finetune_run["argv"], finetune_run["summary"], finetune_run["run"]
+    args = finetune_lora.parse_args(argv)
+    out = args.out
+    assert json.loads(finetune_run["stdout"].strip().splitlines()[-1]) == summary
     assert summary["steps"] == 1 and all(np.isfinite(summary["step_losses"]))
     assert np.isfinite(summary["best_val_loss"]) and os.path.exists(out)
 
-    # the first step again, by hand, from the same state
-    args = finetune_lora.parse_args(argv)
-    run = finetune_lora.prepare(args)
-    first = next(batches(run["ds"], args.batch_size, run["rng"]))
-    lora = init_lora(torch.Generator().manual_seed(args.seed), run["dit_params"], run["lc"])
-    opt, step = make_train_step(run["dit_cfg"], run["tc"], model_dtype=torch.float32,
-                                lora_cfg=run["lc"])
-    _, _, loss = step(run["dit_params"], lora, opt.init(lora),
-                      torch.Generator().manual_seed(args.seed + 1), first)
+    # the first step again, by hand, from the state prepare() built
+    with _two_threads():
+        first = next(batches(run["ds"], args.batch_size, run["rng"]))
+        lora = init_lora(torch.Generator().manual_seed(args.seed), run["dit_params"],
+                         run["lc"])
+        opt, step = make_train_step(run["dit_cfg"], run["tc"], model_dtype=torch.float32,
+                                    lora_cfg=run["lc"])
+        _, _, loss = step(run["dit_params"], lora, opt.init(lora),
+                          torch.Generator().manual_seed(args.seed + 1), first)
     assert float(loss) == summary["step_losses"][0]
 
     lora_t, lc = load_lora_checkpoint(out, device="cpu")

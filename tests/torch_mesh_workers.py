@@ -285,11 +285,13 @@ def task_engine(rank: int, dirpath: str) -> dict:
             merge_lora(tts.dit_params, lora, lc), mesh))
         out["direct_lora"] = wav_bytes(sample_pipeline(merged, text, None, 1, sc=sc,
                                                        normalize_text=True)[0][0], sr)
-    # one engine a path: one-shot, stream and LoRA; then the micro-batcher
+    # one engine a path: one-shot, stream and LoRA; then the micro-batcher;
+    # then a continuous engine's stream (the body `serve --continuous` sends)
     eng = Engine(tts, mesh=mesh)
     if rank != 0:
         eng.follow()
         Engine(tts, mesh=mesh, max_batch=2, batch_wait_ms=2000.0).follow()
+        Engine(tts, mesh=mesh, max_batch=2, continuous=True).follow()
         return {"followed": True}
     try:
         out["one"] = wav_bytes(eng.generate(text, None, seed=1, sc=sc)[0][0], sr)
@@ -316,8 +318,257 @@ def task_engine(rank: int, dirpath: str) -> dict:
         out["batch"], out["batches"] = got, eng.health()["batches"]
     finally:
         eng.close()
+    eng = Engine(tts, mesh=mesh, max_batch=2, continuous=True)
+    try:
+        out["continuous_stream"] = list(eng.generate_stream(text, None, seed=3, sc=sc,
+                                                            block_size=(8, 8)))
+    finally:
+        eng.close()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Engine(mesh, continuous=True) at tp=2: rank 0 schedules, rank 1 follows
+# ---------------------------------------------------------------------------
+
+
+WAIT_S = 120.0
+
+
+def _wait(cond, what: str) -> None:
+    deadline = time.monotonic() + WAIT_S
+    while not cond():
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"timed out waiting for {what}")
+        time.sleep(0.005)
+
+
+def _join(threads) -> None:
+    for t in threads:
+        t.join(timeout=WAIT_S)
+    if any(t.is_alive() for t in threads):
+        raise TimeoutError("a request did not finish in time")
+
+
+def _streams(eng, reqs, sc, block: int, hold: bool = False) -> dict:
+    """Stream `reqs` {seed: text} on `eng` from threads of their own;
+    {seed: audio}. hold: every request queues while the caller holds the
+    device lock, so the first boundary admits them all."""
+    import threading
+
+    import numpy as np
+
+    got = {}
+
+    def run(seed):
+        got[seed] = np.concatenate(list(eng.generate_stream(
+            reqs[seed], None, seed=seed, sc=sc, block_size=block)), axis=-1)
+
+    threads = [threading.Thread(target=run, args=(seed,)) for seed in reqs]
+    if hold:
+        with eng._lock:
+            for t in threads:
+                t.start()
+            _wait(lambda: sum(s.pending.qsize() for s in list(eng._cont_scheds.values()))
+                  == len(reqs), "the burst to queue")
+    else:
+        for t in threads:
+            t.start()
+    _join(threads)
+    return got
+
+
+def _live(eng, n: int):
+    """The scheduler whose group has n active rows, once there is one."""
+    def find():
+        return next((s for s in list(eng._cont_scheds.values())
+                     if s.thread.is_alive() and s.n_active >= n), None)
+
+    _wait(lambda: find() is not None, f"a live group of {n}")
+    return find()
+
+
+def _failing_once(fn):
+    """fn, which raises after its first call has run (its collectives
+    included)."""
+    calls = []
+
+    def wrapped(*a):
+        out = fn(*a)
+        calls.append(1)
+        if len(calls) == 1:
+            raise RuntimeError("injected failure")
+        return out
+
+    return wrapped
+
+
+def task_continuous(rank: int, dirpath: str) -> dict:
+    """The tp=2 continuous engine against the direct tp=2 solo streams:
+    staggered rows (a live group, the fast join, a shrink), first_block_steps,
+    set_lora under a live group of two, a group step that fails on rank 1
+    alone, close() with a live group, warmup, a burst grown in one resize.
+    Rank 0 slows each group step so that a group is live while it acts
+    (rank 1 waits in the step's collectives)."""
+    import dataclasses
+    import threading
+
+    import numpy as np
+
+    from echo_tts_tpu_torch.parallel.sharding import shard_params
+    from echo_tts_tpu_torch.pipeline import pipeline as pl
+    from echo_tts_tpu_torch.serve.engine import Engine
+    from echo_tts_tpu_torch.train.lora import load_lora_checkpoint, merge_lora
+
+    inp = _load(dirpath)
+    tts, sc, cases = inp["tts"], inp["sc"], inp["cases"]
+    mesh = _mesh(1, 2)
+    direct = dataclasses.replace(tts, dit_params=shard_params(tts.dit_params, mesh))
+    lora, lc = load_lora_checkpoint(inp["lora"], torch.device("cpu"))
+    merged = dataclasses.replace(tts, dit_params=shard_params(
+        merge_lora(tts.dit_params, lora, lc), mesh))
+    sc_fb = dataclasses.replace(sc, first_block_steps=1)
+    sc_live = dataclasses.replace(sc, sequence_length=inp["live_len"])
+    sc_long = dataclasses.replace(sc, sequence_length=4 * inp["live_len"])
+
+    def solo(t, text, seed, sc_, block):
+        return np.concatenate(list(pl.sample_pipeline_stream(
+            t, text, None, seed, sc=sc_, block_size=block, normalize_text=True)), axis=-1)
+
+    out, memo = {"direct": {}}, {}
+    with torch.no_grad():
+        for name, (reqs, which, block) in cases.items():
+            sc_ = {"sc": sc, "fb": sc_fb, "live": sc_live}[which]
+            lora_on = name == "after_lora"
+            for seed, text in reqs.items():
+                key = (lora_on, which, block, seed, text)
+                if key not in memo:
+                    memo[key] = solo(merged if lora_on else direct, text, seed, sc_, block)
+            out["direct"][name] = {seed: memo[(lora_on, which, block, seed, text)]
+                                   for seed, text in reqs.items()}
+    if rank != 0:
+        followed = []
+        for i, max_batch in enumerate((2, 2, 4)):
+            e = Engine(tts, mesh=mesh, max_batch=max_batch, continuous=True)
+            if i == 1:
+                e._op_group_step = _failing_once(e._op_group_step)
+            e.follow()
+            followed.append(len(e._groups))
+            e.close()
+        return {"followed": followed}
+
+    real_step, real_resize = pl._stream_step_rows, pl._resize_group
+    resizes = []
+    pause = {"s": 0.0}
+
+    def slow_step(*a, **k):
+        time.sleep(pause["s"])
+        return real_step(*a, **k)
+
+    def resize_spy(gs, perm, keep):
+        resizes.append((int(gs["prefix"].shape[0]), len(perm)))
+        return real_resize(gs, perm, keep)
+
+    pl._stream_step_rows, pl._resize_group = slow_step, resize_spy
+    try:
+        # staggered rows, first_block_steps, then the swap under a live group
+        eng = Engine(tts, mesh=mesh, max_batch=2, continuous=True)
+        try:
+            reqs = cases["staggered"][0]
+            seeds = list(reqs)
+            got = {}
+
+            def run(seed):
+                got[seed] = np.concatenate(list(eng.generate_stream(
+                    reqs[seed], None, seed=seed, sc=sc, block_size=4)), axis=-1)
+
+            pause["s"] = 0.02
+            first = threading.Thread(target=run, args=(seeds[0],))
+            first.start()
+            _live(eng, 1)
+            second = threading.Thread(target=run, args=(seeds[1],))
+            second.start()
+            _join([first, second])
+            out["staggered"] = got
+            out["staggered_health"] = eng.health()
+            out["fb"] = _streams(eng, cases["fb"][0], sc_fb, cases["fb"][2])
+
+            pause["s"] = 0.1
+            live = {}
+
+            def streams():
+                live.update(_streams(eng, cases["live"][0], sc_live, 4, hold=True))
+
+            th = threading.Thread(target=streams)
+            th.start()
+            sched = _live(eng, 2)
+            eng.set_lora(inp["lora"])
+            out["alive_after_swap"] = th.is_alive() and sched.thread.is_alive()
+            out["rows_at_swap"] = sched.n_active
+            _join([th, sched.thread])
+            out["live"] = live
+            pause["s"] = 0.0
+            out["after_lora"] = _streams(eng, cases["after_lora"][0], sc, 4)
+            _wait(lambda: not any(s.thread.is_alive() for s in list(eng._cont_scheds.values())),
+                  "the groups to drain")
+            out["groups_left"] = len(eng._groups)
+        finally:
+            eng.close()
+
+        # a group step that fails on rank 1 alone (after its collectives):
+        # the client gets the error, the group is closed on both ranks, and
+        # the next stream runs; then close() with a live group
+        eng = Engine(tts, mesh=mesh, max_batch=2, continuous=True)
+        try:
+            list(eng.generate_stream("Fails on rank one.", None, seed=4, sc=sc, block_size=4))
+            out["failed"] = None
+        except RuntimeError as e:
+            out["failed"] = str(e)
+        _wait(lambda: not any(s.thread.is_alive() for s in list(eng._cont_scheds.values())),
+              "the failed group's scheduler to end")
+        out["groups_after_fail"] = len(eng._groups)
+        out["after_fail"] = _streams(eng, cases["after_fail"][0], sc, 4)
+        result = {}
+        pause["s"] = 0.05
+
+        def long_stream():
+            chunks = []
+            try:
+                for c in eng.generate_stream("Close mid stream.", None, seed=3, sc=sc_long,
+                                             block_size=4):
+                    chunks.append(c)
+                result["end"] = "clean"
+            except RuntimeError as e:
+                result["end"] = f"error: {e}"
+            result["chunks"] = len(chunks)
+
+        th = threading.Thread(target=long_stream)
+        th.start()
+        sched = _live(eng, 1)
+        eng.close()
+        _join([th, sched.thread])
+        out["close"] = dict(result, blocks=sc_long.sequence_length // 4,
+                            groups_left=len(eng._groups))
+        pause["s"] = 0.0
+
+        # warmup through the group calls, then a burst grown in one resize
+        eng = Engine(tts, mesh=mesh, max_batch=4, continuous=True)
+        try:
+            resizes.clear()
+            out["warmup_s"] = eng.warmup(sc, include_streaming=True)
+            out["warmup_combos"] = eng.warmup_combos
+            out["warmup_resizes"] = list(resizes)
+            resizes.clear()
+            out["burst"] = _streams(eng, cases["burst"][0], sc, 4, hold=True)
+            sched = max(eng._cont_scheds.values(), key=lambda s: s.n_joined)
+            out["burst_sched"] = (sched.n_joined, sched.max_b)
+            out["burst_resizes"] = list(resizes)
+        finally:
+            eng.close()
+    finally:
+        pl._stream_step_rows, pl._resize_group = real_step, real_resize
     return out
 
 
 TASKS = {"forward": task_forward, "sample_dp": task_sample_dp, "train": task_train,
-         "checkpoint": task_checkpoint, "engine": task_engine}
+         "checkpoint": task_checkpoint, "engine": task_engine, "continuous": task_continuous}
