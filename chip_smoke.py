@@ -98,7 +98,15 @@ Phases, in order; any failure exits non-zero:
      row against its solo stream (rel-L2 < 2e-2); /reconstruct equal to
      ae_reconstruct; /lora with an r16 LoRA and back (the base audio bit
      for bit); set_lora while a continuous group is live (the group's row
-     stays on the old params);
+     stays on the old params); (g) the Gradio UI's handlers
+     (serve/gradio_app.py:UIHandlers, which need no gradio) on (a)'s engine:
+     generate of (ii) with custom shapes (text bucket 256, speaker bucket
+     1024) byte-equal to a direct sample_pipeline on those buckets (K1 1920,
+     K2 12), the same request with max_speaker_latent_length overridden
+     missing the speaker cache, generate_stream's PCM16 equal to
+     sample_pipeline_stream's, set_lora on a missing file (the error, then
+     the base audio), Engine.warmup(background_tail=True) with health()
+     showing the tail running and then done;
  12. (run after 11, on its weights) the sampler levers and the int8 trunk:
      request (i) with joint_uncond, uncond_cache_interval=2 and midpoint at
      20 steps (wall, CUDA-event time, exact K1 and K2 launches counted from
@@ -139,7 +147,10 @@ Phases, in order; any failure exits non-zero:
      each rank's launches (K1 960, K2 12), peak memory and all-reduce seconds;
      the int8 trunk the same way (K4 1920, K5 960 and each tp mode 960) with one
      layer's row-sharded products bit for bit; a B=2 training batch's loss
-     and gradients through K1 + K3 against tp=1 and one step; `serve --tp 2
+     and gradients through K1 + K3 against tp=1 and one step; an Engine
+     whose rank 1 alone cannot read a LoRA adapter: set_lora raises on both
+     ranks and neither takes a new tree (digests of each rank's DiT tree,
+     all-gathered); `serve --tp 2
      --dist-backend gloo` over HTTP, /tts of (i) and a /lora swap, bodies
      equal to the direct tp=2 calls; (c) dp=2, four rows two a rank against
      sample_pipeline_batch at B=4 (rel-L2 < 2e-2), run_weak_scaling as
@@ -2713,8 +2724,9 @@ def phase_serve(dev, wrappers: dict, tts) -> dict:
     row against its solo stream; (e)
     /reconstruct against ae_reconstruct, /lora with an r16 LoRA (the audio
     changes) and back (the base audio bit for bit), and set_lora while a
-    continuous group is live (its row stays on the old params). Returns the
-    launches of the served requests."""
+    continuous group is live (its row stays on the old params); (g) the
+    Gradio UI's handlers on (a)'s engine (`phase_ui`). Returns the launches
+    of the served requests and of the UI's generate and stream."""
     import base64
     import tempfile
     import threading
@@ -3005,7 +3017,13 @@ def phase_serve(dev, wrappers: dict, tts) -> dict:
             f"{swap_ms:.1f} ms with the group still live ({alive}); the live row against its solo "
             f"stream on the base params: rel-L2 {r:.3e}; launches {got}")
         need(alive and r < REL_L2_BOUND, "(e): the live group did not stay on the old params")
-        lap("serving e", split)
+        split = lap("serving e", split)
+
+        # (g) the UI's handlers (serve/gradio_app.py, which needs no gradio
+        # until its app is built) on (a)'s engine, whose speaker cache holds
+        # the 20 s prompt
+        ui_counts = phase_ui(dev, tts, eng_a, serving, need, tmp, spk_path, spk)
+        lap("serving g", split)
     finally:
         for httpd in servers:
             httpd.shutdown()
@@ -3018,7 +3036,129 @@ def phase_serve(dev, wrappers: dict, tts) -> dict:
     need(min(served.values()) > 0, f"(all): a kernel was never launched: {served}")
     log(f"# serving phase: {time.perf_counter() - t_phase:.1f} s, launches of the served "
         f"requests {served}; trace summaries {json.dumps(traces)}")
-    return served
+    return {"serving": served, **ui_counts}
+
+
+# the UI's twelve sampler fields (the "Independent-High-Speaker-CFG-Flat"
+# preset's values, force speaker off): its SamplerConfig sets rescale_k and
+# rescale_sigma, which the HTTP requests above leave at None
+UI_FIELDS = (40, 3.0, 8.0, 0.5, 1.0, 0.8, 1.2, 3.0, False, 1.5, 0.9, 24)
+
+
+def phase_ui(dev, tts, eng, serving, need, tmp: str, spk_path: str, spk) -> dict:
+    """Phase 11 (g): the Gradio UI's handlers (`UIHandlers`, the callbacks
+    `build_app` wires) at full width on `eng`, phase 11's engine: generate
+    of request (ii) with custom shapes (text bucket 256, speaker bucket
+    1024), its WAV equal byte for byte to a direct sample_pipeline on the
+    container with those buckets, K1 and the decode's K2 counted (the
+    prompt comes from the speaker cache); the same request with
+    max_speaker_latent_length overridden, which must miss the cache;
+    generate_stream's PCM16 against sample_pipeline_stream's; set_lora on a
+    missing file (the error, then the base audio byte for byte); and
+    Engine.warmup(background_tail=True) on a copy of the container with one
+    text and two speaker buckets, health() showing the tail running and
+    then done. `serving` and `need` are phase 11's. Returns the launches of
+    the UI's generate and stream."""
+    from echo_tts_tpu_torch.core.config import SamplerConfig
+    from echo_tts_tpu_torch.pipeline import pipeline as pl
+    from echo_tts_tpu_torch.pipeline.audio_io import write_wav
+    from echo_tts_tpu_torch.serve import gradio_app as ga
+    from echo_tts_tpu_torch.serve.engine import Engine
+
+    sr, L = tts.ae_cfg.sample_rate, tts.dit_cfg.num_layers
+    ui = ga.UIHandlers(eng, presets_path=os.path.join(tmp, "presets.json"),
+                       text_presets_path=os.path.join(tmp, "text_presets.txt"), temp_dir=tmp)
+    sc = ga.build_sampler_config(SamplerConfig(), ga.fields_from_args(*UI_FIELDS), 640)
+    k1 = k1_launches(sc, L)
+    k2_decode = 3 * len(tts.ae_cfg.decoder_rates)
+    counts = {}
+
+    def step(name, since):
+        now = time.perf_counter()
+        log(f"# serving (g) {name} took {now - since:.1f} s")
+        return now
+
+    t0 = time.perf_counter()
+    shapes = {"text_buckets": (256,), "speaker_buckets": (1024,)}
+    args = (None, SPEAKER_TEXT, spk_path, "wav", *UI_FIELDS, 1, "256", "1024", "640", True,
+            False, False)
+    (sid, path, status, _, _), got = serving(lambda: ui.generate(*args))
+    counts["ui generate"] = got
+    body = open(path, "rb").read()
+    custom = dataclasses.replace(tts, pipe_cfg=dataclasses.replace(tts.pipe_cfg, **shapes))
+    direct, _, tm = pl.sample_pipeline(custom, SPEAKER_TEXT, spk, 1, sc=sc, normalize_text=True)
+    ref_path = os.path.join(tmp, "direct_custom.wav")
+    write_wav(ref_path, direct[0], sr)
+    same = body == open(ref_path, "rb").read()
+    want = {"joint_attention": k1, "res_chain": k2_decode}
+    log(f"# serving (g) UI generate of (ii) with custom shapes {shapes}: {status!r}; "
+        f"{(len(body) - 44) / 2 / sr:.2f} s of audio; WAV equal to a direct sample_pipeline on "
+        f"those buckets: {same}; launches {got} (expected {want}: the prompt from the speaker "
+        f"cache)")
+    need(same, "(g): the UI's custom-shape WAV differs from the direct call")
+    need(got == want, f"(g): UI generate launches {got}, expected {want}")
+    split = step("generate with custom shapes", t0)
+
+    over = {"max_speaker_latent_length": 320}
+    (_, _, tm), got = serving(lambda: eng.generate(SPEAKER_TEXT, spk, seed=1, sc=sc,
+                                                   pipe_overrides=over))
+    miss = "speaker_encode_cache_hit" not in tm
+    log(f"# serving (g) the same request with {over}: speaker cache missed: {miss} "
+        f"(speaker_encode {tm['speaker_encode'] * 1e3:.1f} ms); launches {got}")
+    need(miss, "(g): an encode override hit the speaker cache")
+    split = step("max_speaker_latent_length override", split)
+
+    def pcm(c):
+        return np.clip(np.asarray(c)[0, 0] * 32767.0, -32768, 32767).astype(np.int16)
+
+    stream_args = (SPEAKER_TEXT, spk_path, *UI_FIELDS, 1)
+    chunks, got = serving(lambda: [c for _, c in ui.generate_stream(*stream_args)])
+    counts["ui stream"] = got
+    ref = [pcm(c) for c in pl.sample_pipeline_stream(tts, SPEAKER_TEXT, spk, 1, sc=sc,
+                                                     block_size=list(ga.STREAM_BLOCKS),
+                                                     normalize_text=True)]
+    chunks, ref = [c for c in chunks if c.size], [c for c in ref if c.size]
+    same = len(chunks) == len(ref) and all(np.array_equal(a, b) for a, b in zip(chunks, ref))
+    n_blocks = len(pl._block_schedule(list(ga.STREAM_BLOCKS), sc.sequence_length,
+                                      tts.dit_cfg.speaker_patch_size))
+    log(f"# serving (g) UI generate_stream of (ii), {ga.STREAM_BLOCKS}: {len(chunks)} chunks, "
+        f"{sum(c.size for c in chunks) / sr:.2f} s of audio, PCM16 equal to "
+        f"sample_pipeline_stream's: {same}; launches {got} (K1 expected {n_blocks * k1})")
+    need(same, "(g): the UI's stream differs from sample_pipeline_stream")
+    need(got["joint_attention"] == n_blocks * k1 and got["res_chain"] > 0,
+         f"(g): UI stream launches {got}")
+    split = step("generate_stream", split)
+
+    msg = ui.set_lora(os.path.join(tmp, "missing_lora.npz"), 1.0)
+    (_, path2, _, _, _), got = serving(lambda: ui.generate(*args))
+    back = open(path2, "rb").read() == body
+    log(f"# serving (g) UI set_lora on a missing file: {msg!r}; engine LoRA "
+        f"{eng.health()['lora']}; the next request equal to the base audio byte for byte: "
+        f"{back}; launches {got}")
+    need(msg.startswith("❌ Error loading LoRA") and eng.health()["lora"] is None,
+         f"(g): set_lora on a missing file gave {msg!r}")
+    need(back, "(g): after the failed set_lora the audio is not the base's")
+    split = step("set_lora with its revert", split)
+
+    pc = dataclasses.replace(tts.pipe_cfg, text_buckets=(768,), speaker_buckets=(160, 320))
+    eng_w = Engine(dataclasses.replace(tts, pipe_cfg=pc))
+    try:
+        sc_w = SamplerConfig(num_steps=4)
+        (wall, running, done), got = serving(lambda: (
+            eng_w.warmup(sc_w, background_tail=True),
+            eng_w.health()["warmup_tail_running"],
+            eng_w._warmup_tail.join(timeout=300) or eng_w.health()["warmup_tail_running"]))
+        log(f"# serving (g) Engine.warmup(background_tail=True), buckets text {pc.text_buckets} "
+            f"speaker {pc.speaker_buckets}, {sc_w.num_steps} steps: first part {wall:.1f} s, "
+            f"tail running after it: {running}, then done: {not done}; combos "
+            f"{eng_w.warmup_combos}; launches {got}")
+        need(running is True and done is False and eng_w.warmup_combos == 3,
+             f"(g): warmup tail running {running}, after join {done}, combos "
+             f"{eng_w.warmup_combos}")
+    finally:
+        eng_w.close()
+    step("warmup with a background tail", split)
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -4185,7 +4325,70 @@ def _mesh_tp_work(rank: int, dev, out_dir: str) -> dict:
     barrier()
     if rank == 0:
         shutil.rmtree(ckpt, ignore_errors=True)
+    del back
+    torch.cuda.empty_cache()
+    res["f7"] = _mesh_f7_set_lora(rank, tts, mesh, inp["lora"])
     return res
+
+
+def tree_digest(tree) -> str:
+    """sha1 over a tree's leaves in key order, each read on its device as
+    the sum of its bits (as integer words of its width) and of its values in
+    fp64:
+    a tree that took any other values reads another digest."""
+    import hashlib
+
+    h = hashlib.sha1()
+
+    def walk(t, name):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k], f"{name}.{k}")
+            return
+        word = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()]
+        bits = int(t.contiguous().view(word).sum(dtype=torch.int64))
+        h.update(f"{name}:{tuple(t.shape)}:{bits}:{float(t.double().sum())!r};".encode())
+
+    walk(tree, "")
+    return h.hexdigest()
+
+
+def _mesh_f7_set_lora(rank: int, tts, mesh, lora_path: str) -> dict:
+    """(b) F7 on one rank of a tp=2 Engine: rank 1 alone cannot read the
+    adapter. Both ranks must raise, and neither may take a new tree: the
+    digest of each rank's DiT tree before and after, all-gathered."""
+    import torch.distributed as dist
+
+    import echo_tts_tpu_torch.serve.engine as engine_mod
+
+    t0 = time.perf_counter()
+    real = engine_mod.load_lora_checkpoint
+    if rank == 1:
+        def unreadable(path, device=None):
+            raise OSError(f"adapter {path} unreadable on rank 1")
+
+        engine_mod.load_lora_checkpoint = unreadable
+    try:
+        eng = engine_mod.Engine(tts, mesh=mesh)
+        before = tree_digest(eng.tts.dit_params)
+        err = None
+        if rank == 0:
+            try:
+                eng.set_lora(lora_path)
+            except RuntimeError as e:
+                err = str(e)
+        else:
+            eng.follow()
+            err = eng.follow_errors[-1][1] if eng.follow_errors else None
+        eng.close()
+        mine = (before, tree_digest(eng.tts.dit_params), eng._current_lora_path)
+    finally:
+        engine_mod.load_lora_checkpoint = real
+    digests = [None, None]
+    dist.all_gather_object(digests, mine)
+    del eng
+    torch.cuda.empty_cache()
+    return {"error": err, "digests": digests, "seconds": time.perf_counter() - t0}
 
 
 # (f): three 128-latent streams (two 64-latent blocks each) on a tp=2
@@ -4544,6 +4747,14 @@ def phase_mesh(dev, smi: str) -> dict:
                          f"{r['loss_tp1']}, step loss {r['step_loss']}")
         if not r["dcp_equal"]:
             fails.append(f"rank {n}: the checkpoint did not restore the same bits")
+        f7 = r["f7"]
+        kept = all(b == a and path is None for b, a, path in f7["digests"])
+        log(f"# mesh (b) tp=2 rank {n} F7 set_lora with an adapter rank 1 alone cannot read "
+            f"({f7['seconds']:.1f} s): raised {f7['error']!r}; every rank's DiT digest unchanged "
+            f"and no LoRA taken: {kept} [{smi}]")
+        if not (f7["error"] and "set_lora failed on rank 1" in f7["error"]
+                and "unreadable on rank 1" in f7["error"] and kept):
+            fails.append(f"rank {n}: F7 set_lora: raised {f7['error']!r}, trees kept {kept}")
     grad_rel = math.sqrt(sum(r["grad_diff2"] for r in ranks)
                          / max(sum(r["grad_ref2"] for r in ranks), 1e-30))
     log(f"# mesh (b) tp=2 training: gradients rel-L2 against tp=1 {grad_rel:.3e} over every "
@@ -4750,7 +4961,7 @@ def main(argv) -> int:
             batch_launches, tts = phase_batch(dev, slice_wrappers, stream.pop("tts"))
             launches.update(batch_launches)
             del stream
-            launches["serving"] = phase_serve(dev, slice_wrappers, tts)
+            launches.update(phase_serve(dev, slice_wrappers, tts))
             lever_paths = phase_levers(dev, int8_wrappers, tts)
             launches.update({f"levers {k}": v for k, v in lever_paths.pop("levers").items()})
             launches.update(lever_paths)

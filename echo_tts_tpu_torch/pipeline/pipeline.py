@@ -131,8 +131,11 @@ def _prepare_inputs(tts: EchoTTS, text_prompt: str, speaker_audio: Optional[np.n
     speaker_cache: an optional mapping {key: (latent, mask)} (`get` and item
     assignment) consulted before the chunked AE encode, so that a repeated
     prompt skips the encoder. The key is the audio's shape, the sha1 of its
-    bytes and the pad policy, so a hit is exactly the encode it replaces; a
-    hit sets timings["speaker_encode_cache_hit"]. Eviction is the caller's
+    bytes, the pad policy and the two settings of the encode
+    (`pc.max_speaker_latent_length`, `pc.audio_chunk_latents`), so a hit is
+    exactly the encode it replaces, also across per-request PipelineConfig
+    overrides (the JAX package's key leaves the two settings out); a hit
+    sets timings["speaker_encode_cache_hit"]. Eviction is the caller's
     (serve.Engine keeps an LRU)."""
     pc = tts.pipe_cfg
     timings = {}
@@ -157,7 +160,8 @@ def _prepare_inputs(tts: EchoTTS, text_prompt: str, speaker_audio: Optional[np.n
         if speaker_cache is not None:
             arr = np.ascontiguousarray(np.asarray(speaker_audio))
             cache_key = (arr.shape, hashlib.sha1(arr.tobytes()).hexdigest(),
-                         pad_to_max_speaker_latent_length)
+                         pad_to_max_speaker_latent_length, pc.max_speaker_latent_length,
+                         pc.audio_chunk_latents)
             cached = speaker_cache.get(cache_key)
         if cached is not None:
             speaker_latent, speaker_mask = cached
@@ -483,6 +487,7 @@ def sample_pipeline_stream(
     block_size=(64, 192),
     normalize_text: bool = False,
     stop_at_flattening: bool = True,
+    decode_context_frames: Optional[int] = None,
     continuation_audio: Optional[np.ndarray] = None,
     speaker_cache=None,
 ):
@@ -497,7 +502,9 @@ def sample_pipeline_stream(
     into latents that seed the prefix (the text should include its
     transcript); it spends its share of the sequence_length budget, and
     only new audio is emitted. Needs a checkpoint with the latent modules.
-    `speaker_cache`: see `_prepare_inputs`.
+    `speaker_cache`: see `_prepare_inputs`. `decode_context_frames` is
+    accepted, at the JAX package's position, and unused: the stateful
+    decode carries its own context.
     """
     if not tts.dit_cfg.has_latent_modules:
         raise ValueError(

@@ -33,8 +33,18 @@ calls (open, resize, join, step, close) on their slice.
         --continuous --port 7861
     python -m echo_tts_tpu_torch.serve --cpu --random-tiny --tp 2 --port 7861
 
-The Gradio UI (--gradio) is not ported: it raises, naming the ROADMAP.md
-entry that says why.
+--warmup runs every serving shape once before the server takes requests;
+with --warmup-background only the no-speaker set runs first and the rest
+(the speaker buckets, the batch sizes) on a thread while it serves
+(/health reports `warmup_tail_running`).
+
+--gradio serves the Gradio UI (serve/gradio_app.py) on the same engine in
+place of the HTTP API; under --tp it runs on rank 0 and the other ranks
+follow. Where gradio is not installed it raises RuntimeError, before any
+weights are built.
+
+    python -m echo_tts_tpu_torch.serve --random --gradio --port 7860
+    python -m echo_tts_tpu_torch.serve --cpu --random-tiny --warmup --warmup-background
 """
 from __future__ import annotations
 
@@ -49,12 +59,6 @@ import time
 from typing import Optional, Sequence
 
 import torch
-
-_NOT_PORTED = {
-    "gradio": "the Gradio UI is not ported: gradio is not installed (ROADMAP.md, "
-              "\"Not ported, and why\")",
-}
-
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -77,6 +81,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     help="sampler presets JSON (the built-in presets when the file is missing)")
     ap.add_argument("--warmup", action="store_true",
                     help="run every serving shape once before taking requests (Engine.warmup)")
+    ap.add_argument("--warmup-background", action="store_true",
+                    help="with --warmup: the no-speaker set before serving, the speaker "
+                         "buckets and batch sizes on a thread while serving (/health reports "
+                         "warmup_tail_running)")
     ap.add_argument("--max-batch", type=int, default=1,
                     help=">1 micro-batches concurrent compatible requests")
     ap.add_argument("--batch-wait-ms", type=float, default=10.0)
@@ -100,7 +108,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                          "the CPU by default; gloo shares one card between ranks")
     ap.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--dist-init", default=None, help=argparse.SUPPRESS)
-    ap.add_argument("--gradio", action="store_true", help="not ported")
+    ap.add_argument("--gradio", action="store_true",
+                    help="serve the Gradio UI (needs gradio) in place of the HTTP API")
     args = ap.parse_args(argv)
     if args.dit and not (args.ae and args.pca):
         ap.error("--dit needs --ae and --pca")
@@ -133,13 +142,11 @@ def load_tts(dit: str, ae: str, pca: str, device, ae_bf16: bool = False,
 
 def build_engine(args: argparse.Namespace, mesh=None):
     """The Engine the flags describe, on this rank's device and slice of
-    `mesh` when given; raises for the flags not ported."""
+    `mesh` when given."""
     from echo_tts_tpu_torch.bench.timing import entry_device
     from echo_tts_tpu_torch.bench.trace import random_tts
     from echo_tts_tpu_torch.serve.engine import Engine
 
-    if args.gradio:
-        raise NotImplementedError(_NOT_PORTED["gradio"])
     device = mesh.device if mesh is not None else entry_device(args.cpu)
     if args.dit:
         tts = load_tts(args.dit, args.ae, args.pca, device, ae_bf16=args.ae_bf16,
@@ -222,8 +229,18 @@ def _serve(args: argparse.Namespace, engine) -> None:
     try:
         if args.warmup:
             wall = engine.warmup(SamplerConfig(),
-                                 include_streaming=engine.tts.dit_cfg.has_latent_modules)
-            print(f"warmup done in {wall:.1f} s", flush=True)
+                                 include_streaming=engine.tts.dit_cfg.has_latent_modules,
+                                 background_tail=args.warmup_background)
+            tail = " (background tail running)" if args.warmup_background else ""
+            print(f"warmup done in {wall:.1f} s{tail}", flush=True)
+        if args.gradio:
+            from echo_tts_tpu_torch.serve.gradio_app import build_app
+
+            print(f"Gradio UI on http://{args.host}:{args.port} ({engine.tts.device})",
+                  flush=True)
+            build_app(engine, presets_path=args.presets).launch(server_name=args.host,
+                                                                server_port=args.port)
+            return
         presets = (load_sampler_presets(args.presets, write_default=False)
                    if os.path.exists(args.presets) else None)
         print(f"HTTP TTS API on http://{args.host}:{args.port} "
@@ -237,7 +254,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     argv = list(sys.argv[1:] if argv is None else argv)
     args = parse_args(argv)
     if args.gradio:
-        raise NotImplementedError(_NOT_PORTED["gradio"])
+        from echo_tts_tpu_torch.serve.gradio_app import require_gradio
+
+        require_gradio()  # before any weights are built or ranks started
     if args.tp <= 1:
         _serve(args, build_engine(args))
     elif args.rank is None:

@@ -37,17 +37,24 @@ lock through `_dispatch`, which first sends a small descriptor (the call,
 its host-side arguments and seeds) on the mesh's gloo control group; the
 followers run the same call in the same order, so the collectives of the
 sharded forward meet. The one-shot, micro-batched and stream paths,
-`set_lora` and the continuous groups go this way; `reconstruct` (the AE,
-replicated) runs on rank 0 alone. A continuous group lives on every rank,
-in a table by id (`_groups`): rank 0's scheduler keeps the host side
-(admissions, the backlog, emission, retirement) and sends each device call
-of a group (open, resize, join, step, close) with its host arrays, so that
-no follower encodes a speaker or draws noise. Around each of those calls
-but close, the ranks exchange their status on the control group: a rank
-that failed a call, or holds no such group, makes every rank raise (rank
-0's scheduler then fails the group's clients and closes it everywhere)
-instead of leaving the others in a collective; the group is dropped on
-every rank, and a later call of it is refused.
+`set_lora`, the warmup and the continuous groups go this way;
+`reconstruct` (the AE, replicated) runs on rank 0 alone. A continuous group
+lives on every rank, in a table by id (`_groups`): rank 0's scheduler keeps
+the host side (admissions, the backlog, emission, retirement) and sends
+each device call of a group (open, resize, join, step, close) with its host
+arrays, so that no follower encodes a speaker or draws noise.
+
+Around every device call but the two closes, the ranks exchange their
+status on the control group (`_run_op`): before it, so that no rank enters
+the call's collectives while another cannot run it (a continuous group it
+does not hold); after it, so that a failure on any rank raises on every
+rank and the ranks stay in step for a retry. A failed group call drops the
+group on every rank, and a later call of it is refused. `set_lora` commits
+in two phases: every rank merges the adapter into a tree of its own, and
+each takes that tree only when every rank reports success; otherwise every
+rank keeps its old params. A rank that dies, or fails while the others wait
+in one of the call's collectives, is still caught only by the process
+group's timeout.
 """
 from __future__ import annotations
 
@@ -59,7 +66,7 @@ import os
 import queue as _queue
 import threading
 import time
-from collections import OrderedDict
+from collections import OrderedDict, deque
 from typing import Optional
 
 import numpy as np
@@ -276,6 +283,7 @@ class Engine:
         self._shutdown = False
         self._dispatcher = None
         self._warmup_tail: Optional[threading.Thread] = None
+        self.follow_errors = deque(maxlen=16)
         if max_batch > 1:
             self._dispatcher = threading.Thread(target=self._dispatch_loop, daemon=True,
                                                 name="echo-tts-microbatcher")
@@ -343,44 +351,59 @@ class Engine:
             self._send((op, args))
         return self._run_op(op, args)
 
+    # the calls that run no collective and cannot leave the ranks out of step
+    _UNCHECKED = ("stream_close", "group_close")
+
     def _run_op(self, op: str, args):
-        """This rank's part of call `op`. A continuous group's calls but
-        close run between two status exchanges of the tp ranks (`_agree`):
-        before, so that no rank enters the call's collectives while another
-        has no such group; after, so that a failure on any rank raises on
-        all. Every rank then drops the group, and refuses its later calls."""
+        """This rank's part of call `op`. On a tp engine every call but
+        `_UNCHECKED` runs between two status exchanges of the ranks
+        (`_agree`): `_not_ready` before, this rank's failure after; either
+        raises on every rank. `set_lora` is committed only after the second
+        exchange (`_commit_lora`), on every rank or on none."""
         fn = getattr(self, "_op_" + op)
-        if self._mesh is None or not op.startswith("group_") or op == "group_close":
-            return fn(*args)
-        gid = args[0]
-        self._agree(op, gid, None if op == "group_open" or gid in self._groups
-                    else f"group {gid} is not open")
-        try:
-            out, err = fn(*args), None
-        except Exception as e:
-            out, err = None, f"{type(e).__name__}: {e}"
-        self._agree(op, gid, err)
+        if self._mesh is None or op in self._UNCHECKED:
+            out = fn(*args)
+        else:
+            self._agree(op, args, self._not_ready(op, args))
+            try:
+                out, err = fn(*args), None
+            except Exception as e:
+                out, err = None, f"{type(e).__name__}: {e}"
+            self._agree(op, args, err)
+        if op == "set_lora":
+            self._commit_lora(out, args[0])
+            out = None
         return out
 
-    def _agree(self, op: str, gid: int, err) -> None:
-        """Every tp rank's status of group call `op` (None: ready or done);
-        raise on every rank, and drop the group, if any rank reports an
-        error."""
+    def _not_ready(self, op: str, args) -> Optional[str]:
+        """Why this rank cannot run call `op` (None: it can)."""
+        if op.startswith("group_") and op != "group_open" and args[0] not in self._groups:
+            return f"group {args[0]} is not open"
+        return None
+
+    def _agree(self, op: str, args, err) -> None:
+        """Every tp rank's status of call `op` (None: ready or done); raise
+        on every rank if any rank reports an error. A failed call of a
+        continuous group also drops the group."""
         import torch.distributed as dist
 
         got = [None] * self._mesh.tp
         dist.all_gather_object(got, err, group=self._mesh.control)
         bad = [(r, e) for r, e in enumerate(got) if e is not None]
         if bad:
-            self._groups.pop(gid, None)
-            raise RuntimeError(f"continuous group {gid}: {op} failed on rank "
+            what = op
+            if op.startswith("group_"):
+                self._groups.pop(args[0], None)
+                what = f"continuous group {args[0]}: {op}"
+            raise RuntimeError(f"{what} failed on rank "
                                + "; rank ".join(f"{r}: {e}" for r, e in bad))
 
     def follow(self) -> None:
         """The loop of a tp engine's ranks other than 0: receive rank 0's
         descriptors and run each call, in order, until rank 0 closes. A
-        failed call is logged (rank 0 sees its own failure of it; for a
-        continuous group's calls every rank raises, `_run_op`)."""
+        call that failed here or on another rank raised on every rank
+        (`_run_op`): rank 0 reports it to its caller, and here it is logged
+        and kept in `follow_errors` (the last 16)."""
         import torch.distributed as dist
 
         if self._mesh is None or self._leads:
@@ -396,11 +419,19 @@ class Engine:
             try:
                 with self._device():
                     self._run_op(op, args)
-            except Exception:
+            except Exception as e:
+                self.follow_errors.append((op, str(e)))
                 log.exception("follower %d: %s failed", self._mesh.rank, op)
 
-    def _op_pipeline(self, text, speaker_audio, seed, sc, normalize_text, cached):
-        return sample_pipeline(self.tts, text, speaker_audio, seed, sc=sc,
+    def _op_pipeline(self, text, speaker_audio, seed, sc, normalize_text, cached,
+                     pipe_overrides):
+        """One `sample_pipeline`; pipe_overrides: PipelineConfig fields of
+        this request alone, applied to a copy of this rank's container."""
+        tts = self.tts
+        if pipe_overrides:
+            tts = dataclasses.replace(tts, pipe_cfg=dataclasses.replace(tts.pipe_cfg,
+                                                                        **pipe_overrides))
+        return sample_pipeline(tts, text, speaker_audio, seed, sc=sc,
                                normalize_text=normalize_text,
                                speaker_cache=self._speaker_cache if cached else None)
 
@@ -544,22 +575,34 @@ class Engine:
             if lora_path != self._current_lora_path:
                 self._dispatch("set_lora", lora_path, strength)
 
-    def _op_set_lora(self, lora_path, strength):
+    def _op_set_lora(self, lora_path, strength) -> dict:
+        """The first phase of a swap: the effective params of base + LoRA
+        (the base's for None) on this rank's slice; nothing is taken yet."""
         if lora_path is None:
-            self.tts.dit_params = self._effective_base
-        else:
-            lora, lc = load_lora_checkpoint(lora_path, self.tts.device)
-            if strength != 1.0:
-                lc = dataclasses.replace(lc, alpha=lc.alpha * strength)
-            self.tts.dit_params = self._effective(merge_lora(self._base_params, lora, lc))
+            return self._effective_base
+        lora, lc = load_lora_checkpoint(lora_path, self.tts.device)
+        if strength != 1.0:
+            lc = dataclasses.replace(lc, alpha=lc.alpha * strength)
+        return self._effective(merge_lora(self._base_params, lora, lc))
+
+    def _commit_lora(self, params: dict, lora_path) -> None:
+        """The second phase, once every rank has its tree."""
+        self.tts.dit_params = params
         self._current_lora_path = lora_path
 
     # -- generation ----------------------------------------------------------
     def generate(self, text: str, speaker_audio: Optional[np.ndarray], seed: int = 0,
-                 sc: Optional[SamplerConfig] = None, normalize_text: bool = True):
-        """Returns (audio (1, 1, T) float32, normalized text, timings)."""
+                 sc: Optional[SamplerConfig] = None, normalize_text: bool = True,
+                 pipe_overrides: Optional[dict] = None):
+        """Returns (audio (1, 1, T) float32, normalized text, timings).
+
+        pipe_overrides: PipelineConfig fields for this request alone (the
+        UI's custom shapes, e.g. {"text_buckets": (256,), "speaker_buckets":
+        (1024,)}), applied to a copy of the container on every rank, never
+        to the shared one. Such a request skips the micro-batcher."""
         sc = sc or SamplerConfig()
-        if self.max_batch > 1:
+        pipe_overrides = dict(pipe_overrides) if pipe_overrides else None
+        if self.max_batch > 1 and not pipe_overrides:
             return self._generate_queued(text, speaker_audio, seed, sc, normalize_text)
         last_err = None
         for attempt in range(self.max_retries + 1):
@@ -567,7 +610,8 @@ class Engine:
                 with self._device():
                     t0 = time.perf_counter()
                     audio, normalized, timings = self._dispatch(
-                        "pipeline", text, speaker_audio, seed, sc, normalize_text, True)
+                        "pipeline", text, speaker_audio, seed, sc, normalize_text, True,
+                        pipe_overrides)
                     wall = time.perf_counter() - t0
                 self._bump(requests=1, total_sample_s=wall,
                            total_audio_s=audio.shape[-1] / self.tts.ae_cfg.sample_rate)
@@ -920,7 +964,7 @@ class Engine:
                 prompts.append(0.1 * rng.standard_normal((1, n)).astype(np.float32))
         for audio in prompts:
             with self._device():
-                self._dispatch("pipeline", "Warmup.", audio, 0, sc, True, False)
+                self._dispatch("pipeline", "Warmup.", audio, 0, sc, True, False, None)
         n_combos = len(prompts)
         streaming = include_streaming and tts.dit_cfg.has_latent_modules
         if streaming and self.continuous:

@@ -40,6 +40,17 @@ DEFAULT_SAMPLER_PRESETS = {
         "rescale_k": "1.2", "rescale_sigma": "3.0"},
 }
 
+# the UI's quick-apply buttons: a guidance pair and a truncation triple
+FORCE_SPEAKER_PRESETS = {
+    "higher speaker": {"cfg_scale_text": 3.0, "cfg_scale_speaker": 8.0},
+    "large guidances": {"cfg_scale_text": 8.0, "cfg_scale_speaker": 8.0},
+}
+TRUNCATION_PRESETS = {
+    "flat": {"truncation_factor": 0.8, "rescale_k": 1.2, "rescale_sigma": 3.0},
+    "sharp": {"truncation_factor": 0.9, "rescale_k": 0.96, "rescale_sigma": 3.0},
+    "baseline": {"truncation_factor": 1.0, "rescale_k": 1.0, "rescale_sigma": 3.0},
+}
+
 
 def load_sampler_presets(path: str, write_default: bool = True) -> Dict[str, SamplerConfig]:
     """{name: SamplerConfig} from a presets JSON file; a missing file is

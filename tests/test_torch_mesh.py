@@ -22,12 +22,18 @@ bounded), the JAX references computed here in the parent.
   npz/safetensors loads, bit for bit;
 * Engine(mesh) at tp=2 (one-shot, stream, LoRA swap and back, micro-batch)
   and `serve --tp 2 --cpu --random-tiny` over HTTP, bodies equal to the
-  direct tp=2 call; `serve --tp 2 --max-batch 2 --continuous`'s /tts_stream
+  direct tp=2 call; the status exchange around every call (F7): an adapter
+  that only rank 1 cannot load raises on both ranks and leaves both trees
+  as they were, a request that fails on rank 1 alone after its collectives
+  raises on both and its retry equals the direct call; a request with
+  pipeline overrides against tp=1 (rel-L2 <= 1e-5); a background warmup
+  tail through the followers; `serve --tp 2 --max-batch 2 --continuous`'s /tts_stream
   equal to a tp=2 continuous Engine's chunks (the continuous group under tp
   is held in tests/test_torch_mesh_continuous.py);
 * the pieces that need no group: specs, shard_params, auto_mesh_config, the
   nccl refusal, K5's scale-only and codes-at-a-scale modes.
 """
+import dataclasses
 import json
 import os
 import socket
@@ -425,6 +431,9 @@ def test_sharded_checkpoint_round_trip(ckpt_run, how):
 
 TEXT = "[S1] Two ranks."
 HTTP_SC = {"num_steps": 2, "sequence_length": 32}
+# random_tts(tiny)'s buckets are text (768,) and speaker (16, 32): the
+# overridden request pads its text to 128 and its 20-latent prompt to 24
+OVERRIDES = {"text_buckets": (128,), "speaker_buckets": (24,)}
 
 
 @pytest.fixture(scope="module")
@@ -440,9 +449,20 @@ def engine_run(tmp_path_factory):
         ab["b"].normal_(0.0, 0.5, generator=gen)
     d = tmp_path_factory.mktemp("engine")
     save_lora_checkpoint(str(d / "lora.npz"), lora, lc)
-    torch.save({"sc": tc.SamplerConfig(**HTTP_SC), "text": TEXT, "lora": str(d / "lora.npz")},
-               d / "inputs.pt")
-    return run_ranks("engine", 2, d / "run")
+    sc = tc.SamplerConfig(**HTTP_SC)
+    voice = (0.2 * np.random.default_rng(7).standard_normal((1, 20 * 16))).astype(np.float32)
+    torch.save({"sc": sc, "text": TEXT, "lora": str(d / "lora.npz"), "voice": voice,
+                "overrides": OVERRIDES}, d / "inputs.pt")
+    collect = spawn_ranks("engine", 2, d / "run")
+    # the overridden request at tp=1, while the ranks run
+    from echo_tts_tpu_torch.pipeline.pipeline import sample_pipeline
+
+    one = dataclasses.replace(tts, pipe_cfg=dataclasses.replace(tts.pipe_cfg, **OVERRIDES))
+    with torch.no_grad():
+        ref = sample_pipeline(one, TEXT, voice, 5, sc=sc, normalize_text=True)[0]
+    out = collect()
+    out[0]["override_tp1"] = ref
+    return out
 
 
 def test_engine_tp_one_shot_and_lora(engine_run):
@@ -450,7 +470,7 @@ def test_engine_tp_one_shot_and_lora(engine_run):
     direct tp=2 call's WAV, set_lora gives the merged model's and None the
     base's again."""
     out = engine_run[0]
-    assert engine_run[1] == {"followed": True}
+    assert engine_run[1]["followed"] is True
     assert out["one"] == out["direct"] and out["back"] == out["direct"]
     assert out["lora"] == out["direct_lora"] and out["lora"] != out["direct"]
 
@@ -467,6 +487,51 @@ def test_engine_tp_micro_batch(engine_run):
     whose rows equal the direct tp=2 batch's."""
     out = engine_run[0]
     assert out["batches"] == 1 and out["batch"] == out["direct_batch"]
+
+
+def test_engine_tp_f7_set_lora_failing_on_one_rank(engine_run):
+    """F7 (a): an adapter that rank 1 alone cannot load raises on both
+    ranks, naming rank 1's error, and both keep their params bit for bit:
+    no rank commits a tree the other lacks."""
+    out, follower = engine_run
+    assert "set_lora failed on rank 1" in out["f7_lora_error"]
+    assert "unreadable on rank 1" in out["f7_lora_error"]
+    ops = [op for op, _ in follower["f7_errors"]]
+    assert ops[0] == "set_lora" and "unreadable on rank 1" in follower["f7_errors"][0][1]
+    for side in (out, follower):
+        assert side["f7_digest"][0] == side["f7_digest"][1]
+        assert side["f7_lora_path"] is None
+
+
+def test_engine_tp_f7_one_shot_failing_on_one_rank(engine_run):
+    """F7 (b): a request whose call fails on rank 1 alone, after its
+    collectives, raises on both ranks; generate's retry runs on ranks in
+    step and gives the direct tp=2 call's bytes."""
+    out, follower = engine_run
+    assert [op for op, _ in follower["f7_errors"]] == ["set_lora", "pipeline"]
+    assert "injected failure" in follower["f7_errors"][1][1]
+    assert out["f7_retry"] == out["direct"]
+    h = out["f7_health"]
+    assert h["retries"] == 1 and h["requests"] == 1 and h["failures"] == 0
+
+
+def test_engine_tp_pipe_overrides_match_tp1(engine_run):
+    """A request with text- and speaker-bucket overrides: the descriptor
+    carries them and each rank applies them to its own container; the
+    audio equals tp=1's within the suite's tp tolerance."""
+    out = engine_run[0]
+    got, ref = out["override"], out["override_tp1"]
+    assert got.shape == ref.shape and got.shape[-1] > 0
+    assert rel_l2(got, ref) <= 1e-5
+
+
+def test_engine_tp_warmup_background(engine_run):
+    """warmup(background_tail=True) on a tp=2 engine: the tail's calls go
+    out as descriptors on their thread, health() shows the tail running
+    and then done, and the engine goes on serving."""
+    out = engine_run[0]
+    assert out["warmup_s"] > 0 and out["tail_running"] is True
+    assert out["tail_after"] is False and out["tail_combos"] == 3
 
 
 def _free_port() -> int:

@@ -1,7 +1,9 @@
 """The port's sample_pipeline against the JAX package's, end to end on the same
 weights and the same injected noise, with and without a speaker prompt:
-equal crop length, audio rel-L2 <= 1e-4. Tiny configs and small shape
-buckets, fp32 on the CPU."""
+equal crop length, audio rel-L2 <= 1e-4 in fp32; in bf16 (DiT and AE, the
+speaker encode and the decode included) within 1.5 times the JAX package's
+own bf16-to-fp32 distance. Tiny configs and small shape buckets, on the
+CPU."""
 import numpy as np
 import pytest
 import torch
@@ -83,3 +85,64 @@ def test_no_speaker_fallback_is_one_masked_patch(both):
         ttts, "hi", None, False, None, None, True)
     assert ids.shape == (1, 64) and text_mask.sum() == len("hi") + 1  # BOS + bytes
     assert spk.shape == (1, 4, 80) and not spk.any() and not spk_mask.any()
+
+
+# ---------------------------------------------------------------------------
+# bf16, the decode included
+# ---------------------------------------------------------------------------
+
+
+BF16_FACTOR = 1.5
+_EINSUM = jnp.einsum
+
+
+def _einsum_bf16_products(subscripts, *operands, preferred_element_type=None, **kw):
+    """XLA on the CPU has no bf16 x bf16 -> fp32 product: the JAX package's
+    einsums that ask for one take their bf16 operands upcast to fp32 (the
+    same products, exact in fp32, accumulated in fp32), as
+    tests/test_torch_batch.py does."""
+    if preferred_element_type == jnp.float32 and all(
+            getattr(o, "dtype", None) == jnp.bfloat16 for o in operands):
+        operands = [o.astype(jnp.float32) for o in operands]
+    return _EINSUM(subscripts, *operands, preferred_element_type=preferred_element_type, **kw)
+
+
+@pytest.mark.parametrize("with_speaker", [False, True])
+def test_sample_pipeline_bf16_matches_jax(both, monkeypatch, with_speaker):
+    """The whole sample_pipeline in bf16 (the DiT and the AE, so the speaker
+    encode and the decode too) against the JAX package's on the same
+    injected noise: the port at bf16 lies within BF16_FACTOR times the
+    distance between the JAX package at bf16 and at fp32 (audio rel-L2) of
+    each, the tolerance tests/test_torch_batch.py holds the forward and the
+    sampler to, and crops to the same length."""
+    import dataclasses
+
+    monkeypatch.setattr(jnp, "einsum", _einsum_bf16_products)
+    jtts, ttts = both
+    jd, ja = np_tree(jtts.dit_params), np_tree(jtts.ae_params)
+    jbf = dataclasses.replace(
+        jtts, dit_params=jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.bfloat16), jd),
+        ae_params=jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.bfloat16), ja),
+        model_dtype=jnp.bfloat16)
+    tbf = dataclasses.replace(
+        ttts, dit_params=dit_params_from_numpy(jd, ttts.dit_cfg, device="cpu",
+                                               dtype=torch.bfloat16),
+        ae_params=ae_params_from_numpy(ja, ttts.ae_cfg, device="cpu", dtype=torch.bfloat16),
+        model_dtype=torch.bfloat16)
+    rng = np.random.default_rng(11)
+    noise = rng.standard_normal((1, 16, 80)).astype(np.float32)
+    spk = (0.3 * rng.standard_normal((1, 40 * 16))).astype(np.float32) if with_speaker else None
+    text = "Hello there, this is a test."
+    sc, jsc = tc.SamplerConfig(**SAMPLER), jc.SamplerConfig(**SAMPLER)
+    ref32 = np.asarray(jpipe.sample_pipeline(jtts, text, spk, 0, sc=jsc, noise=noise)[0])
+    ref16 = np.asarray(jpipe.sample_pipeline(jbf, text, spk, 0, sc=jsc, noise=noise)[0],
+                       np.float32)
+    got, _, timings = tpipe.sample_pipeline(tbf, text, spk, 0, sc=sc, noise=noise)
+    assert timings["finite_before_crop"] == 1.0
+    assert got.dtype == np.float32 and got.shape == ref16.shape == ref32.shape
+    d_jax = rel_l2(ref16, ref32)
+    print(f"bf16 audio rel-L2: JAX bf16 to fp32 {d_jax:.3e}, port bf16 to JAX bf16 "
+          f"{rel_l2(got, ref16):.3e}, to JAX fp32 {rel_l2(got, ref32):.3e}")
+    assert 0 < d_jax < 0.1
+    assert rel_l2(got, ref16) <= BF16_FACTOR * d_jax
+    assert rel_l2(got, ref32) <= BF16_FACTOR * d_jax

@@ -1,12 +1,13 @@
 """Ground rules of the PyTorch port (echo_tts_tpu_torch):
 
 * it imports no JAX, nothing of the JAX package and nothing of scripts/, nor
-  does chip_smoke.py;
+  does chip_smoke.py; gradio is imported only when the UI is built;
 * its entry points run on CUDA unless the caller asks for the CPU, and raise
   where CUDA is absent instead of falling back quietly; the measurement
   entry points (echo_tts_tpu_torch/bench/) and the server's
   (echo_tts_tpu_torch/serve/__main__.py) rehearse end to end with --cpu at a
-  tiny size through the plain versions; the serving options not ported raise;
+  tiny size through the plain versions; `serve --gradio` without gradio
+  raises;
 * the kernel wrappers take the plain version only for CPU tensors and
   refuse what the kernels do not take, inputs that require grad included.
 """
@@ -52,7 +53,8 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "echo_tts_tpu" or m.startswith("echo_tts_tpu.")
              or m == "scripts" or m.startswith("scripts.")
-             or m == "safetensors" or m.startswith("safetensors."))
+             or m == "safetensors" or m.startswith("safetensors.")
+             or m == "gradio" or m.startswith("gradio."))
 print(len(names), bad)
 assert not bad, bad
 assert len(names) >= 20, names
@@ -66,7 +68,8 @@ for new in ("bench.attention", "bench.attention_variants", "bench.conv_kernel_va
             "native.build", "native.resample_py", "native.mp3_py", "bench.fast_init",
             "scripts.convert_checkpoint", "scripts.batch_synthesize", "scripts.finetune_lora",
             "scripts.bench_train", "parallel.mesh", "parallel.sharding", "parallel.tp",
-            "parallel.multihost", "parallel.fleet", "bench.scaling", "scripts.ablate_dit"):
+            "parallel.multihost", "parallel.fleet", "bench.scaling", "scripts.ablate_dit",
+            "serve.gradio_app"):
     assert "echo_tts_tpu_torch." + new in names, new
 """
 
@@ -124,9 +127,16 @@ def test_serve_and_trace_entry_points_on_the_cpu_flag(capsys):
 
 
 @pytest.mark.parametrize("argv", [["--random", "--gradio"]])
-def test_serve_flags_not_ported_raise(argv):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve_main.build_engine(serve_main.parse_args(["--cpu"] + argv))
+def test_serve_flags_not_ported_raise(argv, monkeypatch):
+    """`serve --gradio` where gradio is not installed raises RuntimeError
+    naming it, before any weights are built; nothing falls back to the HTTP
+    API."""
+    built = []
+    monkeypatch.setitem(sys.modules, "gradio", None)  # import gradio raises ImportError
+    monkeypatch.setattr(serve_main, "build_engine", lambda *a, **k: built.append(a))
+    with pytest.raises(RuntimeError, match="gradio is not installed"):
+        serve_main.main(["--cpu"] + argv)
+    assert built == []
 
 
 def test_serve_builds_an_engine_from_checkpoint_files(tmp_path):

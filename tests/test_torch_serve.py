@@ -5,10 +5,15 @@ against the JAX Engine at the same seed (audio rel-L2 <= 1e-4, the
 tolerance of tests/test_torch_pipeline.py, and equal crop length), the
 micro-batcher against serial generation (atol 1e-5, as the JAX package's
 tests/test_serve.py holds its own), keys that split batches, the speaker
-cache (one encode; keys equal the JAX package's), sample_fn and the vocoder
+cache (one encode; the key is the JAX package's plus the two encode
+settings, so a per-request override of either re-encodes where the JAX
+cache returns the stale entry), per-request pipeline overrides against the
+JAX Engine's (rel-L2 <= 1e-4) and outside the micro-batcher, `serve
+--warmup --warmup-background`, `decode_context_frames` by keyword and by
+position, sample_fn and the vocoder
 timing key, ae_reconstruct and Engine.reconstruct, set_lora from an npz the
 JAX package wrote, the stream micro-batch against solo streams, close()
-with a queued stream, the serving options not ported, the HTTP endpoints, MP3
+with a queued stream, the HTTP endpoints, MP3
 output and its fallback to WAV and SamplerConfig.from_preset. Tiny configs, fp32, on the
 CPU; every wait is bounded and every Engine is closed."""
 import base64
@@ -136,7 +141,8 @@ def test_micro_batching_splits_incompatible(both, engines):
 
 def test_speaker_cache_encodes_once(both, engines, monkeypatch):
     """A repeated prompt is encoded once, the audio does not change, and the
-    cache key is the JAX package's for the same audio."""
+    cache key is the JAX package's for the same audio followed by the two
+    settings of the encode (max_speaker_latent_length, audio_chunk_latents)."""
     jtts, ttts = both
     calls = {"n": 0}
     real = tpipe.get_speaker_latent_and_mask
@@ -164,8 +170,10 @@ def test_speaker_cache_encodes_once(both, engines, monkeypatch):
     jcache = {}
     jpipe._prepare_inputs(jtts, "Voice cache.", voice, True, None, None, True,
                           speaker_cache=jcache)
-    assert list(eng._speaker_cache._d)[:1] == list(jcache)
-    (lat, mask), (jlat, jmask) = eng._speaker_cache._d[list(jcache)[0]], list(jcache.values())[0]
+    pc = ttts.pipe_cfg
+    key = list(jcache)[0] + (pc.max_speaker_latent_length, pc.audio_chunk_latents)
+    assert list(eng._speaker_cache._d)[:1] == [key]
+    (lat, mask), (jlat, jmask) = eng._speaker_cache._d[key], list(jcache.values())[0]
     np.testing.assert_allclose(lat, np.asarray(jlat), atol=1e-5, rtol=1e-4)
     np.testing.assert_array_equal(mask, np.asarray(jmask))
 
@@ -494,3 +502,120 @@ def test_load_presets(tmp_path):
         k: dataclasses.asdict(v) for k, v in want.items()}
     assert got["Independent-Low-CFG-Flat"].truncation_factor == 0.8
     assert tpresets.load_text_presets(str(tmp_path / "none.txt")) == []
+
+
+# ---------------------------------------------------------------------------
+# per-request pipeline overrides, serve --warmup-background, decode_context_frames
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("overrides", [{"text_buckets": (32, 128)},
+                                       {"speaker_buckets": (48,)},
+                                       {"text_buckets": (128,), "speaker_buckets": (64,)}])
+def test_generate_pipe_overrides_match_jax(both, engines, monkeypatch, overrides):
+    """Engine.generate(pipe_overrides=...) against the JAX Engine's on the
+    same request: the overridden buckets reach sample_pipeline on a copy of
+    the container (the engine's stays as it was), the audio agrees
+    (rel-L2 <= 1e-4), and with max_batch > 1 the request runs alone, not
+    through the micro-batcher, with the same audio."""
+    jtts, ttts = both
+    spk = _voice(5)
+    ref, ref_text, _ = engines(JEngine, jtts).generate("Override me.", spk, seed=3, sc=JSC,
+                                                       pipe_overrides=overrides)
+    seen = []
+    real = tpipe.sample_pipeline
+    import echo_tts_tpu_torch.serve.engine as engine_mod
+
+    monkeypatch.setattr(engine_mod, "sample_pipeline",
+                        lambda tts, *a, **k: seen.append(tts.pipe_cfg) or real(tts, *a, **k))
+    eng = engines(Engine, ttts)
+    got, got_text, _ = eng.generate("Override me.", spk, seed=3, sc=SC, pipe_overrides=overrides)
+    assert [dataclasses.replace(ttts.pipe_cfg, **overrides)] == seen
+    assert eng.tts.pipe_cfg == ttts.pipe_cfg
+    assert got_text == ref_text and got.shape == np.asarray(ref).shape
+    assert rel_l2(got, ref) <= 1e-4
+    batched = engines(Engine, ttts, max_batch=2, batch_wait_ms=2000.0)
+    alone, _, _ = batched.generate("Override me.", spk, seed=3, sc=SC, pipe_overrides=overrides)
+    np.testing.assert_array_equal(alone, got)
+    h = batched.health()
+    assert h["requests"] == 1 and h["batches"] == 0
+
+
+def test_speaker_cache_across_an_encode_override(both, engines):
+    """F8: the JAX cache's key leaves out max_speaker_latent_length, so a
+    request that lowers it gets the entry encoded at the default (a hit,
+    and the prompt's 40 latents instead of 16); the port's key holds it, so
+    the same request re-encodes, and its audio equals a fresh engine's and
+    the JAX package's on a cold cache (rel-L2 <= 1e-4)."""
+    jtts, ttts = both
+    voice, over = _voice(12), {"max_speaker_latent_length": 16}
+    jeng, eng = engines(JEngine, jtts), engines(Engine, ttts)
+    jeng.generate("Cache key.", voice, seed=2, sc=JSC)
+    eng.generate("Cache key.", voice, seed=2, sc=SC)
+    _, _, jt = jeng.generate("Cache key.", voice, seed=2, sc=JSC, pipe_overrides=over)
+    assert jt.get("speaker_encode_cache_hit") == 1.0  # the stale entry
+    got, _, t_ = eng.generate("Cache key.", voice, seed=2, sc=SC, pipe_overrides=over)
+    assert "speaker_encode_cache_hit" not in t_
+    assert eng.health()["speaker_cache_misses"] == 2
+    fresh, _, _ = engines(Engine, ttts).generate("Cache key.", voice, seed=2, sc=SC,
+                                                 pipe_overrides=over)
+    np.testing.assert_array_equal(got, fresh)
+    cold, _, _ = engines(JEngine, jtts).generate("Cache key.", voice, seed=2, sc=JSC,
+                                                 pipe_overrides=over)
+    assert got.shape == np.asarray(cold).shape and rel_l2(got, cold) <= 1e-4
+    stale, _, _ = jeng.generate("Cache key.", voice, seed=2, sc=JSC, pipe_overrides=over)
+    assert rel_l2(stale, cold) > 1e-3  # what F8 costs a listener
+
+
+def test_serve_warmup_background_flag(monkeypatch):
+    """`serve --cpu --random-tiny --warmup --warmup-background`: the
+    no-speaker set runs before the server starts, the speaker buckets on
+    the warmup-tail thread, which /health reports until it ends. The
+    warmup's sampler is cut to SC's 2 steps and 16 latents here (the
+    server warms at SamplerConfig()), so the test stays short on a loaded
+    machine."""
+    from echo_tts_tpu_torch.serve import __main__ as serve_main
+    from echo_tts_tpu_torch.serve import server as server_mod
+
+    seen = {}
+    real_warmup = Engine.warmup
+
+    def short_warmup(self, sc=None, **kw):
+        seen.setdefault("warmup", (sc, kw))  # the server's call, not the tail's
+        return real_warmup(self, SC, **kw)
+
+    monkeypatch.setattr(Engine, "warmup", short_warmup)
+
+    def fake_serve(engine, host, port, presets):
+        seen["at_start"] = engine.health().get("warmup_tail_running")
+        engine._warmup_tail.join(timeout=WAIT_S)
+        seen["after"] = engine.health()["warmup_tail_running"]
+        seen["combos"] = engine.warmup_combos
+
+    monkeypatch.setattr(server_mod, "serve", fake_serve)
+    args = ["--cpu", "--random-tiny", "--warmup", "--warmup-background", "--port", "0"]
+    assert serve_main.parse_args(args).warmup_background
+    serve_main.main(args)
+    assert seen["warmup"][0] == tc.SamplerConfig()
+    assert seen["warmup"][1] == {"include_streaming": True, "background_tail": True}
+    assert seen["at_start"] is not None and seen["after"] is False
+    # the tail: no speaker and the two speaker buckets, one-shot and stream
+    assert seen["combos"] == 6
+    assert not serve_main.parse_args(["--cpu", "--random-tiny"]).warmup_background
+
+
+def test_stream_decode_context_frames_accepted(both):
+    """decode_context_frames sits where the JAX package's signature has it,
+    by keyword and by position, and changes nothing."""
+    import inspect
+
+    jtts, ttts = both
+    names = list(inspect.signature(tpipe.sample_pipeline_stream).parameters)
+    assert names == list(inspect.signature(jpipe.sample_pipeline_stream).parameters)
+    ref = _concat(tpipe.sample_pipeline_stream(ttts, "Context.", None, 4, sc=SC, block_size=8))
+    kw = _concat(tpipe.sample_pipeline_stream(ttts, "Context.", None, 4, sc=SC, block_size=8,
+                                              decode_context_frames=24))
+    pos = _concat(tpipe.sample_pipeline_stream(ttts, "Context.", None, 4, SC, 8, False, True, 24,
+                                               None))
+    np.testing.assert_array_equal(kw, ref)
+    np.testing.assert_array_equal(pos, ref)

@@ -250,9 +250,63 @@ def _raw(tree):
 # ---------------------------------------------------------------------------
 
 
+def _digest(tree) -> str:
+    """sha1 of a tree's leaves, bits and names, in key order."""
+    import hashlib
+
+    h = hashlib.sha1()
+
+    def walk(t, name):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k], f"{name}.{k}")
+        else:
+            h.update(name.encode())
+            h.update(t.detach().cpu().contiguous().view(torch.uint8).numpy().tobytes())
+
+    walk(tree, "")
+    return h.hexdigest()
+
+
+def _bounded(fn, what: str, seconds: float = 120.0):
+    """fn() on a thread of its own; a call that has not returned within
+    `seconds` ends this rank with exit code 3, so the parent fails at once
+    instead of waiting for the spawn's timeout."""
+    import sys
+    import threading
+
+    box = {}
+
+    def run():
+        try:
+            box["out"] = fn()
+        except BaseException as e:
+            box["err"] = e
+
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+    th.join(seconds)
+    if th.is_alive():
+        print(f"{what} did not finish in {seconds} s", file=sys.stderr, flush=True)
+        os._exit(3)
+    if "err" in box:
+        raise box["err"]
+    return box["out"]
+
+
+def _error_of(fn) -> str:
+    try:
+        fn()
+    except RuntimeError as e:
+        return f"{e} <- {e.__cause__}" if e.__cause__ is not None else str(e)
+    return ""
+
+
 def task_engine(rank: int, dirpath: str) -> dict:
     import dataclasses
     import threading
+
+    import echo_tts_tpu_torch.serve.engine as engine_mod
 
     from echo_tts_tpu_torch.bench.trace import random_tts
     from echo_tts_tpu_torch.parallel.sharding import shard_params
@@ -267,6 +321,7 @@ def task_engine(rank: int, dirpath: str) -> dict:
 
     inp = _load(dirpath)
     sc, text, lora_path = inp["sc"], inp["text"], inp["lora"]
+    voice, overrides = inp["voice"], inp["overrides"]
     cpu = torch.device("cpu")
     mesh = _mesh(1, 2)
     tts = random_tts(cpu, tiny=True)
@@ -286,13 +341,27 @@ def task_engine(rank: int, dirpath: str) -> dict:
         out["direct_lora"] = wav_bytes(sample_pipeline(merged, text, None, 1, sc=sc,
                                                        normalize_text=True)[0][0], sr)
     # one engine a path: one-shot, stream and LoRA; then the micro-batcher;
-    # then a continuous engine's stream (the body `serve --continuous` sends)
+    # then a continuous engine's stream (the body `serve --continuous` sends);
+    # then the F7 cases, a request with pipeline overrides and a background
+    # warmup tail on one engine, whose rank 1 fails to load any adapter and
+    # fails its first pipeline call once its collectives are done
     eng = Engine(tts, mesh=mesh)
     if rank != 0:
         eng.follow()
         Engine(tts, mesh=mesh, max_batch=2, batch_wait_ms=2000.0).follow()
         Engine(tts, mesh=mesh, max_batch=2, continuous=True).follow()
-        return {"followed": True}
+
+        def unreadable(path, device=None):
+            raise OSError(f"adapter {path} unreadable on rank 1")
+
+        engine_mod.load_lora_checkpoint = unreadable
+        f7 = Engine(tts, mesh=mesh, max_retries=1)
+        f7._op_pipeline = _failing_once(f7._op_pipeline)
+        before = _digest(f7.tts.dit_params)
+        f7.follow()
+        return {"followed": True, "f7_errors": list(f7.follow_errors),
+                "f7_digest": (before, _digest(f7.tts.dit_params)),
+                "f7_lora_path": f7._current_lora_path}
     try:
         out["one"] = wav_bytes(eng.generate(text, None, seed=1, sc=sc)[0][0], sr)
         out["stream"] = list(eng.generate_stream(text, None, seed=3, sc=sc, block_size=(8, 8)))
@@ -322,6 +391,26 @@ def task_engine(rank: int, dirpath: str) -> dict:
     try:
         out["continuous_stream"] = list(eng.generate_stream(text, None, seed=3, sc=sc,
                                                             block_size=(8, 8)))
+    finally:
+        eng.close()
+    eng = Engine(tts, mesh=mesh, max_retries=1)
+    try:
+        before = _digest(eng.tts.dit_params)
+        out["f7_lora_error"] = _bounded(lambda: _error_of(lambda: eng.set_lora(lora_path)),
+                                        "set_lora failing on rank 1")
+        out["f7_digest"] = (before, _digest(eng.tts.dit_params))
+        out["f7_lora_path"] = eng._current_lora_path
+        out["f7_retry"] = wav_bytes(_bounded(
+            lambda: eng.generate(text, None, seed=1, sc=sc)[0][0], "a retried request"), sr)
+        out["f7_health"] = eng.health()
+        out["override"] = _bounded(lambda: eng.generate(
+            text, voice, seed=5, sc=sc, pipe_overrides=overrides)[0], "an overridden request")
+        out["warmup_s"] = _bounded(lambda: eng.warmup(sc, background_tail=True),
+                                   "the warmup's first part")
+        out["tail_running"] = eng.health()["warmup_tail_running"]
+        _bounded(lambda: eng._warmup_tail.join(), "the warmup tail")
+        out["tail_after"] = eng.health()["warmup_tail_running"]
+        out["tail_combos"] = eng.warmup_combos
     finally:
         eng.close()
     return out
