@@ -71,6 +71,10 @@ Phases, in order; any failure exits non-zero:
      first audio, block walls, audio-s/s, peak memory, exact K1 and K2
      launch counts, one torch.profiler pass); stream_blocks_fused at
      bench.py --blockwise's 160 x 4; a continuation from 5 s of audio;
+     (f) the flattening detector and the crop on the card against the CPU
+     on latents that go flat at known indices, and a 3 x 64-latent stream
+     (20 steps) whose detector is forced to fire at 50: chunks of 44 and 6
+     latents, equal to the unstopped stream's first 50 bit for bit;
  10. (run after 9, on its weights) batching: K1 at B=4 (one CFG block at S=64,
      rows at start_pos 0/64/256/448 with self_len 64/64/40/0) and K2 at B=4
      (one stateful decode step, rows at frame 0/1/2/64, zero_below one a
@@ -80,7 +84,9 @@ Phases, in order; any failure exits non-zero:
      at B = 1, 2 and 4 (wall, CUDA-event time, aggregate audio-s/s, peak
      memory, exact K1 and K2 launches; one torch.profiler pass at B=4), each
      row of B=4 against its solo sample_pipeline; sample_pipeline_stream_batch
-     at B=2 on (64, 192) against the solo streams; a continuous group of four
+     at B=2 on (64, 192) against the solo streams, the rows' gap split
+     between the sampled latents and the decode (the solo latents decoded
+     at B=2 against B=1); a continuous group of four
      rows on 64-latent blocks (first-block and plain joins, a partial final
      block, a resize 4 -> 2; each step's wall and CUDA-event time, the state
      a row, peak memory) against the solo streams; audio rel-L2 < 2e-2;
@@ -92,13 +98,14 @@ Phases, in order; any failure exits non-zero:
      first chunk at the client); four concurrent /tts of one batch key on
      Engine(max_batch=4): one batch, one request's K1 and decode K2, every
      row equal to its solo run, aggregate audio-s/s; run_trace (3 streams of
-     320 latents at 0.5/s, 64-latent blocks) on a continuous, a dispatch and
+     256 latents at 0.5/s, 64-latent blocks) on a continuous, a dispatch and
      a continuous engine without the fast join: TTFA and completion p50/p95,
      achieved audio-s/s, one continuous
      row against its solo stream (rel-L2 < 2e-2); /reconstruct equal to
      ae_reconstruct; /lora with an r16 LoRA and back (the base audio bit
-     for bit); set_lora while a continuous group is live (the group's row
-     stays on the old params); (g) the Gradio UI's handlers
+     for bit); set_lora while a continuous group of two 256-latent rows
+     (20 steps) is live (each row stays on the old params); (g) the Gradio
+     UI's handlers
      (serve/gradio_app.py:UIHandlers, which need no gradio) on (a)'s engine:
      generate of (ii) with custom shapes (text bucket 256, speaker bucket
      1024) byte-equal to a direct sample_pipeline on those buckets (K1 1920,
@@ -119,7 +126,9 @@ Phases, in order; any failure exits non-zero:
      Engine(int8=True)
      behind the HTTP server: /tts byte-equal to the direct call, set_lora
      re-quantizing the merge and reverting to the int8 base bytes, a /tts
-     with "joint_uncond" in the body;
+     with "joint_uncond" in the body; (f) Engine(int8=True, continuous=True)
+     with two 192-latent streams (20 steps) in one group of two rows, each
+     row against its int8 solo stream, exact K1, K2, K4 and K5 launches;
  13. (run after 12, on weights of its own) checkpoints and the entry points
      that load them: DiTConfig() with its latent modules in bf16 (random
      values from bench/fast_init.py), AEConfig() in fp32 with weight-norm
@@ -161,11 +170,13 @@ Phases, in order; any failure exits non-zero:
      (f) continuous stream groups on a tp=2 engine, two ranks on cuda:0 over
      gloo with `serve --random`'s weights (DiTConfig() with its latent
      modules): Engine(mesh, max_batch=4, continuous=True), three 128-latent
-     streams on 64-latent blocks (the second and third admitted into the
-     first's group at one boundary: one resize, two fast joins), each row
-     within 2e-2 of the tp=2 solo stream of its seed, rank 1's launches
-     (K1, K2) and all-reduce calls equal to rank 0's and to the count from
-     the group's samplings;
+     streams on 64-latent blocks at MESH_STEPS (the second and third
+     admitted into the first's group at one boundary: one resize, two fast
+     joins), then two 192-latent streams on an int8 engine at
+     CONT_INT8_STEPS (10) in one group of two rows (K4, K5 and K5's tp
+     modes), each row within 2e-2 of the tp=2 solo stream of its seed on
+     its trunk, rank 1's launches and all-reduce calls equal to rank 0's
+     and to the count from the group's samplings;
   7. the measurement path: the entry points of echo_tts_tpu_torch/bench/
      (attention_variants, conv_kernel_variants, conv_variants, attention,
      profile_breakdown) at their full shapes, each printing its JSON line,
@@ -2061,8 +2072,10 @@ def phase_stream(dev, wrappers: dict) -> dict:
     schedule and phase 5's prompts, warm-up and timed, exact launch counts,
     one profile of its first block; (d) stream_blocks_fused at bench.py
     --blockwise's shapes;
-    (e) a continuation from 5 s of audio. Returns the launches of (c) and
-    the weights, which phase 10 goes on with."""
+    (e) a continuation from 5 s of audio; (f) the flattening detector and
+    the crop on the card against the CPU, and a stream whose detector is
+    forced to fire. Returns the launches of (c) and the weights, which
+    phase 10 goes on with."""
     import echo_tts_tpu_torch.models.dit as dit_mod
     import echo_tts_tpu_torch.models.s1dac as s1_mod
     from echo_tts_tpu_torch.bench.init_ae import init_ae_params
@@ -2293,14 +2306,75 @@ def phase_stream(dev, wrappers: dict) -> dict:
     if e_audio.shape[-1] != (640 - cont_len) * spl or not np.isfinite(e_audio).all():
         raise SystemExit(f"stream (e): {e_audio.shape[-1]} samples, expected "
                          f"{(640 - cont_len) * spl} of new audio")
+    split = lap("e", split)
+
+    # (f) the flattening-point crop on the card
+    crop_checks(dev, tts, sc, wrappers, gen)
     for k, w in wrappers.items():
         w.launches = launches[k]
-    lap("e", split)
+    lap("f", split)
     log(f"# stream phase: {time.perf_counter() - t_phase:.1f} s, peak memory "
         f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
     return {"launches": launches, "tts": tts, "ttfa_ms": walls[0] * 1e3, "block_ms": blocks_ms,
             "audio_s_per_s": secs / walls[-1], "profile": prof,
             "blockwise_ttfa_ms": d_walls[0] * 1e3, "pack_ms": pack_ms}
+
+
+def crop_checks(dev, tts, sc, wrappers: dict, gen) -> None:
+    """Phase 9 (f), the flattening-point crop on the card: latents that go
+    flat at known indices (zeros, or a decay that crosses the detector's
+    thresholds gradually) and never, each index and each crop against the
+    CPU's on the same tensor; then a stream of three 64-latent blocks whose
+    detector is forced to fire at latent 50, inside the first block's last
+    window (tests/test_torch_streaming.py's construction): it must stop
+    after the second block, having held the first block's last 20 latents
+    back, and send exactly 50 latents of the unstopped stream's audio."""
+    from echo_tts_tpu_torch.pipeline import flattening
+    from echo_tts_tpu_torch.pipeline.pipeline import sample_pipeline_stream
+
+    dit_cfg, spl = tts.dit_cfg, tts.ae_cfg.frame_length
+    rng = np.random.default_rng(9)
+    audio_f = torch.randn(1, 1, 640 * spl, generator=gen, device=dev)
+    found = []
+    for flat_from in (0, 17, 333, 620, None, "decay"):
+        lat = 0.8 * rng.standard_normal((640, 80)).astype(np.float32)
+        if flat_from == "decay":
+            lat[300:] *= np.exp(-np.arange(340, dtype=np.float32) / 40.0)[:, None]
+        elif flat_from is not None:
+            lat[flat_from:] = 0.0
+        cpu = torch.from_numpy(lat)
+        got = flattening.find_flattening_point(cpu.to(dev))
+        want = flattening.find_flattening_point(cpu)
+        crop = flattening.crop_audio_to_flattening_point(audio_f, cpu.to(dev), spl)
+        crop_cpu = flattening.crop_audio_to_flattening_point(audio_f.cpu(), cpu, spl)
+        found.append((flat_from, got, want, torch.equal(crop.cpu(), crop_cpu)))
+    log(f"# stream (f) find_flattening_point on the card against the CPU, 640 x 80 latents, "
+        f"(flat from, card, CPU, crops equal): {found}")
+    if any(g_ != w_ or not eq for _f, g_, w_, eq in found) or found[1][1] != 17:
+        raise SystemExit(f"stream (f): the card's flattening points differ from the CPU's {found}")
+    sc_f = dataclasses.replace(sc, sequence_length=192, num_steps=20)
+    real_find = flattening.find_flattening_point
+    flattening.find_flattening_point = lambda data, **kw: min(50, data.shape[0])
+    try:
+        for w in wrappers.values():
+            w.launches = 0
+        stopped = list(sample_pipeline_stream(tts, SHORT_TEXT, None, 0, sc=sc_f, block_size=64,
+                                              normalize_text=True))
+        got_f = {k: w.launches for k, w in wrappers.items()}
+    finally:
+        flattening.find_flattening_point = real_find
+    full = np.concatenate(list(sample_pipeline_stream(
+        tts, SHORT_TEXT, None, 0, sc=sc_f, block_size=64, normalize_text=True,
+        stop_at_flattening=False)), -1)
+    sizes_f = [c.shape[-1] // spl for c in stopped]
+    k1_block = k1_launches(sc_f, dit_cfg.num_layers)
+    same = np.array_equal(np.concatenate(stopped, -1), full[..., :50 * spl])
+    log(f"# stream (f) a stream of 3 x 64 latents, the detector forced to fire at 50: chunks of "
+        f"{sizes_f} latents, equal to the unstopped stream's first 50 latents bit for bit: "
+        f"{same}; launches {got_f} (two blocks sampled: K1 {2 * k1_block})")
+    if sizes_f != [44, 6] or not same or got_f["joint_attention"] != 2 * k1_block:
+        raise SystemExit(f"stream (f): the forced stop emitted {sizes_f} latents (expected "
+                         f"[44, 6]), equal {same}, launches {got_f}")
 
 
 # ---------------------------------------------------------------------------
@@ -2342,6 +2416,41 @@ def check_batch_rows(what: str, got: dict, ref: dict) -> None:
         f"{', '.join(f'row {r} {v:.3e}' for r, v in rels.items())}")
     if max(rels.values()) >= REL_L2_BOUND or not all(np.isfinite(got[r]).all() for r in got):
         raise SystemExit(f"batching {what}: a row disagrees with its solo run {rels}")
+
+
+def stream_gap_split(tts, s_reqs, prefixes, got_c, solo_c) -> dict:
+    """Phase 10 (c)'s rows' gap to their solo streams, split in two and
+    printed: the sampled latents (`prefixes`: the batch's, then each solo
+    stream's) against the solo stream's, and the stateful decode of the solo
+    streams' latents on the stream's blocks at B=2 against B=1; beside the
+    audio's. Returns {row: (latents, decode, audio) rel-L2}."""
+    import echo_tts_tpu_torch.models.s1dac as s1_mod
+    from echo_tts_tpu_torch.pipeline import pipeline as pl
+
+    ae, ae_cfg = tts.ae_params, tts.ae_cfg
+    lat_b, lat_solo = prefixes[0], torch.cat(prefixes[1:3])
+    seq = lat_b.shape[1]
+    cuts = np.cumsum([0] + pl._block_schedule((64, 192), seq, tts.dit_cfg.speaker_patch_size))
+
+    def decode(lat):
+        st, out = s1_mod.streaming_decode_init(ae, ae_cfg, lat.shape[0]), []
+        for a, b in zip(cuts[:-1], cuts[1:]):
+            audio, st = s1_mod.decode_zq_stream_step(
+                ae, ae_cfg, st, pl._deprojected(tts.pca, lat[:, a:b], ae), max(1024, seq))
+            out.append(audio.float())
+        return torch.cat(out, -1)
+
+    with torch.no_grad():
+        dec_b = decode(lat_solo)
+        gap = {r: (rel_l2(lat_b[r], lat_solo[r]),
+                   rel_l2(dec_b[r], decode(lat_solo[r:r + 1])[0]),
+                   rel_l2(torch.from_numpy(got_c[r]), torch.from_numpy(solo_c[r])))
+               for r in range(2)}
+    log("# batching (c) the stream rows' gap to their solo streams, split: " + "; ".join(
+        f"row {r} ({'prompted' if s_reqs[r][1] is not None else 'no prompt'}) latents rel-L2 "
+        f"{g[0]:.3e}, the solo latents decoded at B=2 against B=1 {g[1]:.3e}, audio {g[2]:.3e}"
+        for r, g in gap.items()))
+    return gap
 
 
 def phase_batch(dev, wrappers: dict, tts) -> dict:
@@ -2543,25 +2652,41 @@ def phase_batch(dev, wrappers: dict, tts) -> dict:
         w.launches = 0
     torch.cuda.reset_peak_memory_stats(dev)
     t0, c_walls, rows_c = time.perf_counter(), [], {0: [], 1: []}
-    for out in pl.sample_pipeline_stream_batch(tts, s_reqs, sc=sc, stop_at_flattening=False):
-        c_walls.append(time.perf_counter() - t0)
-        for r, chunk_ in out.items():
-            rows_c[r].append(chunk_)
-    launches["stream_batch_2"] = {k: w.launches for k, w in wrappers.items()}
-    want_c = {"joint_attention": 4 * (20 * 3 + 20) * L,
-              "res_chain": 4 * k2_step + prompt_chunks * k2_chunk}
-    got_c = {r: np.concatenate(v, -1) for r, v in rows_c.items()}
-    log(f"# batching (c) sample_pipeline_stream_batch B=2, (64, 192): time to first audio "
-        f"{c_walls[0] * 1e3:.1f} ms, block walls "
-        f"{', '.join(f'{(b - a) * 1e3:.1f}' for a, b in zip([0.0] + c_walls[:-1], c_walls))} ms, "
-        f"total {c_walls[-1] * 1e3:.1f} ms, {2 * 640 * spl / sr / c_walls[-1]:.2f} audio-s/s; "
-        f"peak memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; launches "
-        f"{launches['stream_batch_2']} (expected {want_c})")
-    if launches["stream_batch_2"] != want_c:
-        raise SystemExit("batching (c): launch counts")
-    solo_c = {r: np.concatenate(list(pl.sample_pipeline_stream(
-        tts, text, spk_, seed, sc=sc, stop_at_flattening=False)), -1)
-        for r, (text, spk_, seed) in enumerate(s_reqs)}
+    prefixes = []  # each stream's latents: the prefix of its last block
+    real_blocks = pl.stream_blocks_fused
+
+    def keep_prefix(*a, **k):
+        for item in real_blocks(*a, **k):
+            if item[2] == 0:
+                prefixes.append(None)
+            prefixes[-1] = item[0]
+            yield item
+
+    pl.stream_blocks_fused = keep_prefix
+    try:
+        for out in pl.sample_pipeline_stream_batch(tts, s_reqs, sc=sc, stop_at_flattening=False):
+            c_walls.append(time.perf_counter() - t0)
+            for r, chunk_ in out.items():
+                rows_c[r].append(chunk_)
+        launches["stream_batch_2"] = {k: w.launches for k, w in wrappers.items()}
+        want_c = {"joint_attention": 4 * (20 * 3 + 20) * L,
+                  "res_chain": 4 * k2_step + prompt_chunks * k2_chunk}
+        got_c = {r: np.concatenate(v, -1) for r, v in rows_c.items()}
+        log(f"# batching (c) sample_pipeline_stream_batch B=2, (64, 192): time to first audio "
+            f"{c_walls[0] * 1e3:.1f} ms, block walls "
+            f"{', '.join(f'{(b - a) * 1e3:.1f}' for a, b in zip([0.0] + c_walls[:-1], c_walls))} ms, "
+            f"total {c_walls[-1] * 1e3:.1f} ms, {2 * 640 * spl / sr / c_walls[-1]:.2f} audio-s/s; "
+            f"peak memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; launches "
+            f"{launches['stream_batch_2']} (expected {want_c})")
+        if launches["stream_batch_2"] != want_c:
+            raise SystemExit("batching (c): launch counts")
+        solo_c = {r: np.concatenate(list(pl.sample_pipeline_stream(
+            tts, text, spk_, seed, sc=sc, stop_at_flattening=False)), -1)
+            for r, (text, spk_, seed) in enumerate(s_reqs)}
+    finally:
+        pl.stream_blocks_fused = real_blocks
+    # information, the gate is below: the rows' gap split in two
+    stream_gap_split(tts, s_reqs, prefixes, got_c, solo_c)
     check_batch_rows("(c) stream B=2", got_c, solo_c)
     split = lap("batching c", split)
 
@@ -2660,9 +2785,10 @@ def phase_batch(dev, wrappers: dict, tts) -> dict:
 
 # phase 11 (d): streams in a trace; three keep the first arrivals' burst of
 # three and hold the whole script, phase 14 included, inside its time limit;
-# each 320 latents (five 64-latent blocks) since phase 14 (f) was added
+# each 256 latents (four 64-latent blocks): 320 since phase 14 (f) was added,
+# 256 since its int8 group was
 TRACE_STREAMS = 3
-TRACE_LATENTS = 320
+TRACE_LATENTS = 256
 
 
 def http_call(port: int, method: str, path: str, body=None):
@@ -2719,12 +2845,13 @@ def phase_serve(dev, wrappers: dict, tts) -> dict:
     to the PCM16 of sample_pipeline_stream's; (c) four concurrent /tts of one
     batch key on Engine(max_batch=4): one batch, K1 and the decode's K2 as one
     request's, every row equal to its solo run; (d) run_trace, 3 streams of
-    320 latents at 0.5 requests/s on 64-latent blocks, on a continuous, a
+    256 latents at 0.5 requests/s on 64-latent blocks, on a continuous, a
     dispatch and a continuous engine without the fast join, one continuous
     row against its solo stream; (e)
     /reconstruct against ae_reconstruct, /lora with an r16 LoRA (the audio
     changes) and back (the base audio bit for bit), and set_lora while a
-    continuous group is live (its row stays on the old params); (g) the
+    continuous group of two rows is live (each row stays on the old params);
+    (g) the
     Gradio UI's handlers on (a)'s engine (`phase_ui`). Returns the launches
     of the served requests and of the UI's generate and stream."""
     import base64
@@ -2977,25 +3104,38 @@ def phase_serve(dev, wrappers: dict, tts) -> dict:
              "the audio beyond the gate")
         need(back[2] == bodies["i"], "(e): reverting the LoRA did not bring the base audio back")
 
-        # a 192-latent stream: the check needs a group that is live while
-        # set_lora waits, not a long one
-        sc_live = dataclasses.replace(sc, sequence_length=192)
+        # two 256-latent streams in one live group while set_lora waits (a
+        # group's streams share one SamplerConfig): the second is admitted
+        # once the first's group is live, when the first has two blocks
+        # left, so that both rows are live when the swap is asked for
+        sc_live = dataclasses.replace(sc, sequence_length=256, num_steps=20)
+        live_sc = {4: sc_live, 5: sc_live}
+        live_text = {4: SHORT_TEXT, 5: SPEAKER_TEXT}
         eng_g = Engine(tts, max_batch=2, continuous=True, continuous_block=64)
         engines.append(eng_g)
         live = {}
 
-        def live_stream():
-            live["out"] = np.concatenate(list(eng_g.generate_stream(
-                SHORT_TEXT, None, seed=4, sc=sc_live, block_size=64)), -1)
+        def live_stream(seed):
+            live[seed] = np.concatenate(list(eng_g.generate_stream(
+                live_text[seed], None, seed=seed, sc=live_sc[seed], block_size=64)), -1)
 
         def swap_under_load():
-            t_ = threading.Thread(target=live_stream, name="echo-tts-client-live")
-            t_.start()
-            deadline = time.monotonic() + 600
-            while not any(s_.n_active for s_ in list(eng_g._cont_scheds.values())):
-                need(time.monotonic() < deadline and t_.is_alive(), "(e): no live group")
-                time.sleep(0.005)
-            sched = next(iter(eng_g._cont_scheds.values()))
+            def wait_rows(n, threads):
+                deadline = time.monotonic() + 600
+                while not any(s_.n_active >= n for s_ in list(eng_g._cont_scheds.values())):
+                    need(time.monotonic() < deadline and all(t_.is_alive() for t_ in threads),
+                         f"(e): no live group of {n} rows")
+                    time.sleep(0.005)
+                return next(s_ for s_ in eng_g._cont_scheds.values() if s_.n_active >= n)
+
+            clients = [threading.Thread(target=live_stream, args=(4,),
+                                        name="echo-tts-client-live-4")]
+            clients[0].start()
+            wait_rows(1, clients)
+            clients.append(threading.Thread(target=live_stream, args=(5,),
+                                            name="echo-tts-client-live-5"))
+            clients[1].start()
+            sched = wait_rows(2, clients)
             t0 = time.perf_counter()
             eng_g.set_lora(lora_path)
             swap_ms = (time.perf_counter() - t0) * 1e3
@@ -3004,19 +3144,25 @@ def phase_serve(dev, wrappers: dict, tts) -> dict:
             need(group is not None and group["params"] is tts.dit_params
                  and eng_g.tts.dit_params is not tts.dit_params,
                  "(e): the live group's params were replaced, or the swap did nothing")
-            t_.join(timeout=600)
-            need(not t_.is_alive(), "(e): the live stream hung")
-            return swap_ms, alive
+            for t_ in clients:
+                t_.join(timeout=600)
+            need(not any(t_.is_alive() for t_ in clients), "(e): a live stream hung")
+            return swap_ms, alive, sched.max_b
 
-        (swap_ms, alive), got = serving(swap_under_load)
-        ref = np.concatenate(list(pl.sample_pipeline_stream(
-            tts, SHORT_TEXT, None, 4, sc=sc_live, block_size=64, normalize_text=True)), -1)
-        need(live["out"].shape == ref.shape, "(e): the live row's length differs")
-        r = rel_l2(torch.from_numpy(live["out"]), torch.from_numpy(ref))
-        log(f"# serving (e) set_lora while a continuous group was live: returned in "
-            f"{swap_ms:.1f} ms with the group still live ({alive}); the live row against its solo "
-            f"stream on the base params: rel-L2 {r:.3e}; launches {got}")
-        need(alive and r < REL_L2_BOUND, "(e): the live group did not stay on the old params")
+        (swap_ms, alive, rows_max), got = serving(swap_under_load)
+        rels = {}
+        for seed in live_sc:
+            ref = np.concatenate(list(pl.sample_pipeline_stream(
+                tts, live_text[seed], None, seed, sc=live_sc[seed], block_size=64,
+                normalize_text=True)), -1)
+            need(live[seed].shape == ref.shape, f"(e): live row {seed}'s length differs")
+            rels[seed] = rel_l2(torch.from_numpy(live[seed]), torch.from_numpy(ref))
+        log(f"# serving (e) set_lora while a continuous group of two rows was live (at most "
+            f"{rows_max} rows): returned in {swap_ms:.1f} ms with the group still live ({alive}); "
+            f"each live row against its solo stream on the base params: rel-L2 "
+            f"{', '.join(f'row {k} {v:.3e}' for k, v in rels.items())}; launches {got}")
+        need(alive and max(rels.values()) < REL_L2_BOUND,
+             "(e): the live group did not stay on the old params")
         split = lap("serving e", split)
 
         # (g) the UI's handlers (serve/gradio_app.py, which needs no gradio
@@ -3192,6 +3338,116 @@ def k1_launches(sc, num_layers: int) -> int:
     return per_layer * num_layers
 
 
+def cont_streams(eng, streams: dict, block: int) -> dict:
+    """Streams of `streams` ({seed: (text, SamplerConfig)}) through a
+    continuous engine: the first alone, the others once its group is live
+    (admitted at a block boundary), then eng.close(). Returns each row's audio, time to first
+    audio and wall, the clients' errors, and the scheduler's joins, group
+    steps (boundaries with a step), largest group and resizes (rows before,
+    rows after)."""
+    import threading
+
+    from echo_tts_tpu_torch.pipeline import pipeline as pl
+
+    resizes, rows, errors = [], {}, []
+    real_resize = pl._resize_group
+
+    def resize_spy(gs, perm, keep):
+        resizes.append((int(gs["prefix"].shape[0]), len(perm)))
+        return real_resize(gs, perm, keep)
+
+    def client(seed):
+        text, sc = streams[seed]
+        t = {"submit": time.perf_counter()}
+        chunks = []
+        try:
+            for c in eng.generate_stream(text, None, seed=seed, sc=sc, block_size=block):
+                t.setdefault("first", time.perf_counter())
+                chunks.append(c)
+        except Exception as e:  # reported by the caller: the phase fails
+            errors.append(f"{seed}: {type(e).__name__}: {e}")
+        t["end"] = time.perf_counter()
+        rows[seed] = {"audio": np.concatenate(chunks, axis=-1) if chunks else None,
+                      "ttfa_s": t.get("first", t["end"]) - t["submit"],
+                      "wall_s": t["end"] - t["submit"]}
+
+    seeds = list(streams)
+    pl._resize_group = resize_spy
+    try:
+        first = threading.Thread(target=client, args=(seeds[0],))
+        first.start()
+        deadline = time.monotonic() + 300
+        while not any(s_.n_active >= 1 for s_ in list(eng._cont_scheds.values())):
+            if time.monotonic() > deadline or not first.is_alive():
+                break
+            time.sleep(0.005)
+        later = [threading.Thread(target=client, args=(s_,)) for s_ in seeds[1:]]
+        for th in later:
+            th.start()
+        for th in [first] + later:
+            th.join(timeout=600)
+    finally:
+        pl._resize_group = real_resize
+    sched = max(eng._cont_scheds.values(), key=lambda s_: s_.n_joined)
+    out = {"rows": rows, "errors": errors, "joined": sched.n_joined, "steps": sched.n_steps,
+           "max_rows": sched.max_b, "resizes": resizes, "health": eng.health()}
+    eng.close()
+    return out
+
+
+def int8_continuous(tts, sc, wrappers: dict) -> dict:
+    """Phase 12 (f): Engine(int8=True, continuous=True, max_batch=4) on two
+    192-latent streams on 64-latent blocks, the second admitted into the
+    first's live group at a boundary (the first has a block left then, so
+    the group grows to two rows); each row against its int8 solo stream
+    on the engine's quantized params (rel-L2 bound REL_L2_BOUND), the
+    launches of K1, K2, K4 and K5 exactly as the group's samplings imply.
+    Returns the launches."""
+    from echo_tts_tpu_torch.pipeline import pipeline as pl
+    from echo_tts_tpu_torch.serve.engine import Engine
+
+    L, k2_decode = tts.dit_cfg.num_layers, 3 * len(tts.ae_cfg.decoder_rates)
+    sc = dataclasses.replace(sc, sequence_length=192, num_steps=20)
+    streams = {4000: (SHORT_TEXT, sc), 4001: (SPEAKER_TEXT, sc)}
+    eng = Engine(tts, int8=True, max_batch=4, continuous=True, continuous_block=64)
+    qtts = dataclasses.replace(tts, dit_params=eng.tts.dit_params)
+    solo = {seed: np.concatenate(list(pl.sample_pipeline_stream(
+        qtts, text, None, seed, sc=sc_, block_size=64, normalize_text=True)), -1)
+        for seed, (text, sc_) in streams.items()}
+    del qtts
+    for w in wrappers.values():
+        w.launches = 0
+    g, wall, ev = events_ms(lambda: cont_streams(eng, streams, 64))
+    got = {k: w.launches for k, w in wrappers.items()}
+    del eng
+    samplings = g["joined"] + g["steps"]  # a fast join samples its first block alone
+    per = samplings * L * sc.num_steps
+    want = {"joint_attention": samplings * k1_launches(sc, L), "res_chain": samplings * k2_decode,
+            "int8_gemm": 4 * per, "quant_rows": 4 * per}
+    fails = list(g["errors"])
+    for seed, row in sorted(g["rows"].items()):
+        a = row["audio"]
+        rel = (rel_l2(torch.from_numpy(a), torch.from_numpy(solo[seed]))
+               if a is not None and a.shape == solo[seed].shape else float("inf"))
+        log(f"# int8 (f) continuous group row {seed}: time to first audio {row['ttfa_s']:.2f} s, "
+            f"wall {row['wall_s']:.2f} s, audio rel-L2 against its int8 solo stream {rel:.3e} "
+            f"(bound {REL_L2_BOUND})")
+        if not (rel < REL_L2_BOUND and np.isfinite(a).all()):
+            fails.append(f"row {seed}: rel-L2 {rel:.3e}")
+    grows = [(a, b) for a, b in g["resizes"] if b > a]
+    log(f"# int8 (f) Engine(int8=True, continuous=True, max_batch=4), two 192-latent streams "
+        f"on 64-latent blocks: {g['joined']} joins (fast), {g['steps']} group steps, resizes "
+        f"{g['resizes']}, at most {g['max_rows']} rows; wall {wall:.1f} ms, CUDA events "
+        f"{ev:.1f} ms; launches {got} (expected from {samplings} samplings {want})")
+    if got != want:
+        fails.append(f"launches {got}, expected {want}")
+    if g["joined"] != len(streams) or grows != [(1, 2)] or g["health"]["failures"]:
+        fails.append(f"joins {g['joined']}, grows {grows}, health {g['health']}")
+    if fails:
+        raise SystemExit("int8 (f): " + "; ".join(fails))
+    return got
+
+
 def phase_levers(dev, wrappers: dict, tts) -> dict:
     """The opt-in levers and the W8A8 int8 trunk on phase 9-11's weights
     (DiTConfig() with the latent modules, AEConfig(), bf16, text bucket
@@ -3208,7 +3464,11 @@ def phase_levers(dev, wrappers: dict, tts) -> dict:
     Engine(int8=True) behind the HTTP server: /tts byte-equal to
     the direct call on its quantized params, set_lora (r16) re-quantizing
     the merge and set_lora(None) giving the int8 base bytes back, one /tts
-    with "joint_uncond" in the body. Returns {path: launches}."""
+    with "joint_uncond" in the body; (f) Engine(int8=True, continuous=True,
+    max_batch=4): two 128-latent streams, the second admitted into the
+    first's live group at a boundary, each row against its int8 solo stream,
+    exact K1, K2, K4 and K5 launches from the group's samplings. Returns
+    {path: launches}."""
     import tempfile
 
     from echo_tts_tpu_torch.bench import quant_snr as qs
@@ -3429,7 +3689,12 @@ def phase_levers(dev, wrappers: dict, tts) -> dict:
         for name in os.listdir(tmp):
             os.unlink(os.path.join(tmp, name))
         os.rmdir(tmp)
-    lap("int8 e", split)
+    split = lap("int8 e", split)
+
+    # (f) int8 rows in a continuous group
+    got = int8_continuous(tts, sc, wrappers)
+    out["int8_continuous"] = got
+    lap("int8 f", split)
     log(f"# levers and int8 phase: {time.perf_counter() - t_phase:.1f} s")
     return out
 
@@ -4037,9 +4302,9 @@ def mesh_wrappers() -> dict:
             "quant_rows_scale": quant_rows_scale, "quant_rows_at": quant_rows_at}
 
 
-# the sampler steps of phase 14's (a)-(e): 20 since (f) was added, to keep the
-# script inside its budget (each tp=2 request is a host all-reduce a layer a
-# step); (f) runs the default 40
+# the sampler steps of phase 14: 20 since (f) was added, to keep the script
+# inside its budget (each tp=2 request is a host all-reduce a layer a step);
+# (f)'s int8 group runs CONT_INT8_STEPS
 MESH_STEPS = 20
 
 
@@ -4392,26 +4657,47 @@ def _mesh_f7_set_lora(rank: int, tts, mesh, lora_path: str) -> dict:
 
 
 # (f): three 128-latent streams (two 64-latent blocks each) on a tp=2
-# continuous engine; the first alone, the other two once its group is live
+# continuous engine; the first alone, the other two once its group is live;
+# then two on an int8 one
 CONT_STREAMS = {3000: SHORT_TEXT, 3001: SPEAKER_TEXT,
                 3002: "[S1] A third stream joins the group at a block boundary."}
 CONT_LATENTS, CONT_BLOCK = 128, 64
+# the int8 group's two streams, three blocks each: the first still has a
+# block to sample when the second joins, so the group grows to two rows (a
+# group's streams share one SamplerConfig, their length included)
+CONT_INT8_STREAMS = {3010: SHORT_TEXT, 3011: SPEAKER_TEXT}
+CONT_INT8_LATENTS, CONT_INT8_STEPS = CONT_LATENTS + CONT_BLOCK, 10
+
+
+def cont_kinds():
+    """(f)'s groups: (trunk, {seed: (text, SamplerConfig)}); the bf16 one at
+    MESH_STEPS, the int8 one at CONT_INT8_STEPS."""
+    def sc(steps, n):
+        return dataclasses.replace(mesh_sc(steps), sequence_length=n)
+
+    return [("bf16", {seed: (text, sc(MESH_STEPS, CONT_LATENTS))
+                      for seed, text in CONT_STREAMS.items()}),
+            ("int8", {seed: (text, sc(CONT_INT8_STEPS, CONT_INT8_LATENTS))
+                      for seed, text in CONT_INT8_STREAMS.items()})]
 
 
 def _mesh_cont_work(rank: int, dev, out_dir: str) -> dict:
     """(f) on one rank of tp=2: `serve --random`'s weights (DiTConfig() with
-    its latent modules, AEConfig(), bf16); each stream of CONT_STREAMS alone
-    through `sample_pipeline_stream` on the sharded tree at the uniform
-    block (the reference), then Engine(mesh, max_batch=4, continuous=True):
-    rank 0 streams the first request, and the other two once the first's
-    group is live, which admits both at one boundary (one resize 1 -> 2,
-    two fast joins); rank 1 follows. Launches, all-reduces and wall a rank
-    over the engine's life (rank 1: its follow())."""
+    its latent modules, AEConfig(), bf16). For the bf16 trunk (CONT_STREAMS)
+    and then the int8 trunk (CONT_INT8_STREAMS), `cont_kinds`:
+    each stream alone through `sample_pipeline_stream` on the sharded tree
+    (the int8 one quantized whole, then sharded, as the engine does) at the
+    uniform block (the reference), then Engine(mesh, max_batch=4,
+    continuous=True[, int8=True]): rank 0 streams the first request, and
+    the others once the first's group is live, which admits them at one
+    boundary (one resize 1 -> 2, fast joins); rank 1 follows. Launches,
+    all-reduces and wall a rank over each engine's life (rank 1: its
+    follow())."""
     import dataclasses
-    import threading
 
     from echo_tts_tpu_torch.bench.trace import random_tts
     from echo_tts_tpu_torch.core.config import MeshConfig
+    from echo_tts_tpu_torch.models.quant import quantize_dit_params
     from echo_tts_tpu_torch.parallel.mesh import make_mesh
     from echo_tts_tpu_torch.parallel.multihost import barrier
     from echo_tts_tpu_torch.parallel.sharding import shard_params
@@ -4419,79 +4705,36 @@ def _mesh_cont_work(rank: int, dev, out_dir: str) -> dict:
     from echo_tts_tpu_torch.serve.engine import Engine
 
     wrappers = mesh_wrappers()
-    sc = dataclasses.replace(mesh_sc(40), sequence_length=CONT_LATENTS)
     mesh = make_mesh(MeshConfig(dp=1, tp=2), dev)
     tts = random_tts(dev, tiny=False)
-    res = {"rank": rank}
-    direct = dataclasses.replace(tts, dit_params=shard_params(tts.dit_params, mesh))
-    t0 = time.perf_counter()
-    with torch.no_grad():
-        res["solo"] = {seed: np.concatenate(list(pl.sample_pipeline_stream(
-            direct, text, None, seed, sc=sc, block_size=CONT_BLOCK, normalize_text=True)),
-            axis=-1) for seed, text in CONT_STREAMS.items()}
-    res["solo_s"] = time.perf_counter() - t0
-    del direct
-    torch.cuda.empty_cache()
-    barrier()
-    eng = Engine(tts, mesh=mesh, max_batch=4, continuous=True, continuous_block=CONT_BLOCK)
-    if rank != 0:
-        _, res["launches"], res["all_reduce"], res["peak_gib"], res["wall_s"] = counted(
-            wrappers, eng.follow, dev)
-        eng.close()
-        return res
-
-    resizes = []
-    real_resize = pl._resize_group
-
-    def resize_spy(gs, perm, keep):
-        resizes.append((int(gs["prefix"].shape[0]), len(perm)))
-        return real_resize(gs, perm, keep)
-
-    rows, errors = {}, []
-
-    def client(seed, text):
-        t = {"submit": time.perf_counter()}
-        chunks = []
-        try:
-            for c in eng.generate_stream(text, None, seed=seed, sc=sc, block_size=CONT_BLOCK):
-                t.setdefault("first", time.perf_counter())
-                chunks.append(c)
-        except Exception as e:  # reported below: the phase fails
-            errors.append(f"{seed}: {type(e).__name__}: {e}")
-        t["end"] = time.perf_counter()
-        rows[seed] = {"audio": np.concatenate(chunks, axis=-1) if chunks else None,
-                      "ttfa_s": t.get("first", t["end"]) - t["submit"],
-                      "wall_s": t["end"] - t["submit"]}
-
-    def scenario():
-        seeds = list(CONT_STREAMS)
-        first = threading.Thread(target=client, args=(seeds[0], CONT_STREAMS[seeds[0]]))
-        first.start()
-        deadline = time.monotonic() + 300
-        while not any(s.n_active >= 1 for s in list(eng._cont_scheds.values())):
-            if time.monotonic() > deadline or not first.is_alive():
-                break
-            time.sleep(0.005)
-        later = [threading.Thread(target=client, args=(s, CONT_STREAMS[s])) for s in seeds[1:]]
-        for th in later:
-            th.start()
-        for th in [first] + later:
-            th.join(timeout=600)
-        sched = max(eng._cont_scheds.values(), key=lambda s: s.n_joined)
-        stats = {"joined": sched.n_joined, "steps": sched.n_steps, "max_rows": sched.max_b,
-                 "health": eng.health()}
-        eng.close()
-        return stats
-
-    pl._resize_group = resize_spy
-    try:
-        res["group"], res["launches"], res["all_reduce"], res["peak_gib"], res["wall_s"] = \
-            counted(wrappers, scenario, dev)
-    finally:
-        pl._resize_group = real_resize
-    res["group"]["resizes"] = resizes
-    res["rows"], res["errors"] = rows, errors
-    return res
+    out = {"rank": rank}
+    for kind, streams in cont_kinds():
+        res = out[kind] = {}
+        full = quantize_dit_params(tts.dit_params) if kind == "int8" else tts.dit_params
+        direct = dataclasses.replace(tts, dit_params=shard_params(full, mesh))
+        del full
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            res["solo"] = {seed: np.concatenate(list(pl.sample_pipeline_stream(
+                direct, text, None, seed, sc=sc, block_size=CONT_BLOCK, normalize_text=True)),
+                axis=-1) for seed, (text, sc) in streams.items()}
+        res["solo_s"] = time.perf_counter() - t0
+        del direct
+        torch.cuda.empty_cache()
+        barrier()
+        eng = Engine(tts, mesh=mesh, int8=kind == "int8", max_batch=4, continuous=True,
+                     continuous_block=CONT_BLOCK)
+        if rank != 0:
+            _, res["launches"], res["all_reduce"], res["peak_gib"], res["wall_s"] = counted(
+                wrappers, eng.follow, dev)
+            eng.close()
+        else:
+            res["group"], res["launches"], res["all_reduce"], res["peak_gib"], \
+                res["wall_s"] = counted(wrappers, lambda: cont_streams(
+                    eng, streams, CONT_BLOCK), dev)
+        del eng
+        torch.cuda.empty_cache()
+    return out
 
 
 def _mesh_dp_work(rank: int, dev, out_dir: str) -> dict:
@@ -4795,70 +5038,86 @@ def phase_mesh(dev, smi: str) -> dict:
     # (d) the fleet with a killed worker, byte-equal to one process
     phase_fleet(smi)
 
-    # (f) continuous stream groups on a tp=2 engine
+    # (f) continuous stream groups on a tp=2 engine, bf16 and int8
     cont = phase_mesh_continuous(dev, smi, n_layers, k2_expected)
     shutil.rmtree(MESH_DIR, ignore_errors=True)
     log(f"# mesh phase: {time.perf_counter() - t_phase:.1f} s [{smi}]")
     r0 = ranks[0]
     return {"mesh tp=2 request (i)": r0["launches"], "mesh tp=2 int8": r0["int8_launches"],
-            "mesh tp=2 train step": r0["step_launches"], "mesh tp=2 continuous": cont}
+            "mesh tp=2 train step": r0["step_launches"],
+            "mesh tp=2 continuous": cont["bf16"], "mesh tp=2 continuous int8": cont["int8"]}
 
 
 def phase_mesh_continuous(dev, smi: str, n_layers: int, k2_per_decode: int) -> dict:
     """(f): Engine(mesh, max_batch=4, continuous=True) at tp=2, two ranks on
     cuda:0 over gloo, `serve --random`'s weights: three 128-latent streams
-    on 64-latent blocks with the default sampler, the second and third
+    on 64-latent blocks with the default sampler at MESH_STEPS, the second
+    and third
     admitted into the first's live group at one boundary (one resize, two
-    fast joins); each row against the tp=2 solo stream of its seed (rel-L2
-    bound REL_L2_BOUND), the launches and all-reduces of rank 1 equal to
-    rank 0's and to the count from the group's samplings. Returns rank 0's
-    launches."""
+    fast joins); then two 192-latent streams on the int8 trunk at
+    CONT_INT8_STEPS steps in one group of two rows (K4, K5 and K5's two tp
+    modes). Each row against the
+    tp=2 solo stream of its seed on the same trunk (rel-L2 bound
+    REL_L2_BOUND), the launches and all-reduces of rank 1 equal to rank 0's
+    and to the count from the group's samplings. Returns rank 0's launches
+    by trunk."""
     t0 = time.perf_counter()
     ranks = spawn_mesh("cont", MESH_DIR, 600, dev)
     wall = time.perf_counter() - t0
-    r0, r1 = ranks
-    g = r0["group"]
-    sc = dataclasses.replace(mesh_sc(40), sequence_length=CONT_LATENTS)
-    samplings = g["joined"] + g["steps"]  # a fast join samples its first block alone
-    want = {"joint_attention": samplings * k1_launches(sc, n_layers),
-            "res_chain": samplings * k2_per_decode}
-    fails = list(r0["errors"])
-    for seed, row in sorted(r0["rows"].items()):
-        ref = r0["solo"][seed]
-        a = row["audio"]
-        rel = (rel_l2(torch.as_tensor(a), torch.as_tensor(ref))
-               if a is not None and a.shape == ref.shape else float("inf"))
-        log(f"# mesh (f) tp=2 continuous row {seed}: time to first audio {row['ttfa_s']:.2f} s, "
-            f"wall {row['wall_s']:.2f} s, audio rel-L2 against the tp=2 solo stream of its seed "
-            f"{rel:.3e} (bound {REL_L2_BOUND}) [{smi}]")
-        if not (rel <= REL_L2_BOUND and np.isfinite(a).all()):
-            fails.append(f"row {seed}: rel-L2 {rel:.3e}")
-    grows = [(a, b) for a, b in g["resizes"] if b > a]
-    log(f"# mesh (f) tp=2 continuous group: {g['steps']} group steps (boundaries with a step), "
-        f"{g['joined']} joins (fast), resizes {g['resizes']}, at most {g['max_rows']} rows; "
-        f"health {json.dumps(g['health'].get('continuous_groups', []))}, requests "
-        f"{g['health']['requests']}, failures {g['health']['failures']} [{smi}]")
-    for n, r in enumerate(ranks):
-        ar = r["all_reduce"]
-        log(f"# mesh (f) tp=2 continuous rank {n}: engine wall {r['wall_s']:.2f} s, launches "
-            f"{r['launches']}, all-reduce {ar['all_reduce_calls']} calls "
-            f"{ar['all_reduce_seconds']:.2f} s {ar['all_reduce_bytes'] / 2**30:.2f} GiB, peak "
-            f"{r['peak_gib']:.2f} GiB; solo references {r['solo_s']:.2f} s [{smi}]")
-    same = (r1["launches"] == r0["launches"]
-            and r1["all_reduce"]["all_reduce_calls"] == r0["all_reduce"]["all_reduce_calls"])
-    log(f"# mesh (f) rank 1's launches and all-reduce calls equal rank 0's: {same}; K1 and K2 "
-        f"expected from {samplings} samplings: {want}; spawn to results {wall:.1f} s [{smi}]")
-    if not same:
-        fails.append(f"rank 1 launches {r1['launches']} against rank 0's {r0['launches']}")
-    if {k: r0["launches"][k] for k in want} != want:
-        fails.append(f"launches {r0['launches']}, expected {want}")
-    if g["joined"] != len(CONT_STREAMS) or grows != [(1, 2)]:
-        fails.append(f"joins {g['joined']}, grows {grows} (expected 3 and [(1, 2)])")
-    if g["health"]["failures"]:
-        fails.append(f"health {g['health']}")
+    fails, launches = [], {}
+    for kind, streams in cont_kinds():
+        r0, r1 = ranks[0][kind], ranks[1][kind]
+        g = r0["group"]
+        sc = next(iter(streams.values()))[1]
+        steps = sc.num_steps
+        samplings = g["joined"] + g["steps"]  # a fast join samples its first block alone
+        per = samplings * n_layers * steps
+        want = {"joint_attention": samplings * k1_launches(sc, n_layers),
+                "res_chain": samplings * k2_per_decode}
+        if kind == "int8":  # a trunk layer: four K4, two K5, two of each tp mode
+            want.update(int8_gemm=4 * per, quant_rows=2 * per, quant_rows_scale=2 * per,
+                        quant_rows_at=2 * per)
+        fails += [f"{kind} {e}" for e in g["errors"]]
+        for seed, row in sorted(g["rows"].items()):
+            ref = r0["solo"][seed]
+            a = row["audio"]
+            rel = (rel_l2(torch.as_tensor(a), torch.as_tensor(ref))
+                   if a is not None and a.shape == ref.shape else float("inf"))
+            log(f"# mesh (f) tp=2 continuous {kind} row {seed}: time to first audio "
+                f"{row['ttfa_s']:.2f} s, wall {row['wall_s']:.2f} s, audio rel-L2 against the "
+                f"tp=2 {kind} solo stream of its seed {rel:.3e} (bound {REL_L2_BOUND}) [{smi}]")
+            if not (rel <= REL_L2_BOUND and np.isfinite(a).all()):
+                fails.append(f"{kind} row {seed}: rel-L2 {rel:.3e}")
+        grows = [(a, b) for a, b in g["resizes"] if b > a]
+        log(f"# mesh (f) tp=2 continuous {kind} group, {steps} steps: {g['steps']} group steps "
+            f"(boundaries with a step), {g['joined']} joins (fast), resizes {g['resizes']}, at "
+            f"most {g['max_rows']} rows; requests {g['health']['requests']}, failures "
+            f"{g['health']['failures']} [{smi}]")
+        for n, r in enumerate((r0, r1)):
+            ar = r["all_reduce"]
+            log(f"# mesh (f) tp=2 continuous {kind} rank {n}: engine wall {r['wall_s']:.2f} s, "
+                f"launches {r['launches']}, all-reduce {ar['all_reduce_calls']} calls "
+                f"{ar['all_reduce_seconds']:.2f} s {ar['all_reduce_bytes'] / 2**30:.2f} GiB, peak "
+                f"{r['peak_gib']:.2f} GiB; solo references {r['solo_s']:.2f} s [{smi}]")
+        same = (r1["launches"] == r0["launches"]
+                and r1["all_reduce"]["all_reduce_calls"] == r0["all_reduce"]["all_reduce_calls"])
+        log(f"# mesh (f) {kind}: rank 1's launches and all-reduce calls equal rank 0's: {same}; "
+            f"expected from {samplings} samplings: {want} [{smi}]")
+        if not same:
+            fails.append(f"{kind}: rank 1 launches {r1['launches']} against rank 0's "
+                         f"{r0['launches']}")
+        if {k: r0["launches"][k] for k in want} != want:
+            fails.append(f"{kind}: launches {r0['launches']}, expected {want}")
+        if g["joined"] != len(streams) or grows != [(1, 2)]:
+            fails.append(f"{kind}: joins {g['joined']}, grows {grows} (expected "
+                         f"{len(streams)} and [(1, 2)])")
+        if g["health"]["failures"]:
+            fails.append(f"{kind}: health {g['health']}")
+        launches[kind] = r0["launches"]
+    log(f"# mesh (f) spawn to results {wall:.1f} s [{smi}]")
     if fails:
         raise SystemExit("mesh (f) failed: " + "; ".join(fails))
-    return r0["launches"]
+    return launches
 
 
 def phase_fleet(smi: str) -> dict:

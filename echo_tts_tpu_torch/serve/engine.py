@@ -52,9 +52,19 @@ rank and the ranks stay in step for a retry. A failed group call drops the
 group on every rank, and a later call of it is refused. `set_lora` commits
 in two phases: every rank merges the adapter into a tree of its own, and
 each takes that tree only when every rank reports success; otherwise every
-rank keeps its old params. A rank that dies, or fails while the others wait
-in one of the call's collectives, is still caught only by the process
-group's timeout.
+rank keeps its old params.
+
+A rank that dies or hangs is caught by the collective bound of
+`parallel/mesh.py:initialize_multihost` (100 s by default, as
+jax.distributed reports a dead peer): a rank that waits on it in a
+collective of the call, or in a status exchange, raises (under gloo; under
+nccl the watchdog ends the process), and a peer that has exited is seen at
+once. A failed collective or exchange on the control or status group means
+the tp group is lost: the engine then refuses every later call on rank 0
+(`RuntimeError` naming what was lost; restart every rank), and a follower
+leaves `follow()` with that error. Only a follower's wait for the next call
+is unbounded (the control group's CONTROL_TIMEOUT): a server may be idle for
+as long as it likes.
 """
 from __future__ import annotations
 
@@ -241,6 +251,7 @@ class Engine:
         self._groups = {}  # live continuous groups by id, on every rank
         self._group_ids = itertools.count()
         self._stopped = False
+        self._lost: Optional[str] = None  # why the tp group is gone (then _stopped too)
         self.int8 = int8 or int8_encoders
         self.int8_encoders = int8_encoders
         if tts.device.type == "cuda":
@@ -336,10 +347,25 @@ class Engine:
                     log.warning("could not stop the followers: %s", e)
 
     # -- device calls (and their mirror on the followers of a tp engine) ---------
+    def _exchange(self, what: str, fn, *args, **kwargs):
+        """fn(*args, **kwargs), a collective of the control or status group;
+        its failure (a rank that died, or did not answer within the group's
+        timeout) loses the tp group: this engine stops, and every later
+        call raises."""
+        try:
+            return fn(*args, **kwargs)
+        except Exception as e:
+            self._lost = (f"the tp group is lost (rank {self._mesh.rank}, {what}: "
+                          f"{type(e).__name__}: {e}); restart every rank")
+            self._stopped = True
+            self._groups.clear()
+            raise RuntimeError(self._lost) from e
+
     def _send(self, desc) -> None:
         import torch.distributed as dist
 
-        dist.broadcast_object_list([desc], src=0, group=self._mesh.control)
+        self._exchange(f"sending {desc[0]}", dist.broadcast_object_list, [desc], src=0,
+                       group=self._mesh.control)
 
     def _dispatch(self, op: str, *args):
         """Run device call `op` (a `_op_<op>` method) with host-side `args`;
@@ -347,7 +373,7 @@ class Engine:
         the descriptor to the followers, which run the same call."""
         if self._leads:
             if self._stopped:
-                raise RuntimeError("engine is closed")
+                raise RuntimeError(self._lost or "engine is closed")
             self._send((op, args))
         return self._run_op(op, args)
 
@@ -388,7 +414,8 @@ class Engine:
         import torch.distributed as dist
 
         got = [None] * self._mesh.tp
-        dist.all_gather_object(got, err, group=self._mesh.control)
+        self._exchange(f"the status of {op}", dist.all_gather_object, got, err,
+                       group=self._mesh.status)
         bad = [(r, e) for r, e in enumerate(got) if e is not None]
         if bad:
             what = op
@@ -403,14 +430,16 @@ class Engine:
         descriptors and run each call, in order, until rank 0 closes. A
         call that failed here or on another rank raised on every rank
         (`_run_op`): rank 0 reports it to its caller, and here it is logged
-        and kept in `follow_errors` (the last 16)."""
+        and kept in `follow_errors` (the last 16). A lost tp group (rank 0
+        gone) raises here."""
         import torch.distributed as dist
 
         if self._mesh is None or self._leads:
             raise RuntimeError("follow() runs on the ranks other than 0 of a tp engine")
         while True:
             box = [None]
-            dist.broadcast_object_list(box, src=0, group=self._mesh.control)
+            self._exchange("waiting for a call", dist.broadcast_object_list, box, src=0,
+                           group=self._mesh.control)
             op, args = box[0]
             if op == "stop":
                 self._stopped = True
@@ -422,6 +451,8 @@ class Engine:
             except Exception as e:
                 self.follow_errors.append((op, str(e)))
                 log.exception("follower %d: %s failed", self._mesh.rank, op)
+                if self._lost:
+                    raise
 
     def _op_pipeline(self, text, speaker_audio, seed, sc, normalize_text, cached,
                      pipe_overrides):
@@ -621,9 +652,11 @@ class Engine:
                 last_err = e
                 self._bump(retries=1)
                 log.warning("generate attempt %d failed: %s", attempt, e)
+                if self._lost:
+                    break
         self._bump(failures=1)
-        raise RuntimeError(
-            f"generation failed after {self.max_retries + 1} attempts") from last_err
+        raise RuntimeError(f"generation failed: {self._lost}" if self._lost else
+                           f"generation failed after {attempt + 1} attempts") from last_err
 
     # -- micro-batching ------------------------------------------------------
     def _batch_key(self, text: str, speaker_audio, sc: SamplerConfig, normalize: bool):
@@ -730,9 +763,12 @@ class Engine:
                 last_err = e
                 self._bump(retries=1)
                 log.warning("batched generate attempt %d failed: %s", attempt, e)
+                if self._lost:
+                    break
         self._bump(failures=n)
         for r in batch:
-            r.error = RuntimeError(f"generation failed after {self.max_retries + 1} attempts")
+            r.error = RuntimeError(f"generation failed: {self._lost}" if self._lost else
+                                   f"generation failed after {attempt + 1} attempts")
             r.error.__cause__ = last_err
             r.event.set()
 
@@ -1061,6 +1097,8 @@ class Engine:
     def health(self) -> dict:
         with self._stats_mu:
             out = {"status": "ok", "lora": self._current_lora_path, **self.stats}
+        if self._lost:
+            out["status"], out["lost"] = "lost", self._lost
         if self._speaker_cache is not None:
             out["speaker_cache_hits"] = self._speaker_cache.hits
             out["speaker_cache_misses"] = self._speaker_cache.misses

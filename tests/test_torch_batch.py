@@ -7,7 +7,9 @@ speaker segment: dit_forward_cfg, the three-segment blockwise forward
 bf16; the per-row seeded noise; sample_pipeline_batch and
 sample_pipeline_stream_batch against the JAX functions on the same requests
 and seeds, and the stream batch's per-row early stop; apply_rope with
-per-row (B, S, D/2) tables.
+per-row (B, S, D/2) tables; the stream rows' bf16 gap to their solo
+streams, split between the stateful decode and the sampled latents, in each
+package against its own.
 
 Tolerances. fp32: atol 1e-5 / rtol 1e-4 for modules, rel-L2 <= 1e-4 for
 audio. bf16: both packages run the same bf16 weights and inputs, and their
@@ -357,3 +359,130 @@ def test_stream_batch_early_stop_per_row(both, monkeypatch, flat):
     spl = ttts.ae_cfg.frame_length
     assert [got[i].shape[-1] for i in range(2)] == [(64 if f is None else f) * spl for f in flat]
     assert yields == (2 if flat[1] is None else 1)
+
+
+# ---------------------------------------------------------------------------
+# the stream rows' bf16 gap: batched against solo, each package against its own
+# ---------------------------------------------------------------------------
+
+SPLIT_FLOOR = 1e-3  # rel-L2 under which a batched-vs-solo gap counts as none
+
+
+def _bf16_pair(both):
+    """(JAX EchoTTS, port EchoTTS), both with the DiT and the AE in bf16."""
+    import dataclasses
+
+    jtts, ttts = both
+    jd, ja = np_tree(jtts.dit_params), np_tree(jtts.ae_params)
+    bf = lambda tree: jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.bfloat16), tree)  # noqa: E731
+    return (dataclasses.replace(jtts, dit_params=bf(jd), ae_params=bf(ja),
+                                model_dtype=jnp.bfloat16),
+            dataclasses.replace(
+                ttts, dit_params=dit_params_from_numpy(jd, CFG, device="cpu", dtype=torch.bfloat16),
+                ae_params=ae_params_from_numpy(ja, ACFG, device="cpu", dtype=torch.bfloat16),
+                model_dtype=torch.bfloat16))
+
+
+def _gap(batched, solos) -> float:
+    """The largest rel-L2 of a batched row from its solo run."""
+    return max(rel_l2(np.asarray(batched[r], np.float32), np.asarray(s, np.float32))
+               for r, s in enumerate(solos))
+
+
+def _decode_gap(jtts, ttts, z, name) -> float:
+    """(i): two 8-frame steps of the stateful decode of `z` (2, D, 16), the
+    two rows batched against each alone."""
+    from echo_tts_tpu.models import s1dac as js1
+
+    if name == "jax":
+        params, acfg, init = jtts.ae_params, JACFG, js1.streaming_decode_init
+        step = jax.jit(js1.decode_zq_stream_step, static_argnums=(1, 4))
+        cast = lambda a: jnp.asarray(a, jnp.bfloat16)  # noqa: E731
+    else:
+        params, acfg, init, step = ttts.ae_params, ACFG, ts1.streaming_decode_init, \
+            ts1.decode_zq_stream_step
+        cast = lambda a: torch.from_numpy(a).to(torch.bfloat16)  # noqa: E731
+
+    def run(rows):
+        st, out = init(params, acfg, len(rows)), []
+        for a, b in ((0, 8), (8, 16)):
+            audio, st = step(params, acfg, st, cast(z[rows, :, a:b]))
+            out.append(np.asarray(audio.float() if name == "port" else audio, np.float32))
+        return np.concatenate(out, -1)
+
+    return _gap(run([0, 1]), [run([r]) for r in range(2)])
+
+
+def _latents_gap(jtts, ttts, noise, name) -> float:
+    """(ii): the latents of two streams on 8-latent blocks (the prompted
+    request first, as on the card: the other row's speaker segment is
+    padded), batched against each alone: the sampling half of each
+    package's stream_blocks_fused (text and speaker KV, then
+    sample_block_core a block, which appends the block's latent KV), the
+    JAX package's in one jit."""
+    from functools import partial
+
+    from echo_tts_tpu.sampling.blockwise import sample_block_core as j_block
+    from echo_tts_tpu_torch.sampling.blockwise import sample_block_core as t_block
+
+    reqs = [_requests(2)[1], _requests(2)[0]]
+    sizes = tpipe._block_schedule(8, SAMPLER["sequence_length"], CFG.speaker_patch_size)
+    total = sum(sizes)
+
+    def blocks(m, block, sc, tts, spk, sm, ids, tm, nz, zeros):
+        p = tts.dit_params
+        kv_t = m.get_kv_cache_text(p, tts.dit_cfg, ids, tm)
+        kv_s = m.get_kv_cache_speaker(p, tts.dit_cfg, spk.astype(tts.model_dtype)
+                                      if name == "jax" else spk.to(tts.model_dtype))
+        lat = m.init_latent_kv_state(p, tts.dit_cfg, ids.shape[0], total, tts.model_dtype)
+        prefix, start = zeros, 0
+        for bs in sizes:
+            prefix, lat = block(p, tts.dit_cfg, sc, prefix, lat, start, nz[:, start:start + bs],
+                                tm, sm, kv_t, kv_s, bs, total, tts.model_dtype)
+            start += bs
+        return prefix
+
+    def run(rows):
+        if name == "jax":
+            preps = [jpipe._prepare_inputs(jtts, reqs[r][0], reqs[r][1], True, None, None, True)
+                     for r in rows]
+            ids, tm, spk, sm = (np.concatenate([jpipe._pad_to(np.asarray(p[i]), max(
+                q[i].shape[1] for q in preps)) for p in preps]) for i in (0, 1, 3, 4))
+            fn = jax.jit(partial(blocks, jdit, lambda *a: j_block(*a[:5], jnp.int32(a[5]),
+                                                                  *a[6:]),
+                                 jc.SamplerConfig(**SAMPLER), jtts))
+            return np.asarray(fn(spk, sm, ids, tm, noise[rows],
+                                 jnp.zeros((len(rows), total, 80), jnp.float32)))
+        preps = [tpipe._prepare_inputs(ttts, reqs[r][0], reqs[r][1], True, None, None, True)
+                 for r in rows]
+        ids, tm, spk, sm = tpipe._stack_padded(preps, "cpu")
+        with torch.no_grad():
+            return blocks(tdit, t_block, tc.SamplerConfig(**SAMPLER), ttts, spk, sm, ids, tm,
+                          torch.from_numpy(noise[rows]), torch.zeros(len(rows), total, 80)
+                          ).float().numpy()
+
+    return _gap(run([0, 1]), [run([r])[0] for r in range(2)])
+
+
+@pytest.mark.parametrize("part", ["decode", "latents"])
+def test_stream_rows_bf16_gap_matches_jax(both, part):
+    """The gap of a stream row at B=2 from its solo stream, in bf16, split in
+    two and read in each package on the same weights and inputs: (i) the
+    stateful decode of identical latents, batched against solo; (ii) the
+    sampled latents of the stream rows against each row's solo stream on
+    the same noise. The port's gap stays within BF16_FACTOR times the JAX
+    package's own, or under SPLIT_FLOOR. On these inputs both packages
+    read 0 for both parts: on the CPU a row's bits do not depend on the
+    batch, so a fault in the per-row paths (the latent-KV append at B>1,
+    the per-row RoPE, the padded speaker segment, the per-row decoder
+    position) would show here as a gap of its own."""
+    jtts, ttts = _bf16_pair(both)
+    rng = np.random.default_rng(31)
+    if part == "decode":
+        z = (0.5 * rng.standard_normal((2, ACFG.latent_dim, 16))).astype(np.float32)
+        gaps = {n: _decode_gap(jtts, ttts, z, n) for n in ("jax", "port")}
+    else:
+        noise = rng.standard_normal((2, SAMPLER["sequence_length"], 80)).astype(np.float32)
+        gaps = {n: _latents_gap(jtts, ttts, noise, n) for n in ("jax", "port")}
+    print(f"bf16 {part}, batched-vs-solo rel-L2: JAX {gaps['jax']:.3e}, port {gaps['port']:.3e}")
+    assert gaps["port"] <= max(BF16_FACTOR * gaps["jax"], SPLIT_FLOOR), gaps

@@ -30,6 +30,11 @@ bounded), the JAX references computed here in the parent.
   tail through the followers; `serve --tp 2 --max-batch 2 --continuous`'s /tts_stream
   equal to a tp=2 continuous Engine's chunks (the continuous group under tp
   is held in tests/test_torch_mesh_continuous.py);
+* the bounds (parallel/mesh.py): a follower idle for twice the world
+  group's timeout, then a request equal to tp=1's (F9: the control group is
+  a group of its own); a rank that leaves or hangs inside a pipeline call,
+  rank 0's generate raising within four times the collective bound and
+  the engine refusing the next call; a rendezvous that a rank never joins;
 * the pieces that need no group: specs, shard_params, auto_mesh_config, the
   nccl refusal, K5's scale-only and codes-at-a-scale modes.
 """
@@ -532,6 +537,76 @@ def test_engine_tp_warmup_background(engine_run):
     out = engine_run[0]
     assert out["warmup_s"] > 0 and out["tail_running"] is True
     assert out["tail_after"] is False and out["tail_combos"] == 3
+
+
+BOUND_S = 5.0  # the collective bound the tests below give initialize_multihost
+
+
+def _tp1_request(seed=1):
+    from echo_tts_tpu_torch.bench.trace import random_tts
+    from echo_tts_tpu_torch.pipeline.pipeline import sample_pipeline
+
+    with torch.no_grad():
+        return sample_pipeline(random_tts(torch.device("cpu"), tiny=True), TEXT, None, seed,
+                               sc=tc.SamplerConfig(**HTTP_SC), normalize_text=True)[0]
+
+
+def test_engine_tp_follower_outlives_the_collective_bound(tmp_path):
+    """F9: rank 1 of a tp=2 engine waits in follow() for twice the world
+    group's timeout while rank 0 is idle, then serves a request whose audio
+    equals the tp=1 call's (the suite's tp tolerance), with nothing in
+    follow_errors, and close() stops both ranks. The waits of the control
+    group are not the world's: under gloo the control group was the world
+    group, and this follower left after BOUND_S. Every other group carries
+    the bound."""
+    torch.save({"sc": tc.SamplerConfig(**HTTP_SC), "text": TEXT}, tmp_path / "inputs.pt")
+    collect = spawn_ranks("idle", 2, tmp_path / "run", timeout=120, bound_s=BOUND_S)
+    ref = _tp1_request()
+    lead, follower = collect()
+    assert follower["followed_s"] > 2 * BOUND_S and follower["follow_errors"] == []
+    assert lead["audio"].shape == ref.shape and rel_l2(lead["audio"], ref) <= 1e-5
+    for side in (lead, follower):
+        assert side["timeouts"] == {"world": BOUND_S, "dp": BOUND_S, "tp": BOUND_S,
+                                    "status": BOUND_S,
+                                    "control": tmesh.CONTROL_TIMEOUT.total_seconds()}
+
+
+@pytest.mark.parametrize("how", ["exit", "hang"])
+def test_engine_tp_dead_rank_raises_within_the_bound(tmp_path, how):
+    """Rank 1 leaves (os._exit(1)) or stops answering at the start of its
+    part of a pipeline call: rank 0's generate raises a RuntimeError within
+    a few times the collective bound (its all-reduce, then the status
+    exchange, each wait at most BOUND_S), without a retry; the next
+    generate is refused at once, naming the lost tp group; health() says
+    so and close() returns."""
+    torch.save({"sc": tc.SamplerConfig(**HTTP_SC), "text": TEXT}, tmp_path / "inputs.pt")
+    lead, _ = spawn_ranks("dead", 2, tmp_path / "run", timeout=120,
+                          exits={1: 1 if how == "exit" else 0}, bound_s=BOUND_S, how=how)()
+    assert "the tp group is lost" in lead["first"], lead["first"]
+    assert lead["first_s"] <= 4 * BOUND_S
+    assert "the tp group is lost" in lead["next"] and lead["next_s"] <= 1.0
+    h = lead["health"]
+    assert h["status"] == "lost" and h["failures"] == 2 and h["retries"] == 2
+    assert lead["close_s"] <= 1.0
+
+
+def test_initialize_multihost_bounds(tmp_path):
+    """The defaults are jax.distributed.initialize's (initialization_timeout
+    300 s, heartbeat_timeout_seconds 100 s); a rendezvous that a rank never
+    joins fails after init_timeout, and leaves no process group."""
+    import datetime
+    import inspect
+
+    import torch.distributed as dist
+
+    sig = inspect.signature(tmesh.initialize_multihost).parameters
+    assert sig["init_timeout"].default == tmesh.INIT_TIMEOUT == datetime.timedelta(seconds=300)
+    assert sig["timeout"].default == tmesh.COLLECTIVE_TIMEOUT == datetime.timedelta(seconds=100)
+    t0 = time.monotonic()
+    with pytest.raises(RuntimeError):
+        tmesh.initialize_multihost("file://" + str(tmp_path / "store"), 2, 0, backend="gloo",
+                                   init_timeout=datetime.timedelta(seconds=2))
+    assert 1.5 <= time.monotonic() - t0 <= 30 and not dist.is_initialized()
 
 
 def _free_port() -> int:

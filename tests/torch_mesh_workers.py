@@ -15,11 +15,14 @@ import torch
 TIMEOUT_S = 400.0
 
 
-def spawn_ranks(task: str, world: int, dirpath, timeout: float = TIMEOUT_S, **kw):
+def spawn_ranks(task: str, world: int, dirpath, timeout: float = TIMEOUT_S,
+                exits: dict | None = None, **kw):
     """Start `task` on `world` ranks; returns collect(), which joins them
     (within `timeout` seconds of the start) and gives their results in rank
     order. Raises with a child's traceback when one fails, TimeoutError
-    when one hangs. The parent may compute its references in between."""
+    when one hangs. The parent may compute its references in between.
+    exits: {rank: exit code} of ranks that the task ends itself, with no
+    result (None in the list); every other rank must end with code 0."""
     import torch.multiprocessing as mp
 
     dirpath = str(dirpath)
@@ -28,14 +31,29 @@ def spawn_ranks(task: str, world: int, dirpath, timeout: float = TIMEOUT_S, **kw
                              join=False, start_method="spawn")
     deadline = time.monotonic() + timeout
 
+    def fail(err: Exception):
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+        raise err
+
     def collect() -> list:
-        while not ctx.join(timeout=max(0.1, deadline - time.monotonic())):
-            if time.monotonic() > deadline:
-                for p in ctx.processes:
-                    if p.is_alive():
-                        p.kill()
-                raise TimeoutError(f"{task}: ranks still running after {timeout} s")
-        return [torch.load(os.path.join(dirpath, f"rank{r}.pt"), weights_only=False)
+        late = TimeoutError(f"{task}: ranks still running after {timeout} s")
+        if exits:
+            # ProcessContext.join would end the other ranks at the first
+            # non-zero exit
+            for r, p in enumerate(ctx.processes):
+                p.join(max(0.1, deadline - time.monotonic()))
+                if p.is_alive():
+                    fail(late)
+                if p.exitcode != exits.get(r, 0):
+                    fail(RuntimeError(f"{task}: rank {r} exited with {p.exitcode}"))
+        else:
+            while not ctx.join(timeout=max(0.1, deadline - time.monotonic())):
+                if time.monotonic() > deadline:
+                    fail(late)
+        return [None if exits and r in exits else
+                torch.load(os.path.join(dirpath, f"rank{r}.pt"), weights_only=False)
                 for r in range(world)]
 
     return collect
@@ -47,11 +65,19 @@ def run_ranks(task: str, world: int, dirpath, timeout: float = TIMEOUT_S, **kw) 
 
 
 def _rank_main(rank: int, task: str, world: int, dirpath: str, kw: dict) -> None:
-    from echo_tts_tpu_torch.parallel.mesh import destroy, initialize_multihost
+    """One rank: a gloo group on the CPU; kw["bound_s"], when given, is the
+    collective bound (initialize_multihost's timeout) in seconds, and goes
+    to the task too."""
+    import datetime
+
+    from echo_tts_tpu_torch.parallel.mesh import COLLECTIVE_TIMEOUT, destroy, initialize_multihost
 
     torch.set_num_threads(2)
+    bound = kw.get("bound_s")
     initialize_multihost("file://" + os.path.join(dirpath, "store"), world, rank,
-                         backend="gloo", device="cpu")
+                         backend="gloo", device="cpu",
+                         timeout=COLLECTIVE_TIMEOUT if bound is None
+                         else datetime.timedelta(seconds=bound))
     try:
         out = TASKS[task](rank, dirpath, **kw)
         torch.save(out, os.path.join(dirpath, f"rank{rank}.pt"))
@@ -416,6 +442,81 @@ def task_engine(rank: int, dirpath: str) -> dict:
     return out
 
 
+def _timeouts(mesh) -> dict:
+    """The timeout (s) of the world group and of each group of the mesh."""
+    import torch.distributed as dist
+
+    def of(g):
+        return g._get_backend(torch.device("cpu")).options._timeout.total_seconds()
+
+    return {"world": of(dist.group.WORLD), "dp": of(mesh.dp_group), "tp": of(mesh.tp_group),
+            "status": of(mesh.status), "control": of(mesh.control)}
+
+
+def task_idle(rank: int, dirpath: str, bound_s: float) -> dict:
+    """F9: a tp=2 engine whose leader stays idle for twice the collective
+    bound before its first request, while rank 1 waits in follow()."""
+    from echo_tts_tpu_torch.bench.trace import random_tts
+    from echo_tts_tpu_torch.serve.engine import Engine
+
+    inp = _load(dirpath)
+    mesh = _mesh(1, 2)
+    eng = Engine(random_tts(torch.device("cpu"), tiny=True), mesh=mesh)
+    out = {"timeouts": _timeouts(mesh)}
+    if rank != 0:
+        t0 = time.monotonic()
+        eng.follow()
+        return {**out, "followed_s": time.monotonic() - t0,
+                "follow_errors": list(eng.follow_errors)}
+    time.sleep(2 * bound_s)
+    try:
+        out["audio"] = _bounded(lambda: eng.generate(inp["text"], None, seed=1, sc=inp["sc"]),
+                                "a request after an idle spell")[0]
+    finally:
+        eng.close()
+    return out
+
+
+def task_dead(rank: int, dirpath: str, bound_s: float, how: str) -> dict:
+    """A rank that leaves (how="exit": os._exit(1)) or stops answering
+    (how="hang": it waits, without exiting, until rank 0 is done) at the
+    start of its part of a pipeline call of a tp=2 engine: rank 0's
+    generate raises, and the engine refuses the next call."""
+    from echo_tts_tpu_torch.bench.trace import random_tts
+    from echo_tts_tpu_torch.serve.engine import Engine
+
+    inp = _load(dirpath)
+    done = os.path.join(dirpath, "done")
+    mesh = _mesh(1, 2)
+    eng = Engine(random_tts(torch.device("cpu"), tiny=True), mesh=mesh, max_retries=1)
+    if rank != 0:
+        def leave(*a):
+            if how == "exit":
+                os._exit(1)
+            deadline = time.monotonic() + 120
+            while not os.path.exists(done) and time.monotonic() < deadline:
+                time.sleep(0.05)
+            os._exit(0)
+
+        eng._op_pipeline = leave
+        eng.follow()
+        return {}
+    out = {}
+    try:
+        for name in ("first", "next"):
+            t0 = time.monotonic()
+            out[name] = _bounded(lambda: _error_of(lambda: eng.generate(
+                inp["text"], None, seed=1, sc=inp["sc"])), f"the {name} request", 60 * bound_s)
+            out[name + "_s"] = time.monotonic() - t0
+        out["health"] = eng.health()
+        t0 = time.monotonic()
+        _bounded(eng.close, "close()", 60 * bound_s)
+        out["close_s"] = time.monotonic() - t0
+    finally:
+        open(done, "w").close()
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Engine(mesh, continuous=True) at tp=2: rank 0 schedules, rank 1 follows
 # ---------------------------------------------------------------------------
@@ -660,4 +761,5 @@ def task_continuous(rank: int, dirpath: str) -> dict:
 
 
 TASKS = {"forward": task_forward, "sample_dp": task_sample_dp, "train": task_train,
-         "checkpoint": task_checkpoint, "engine": task_engine, "continuous": task_continuous}
+         "checkpoint": task_checkpoint, "engine": task_engine, "continuous": task_continuous,
+         "idle": task_idle, "dead": task_dead}
