@@ -14,7 +14,8 @@ zero pad and are re-zeroed after every unit.
 `csrc/conv_core.cuh`, one launch per unit) for CUDA tensors and the plain
 PyTorch version for CPU tensors; anything the kernel does not take raises.
 `res_units_cl.launches` counts kernel launches. The wrapper cuts each unit's
-weights into the kernel's strip tiles (`unit_operands`, `UNIT_TILES`).
+weights into the kernel's strip tiles (`unit_operands`, `UNIT_TILES`) on
+every call, the span `k2.pack`.
 """
 from __future__ import annotations
 
@@ -22,6 +23,8 @@ import ctypes
 from typing import Optional, Sequence
 
 import torch
+
+from echo_tts_tpu_torch.utils.profiling import span
 
 # sin²(t) as a range-reduced polynomial: r = t/π, f = r - round(r),
 # z = f², sin²(t) = z·P(z) with a degree-6 least-squares P (max |err| 2.3e-10)
@@ -184,7 +187,8 @@ def _res_chain_cuda(x, units, dilations, zero_below):
     stream = torch.cuda.current_stream(x.device).cuda_stream
     z = torch.empty_like(x) if z_scratch else None
     for u, d in zip(units, dilations, strict=True):
-        w7, b7, a1, inv1, a2, inv2, w1, b1 = unit_operands(u, c, x.device)
+        with span("k2.pack", "launch", width=c):
+            w7, b7, a1, inv1, a2, inv2, w1, b1 = unit_operands(u, c, x.device)
         out = torch.empty_like(x)
         err = _fn()(x.data_ptr(), w7.data_ptr(), b7.data_ptr(), a1.data_ptr(),
                     inv1.data_ptr(), a2.data_ptr(), inv2.data_ptr(), w1.data_ptr(),

@@ -28,7 +28,6 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
-import time
 from typing import Callable, Optional, Tuple
 
 import numpy as np
@@ -59,6 +58,7 @@ from echo_tts_tpu_torch.sampling.euler_cfg import (
     draw_noise,
     sample_euler_cfg_independent_guidances,
 )
+from echo_tts_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -108,8 +108,9 @@ def _sample_and_decode(dit_params, dit_cfg, sc, ae_params, ae_cfg, pca,
     latents = sample_euler_cfg_independent_guidances(
         dit_params, dit_cfg, sc, speaker_latent, speaker_mask, ids, text_mask,
         noise, model_dtype=model_dtype)
-    z_q = pca_mod.deproject(pca, latents).to(s1dac.params_dtype(ae_params))
-    audio = s1dac.decode_zq(ae_params, ae_cfg, z_q)
+    with span("codec.decode", "launch"):
+        z_q = pca_mod.deproject(pca, latents).to(s1dac.params_dtype(ae_params))
+        audio = s1dac.decode_zq(ae_params, ae_cfg, z_q)
     return latents, audio.float()
 
 
@@ -136,26 +137,29 @@ def _prepare_inputs(tts: EchoTTS, text_prompt: str, speaker_audio: Optional[np.n
     exactly the encode it replaces, also across per-request PipelineConfig
     overrides (the JAX package's key leaves the two settings out); a hit
     sets timings["speaker_encode_cache_hit"]. Eviction is the caller's
-    (serve.Engine keeps an LRU)."""
+    (serve.Engine keeps an LRU). The lookup and the encode are the span
+    `codec.encode` (its `cache_hit` says which); with no speaker audio
+    timings["speaker_encode"] is 0.0."""
     pc = tts.pipe_cfg
     timings = {}
 
-    t0 = time.perf_counter()
-    max_text = min(pad_to_max_text_length or pc.max_text_length, pc.max_text_length)
-    ids, text_mask, normalized = tok.get_text_input_ids_and_mask(
-        [text_prompt], max_length=max_text, normalize=normalize_text)
-    if pad_to_max_text_length is None and use_buckets:
-        bucket = find_min_bucket_gte(pc.text_buckets, int(text_mask.sum()))
-        ids = _pad_to(ids, bucket)
-        text_mask = _pad_to(text_mask, bucket)
-    timings["tokenize"] = time.perf_counter() - t0
+    with span("pipeline.tokenize", "host") as sp:
+        max_text = min(pad_to_max_text_length or pc.max_text_length, pc.max_text_length)
+        ids, text_mask, normalized = tok.get_text_input_ids_and_mask(
+            [text_prompt], max_length=max_text, normalize=normalize_text)
+        if pad_to_max_text_length is None and use_buckets:
+            bucket = find_min_bucket_gte(pc.text_buckets, int(text_mask.sum()))
+            ids = _pad_to(ids, bucket)
+            text_mask = _pad_to(text_mask, bucket)
+    timings["tokenize"] = sp.seconds
 
-    t0 = time.perf_counter()
     if speaker_audio is None:
         n = pad_to_max_speaker_latent_length or 4
         speaker_latent = np.zeros((1, n, tts.dit_cfg.latent_size), np.float32)
         speaker_mask = np.zeros((1, n), bool)
-    else:
+        timings["speaker_encode"] = 0.0
+        return ids, text_mask, normalized, speaker_latent, speaker_mask, timings
+    with span("codec.encode", "launch") as sp:
         cache_key = cached = None
         if speaker_cache is not None:
             arr = np.ascontiguousarray(np.asarray(speaker_audio))
@@ -163,6 +167,7 @@ def _prepare_inputs(tts: EchoTTS, text_prompt: str, speaker_audio: Optional[np.n
                          pad_to_max_speaker_latent_length, pc.max_speaker_latent_length,
                          pc.audio_chunk_latents)
             cached = speaker_cache.get(cache_key)
+        sp.set(cache_hit=cached is not None)
         if cached is not None:
             speaker_latent, speaker_mask = cached
             timings["speaker_encode_cache_hit"] = 1.0
@@ -179,7 +184,7 @@ def _prepare_inputs(tts: EchoTTS, text_prompt: str, speaker_audio: Optional[np.n
             bucket = find_min_bucket_gte(pc.speaker_buckets, speaker_latent.shape[1])
             speaker_latent = _pad_to(speaker_latent, bucket)
             speaker_mask = _pad_to(speaker_mask, bucket)
-    timings["speaker_encode"] = time.perf_counter() - t0
+    timings["speaker_encode"] = sp.seconds
     return ids, text_mask, normalized, speaker_latent, speaker_mask, timings
 
 
@@ -211,40 +216,45 @@ def sample_pipeline(
     package for the same seed). `speaker_cache`: see `_prepare_inputs`."""
     sc = sc or SamplerConfig()
     dev = tts.device
-    (ids, text_mask, normalized, speaker_latent, speaker_mask,
-     timings) = _prepare_inputs(tts, text_prompt, speaker_audio, normalize_text,
-                                pad_to_max_text_length, pad_to_max_speaker_latent_length,
-                                use_buckets, speaker_cache=speaker_cache)
-    spk_t, smask_t = (torch.as_tensor(speaker_latent, device=dev),
-                      torch.as_tensor(speaker_mask, device=dev))
-    ids_t, tmask_t = torch.as_tensor(ids, device=dev), torch.as_tensor(text_mask, device=dev)
+    with span("pipeline.prepare", "host", rows=1) as prep:
+        (ids, text_mask, normalized, speaker_latent, speaker_mask,
+         timings) = _prepare_inputs(tts, text_prompt, speaker_audio, normalize_text,
+                                    pad_to_max_text_length, pad_to_max_speaker_latent_length,
+                                    use_buckets, speaker_cache=speaker_cache)
+        spk_t, smask_t = (torch.as_tensor(speaker_latent, device=dev),
+                          torch.as_tensor(speaker_mask, device=dev))
+        ids_t, tmask_t = torch.as_tensor(ids, device=dev), torch.as_tensor(text_mask, device=dev)
+        if sample_fn is None:
+            shape = (1, sc.sequence_length, tts.dit_cfg.latent_size)
+            noise_t = (draw_noise(rng_seed, shape, dev) if noise is None
+                       else torch.as_tensor(np.asarray(noise), dtype=torch.float32, device=dev))
 
-    t0 = time.perf_counter()
+    # the stage walls are read off the spans' own clock stamps
     if sample_fn is None:
-        shape = (1, sc.sequence_length, tts.dit_cfg.latent_size)
-        noise_t = (draw_noise(rng_seed, shape, dev) if noise is None
-                   else torch.as_tensor(np.asarray(noise), dtype=torch.float32, device=dev))
         latents, audio = _sample_and_decode(
             tts.dit_params, tts.dit_cfg, sc, tts.ae_params, tts.ae_cfg, tts.pca, spk_t,
             smask_t, ids_t, tmask_t, noise_t, tts.model_dtype)
-        audio = audio.cpu().numpy()
-        timings["sample"] = time.perf_counter() - t0
+        with span("pipeline.readback", "sync") as rb:
+            audio = audio.cpu().numpy()
+        timings["sample"] = (rb.t1 - prep.t1) * 1e-9
         timings["vocoder"] = 0.0
     else:
         latents = sample_fn(spk_t, smask_t, ids_t, tmask_t, rng_seed)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
-        timings["sample"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        audio = ae_decode(tts.ae_params, tts.ae_cfg, tts.pca, latents).cpu().numpy()
-        timings["vocoder"] = time.perf_counter() - t0
+        with span("codec.decode", "launch") as dec:
+            audio = ae_decode(tts.ae_params, tts.ae_cfg, tts.pca, latents)
+        with span("pipeline.readback", "sync") as rb:
+            audio = audio.cpu().numpy()
+        timings["sample"] = (dec.t0 - prep.t1) * 1e-9
+        timings["vocoder"] = (rb.t1 - dec.t0) * 1e-9
     timings["samples_before_crop"] = float(audio.shape[-1])
     timings["finite_before_crop"] = float(np.isfinite(audio).all())
 
-    t0 = time.perf_counter()
-    audio = crop_audio_to_flattening_point(audio, latents[0],
-                                           samples_per_latent=tts.ae_cfg.frame_length)
-    timings["crop"] = time.perf_counter() - t0
+    with span("pipeline.crop", "host") as sp:
+        audio = crop_audio_to_flattening_point(audio, latents[0],
+                                               samples_per_latent=tts.ae_cfg.frame_length)
+    timings["crop"] = sp.seconds
     return audio, normalized[0], timings
 
 
@@ -273,29 +283,29 @@ def sample_pipeline_batch(tts: EchoTTS, requests, sc: Optional[SamplerConfig] = 
     see `_prepare_inputs`."""
     sc = sc or SamplerConfig()
     dev = tts.device
-    preps = [_prepare_inputs(tts, text, spk, normalize_text, None, None, True,
-                             speaker_cache=speaker_cache)
-             for text, spk, _seed in requests]
-    ids, text_mask, speaker_latent, speaker_mask = _stack_padded(preps, dev)
-
-    t0 = time.perf_counter()
-    noise = draw_noise([seed for _text, _spk, seed in requests],
-                       (len(requests), sc.sequence_length, tts.dit_cfg.latent_size), dev)
+    with span("pipeline.prepare", "host", rows=len(requests)) as prep:
+        preps = [_prepare_inputs(tts, text, spk, normalize_text, None, None, True,
+                                 speaker_cache=speaker_cache)
+                 for text, spk, _seed in requests]
+        ids, text_mask, speaker_latent, speaker_mask = _stack_padded(preps, dev)
+        noise = draw_noise([seed for _text, _spk, seed in requests],
+                           (len(requests), sc.sequence_length, tts.dit_cfg.latent_size), dev)
     latents, audio = _sample_and_decode(
         tts.dit_params, tts.dit_cfg, sc, tts.ae_params, tts.ae_cfg, tts.pca, speaker_latent,
         speaker_mask, ids, text_mask, noise, tts.model_dtype)
-    audio = audio.cpu().numpy()
-    sample_wall = time.perf_counter() - t0
+    with span("pipeline.readback", "sync") as rb:
+        audio = audio.cpu().numpy()
+    sample_wall = (rb.t1 - prep.t1) * 1e-9
 
     out = []
     for i, p in enumerate(preps):
         timings = dict(p[5], sample=sample_wall, vocoder=0.0, batch_size=float(len(requests)),
                        samples_before_crop=float(audio.shape[-1]),
                        finite_before_crop=float(np.isfinite(audio[i]).all()))
-        t0 = time.perf_counter()
-        cropped = crop_audio_to_flattening_point(audio[i:i + 1], latents[i],
-                                                 samples_per_latent=tts.ae_cfg.frame_length)
-        timings["crop"] = time.perf_counter() - t0
+        with span("pipeline.crop", "host") as sp:
+            cropped = crop_audio_to_flattening_point(audio[i:i + 1], latents[i],
+                                                     samples_per_latent=tts.ae_cfg.frame_length)
+        timings["crop"] = sp.seconds
         out.append((cropped, p[2][0], timings))
     return out
 
@@ -343,9 +353,10 @@ def _sample_block_and_decode(dit_params, dit_cfg, sc, prefix, lat_state, dec_sta
     prefix, lat_state = sample_block_core(
         dit_params, dit_cfg, sc, prefix, lat_state, start_pos, noise, text_mask,
         speaker_mask, kv_text, kv_speaker, block_size, total_len, model_dtype)
-    z_q = _deprojected(pca, prefix[:, start_pos:start_pos + block_size], ae_params)
-    audio, dec_state = s1dac.decode_zq_stream_step(ae_params, ae_cfg, dec_state, z_q,
-                                                   max_positions)
+    with span("codec.decode", "launch"):
+        z_q = _deprojected(pca, prefix[:, start_pos:start_pos + block_size], ae_params)
+        audio, dec_state = s1dac.decode_zq_stream_step(ae_params, ae_cfg, dec_state, z_q,
+                                                       max_positions)
     return prefix, lat_state, dec_state, audio.float()
 
 
@@ -356,13 +367,14 @@ def _stream_first_block(dit_params, dit_cfg, sc, ae_params, ae_cfg, pca, speaker
     """The stream's prologue and first block: text and speaker KV, zero
     prefix, latent-KV and decoder state, then the first block's step.
     Returns (kv_text, kv_speaker, prefix, lat_state, dec_state, audio)."""
-    kv_text = get_kv_cache_text(dit_params, dit_cfg, ids, text_mask)
-    kv_speaker = get_kv_cache_speaker(dit_params, dit_cfg, speaker_latent.to(model_dtype))
-    b = ids.shape[0]
-    prefix = torch.zeros((b, total_len, dit_cfg.latent_size), dtype=torch.float32,
-                         device=ids.device)
-    lat_state = init_latent_kv_state(dit_params, dit_cfg, b, total_len, model_dtype)
-    dec_state = s1dac.streaming_decode_init(ae_params, ae_cfg, b)
+    with span("sampler.kv", "launch"):
+        kv_text = get_kv_cache_text(dit_params, dit_cfg, ids, text_mask)
+        kv_speaker = get_kv_cache_speaker(dit_params, dit_cfg, speaker_latent.to(model_dtype))
+        b = ids.shape[0]
+        prefix = torch.zeros((b, total_len, dit_cfg.latent_size), dtype=torch.float32,
+                             device=ids.device)
+        lat_state = init_latent_kv_state(dit_params, dit_cfg, b, total_len, model_dtype)
+        dec_state = s1dac.streaming_decode_init(ae_params, ae_cfg, b)
     prefix, lat_state, dec_state, audio = _sample_block_and_decode(
         dit_params, dit_cfg, sc, prefix, lat_state, dec_state, 0, noise, text_mask,
         speaker_mask, kv_text, kv_speaker, ae_params, ae_cfg, pca, block_size, total_len,
@@ -454,28 +466,29 @@ class _StreamEmitter:
         """lat_row: (>= start + bs, latent) latents (a tensor), or None when
         stop_at_flattening is off; audio_row: (1, 1, bs·spl), this block's
         audio. Returns (chunk, possibly empty; stopped)."""
-        end = start + bs
-        is_final = end == self.total
-        audio = np.concatenate([self.held, audio_row], axis=-1)  # [emitted_to, end)
-        self.held = np.zeros((1, 1, 0), np.float32)
+        with span("stream.emit", "host"):
+            end = start + bs
+            is_final = end == self.total
+            audio = np.concatenate([self.held, audio_row], axis=-1)  # [emitted_to, end)
+            self.held = np.zeros((1, 1, 0), np.float32)
 
-        fp = None
-        if self.stop_at_flattening:
-            cand = self.cont_len + int(flattening.find_flattening_point(
-                lat_row[self.cont_len:end]))
-            if cand <= end - self.WINDOW or (is_final and cand < end):
-                fp = cand
-        if fp is not None and fp < end:
-            self.stopped = True
-            return audio[:, :, :max(0, fp - self.emitted_to) * self.spl], True
-        if is_final:
-            self.stopped = True
-            return audio, True
-        hold_from = max(self.emitted_to, end - self.WINDOW)
-        cut = (hold_from - self.emitted_to) * self.spl
-        self.held = audio[:, :, cut:]
-        self.emitted_to = hold_from
-        return audio[:, :, :cut], False
+            fp = None
+            if self.stop_at_flattening:
+                cand = self.cont_len + int(flattening.find_flattening_point(
+                    lat_row[self.cont_len:end]))
+                if cand <= end - self.WINDOW or (is_final and cand < end):
+                    fp = cand
+            if fp is not None and fp < end:
+                self.stopped = True
+                return audio[:, :, :max(0, fp - self.emitted_to) * self.spl], True
+            if is_final:
+                self.stopped = True
+                return audio, True
+            hold_from = max(self.emitted_to, end - self.WINDOW)
+            cut = (hold_from - self.emitted_to) * self.spl
+            self.held = audio[:, :, cut:]
+            self.emitted_to = hold_from
+            return audio[:, :, :cut], False
 
 
 def sample_pipeline_stream(
@@ -512,35 +525,36 @@ def sample_pipeline_stream(
             " this checkpoint was converted with delete_blockwise_modules")
     sc = sc or SamplerConfig()
     dev = tts.device
-    ids, text_mask, _, speaker_latent, speaker_mask, _ = _prepare_inputs(
-        tts, text_prompt, speaker_audio, normalize_text, None, None, True,
-        speaker_cache=speaker_cache)
-    patch = tts.dit_cfg.speaker_patch_size
-    block_sizes = _block_schedule(block_size, sc.sequence_length, patch)
-    spl = tts.ae_cfg.frame_length
+    with span("pipeline.prepare", "host", rows=1):
+        ids, text_mask, _, speaker_latent, speaker_mask, _ = _prepare_inputs(
+            tts, text_prompt, speaker_audio, normalize_text, None, None, True,
+            speaker_cache=speaker_cache)
+        patch = tts.dit_cfg.speaker_patch_size
+        block_sizes = _block_schedule(block_size, sc.sequence_length, patch)
+        spl = tts.ae_cfg.frame_length
 
-    cont_latent, cont_len = None, 0
-    if continuation_audio is not None:
-        # whole frames, encoded in chunks; cropped to the valid length and
-        # then to a multiple of the latent patch size
-        cont_np, cont_mask = get_speaker_latent_and_mask(
-            tts.ae_params, tts.ae_cfg, tts.pca, np.asarray(continuation_audio),
-            max_speaker_latent_length=tts.pipe_cfg.max_speaker_latent_length,
-            audio_chunk_latents=tts.pipe_cfg.audio_chunk_latents, pad_to_max=False)
-        cont_len = int(cont_mask.sum())
-        cont_len -= cont_len % patch
-        if cont_len == 0:
-            raise ValueError("continuation audio shorter than one latent patch")
-        cont_latent = torch.as_tensor(cont_np[:, :cont_len], device=dev)
-        budget = sc.sequence_length - cont_len
-        if budget < 1:
-            raise ValueError(f"continuation occupies {cont_len} of the {sc.sequence_length}"
-                             "-latent budget; nothing left to generate")
-        block_sizes = _block_schedule(block_size, budget, patch)
+        cont_latent, cont_len = None, 0
+        if continuation_audio is not None:
+            # whole frames, encoded in chunks; cropped to the valid length and
+            # then to a multiple of the latent patch size
+            cont_np, cont_mask = get_speaker_latent_and_mask(
+                tts.ae_params, tts.ae_cfg, tts.pca, np.asarray(continuation_audio),
+                max_speaker_latent_length=tts.pipe_cfg.max_speaker_latent_length,
+                audio_chunk_latents=tts.pipe_cfg.audio_chunk_latents, pad_to_max=False)
+            cont_len = int(cont_mask.sum())
+            cont_len -= cont_len % patch
+            if cont_len == 0:
+                raise ValueError("continuation audio shorter than one latent patch")
+            cont_latent = torch.as_tensor(cont_np[:, :cont_len], device=dev)
+            budget = sc.sequence_length - cont_len
+            if budget < 1:
+                raise ValueError(f"continuation occupies {cont_len} of the {sc.sequence_length}"
+                                 "-latent budget; nothing left to generate")
+            block_sizes = _block_schedule(block_size, budget, patch)
 
-    full_noise = draw_noise(rng_seed, (1, sc.sequence_length, tts.dit_cfg.latent_size), dev)
-    offsets = np.cumsum([0] + block_sizes)
-    noises = [full_noise[:, a:b] for a, b in zip(offsets[:-1], offsets[1:])]
+        full_noise = draw_noise(rng_seed, (1, sc.sequence_length, tts.dit_cfg.latent_size), dev)
+        offsets = np.cumsum([0] + block_sizes)
+        noises = [full_noise[:, a:b] for a, b in zip(offsets[:-1], offsets[1:])]
 
     em = _StreamEmitter(cont_len + sum(block_sizes), spl, cont_len, stop_at_flattening)
     for prefix, audio, start, bs in stream_blocks_fused(
@@ -550,7 +564,9 @@ def sample_pipeline_stream(
             torch.as_tensor(text_mask, device=dev), block_sizes, noises, tts.model_dtype,
             continuation_latent=cont_latent):
         lat_row = prefix[0, :start + bs] if stop_at_flattening else None
-        chunk, stopped = em.on_block(lat_row, audio.cpu().numpy(), start, bs)
+        with span("pipeline.readback", "sync"):
+            audio = audio.cpu().numpy()
+        chunk, stopped = em.on_block(lat_row, audio, start, bs)
         yield chunk
         if stopped:
             return
@@ -581,22 +597,25 @@ def sample_pipeline_stream_batch(
     sc = sc or SamplerConfig()
     dev = tts.device
     n = len(requests)
-    preps = [_prepare_inputs(tts, text, spk, normalize_text, None, None, True,
-                             speaker_cache=speaker_cache)
-             for text, spk, _seed in requests]
-    ids, text_mask, speaker_latent, speaker_mask = _stack_padded(preps, dev)
-    block_sizes = _block_schedule(block_size, sc.sequence_length, tts.dit_cfg.speaker_patch_size)
-    full = draw_noise([seed for _t, _s, seed in requests],
-                      (n, sc.sequence_length, tts.dit_cfg.latent_size), dev)
-    offsets = np.cumsum([0] + block_sizes)
-    noises = [full[:, a:b] for a, b in zip(offsets[:-1], offsets[1:])]
+    with span("pipeline.prepare", "host", rows=n):
+        preps = [_prepare_inputs(tts, text, spk, normalize_text, None, None, True,
+                                 speaker_cache=speaker_cache)
+                 for text, spk, _seed in requests]
+        ids, text_mask, speaker_latent, speaker_mask = _stack_padded(preps, dev)
+        block_sizes = _block_schedule(block_size, sc.sequence_length,
+                                      tts.dit_cfg.speaker_patch_size)
+        full = draw_noise([seed for _t, _s, seed in requests],
+                          (n, sc.sequence_length, tts.dit_cfg.latent_size), dev)
+        offsets = np.cumsum([0] + block_sizes)
+        noises = [full[:, a:b] for a, b in zip(offsets[:-1], offsets[1:])]
 
     ems = [_StreamEmitter(sum(block_sizes), tts.ae_cfg.frame_length, 0, stop_at_flattening)
            for _ in range(n)]
     for prefix, audio, start, bs in stream_blocks_fused(
             tts.dit_params, tts.dit_cfg, sc, tts.ae_params, tts.ae_cfg, tts.pca,
             speaker_latent, speaker_mask, ids, text_mask, block_sizes, noises, tts.model_dtype):
-        audio = audio.cpu().numpy()
+        with span("pipeline.readback", "sync"):
+            audio = audio.cpu().numpy()
         out = {}
         for i, em in enumerate(ems):
             if em.stopped:

@@ -24,6 +24,7 @@ from echo_tts_tpu_torch.models.dit import (
 )
 from echo_tts_tpu_torch.sampling.euler_cfg import euler_cfg_scan
 from echo_tts_tpu_torch.sampling.jax_random import jax_fold_in, jax_normal
+from echo_tts_tpu_torch.utils.profiling import span
 
 
 @torch.no_grad()
@@ -67,12 +68,13 @@ def sample_block_core(params: dict, cfg: DiTConfig, sc: SamplerConfig,
                            kv_speaker, model_dtype, rope_q=rope_q, kv_latent=kv_latent,
                            latent_mask=latent_mask, self_len=valid_len)
     # this block's KV conditions the next blocks
-    extend_latent_kv(params, cfg, lat_state, x_out.to(model_dtype), start_pos)
-    if rows:
-        prefix_latent[torch.arange(b, device=dev)[:, None],
-                      row_slots(start_pos, block_size, total_len)] = x_out
-    else:
-        prefix_latent[:, start_pos:start_pos + block_size] = x_out
+    with span("sampler.kv", "launch"):
+        extend_latent_kv(params, cfg, lat_state, x_out.to(model_dtype), start_pos)
+        if rows:
+            prefix_latent[torch.arange(b, device=dev)[:, None],
+                          row_slots(start_pos, block_size, total_len)] = x_out
+        else:
+            prefix_latent[:, start_pos:start_pos + block_size] = x_out
     return prefix_latent, lat_state
 
 

@@ -30,6 +30,7 @@ from echo_tts_tpu_torch.models.dit import (
     get_kv_cache_text,
 )
 from echo_tts_tpu_torch.sampling.jax_random import jax_normal
+from echo_tts_tpu_torch.utils.profiling import span
 
 
 def t_schedule(sc: SamplerConfig) -> np.ndarray:
@@ -131,10 +132,11 @@ def euler_cfg_scan(params: dict, cfg: DiTConfig, sc: SamplerConfig,
             return rescale(v, x, t)
 
         for i in range(sc.num_steps):
-            t, t_next = np.float32(ts[i]), np.float32(ts[i + 1])
-            dt = t_next - t
-            x_mid = x_t + float(np.float32(0.5) * dt) * v_at(x_t, float(t))
-            x_t = x_t + float(dt) * v_at(x_mid, float(t + np.float32(0.5) * dt))
+            with span("sampler.step", "launch", step=i):
+                t, t_next = np.float32(ts[i]), np.float32(ts[i + 1])
+                dt = t_next - t
+                x_mid = x_t + float(np.float32(0.5) * dt) * v_at(x_t, float(t))
+                x_t = x_t + float(dt) * v_at(x_mid, float(t + np.float32(0.5) * dt))
         return x_t
 
     # Euler; with uncond_cache_interval > 1 the uncond branches are refreshed
@@ -143,18 +145,19 @@ def euler_cfg_scan(params: dict, cfg: DiTConfig, sc: SamplerConfig,
     v_ut_c = v_us_c = None
     n_win = 0
     for i in range(sc.num_steps):
-        t, t_next = float(ts[i]), float(ts[i + 1])
-        has_cfg = in_window(t)
-        if has_cfg and n_win % interval == 0:
-            v_cond, v_ut_c, v_us_c = fwd_cfg(x_t, t)
-            v_pred = guide(v_cond, v_ut_c, v_us_c)
-        else:
-            v_pred = fwd_single(x_t, t)
-            if has_cfg:
-                v_pred = guide(v_pred, v_ut_c, v_us_c)
-        n_win += has_cfg
-        v_pred = rescale(v_pred, x_t, t)
-        x_t = x_t + v_pred * float(np.float32(t_next) - np.float32(t))
+        with span("sampler.step", "launch", step=i):
+            t, t_next = float(ts[i]), float(ts[i + 1])
+            has_cfg = in_window(t)
+            if has_cfg and n_win % interval == 0:
+                v_cond, v_ut_c, v_us_c = fwd_cfg(x_t, t)
+                v_pred = guide(v_cond, v_ut_c, v_us_c)
+            else:
+                v_pred = fwd_single(x_t, t)
+                if has_cfg:
+                    v_pred = guide(v_pred, v_ut_c, v_us_c)
+            n_win += has_cfg
+            v_pred = rescale(v_pred, x_t, t)
+            x_t = x_t + v_pred * float(np.float32(t_next) - np.float32(t))
     return x_t
 
 
@@ -186,8 +189,9 @@ def sample_euler_cfg_independent_guidances(
 ) -> torch.Tensor:
     """One-shot sampling. Returns fp32 latents (B, sequence_length, latent)."""
     _check_solver(sc)
-    kv_text = get_kv_cache_text(params, cfg, text_input_ids, text_mask)
-    kv_speaker = get_kv_cache_speaker(params, cfg, speaker_latent.to(model_dtype))
+    with span("sampler.kv", "launch"):
+        kv_text = get_kv_cache_text(params, cfg, text_input_ids, text_mask)
+        kv_speaker = get_kv_cache_speaker(params, cfg, speaker_latent.to(model_dtype))
     x_init = noise.float()
     if sc.truncation_factor is not None:
         x_init = x_init * sc.truncation_factor

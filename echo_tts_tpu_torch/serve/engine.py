@@ -93,7 +93,9 @@ from echo_tts_tpu_torch.pipeline.pipeline import (
 )
 from echo_tts_tpu_torch.pipeline.speaker import ae_reconstruct, find_min_bucket_gte
 from echo_tts_tpu_torch.train.lora import load_lora_checkpoint, merge_lora
+from echo_tts_tpu_torch.utils import profiling
 from echo_tts_tpu_torch.utils.locks import FairLock
+from echo_tts_tpu_torch.utils.profiling import span
 from echo_tts_tpu_torch.utils.queues import drain, put_until_abandoned
 
 log = logging.getLogger("echo_tts_tpu_torch.serve")
@@ -133,10 +135,11 @@ class _LRUCache:
 
 
 class _PendingRequest:
-    """One queued one-shot generation awaiting the micro-batcher."""
+    """One queued one-shot generation awaiting the micro-batcher; `rid`,
+    `t_submit` (perf_counter_ns) and `thread` are stamped by `_enqueue`."""
 
     __slots__ = ("text", "speaker", "seed", "sc", "normalize", "key", "event", "result",
-                 "error")
+                 "error", "rid", "t_submit", "thread")
 
     def __init__(self, text, speaker, seed, sc, normalize, key):
         self.text = text
@@ -156,7 +159,7 @@ class _PendingStream:
     marks a consumer that left, whose chunks are dropped."""
 
     __slots__ = ("text", "speaker", "seed", "sc", "normalize", "block_size", "key", "queue",
-                 "gone")
+                 "gone", "rid", "t_submit", "thread")
     END = object()
 
     def __init__(self, text, speaker, seed, sc, normalize, block_size, key,
@@ -248,6 +251,9 @@ class Engine:
         self._leads = self._mesh is not None and self._mesh.rank == 0
         self._streams = {}
         self._stream_ids = itertools.count()
+        # ids of requests and micro-batches, for the spans (utils/profiling.py)
+        self._request_ids = itertools.count(1)
+        self._batch_ids = itertools.count(1)
         self._groups = {}  # live continuous groups by id, on every rank
         self._group_ids = itertools.count()
         self._stopped = False
@@ -488,15 +494,21 @@ class Engine:
         if gen is not None:
             gen.close()
 
-    def _stream(self, kind: str, **kwargs):
+    def _stream(self, kind: str, batch_attrs: Optional[dict] = None, **kwargs):
         """A device stream whose every step takes the device lock: a
         generator of `_op_stream_next`'s chunks, closed (on every rank) when
-        it ends or its consumer leaves."""
+        it ends or its consumer leaves. Each step is an `engine.stream_block`
+        span carrying `batch_attrs` (the last, which finds the stream over,
+        is marked `end`)."""
         sid = next(self._stream_ids)
+        attrs = dict(batch_attrs or {}, stream=sid)
         try:
-            while True:
-                with self._device():
-                    out = self._dispatch("stream_next", sid, kind, kwargs)
+            for block in itertools.count():
+                with span("engine.stream_block", "host", block=block, **attrs) as sp:
+                    with self._device():
+                        out = self._dispatch("stream_next", sid, kind, kwargs)
+                    if out is None:
+                        sp.set(end=True)
                 if out is None:
                     return
                 yield out
@@ -636,24 +648,26 @@ class Engine:
         if self.max_batch > 1 and not pipe_overrides:
             return self._generate_queued(text, speaker_audio, seed, sc, normalize_text)
         last_err = None
-        for attempt in range(self.max_retries + 1):
-            try:
-                with self._device():
-                    t0 = time.perf_counter()
-                    audio, normalized, timings = self._dispatch(
-                        "pipeline", text, speaker_audio, seed, sc, normalize_text, True,
-                        pipe_overrides)
-                    wall = time.perf_counter() - t0
-                self._bump(requests=1, total_sample_s=wall,
-                           total_audio_s=audio.shape[-1] / self.tts.ae_cfg.sample_rate)
-                timings["total"] = wall
-                return audio, normalized, timings
-            except Exception as e:
-                last_err = e
-                self._bump(retries=1)
-                log.warning("generate attempt %d failed: %s", attempt, e)
-                if self._lost:
-                    break
+        with span("engine.batch", "host", rows=1, padded_rows=1,
+                  request=next(self._request_ids)):
+            for attempt in range(self.max_retries + 1):
+                try:
+                    with self._device():
+                        t0 = time.perf_counter()
+                        audio, normalized, timings = self._dispatch(
+                            "pipeline", text, speaker_audio, seed, sc, normalize_text, True,
+                            pipe_overrides)
+                        wall = time.perf_counter() - t0
+                    self._bump(requests=1, total_sample_s=wall,
+                               total_audio_s=audio.shape[-1] / self.tts.ae_cfg.sample_rate)
+                    timings["total"] = wall
+                    return audio, normalized, timings
+                except Exception as e:
+                    last_err = e
+                    self._bump(retries=1)
+                    log.warning("generate attempt %d failed: %s", attempt, e)
+                    if self._lost:
+                        break
         self._bump(failures=1)
         raise RuntimeError(f"generation failed: {self._lost}" if self._lost else
                            f"generation failed after {attempt + 1} attempts") from last_err
@@ -680,6 +694,8 @@ class Engine:
         with self._qcond:
             if self._shutdown:
                 raise RuntimeError("engine is closed")
+            req.rid, req.thread = next(self._request_ids), threading.get_ident()
+            req.t_submit = time.perf_counter_ns()
             self._queue.append(req)
             self._qcond.notify_all()
 
@@ -709,22 +725,29 @@ class Engine:
                     return
                 # adopt the head request's key, then linger up to
                 # batch_wait_ms for companions with the same key
-                key = self._queue[0].key
-                deadline = time.monotonic() + self.batch_wait_ms / 1e3
-                while sum(r.key == key for r in self._queue) < self.max_batch:
-                    remaining = deadline - time.monotonic()
-                    if remaining <= 0 or self._shutdown:
-                        break
-                    self._qcond.wait(remaining)
-                batch, rest = [], []
-                for r in self._queue:
-                    (batch if r.key == key and len(batch) < self.max_batch else rest).append(r)
-                self._queue = rest
+                bid = next(self._batch_ids)
+                with span("engine.form", "host", batch=bid) as form:
+                    key = self._queue[0].key
+                    deadline = time.monotonic() + self.batch_wait_ms / 1e3
+                    while sum(r.key == key for r in self._queue) < self.max_batch:
+                        remaining = deadline - time.monotonic()
+                        if remaining <= 0 or self._shutdown:
+                            break
+                        self._qcond.wait(remaining)
+                    batch, rest = [], []
+                    for r in self._queue:
+                        (batch if r.key == key and len(batch) < self.max_batch
+                         else rest).append(r)
+                    self._queue = rest
+                    form.set(rows=len(batch), requests=[r.rid for r in batch])
+            for r in batch:
+                profiling.add("engine.queue", "wait", r.t_submit, form.t1, thread=r.thread,
+                              request=r.rid, batch=bid)
             try:
                 if isinstance(batch[0], _PendingStream):
-                    self._run_stream_batch(batch)
+                    self._run_stream_batch(batch, bid)
                 else:
-                    self._run_batch(batch)
+                    self._run_batch(batch, bid)
             except Exception as e:
                 # the run methods handle device failures themselves; anything
                 # else must not kill the dispatcher and strand the waiters
@@ -737,7 +760,7 @@ class Engine:
                         r.event.set()
                 log.exception("micro-batch dispatcher error")
 
-    def _run_batch(self, batch):
+    def _run_batch(self, batch, bid: int):
         sc, normalize = batch[0].sc, batch[0].normalize
         # a power-of-two batch, padded with copies of row 0 (their outputs
         # are dropped)
@@ -745,26 +768,28 @@ class Engine:
         requests = [(r.text, r.speaker, r.seed) for r in batch]
         requests += [requests[0]] * (_pow2_ceil(n) - n)
         last_err = None
-        for attempt in range(self.max_retries + 1):
-            try:
-                with self._device():
-                    t0 = time.perf_counter()
-                    results = self._dispatch("batch", requests, sc, normalize, True)
-                    wall = time.perf_counter() - t0
-                self._bump(requests=n, batches=1, total_sample_s=wall,
-                           total_audio_s=sum(a.shape[-1] for a, _, _ in results[:n])
-                           / self.tts.ae_cfg.sample_rate)
-                for r, (audio, normalized, timings) in zip(batch, results):
-                    timings["total"] = wall
-                    r.result = (audio, normalized, timings)
-                    r.event.set()
-                return
-            except Exception as e:
-                last_err = e
-                self._bump(retries=1)
-                log.warning("batched generate attempt %d failed: %s", attempt, e)
-                if self._lost:
-                    break
+        with span("engine.batch", "host", batch=bid, rows=n, padded_rows=len(requests),
+                  requests=[r.rid for r in batch]):
+            for attempt in range(self.max_retries + 1):
+                try:
+                    with self._device():
+                        t0 = time.perf_counter()
+                        results = self._dispatch("batch", requests, sc, normalize, True)
+                        wall = time.perf_counter() - t0
+                    self._bump(requests=n, batches=1, total_sample_s=wall,
+                               total_audio_s=sum(a.shape[-1] for a, _, _ in results[:n])
+                               / self.tts.ae_cfg.sample_rate)
+                    for r, (audio, normalized, timings) in zip(batch, results):
+                        timings["total"] = wall
+                        r.result = (audio, normalized, timings)
+                        r.event.set()
+                    return
+                except Exception as e:
+                    last_err = e
+                    self._bump(retries=1)
+                    log.warning("batched generate attempt %d failed: %s", attempt, e)
+                    if self._lost:
+                        break
         self._bump(failures=n)
         for r in batch:
             r.error = RuntimeError(f"generation failed: {self._lost}" if self._lost else
@@ -772,7 +797,7 @@ class Engine:
             r.error.__cause__ = last_err
             r.event.set()
 
-    def _run_stream_batch(self, batch):
+    def _run_stream_batch(self, batch, bid: int):
         """Grouped streams as one batched stream (one request: the solo
         stream). The device lock is held for each block, never across the
         stream or while a client drains its chunks; the batch is padded to
@@ -780,6 +805,8 @@ class Engine:
         sc, normalize = batch[0].sc, batch[0].normalize
         block_size = list(batch[0].block_size)
         n = len(batch)
+        attrs = {"batch": bid, "rows": n, "padded_rows": _pow2_ceil(n),
+                 "requests": [r.rid for r in batch]}
         t0 = time.perf_counter()
         n_samples = [0] * n
         ok = False
@@ -787,7 +814,7 @@ class Engine:
         try:
             if n == 1:
                 r = batch[0]
-                gen = self._stream("solo", text_prompt=r.text, speaker_audio=r.speaker,
+                gen = self._stream("solo", attrs, text_prompt=r.text, speaker_audio=r.speaker,
                                    rng_seed=r.seed, sc=sc, block_size=block_size,
                                    normalize_text=normalize, cached=True)
                 for chunk in gen:
@@ -798,8 +825,8 @@ class Engine:
             else:
                 reqs = [(r.text, r.speaker, r.seed) for r in batch]
                 reqs += [reqs[0]] * (_pow2_ceil(n) - n)
-                gen = self._stream("batch", requests=reqs, sc=sc, block_size=block_size,
-                                   normalize_text=normalize, cached=True)
+                gen = self._stream("batch", attrs, requests=reqs, sc=sc,
+                                   block_size=block_size, normalize_text=normalize, cached=True)
                 for out in gen:
                     for i, chunk in out.items():
                         if i >= n:

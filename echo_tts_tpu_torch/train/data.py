@@ -23,6 +23,7 @@ from echo_tts_tpu_torch.models.pca import PCAState
 from echo_tts_tpu_torch.pipeline.audio_io import load_audio
 from echo_tts_tpu_torch.pipeline.speaker import ae_encode, get_speaker_latent_and_mask
 from echo_tts_tpu_torch.pipeline.tokenizer import get_text_input_ids_and_mask
+from echo_tts_tpu_torch.utils.profiling import span
 from echo_tts_tpu_torch.utils.queues import drain, put_until_abandoned
 
 
@@ -174,7 +175,8 @@ def batches_prefetch(dataset: EchoTTSDataset, batch_size: int,
     t.start()
     try:
         while True:
-            item = q.get()
+            with span("data.wait", "host"):
+                item = q.get()
             if item is end:
                 break
             if isinstance(item, BaseException):

@@ -44,6 +44,8 @@ import torch.distributed as dist
 from echo_tts_tpu_torch.core.config import DiTConfig
 from echo_tts_tpu_torch.train.loss import compute_diffusion_loss
 from echo_tts_tpu_torch.train.lora import LoRAConfig, lora_params
+from echo_tts_tpu_torch.utils import profiling
+from echo_tts_tpu_torch.utils.profiling import span
 
 MAX_CONSECUTIVE_ERRORS = 100
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
@@ -118,7 +120,7 @@ class Optimizer:
             from echo_tts_tpu_torch.parallel.tp import all_reduce_
 
             ok = all_reduce_(ok.float(), op=dist.ReduceOp.MIN, group=self.tp_group)
-        return bool(ok)
+        return _read(lambda: bool(ok), "all_finite")
 
     def _global_norm(self, grads) -> torch.Tensor:
         sq = [g.float().square().sum() for g in grads]
@@ -165,7 +167,7 @@ class Optimizer:
     def _adamw(self, params, grads, state: OptState) -> None:
         tc = self.tc
         norm = self._global_norm(grads)
-        if not bool(norm < tc.max_grad_norm):
+        if not _read(lambda: bool(norm < tc.max_grad_norm), "clip"):
             grads = [(g / norm.to(g.dtype)) * tc.max_grad_norm for g in grads]
         step_size = -self.schedule(state.count)
         count = state.count + 1
@@ -185,8 +187,19 @@ def make_optimizer(tc: TrainConfig, tp_group=None) -> Optimizer:
     return Optimizer(tc, tp_group)
 
 
+def _read(fn, what: str):
+    """fn(), a read of the device that the host waits for: a `train.sync`
+    span, counted in `train.host_syncs`."""
+    profiling.count("train.host_syncs")
+    with span("train.sync", "sync", what=what):
+        return fn()
+
+
 def _to_device(batch: dict, device) -> dict:
-    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+    """The batch on `device`: on the card a copy from pageable host memory
+    first waits for the device's queue to drain, so it is a host sync too."""
+    return _read(lambda: {k: torch.as_tensor(v, device=device) for k, v in batch.items()},
+                 "batch_upload")
 
 
 def _grads(loss: torch.Tensor, leaves: List[torch.Tensor]) -> List[torch.Tensor]:
@@ -247,24 +260,28 @@ def make_train_step(cfg: DiTConfig, tc: TrainConfig, model_dtype=torch.bfloat16,
             model_dtype=model_dtype, train_encoders=train_encoders, **kw)
 
     def train(trained, params, opt_state, generator, batch):
-        leaves = tree_leaves(trained)
-        for p in leaves:
-            p.requires_grad_(True)
-        loss = loss_from(params, generator, batch, leaves[0].device)
-        if dp_group is not None:
-            from echo_tts_tpu_torch.parallel.tp import all_reduce_
+        with span("train.step", "host"):
+            leaves = tree_leaves(trained)
+            for p in leaves:
+                p.requires_grad_(True)
+            with span("train.forward", "launch"):
+                loss = loss_from(params, generator, batch, leaves[0].device)
+            with span("train.backward", "launch"):
+                if dp_group is not None:
+                    from echo_tts_tpu_torch.parallel.tp import all_reduce_
 
-            # this rank's share of the global mean: its masked sum over the
-            # global count of valid elements
-            n_local = torch.as_tensor(batch["latent_mask"]).sum().to(torch.float32)
-            n_global = all_reduce_(n_local.clone().to(loss.device), group=dp_group)
-            loss = loss * (n_local.to(loss.device) / n_global.clamp(min=1))
-            grads = [all_reduce_(g, group=dp_group) for g in _grads(loss, leaves)]
-            loss = all_reduce_(loss.detach().clone(), group=dp_group)
-        else:
-            grads = _grads(loss, leaves)
-        opt_state = opt.apply(leaves, grads, opt_state)
-        return opt_state, loss.detach()
+                    # this rank's share of the global mean: its masked sum over
+                    # the global count of valid elements
+                    n_local = torch.as_tensor(batch["latent_mask"]).sum().to(torch.float32)
+                    n_global = all_reduce_(n_local.clone().to(loss.device), group=dp_group)
+                    loss = loss * (n_local.to(loss.device) / n_global.clamp(min=1))
+                    grads = [all_reduce_(g, group=dp_group) for g in _grads(loss, leaves)]
+                    loss = all_reduce_(loss.detach().clone(), group=dp_group)
+                else:
+                    grads = _grads(loss, leaves)
+            with span("train.optimizer", "launch"):
+                opt_state = opt.apply(leaves, grads, opt_state)
+            return opt_state, loss.detach()
 
     if lora_cfg is None:
 

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from echo_tts_tpu_torch.core.device import resolve_device
+from echo_tts_tpu_torch.utils.profiling import span
 
 # decoder attention + text cross-attention + MLP; the speaker path is left
 # out to preserve voice cloning
@@ -58,8 +59,9 @@ class LoRAWeight:
                 for w, a, b in zip(self.w.unbind(dim), self.a.unbind(dim), self.b.unbind(dim))]
 
     def weight(self) -> torch.Tensor:
-        delta = self.a.float() @ self.b.float()
-        return (self.w.float() + self.scaling * delta).to(self.w.dtype)
+        with span("train.lora_merge", "launch"):
+            delta = self.a.float() @ self.b.float()
+            return (self.w.float() + self.scaling * delta).to(self.w.dtype)
 
 
 def _get(tree: dict, dotted: str):

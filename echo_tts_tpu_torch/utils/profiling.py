@@ -1,8 +1,8 @@
 """Tracing, profiling and speed-of-light figures.
 
-Counterpart of `echo_tts_tpu/utils/profiling.py`:
-  * PhaseTimer: per-phase wall timers (encode / kv-build / sampler / vocoder)
-    with JSON export,
+  * span() / count(): the program's own spans and counters, recorded only
+    between enable() and disable() and handed out by drain() / counters()
+    (below),
   * trace(): a torch.profiler capture written as a chrome trace (open it in
     Perfetto or chrome://tracing),
   * kernel_family() / device_time_by_family(): a profile's device time summed
@@ -10,43 +10,176 @@ Counterpart of `echo_tts_tpu/utils/profiling.py`:
     the rest),
   * speed_of_light(): analytic per-forward floor from tensor-core FLOPs and
     device-memory bytes, the utilization denominator for bench reporting,
-  * metrics_line(): one-line JSON metrics for log scraping.
-The multi-process gather of a metric comes with the multi-GPU slice.
+  * allgather_metric(): one value from every rank.
+
+Spans. `with span(name, kind, **attrs) as sp:` marks a stretch of host work
+at a layer boundary; `sp.seconds` is its duration whether or not recording
+is on, so a caller's timings come from the span's own two clock reads. The
+kind says what the host does meanwhile:
+
+  launch  enqueues device work (the sampler's steps, the codec, K2's packing)
+  sync    waits for the device (`.cpu()`, `bool(tensor)`, a synchronize)
+  host    works on the host alone (tokenize, batch formation, emission)
+  wait    a client waiting on the engine
+
+A record is (id, parent, name, kind, t0, t1, thread, attrs): t0 and t1 from
+`time.perf_counter_ns()` (the clock of `time.perf_counter()`), the parent the
+span open below it on the same thread (0 for a root). A span opened with a
+`batch`, `request` or `requests` attribute passes it on to every span opened
+inside it, so a batch's spans all carry its id. Records go into a ring of
+RING entries; the counter `tracing.dropped` counts the records it lost. With
+recording off (the default) a span costs one flag test and two clock reads,
+and `count()` one flag test.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
-import json
-import logging
+import itertools
 import os
-import time
-from typing import Dict
+import threading
+from time import perf_counter_ns
+from typing import Dict, List, NamedTuple, Optional
 
 from echo_tts_tpu_torch.core.config import DiTConfig
 
-log = logging.getLogger("echo_tts_tpu_torch")
+RING = 1 << 17
+_INHERITED = ("batch", "request", "requests")
 
 
-class PhaseTimer:
-    def __init__(self):
-        self.phases: Dict[str, float] = {}
-        self.counts: Dict[str, int] = {}
+class Record(NamedTuple):
+    id: int
+    parent: int
+    name: str
+    kind: str
+    t0: int
+    t1: int
+    thread: int
+    attrs: dict
 
-    @contextlib.contextmanager
-    def phase(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            dt = time.perf_counter() - t0
-            self.phases[name] = self.phases.get(name, 0.0) + dt
-            self.counts[name] = self.counts.get(name, 0) + 1
 
-    def as_dict(self) -> Dict[str, float]:
-        return {k: round(v, 5) for k, v in self.phases.items()}
+_on = False
+_mu = threading.Lock()
+_ring: "collections.deque[Record]" = collections.deque(maxlen=RING)
+_counts: Dict[str, int] = {}
+_ids = itertools.count(1)
+_local = threading.local()
 
-    def json(self) -> str:
-        return json.dumps(self.as_dict())
+
+def enable() -> None:
+    """Start recording spans and counters (in every thread)."""
+    global _on
+    _on = True
+
+
+def disable() -> None:
+    global _on
+    _on = False
+
+
+def drain() -> List[Record]:
+    """The records held, oldest first; the ring is emptied."""
+    with _mu:
+        out = list(_ring)
+        _ring.clear()
+    return out
+
+
+def counters() -> Dict[str, int]:
+    """A copy of the counters' current values."""
+    with _mu:
+        return dict(_counts)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add n to counter `name` (while recording)."""
+    if _on:
+        with _mu:
+            _counts[name] = _counts.get(name, 0) + n
+
+
+def _keep(rec: Record) -> None:
+    with _mu:
+        if len(_ring) == _ring.maxlen:
+            _counts["tracing.dropped"] = _counts.get("tracing.dropped", 0) + 1
+        _ring.append(rec)
+
+
+def add(name: str, kind: str, t0: int, t1: int, thread: Optional[int] = None, **attrs) -> None:
+    """Record a span whose ends were stamped elsewhere (perf_counter_ns), as
+    a root on `thread` (default: the calling thread): a request's queue wait
+    is known only once the dispatcher takes it, on another thread."""
+    if _on:
+        _keep(Record(next(_ids), 0, name, kind, t0, t1,
+                     threading.get_ident() if thread is None else thread, attrs))
+
+
+class _Clock:
+    """What span() gives while recording is off: the two clock reads."""
+
+    __slots__ = ("t0", "t1")
+
+    def __enter__(self):
+        self.t0 = perf_counter_ns()
+        return self
+
+    def __exit__(self, et, ev, tb):
+        self.t1 = perf_counter_ns()
+        return False
+
+    @property
+    def seconds(self) -> float:
+        return (self.t1 - self.t0) * 1e-9
+
+    def set(self, **attrs) -> None:
+        """Add attributes known only inside the span (kept while recording;
+        call it before the span ends)."""
+
+
+class _Span(_Clock):
+    __slots__ = ("name", "kind", "attrs", "id", "parent", "ctx")
+
+    def __init__(self, name: str, kind: str, attrs: dict):
+        self.name, self.kind, self.attrs = name, kind, attrs
+
+    def __enter__(self):
+        stack = getattr(_local, "stack", None)
+        if stack is None:
+            stack = _local.stack = []
+        up = stack[-1] if stack else None
+        self.parent = up.id if up is not None else 0
+        ctx = up.ctx if up is not None else None
+        own = [k for k in _INHERITED if k in self.attrs]
+        if own:
+            ctx = dict(ctx or {}, **{k: self.attrs[k] for k in own})
+        self.ctx = ctx
+        self.id = next(_ids)
+        stack.append(self)
+        self.t0 = perf_counter_ns()
+        return self
+
+    def __exit__(self, et, ev, tb):
+        self.t1 = perf_counter_ns()
+        stack = _local.stack
+        if stack and stack[-1] is self:
+            stack.pop()
+        elif self in stack:
+            stack.remove(self)
+        attrs = dict(self.ctx, **self.attrs) if self.ctx else self.attrs
+        _keep(Record(self.id, self.parent, self.name, self.kind, self.t0, self.t1,
+                     threading.get_ident(), attrs))
+        return False
+
+    def set(self, **attrs) -> None:
+        self.attrs.update(attrs)
+
+
+def span(name: str, kind: str, **attrs):
+    """A context manager over one stretch of host work (see the module doc):
+    `with span("pipeline.crop", "host") as sp: ...`, then `sp.seconds`."""
+    if not _on:
+        return _Clock()
+    return _Span(name, kind, attrs)
 
 
 @contextlib.contextmanager
@@ -152,11 +285,6 @@ def speed_of_light(cfg: DiTConfig, batch: int, seq: int, ctx: int,
     return {"flops": flops, "t_compute_ms": t_compute * 1e3,
             "t_weights_ms": t_bw * 1e3,
             "floor_ms": max(t_compute, t_bw) * 1e3}
-
-
-def metrics_line(name: str, values: dict) -> None:
-    """Structured one-line JSON metric (each process logs its own)."""
-    log.info("%s", json.dumps({"metric": name, **values}))
 
 
 def allgather_metric(value) -> list:

@@ -438,19 +438,6 @@ def test_speed_of_light_counts_match_jax(batch, seq, ctx):
     assert (tspec["bf16_tflops"], tspec["hbm_gbps"]) == (989.0, 3350.0)
 
 
-def test_phase_timer_and_metrics_line(caplog):
-    timer = tprof.PhaseTimer()
-    with timer.phase("a"):
-        pass
-    with timer.phase("a"):
-        pass
-    assert timer.counts == {"a": 2} and set(timer.as_dict()) == {"a"}
-    assert timer.json().startswith('{"a":')
-    with caplog.at_level("INFO", logger="echo_tts_tpu_torch"):
-        tprof.metrics_line("step", {"ms": 1.5})
-    assert '"metric": "step"' in caplog.text and '"ms": 1.5' in caplog.text
-
-
 def test_trace_writes_a_chrome_trace_and_families_are_named(tmp_path):
     """trace() on the CPU: the capture is written and, with no device event,
     the family split is empty; kernel names fall into the port's families."""
