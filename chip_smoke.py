@@ -43,7 +43,11 @@ Phases, in order; any failure exits non-zero:
      N; every tile shape forced; K5's scale-only and codes-at-a-scale modes
      at the tp=2 and tp=4 widths, quotients at and near half-integers too,
      and K4 at every tp=2 (K, N)), and the wrappers refusing what the kernels
-     do not take;
+     do not take; K6, K7 and K8 (the trunk's elementwise islands) against
+     their plain chains at D = 2048, H = 16 x 128 and SwiGLU's 5888, (G, B,
+     S) in TRUNK_SHAPES, K7 with shared and per-row tables and at tp head
+     offsets 0 and 8: at least 99 % of the elements bit for bit, each within
+     one bf16 ulp (plus one ulp of the terms of a last sum that cancels);
   5. the one-shot slice at the full width of DiTConfig(has_latent_modules=
      False) and AEConfig() in bf16, random weights from a seed: one CFG
      forward and one decode through the kernels against the plain versions;
@@ -199,12 +203,15 @@ Phases, in order; any failure exits non-zero:
      torch._int_mm + the dequantize and the bf16 torch.matmul it replaces,
      and each launch alone; K5, a layer's four quantizations at the same M,
      with GB/s and x bound; the host time a call of K4's and K5's wrappers
-     and of encoding one TMA tensor map; all over CUDA-graph replays.
+     and of encoding one TMA tensor map; K6, K7 and K8 at the one-shot
+     shape (G, B, S = 3, 8, 640) and a stream block's (S = 192), beside
+     their bytes bound and the plain chain, and the host time a call of
+     each wrapper beside its plain chain's; all over CUDA-graph replays.
 The line before the last is the kernel JSON; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX. --slices-only is for
 comparing two trees end to end in one call on one card (run them in turns:
 the host's clock moves more between calls than a kernel change moves it); it
-prints no kernel JSON. The build of the nine sources runs in parallel;
+prints no kernel JSON. The build of the ten sources runs in parallel;
 ptxas serialising a wgmma of K2, of the chain kernel of K2v-cl, K2v-cf and
 K2s, or of K4 (C7512/C7514) fails the run.
 """
@@ -953,6 +960,148 @@ def phase_int8_checks(dev) -> dict:
     return {"int8_gemm": 0.0, "quant_rows": 0.0, "quant_rows_scale": 0.0, "quant_rows_at": 0.0}
 
 
+# the trunk's (G, B, S) in the K6-K8 checks: one-shot and stream blocks, with
+# and without CFG, B = 1 and 8
+TRUNK_SHAPES = ((1, 1, 64), (2, 8, 192), (3, 8, 640), (3, 1, 192), (1, 8, 640))
+
+
+def bf16_ulps(got: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """The distance of two bf16 tensors in units in the last place."""
+    def ordered(x):
+        b = x.contiguous().view(torch.int16).int()
+        return torch.where(b < 0, -(b & 0x7FFF), b)
+
+    return (ordered(got) - ordered(ref)).abs()
+
+
+def bf16_ulp(m: torch.Tensor) -> torch.Tensor:
+    _, e = torch.frexp(m.float().abs().clamp_min(2.0 ** -126))
+    return torch.ldexp(torch.ones_like(m, dtype=torch.float32), e - 8)
+
+
+def trunk_rows_compare(what, got, ref, terms, failures) -> dict:
+    """Max ulps, the share bit for bit, and whether every element lies within
+    one ulp of the result plus one ulp of `terms` (the magnitude of the
+    terms of the chain's last fp32 sum, where one cancels), at least 99 %
+    bit for bit."""
+    d = bf16_ulps(got, ref)
+    diff = (got.float() - ref.float()).abs()
+    tol = bf16_ulp(ref) if terms is None else bf16_ulp(ref) + bf16_ulp(terms)
+    out = {"max_ulps": int(d.max()), "equal_share": float((d == 0).float().mean()),
+           "within_one_ulp_share": float((d <= 1).float().mean()),
+           "bounded": bool((diff <= tol).all())}
+    if not out["bounded"] or out["equal_share"] < 0.99:
+        failures.append(f"{what}: {out}")
+    return out
+
+
+def phase_trunk_rows_checks(dev) -> dict:
+    """K6, K7 and K8 against their plain chains (`ops/trunk_rows.py`) at the
+    trunk's shapes (D = 2048, H = 16 x 128, SwiGLU's 5888; TRUNK_SHAPES): K6
+    without a residual, with one and in its norm mode; K7 on 16 heads, a tp
+    rank's 8 at offsets 0 and 8, tables shared and one a row; K8's sigmoid
+    gate at 2048 and SwiGLU at 5888. At least 99 % of the elements bit for
+    bit, every one within one ulp (plus one ulp of the terms of a last sum
+    that cancels: modulation's shift, RoPE's rotation); the wrappers
+    refusing what the kernels do not take."""
+    from echo_tts_tpu_torch.core.layers import rms_norm
+    from echo_tts_tpu_torch.core.rope import precompute_rope, rope_rows
+    from echo_tts_tpu_torch.ops import trunk_rows as tr
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    bf, eps, failures = torch.bfloat16, 1e-5, []
+    worst = {"trunk_residual_modulate": [], "trunk_qk_norm_rope": [], "trunk_gated_product": []}
+
+    def n(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * scale).to(bf)
+
+    cos_all, sin_all = precompute_rope(128, 1024, device=dev)
+    with torch.no_grad():
+        for g, b, s in TRUNK_SHAPES:
+            x, y, gate = n(g, b, s, 2048, scale=2.0), n(g, b, s, 2048), torch.tanh(n(b, 1, 2048))
+            shift, scale = n(b, 1, 2048, scale=0.5), n(b, 1, 2048, scale=0.5)
+            w = (1 + 0.2 * torch.randn(2048, generator=gen, device=dev)).to(bf)
+            for mode in ("first", "residual", "norm"):
+                yy, gg = (None, None) if mode == "first" else (y, gate)
+                xk = x.clone()
+                ref_x = x if yy is None else x + gg * yy
+                xf = ref_x.float()
+                nrm = xf * torch.rsqrt(xf.pow(2).mean(-1, keepdim=True) + eps)
+                if mode == "norm":
+                    ref, got, terms = (tr.residual_norm_plain(x, yy, gg, w, eps),
+                                       tr.residual_norm(xk, yy, gg, w, eps), None)
+                else:
+                    ref = tr.residual_modulate_plain(x, yy, gg, shift, scale, eps)[1]
+                    got = tr.residual_modulate(xk, yy, gg, shift, scale, eps)[1]
+                    terms = (nrm * (scale.float() + 1)).abs()
+                if not torch.equal(xk, ref_x):
+                    failures.append(f"K6 {mode} at {(g, b, s)}: the residual differs")
+                worst["trunk_residual_modulate"].append(trunk_rows_compare(
+                    f"K6 {mode} at {(g, b, s)}", got, ref, terms, failures))
+            for heads, off, rows in ((16, 0, False), (16, 0, True), (8, 0, False), (8, 8, True)):
+                q, k = n(g, b, s, heads, 128, scale=3.0), n(g, b, s, heads, 128)
+                qw, kw = ((1 + 0.3 * torch.randn(heads, 128, generator=gen, device=dev)).to(bf)
+                          for _ in "qk")
+                if rows:
+                    idx = torch.tensor([0, 64, 256, 448, 17, 5, 900, 300][:b], device=dev)
+                    cos, sin = rope_rows(cos_all, sin_all, idx[:, None] + torch.arange(s, device=dev))
+                else:
+                    cos, sin = cos_all[100:100 + s].contiguous(), sin_all[100:100 + s].contiguous()
+                ref = tr.qk_norm_rope_plain(q, k, qw, kw, cos, sin, off, 16, eps)
+                terms = [torch.linalg.vector_norm(rms_norm(t, tw, eps).float().unflatten(-1, (-1, 2)),
+                                                  dim=-1, keepdim=True).expand(g, b, s, heads, 64, 2)
+                         .flatten(-2) for t, tw in ((q, qw), (k, kw))]
+                got = tr.qk_norm_rope(q, k, qw, kw, cos, sin, off, 16, eps)
+                for which, gt, rf, tm in zip("qk", got, ref, terms):
+                    worst["trunk_qk_norm_rope"].append(trunk_rows_compare(
+                        f"K7 {which}, {heads} heads at {off}, {'row' if rows else 'shared'} tables, "
+                        f"{(g, b, s)}", gt, rf, tm, failures))
+            for act, width in (("sigmoid", 2048), ("silu", 5888)):
+                a, bb = n(g * b * s, width, scale=4.0), n(g * b * s, width)
+                plain, fused = ((tr.sigmoid_gate_plain, tr.sigmoid_gate) if act == "sigmoid"
+                                else (tr.swiglu_plain, tr.swiglu))
+                ref = plain(a, bb)
+                worst["trunk_gated_product"].append(trunk_rows_compare(
+                    f"K8 {act} at ({g * b * s}, {width})", fused(a, bb), ref, None, failures))
+        torch.cuda.synchronize()
+        z, z2048 = (torch.zeros(2, 8, d, dtype=bf, device=dev) for d in (256, 2048))
+        for what, call in (
+                ("fp32 rows", lambda: tr.residual_norm(
+                    z2048.float(), z2048.float(), torch.ones(2, 1, 2048, device=dev),
+                    torch.ones(2048, device=dev), eps)),
+                ("rows of another width than 2048", lambda: tr.residual_modulate(
+                    z, None, None, z[:, :1], z[:, :1], eps)),
+                ("the norm mode without a residual", lambda: tr.residual_norm(
+                    z2048, None, None, torch.ones(2048, dtype=bf, device=dev), eps)),
+                ("a head of 64", lambda: tr.qk_norm_rope(
+                    torch.zeros(1, 2, 4, 64, dtype=bf, device=dev),
+                    torch.zeros(1, 2, 4, 64, dtype=bf, device=dev),
+                    torch.ones(4, 64, dtype=bf, device=dev), torch.ones(4, 64, dtype=bf, device=dev),
+                    cos_all[:2].contiguous(), sin_all[:2].contiguous(), 0, 4, eps)),
+                ("strided operands", lambda: tr.swiglu(z.transpose(0, 1), z.transpose(0, 1))),
+                ("CPU tensors", lambda: tr.sigmoid_gate(z.cpu(), z.cpu()))):
+            before = [f.launches for f in (tr.residual_modulate, tr.residual_norm,
+                                           tr.qk_norm_rope, tr.swiglu, tr.sigmoid_gate)]
+            try:
+                call()
+            except ValueError:
+                log(f"# the trunk-row wrappers refuse {what}")
+            else:
+                failures.append(f"the trunk-row wrappers accepted {what}")
+            if before != [f.launches for f in (tr.residual_modulate, tr.residual_norm,
+                                               tr.qk_norm_rope, tr.swiglu, tr.sigmoid_gate)]:
+                failures.append(f"a refused call ({what}) launched")
+    for name, cmp in worst.items():
+        log(f"# check {name}: {len(cmp)} comparisons, max ulps {max(c['max_ulps'] for c in cmp)}, "
+            f"bit for bit {min(c['equal_share'] for c in cmp):.5f}-"
+            f"{max(c['equal_share'] for c in cmp):.5f}, within one ulp "
+            f"{min(c['within_one_ulp_share'] for c in cmp):.7f}, every element bounded: "
+            f"{all(c['bounded'] for c in cmp)}")
+    if failures:
+        raise SystemExit("trunk-row kernel checks failed: " + "; ".join(failures))
+    return {name: max(c["max_ulps"] for c in cmp) for name, cmp in worst.items()}
+
+
 # ---------------------------------------------------------------------------
 # phase 4b: the measurement-variant kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -1138,7 +1287,8 @@ def phase_kernel_times(dev, errs: dict, launches: dict) -> list:
 
     rows.append(k2_times(dev, gen, errs, launches))
     rows.append(k3_times(dev, gen, errs, launches))
-    return rows + variant_times(dev, errs, launches) + int8_times(dev, errs, launches)
+    return (rows + variant_times(dev, errs, launches) + int8_times(dev, errs, launches)
+            + trunk_rows_times(dev, errs, launches))
 
 
 # the chains of one 640-latent decode and of one 640-latent encode (B=1)
@@ -1705,6 +1855,98 @@ def int8_times(dev, errs: dict, launches: dict) -> list:
             for name in ("quant_rows_scale", "quant_rows_at")]
 
 
+def trunk_rows_times(dev, errs: dict, launches: dict) -> list:
+    """K6, K7 and K8 at the one-shot cell's shape (G = 3, B = 8, S = 640:
+    M = 15,360 rows of 2048) and at a stream block's (S = 192: 4608 rows),
+    device ms over CUDA-graph replays, beside the bytes bound (each operand
+    read once, each output written once, at 3.35 TB/s) and the plain chain's
+    time; then what a call costs the host (`calls` calls at a 192-row shape,
+    one synchronize after), the kernel's wrapper against the plain chain."""
+    from echo_tts_tpu_torch.bench.timing import cuda_ms
+    from echo_tts_tpu_torch.core.rope import precompute_rope
+    from echo_tts_tpu_torch.ops import trunk_rows as tr
+
+    gen = torch.Generator(device=dev).manual_seed(22)
+    bf, eps, d, h, dh, f = torch.bfloat16, 1e-5, 2048, 16, 128, 5888
+
+    def n(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * scale).to(bf)
+
+    def work(g, b, s):
+        m = g * b * s
+        x, y, gate = n(g, b, s, d), n(g, b, s, d), torch.tanh(n(b, 1, d))
+        shift, scale = n(b, 1, d, scale=0.5), n(b, 1, d, scale=0.5)
+        q, k = n(g, b, s, h, dh), n(g, b, s, h, dh)
+        qw, kw = n(h, dh), n(h, dh)
+        cos, sin = (t[:s].contiguous() for t in precompute_rope(dh, s, device=dev))
+        # K8 into a buffer of its own: in place, each replay would feed the
+        # last one's products back (SwiGLU's decay to subnormals within ~100)
+        o, og, u, ug = n(g, b, s, d), n(g, b, s, d), n(g, b, s, f), n(g, b, s, f)
+        o_out, u_out, h_out = torch.empty_like(o), torch.empty_like(u), torch.empty_like(x)
+        return {
+            "trunk_residual_modulate": (
+                lambda: tr.residual_modulate(x, y, gate, shift, scale, eps, h_out),
+                lambda: tr.residual_modulate_plain(x, y, gate, shift, scale, eps),
+                4 * m * d * 2 + 3 * b * d * 2),
+            "trunk_qk_norm_rope": (
+                lambda: tr.qk_norm_rope(q, k, qw, kw, cos, sin, 0, h, eps),
+                lambda: tr.qk_norm_rope_plain(q, k, qw, kw, cos, sin, 0, h, eps),
+                4 * m * h * dh * 2 + 2 * h * dh * 2 + 2 * s * dh // 2 * 4),
+            "trunk_sigmoid_gate": (lambda: tr.sigmoid_gate(o, og, out=o_out),
+                                   lambda: tr.sigmoid_gate_plain(o, og), 3 * m * d * 2),
+            "trunk_swiglu": (lambda: tr.swiglu(u, ug, out=u_out), lambda: tr.swiglu_plain(u, ug),
+                             3 * m * f * 2),
+        }
+
+    at = {}
+    with torch.no_grad():
+        for cell, shape in (("one-shot", (3, 8, 640)), ("stream", (3, 8, 192))):
+            for name, (fused, plain, nbytes) in work(*shape).items():
+                b_ms, _ = bound(0.0, nbytes)
+                row = {"shape": shape, "ms": cuda_ms(fused, graph_iters=GRAPH_ITERS),
+                       "plain_ms": cuda_ms(plain, graph_iters=GRAPH_ITERS), "bound_ms": b_ms,
+                       "bound_by": "bytes", "bytes": nbytes}
+                row["bound_share"] = b_ms / row["ms"]
+                at.setdefault(name, {})[cell] = row
+                log(f"# time {name} at {cell} (G, B, S) = {shape}: kernel {row['ms']:.4f} ms "
+                    f"({nbytes / row['ms'] / 1e6:.0f} GB/s, {100 * row['bound_share']:.1f} % of "
+                    f"its bytes bound {b_ms:.4f} ms); plain chain {row['plain_ms']:.4f} ms")
+        host = {}
+        calls = 400
+        x1 = torch.randn(1, 1, 192, d, device=dev).to(bf)
+        runs = dict(work(1, 1, 192))
+        runs["one PyTorch op (x.mul_(1))"] = (lambda: x1.mul_(1), None, 0)
+        for name, (fused, plain, _) in runs.items():
+            for which, run in (("kernel", fused), ("plain", plain)):
+                if run is None:
+                    continue
+                best = []
+                for _ in range(5):  # the best of five rounds: the host is shared
+                    for _ in range(20):
+                        run()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(calls):
+                        run()
+                    best.append((time.perf_counter() - t0) / calls * 1e6)
+                    torch.cuda.synchronize()
+                host.setdefault(name, {})[which] = min(best)
+        log("# trunk-row wrappers, host time a call (G, B, S = 1, 1, 192, the best of five rounds "
+            "of " + str(calls) + " calls, one synchronize after each): " + ", ".join(
+                f"{k} {v['kernel']:.2f} us" + (f" (plain chain {v['plain']:.2f} us)"
+                                               if "plain" in v else "")
+                for k, v in host.items()))
+    err_of = {"trunk_sigmoid_gate": "trunk_gated_product", "trunk_swiglu": "trunk_gated_product"}
+    return [{"name": name, "route": "cuda", "source": "echo_tts_tpu_torch/csrc/trunk_rows.cu",
+             "replaces": "none: the JAX package leaves these elementwise islands to XLA's "
+                         "fusion (core/layers.py, core/rope.py, models/dit.py)",
+             "launches_by_path": by_path(launches, name),
+             "max_ulps": errs[err_of.get(name, name)], **rows["one-shot"],
+             "library_ms": None, "at_stream": rows["stream"], "host_us": host[name]["kernel"],
+             "plain_host_us": host[name]["plain"], "ptxas": PTXAS.get("trunk_rows", {})}
+            for name, rows in at.items()]
+
+
 def layout_in_turns(dev, c, t) -> dict:
     """K2v-cl and K2v-cf, both with the sin snake and the multiply re-zero
     (one kernel body, the layout of x and out apart), timed in turns (cl, cf,
@@ -1882,6 +2124,10 @@ def phase_slice(dev, wrappers: dict) -> dict:
     if deltas[0]["joint_attention"] != k1_expected:
         raise SystemExit(f"joint_attention launched {deltas[0]['joint_attention']} times on "
                          f"request i, expected {k1_expected}")
+    trunk_expected = trunk_launches(trunk_forwards(sc), dit_cfg.num_layers)
+    for name, delta in zip((r[0] for r in requests), deltas):
+        if {k: delta[k] for k in trunk_expected} != trunk_expected:
+            raise SystemExit(f"request {name}: K6-K8 launches {delta}, expected {trunk_expected}")
     # K2: one launch a unit, three units a stack block; a prompt is encoded
     # in 640-latent chunks
     spk_audio = requests[1][2]
@@ -1949,14 +2195,16 @@ def with_random_res_biases(ae_params, gen, dev):
 def phase_path_check(tts, dev) -> None:
     """At full width, on the activations the path really produces: one CFG
     forward (branch split, the text and speaker caches as the sampler builds
-    them) through K1 against the same forward through the plain version;
-    and one decode of 640 latents with non-zero residual-unit biases in
+    them) through K1 and K6-K8 against the same forward through the plain
+    attention, and against it through the trunk's plain chains
+    (`trunk_rows.PLAIN`, K1 kept); and one decode of 640 latents with non-zero residual-unit biases in
     which every K2 call is checked against the plain version (fp32) on the
     same input. rel-L2 < 2e-2 each. The end-to-end decode through the plain
     chain is printed too: bf16 rounding differences compound over twelve
     units and four upsamplings, so it is information, not a gate."""
     import echo_tts_tpu_torch.models.dit as dit_mod
     import echo_tts_tpu_torch.models.s1dac as s1_mod
+    from echo_tts_tpu_torch.ops import trunk_rows
     from echo_tts_tpu_torch.ops.res_chain import res_chain_plain
 
     cfg, gen = tts.dit_cfg, torch.Generator(device=dev).manual_seed(3)
@@ -1979,6 +2227,15 @@ def phase_path_check(tts, dev) -> None:
         finally:
             dit_mod.joint_attention = kernel_attention
         attn_rel = rel_l2(got, ref)
+        k6_before = trunk_rows.residual_modulate.launches
+        kernel_ops_for, trunk_rows.ops_for = trunk_rows.ops_for, lambda *a: trunk_rows.PLAIN
+        try:
+            ref = fwd()
+        finally:
+            trunk_rows.ops_for = kernel_ops_for
+        trunk_rel = rel_l2(got, ref)
+        if trunk_rows.residual_modulate.launches != k6_before:
+            raise SystemExit("the trunk's plain reference forward launched K6")
 
         ae = with_random_res_biases(tts.ae_params, gen, dev)
         z_q = (0.3 * torch.randn(1, tts.ae_cfg.latent_dim, 640, generator=gen,
@@ -2001,11 +2258,12 @@ def phase_path_check(tts, dev) -> None:
             s1_mod.res_units_cl = kernel_chain
         decode_rel = rel_l2(got, ref)
     chain_rel = max(r for _, r in per_call)
-    log(f"# full-width path, kernels vs plain versions: CFG forward rel-L2 {attn_rel:.3e}; "
+    log(f"# full-width path, kernels vs plain versions: CFG forward, K1 vs the plain attention "
+        f"rel-L2 {attn_rel:.3e}, K6-K8 vs the trunk's plain chains rel-L2 {trunk_rel:.3e}; "
         f"decode, per K2 call on its real input: max rel-L2 {chain_rel:.3e} over "
         + ", ".join(f"{shape} {r:.2e}" for shape, r in per_call)
         + f"; whole decode through the plain chain (information) rel-L2 {decode_rel:.3e}")
-    if not (attn_rel < REL_L2_BOUND and chain_rel < REL_L2_BOUND):
+    if not (attn_rel < REL_L2_BOUND and trunk_rel < REL_L2_BOUND and chain_rel < REL_L2_BOUND):
         raise SystemExit("the full-width path disagrees with its plain versions")
 
 
@@ -2229,6 +2487,7 @@ def phase_stream(dev, wrappers: dict) -> dict:
                 for i in range(sc.num_steps))
     n_blocks = 4
     k1_expected = n_blocks * (3 * n_cfg + (sc.num_steps - n_cfg)) * L
+    trunk_expected = trunk_launches(n_blocks * trunk_forwards(sc), L)
     pc = tts.pipe_cfg
     prompt_chunks = math.ceil(min(spk_audio.shape[-1], pc.max_speaker_latent_length * spl)
                               / (pc.audio_chunk_latents * spl))
@@ -2261,10 +2520,11 @@ def phase_stream(dev, wrappers: dict) -> dict:
         f"audio {walls[0] * 1e3:.1f} ms, block walls {', '.join(f'{b:.1f}' for b in blocks_ms)} "
         f"ms, total {walls[-1] * 1e3:.1f} ms, audio {secs:.2f} s, {secs / walls[-1]:.2f} "
         f"audio-s/s; peak memory {peak:.2f} GiB; launches {launches} (expected K1 "
-        f"{k1_expected}, K2 {k2_expected})")
+        f"{k1_expected}, K2 {k2_expected}, K6-K8 {trunk_expected})")
     if (audio.shape[-1] != 640 * spl or not np.isfinite(audio).all()
             or launches["joint_attention"] != k1_expected
-            or launches["res_chain"] != k2_expected):
+            or launches["res_chain"] != k2_expected
+            or {k: launches[k] for k in trunk_expected} != trunk_expected):
         raise SystemExit("stream (c): wrong audio length, non-finite audio or launch counts")
     # the profile reads the first block (64 latents, the prompt's encode and
     # KV build with it) only: the profiler's own processing of a whole
@@ -2368,11 +2628,13 @@ def crop_checks(dev, tts, sc, wrappers: dict, gen) -> None:
         stop_at_flattening=False)), -1)
     sizes_f = [c.shape[-1] // spl for c in stopped]
     k1_block = k1_launches(sc_f, dit_cfg.num_layers)
+    trunk_f = trunk_launches(2 * trunk_forwards(sc_f), dit_cfg.num_layers)
     same = np.array_equal(np.concatenate(stopped, -1), full[..., :50 * spl])
     log(f"# stream (f) a stream of 3 x 64 latents, the detector forced to fire at 50: chunks of "
         f"{sizes_f} latents, equal to the unstopped stream's first 50 latents bit for bit: "
-        f"{same}; launches {got_f} (two blocks sampled: K1 {2 * k1_block})")
-    if sizes_f != [44, 6] or not same or got_f["joint_attention"] != 2 * k1_block:
+        f"{same}; launches {got_f} (two blocks sampled: K1 {2 * k1_block}, K6-K8 {trunk_f})")
+    if (sizes_f != [44, 6] or not same or got_f["joint_attention"] != 2 * k1_block
+            or {k: got_f[k] for k in trunk_f} != trunk_f):
         raise SystemExit(f"stream (f): the forced stop emitted {sizes_f} latents (expected "
                          f"[44, 6]), equal {same}, launches {got_f}")
 
@@ -2629,7 +2891,8 @@ def phase_batch(dev, wrappers: dict, tts) -> dict:
         secs = sum(a.shape[-1] for a, _, _ in res) / sr
         prompted = sum(spk_ is not None for _, spk_, _ in reqs)
         want = {"joint_attention": 20 * 3 * L + 20 * L,
-                "res_chain": k2_step + prompted * prompt_chunks * k2_chunk}
+                "res_chain": k2_step + prompted * prompt_chunks * k2_chunk,
+                **trunk_launches(trunk_forwards(sc), L)}
         log(f"# batching (b) sample_pipeline_batch B={bsz}: wall {wall:.1f} ms, CUDA events "
             f"around the call {ev:.1f} ms, sample+decode {res[0][2]['sample'] * 1e3:.1f} ms, "
             f"audio {secs:.2f} s, {secs / wall * 1e3:.2f} audio-s/s; peak memory "
@@ -2670,7 +2933,8 @@ def phase_batch(dev, wrappers: dict, tts) -> dict:
                 rows_c[r].append(chunk_)
         launches["stream_batch_2"] = {k: w.launches for k, w in wrappers.items()}
         want_c = {"joint_attention": 4 * (20 * 3 + 20) * L,
-                  "res_chain": 4 * k2_step + prompt_chunks * k2_chunk}
+                  "res_chain": 4 * k2_step + prompt_chunks * k2_chunk,
+                  **trunk_launches(4 * trunk_forwards(sc), L)}
         got_c = {r: np.concatenate(v, -1) for r, v in rows_c.items()}
         log(f"# batching (c) sample_pipeline_stream_batch B=2, (64, 192): time to first audio "
             f"{c_walls[0] * 1e3:.1f} ms, block walls "
@@ -2756,7 +3020,8 @@ def phase_batch(dev, wrappers: dict, tts) -> dict:
         gs = step(gs, [2, None], [192, 0], [64, 0])
     launches["continuous_group"] = {k: w.launches for k, w in wrappers.items()}
     n_blocks = 2 + 5
-    want_d = {"joint_attention": n_blocks * (20 * 3 + 20) * L, "res_chain": n_blocks * k2_step}
+    want_d = {"joint_attention": n_blocks * (20 * 3 + 20) * L, "res_chain": n_blocks * k2_step,
+              **trunk_launches(n_blocks * trunk_forwards(sc), L)}
     peak_d = torch.cuda.max_memory_allocated(dev) / 2**30
     for what, wall, ev in d_rows:
         log(f"# batching (d) {what}: wall {wall:.1f} ms, CUDA events {ev:.1f} ms")
@@ -2995,7 +3260,8 @@ def phase_serve(dev, wrappers: dict, tts) -> dict:
         same = {s: res_c[s][2] == wav_bytes(solo[s][0], sr) for _, s in c_reqs}
         secs = sum(a.shape[-1] for a in solo.values()) / sr
         st = eng_c.health()
-        want = {"joint_attention": k1_request, "res_chain": k2_decode}
+        want = {"joint_attention": k1_request, "res_chain": k2_decode,
+                **trunk_launches(trunk_forwards(sc), L)}
         log(f"# serving (c) four concurrent POST /tts, one batch key: wall {wall:.1f} ms (client "
             f"walls {', '.join(f'{res_c[s][3]:.1f}' for _, s in c_reqs)}), audio {secs:.2f} s, "
             f"**{secs / wall * 1e3:.2f} aggregate audio-s/s**; batches {st['batches']}, requests "
@@ -3236,7 +3502,8 @@ def phase_ui(dev, tts, eng, serving, need, tmp: str, spk_path: str, spk) -> dict
     ref_path = os.path.join(tmp, "direct_custom.wav")
     write_wav(ref_path, direct[0], sr)
     same = body == open(ref_path, "rb").read()
-    want = {"joint_attention": k1, "res_chain": k2_decode}
+    want = {"joint_attention": k1, "res_chain": k2_decode,
+            **trunk_launches(trunk_forwards(sc), tts.dit_cfg.num_layers)}
     log(f"# serving (g) UI generate of (ii) with custom shapes {shapes}: {status!r}; "
         f"{(len(body) - 44) / 2 / sr:.2f} s of audio; WAV equal to a direct sample_pipeline on "
         f"those buckets: {same}; launches {got} (expected {want}: the prompt from the speaker "
@@ -3271,8 +3538,10 @@ def phase_ui(dev, tts, eng, serving, need, tmp: str, spk_path: str, spk) -> dict
         f"{sum(c.size for c in chunks) / sr:.2f} s of audio, PCM16 equal to "
         f"sample_pipeline_stream's: {same}; launches {got} (K1 expected {n_blocks * k1})")
     need(same, "(g): the UI's stream differs from sample_pipeline_stream")
-    need(got["joint_attention"] == n_blocks * k1 and got["res_chain"] > 0,
-         f"(g): UI stream launches {got}")
+    trunk_s = trunk_launches(n_blocks * trunk_forwards(sc), tts.dit_cfg.num_layers)
+    need(got["joint_attention"] == n_blocks * k1 and got["res_chain"] > 0
+         and {k: got[k] for k in trunk_s} == trunk_s,
+         f"(g): UI stream launches {got}, K6-K8 expected {trunk_s}")
     split = step("generate_stream", split)
 
     msg = ui.set_lora(os.path.join(tmp, "missing_lora.npz"), 1.0)
@@ -3336,6 +3605,32 @@ def k1_launches(sc, num_layers: int) -> int:
         per_layer += g if refresh else 1
         n_win += win(float(t))
     return per_layer * num_layers
+
+
+def trunk_wrappers() -> dict:
+    """K6-K8's wrappers (`ops/trunk_rows.py`), under their rows' names in
+    the kernel JSON."""
+    from echo_tts_tpu_torch.ops import trunk_rows
+
+    return {f"trunk_{name}": getattr(trunk_rows, name) for name in
+            ("residual_modulate", "residual_norm", "qk_norm_rope", "sigmoid_gate", "swiglu")}
+
+
+def trunk_forwards(sc) -> int:
+    """Trunk forwards of one sampling with `sc`: one an evaluation (a CFG
+    evaluation's branches are one grouped forward), two a midpoint step."""
+    return sc.num_steps * (2 if sc.solver == "midpoint" else 1)
+
+
+def trunk_launches(forwards: int, num_layers: int) -> dict:
+    """K6-K8 launches of `forwards` bf16 forwards outside autograd, which
+    take the kernels: a forward launches K6 2L times in its modulation mode
+    and once in its norm mode (the out_norm after the last layer's MLP
+    residual), K7 L times, and K8 L times as the attention gate and L times
+    as SwiGLU."""
+    per = {"residual_modulate": 2 * num_layers, "residual_norm": 1, "qk_norm_rope": num_layers,
+           "sigmoid_gate": num_layers, "swiglu": num_layers}
+    return {f"trunk_{name}": forwards * n for name, n in per.items()}
 
 
 def cont_streams(eng, streams: dict, block: int) -> dict:
@@ -3423,7 +3718,8 @@ def int8_continuous(tts, sc, wrappers: dict) -> dict:
     samplings = g["joined"] + g["steps"]  # a fast join samples its first block alone
     per = samplings * L * sc.num_steps
     want = {"joint_attention": samplings * k1_launches(sc, L), "res_chain": samplings * k2_decode,
-            "int8_gemm": 4 * per, "quant_rows": 4 * per}
+            "int8_gemm": 4 * per, "quant_rows": 4 * per,
+            **trunk_launches(samplings * trunk_forwards(sc), L)}
     fails = list(g["errors"])
     for seed, row in sorted(g["rows"].items()):
         a = row["audio"]
@@ -3510,7 +3806,8 @@ def phase_levers(dev, wrappers: dict, tts) -> dict:
     for name, sc_l in levers.items():
         request(tts.dit_params, dataclasses.replace(sc_l, num_steps=2))  # warm-up
         audio, wall, ev, got = counted(lambda: request(tts.dit_params, sc_l))
-        want = {"joint_attention": k1_launches(sc_l, L), "res_chain": k2_decode}
+        want = {"joint_attention": k1_launches(sc_l, L), "res_chain": k2_decode,
+                **trunk_launches(trunk_forwards(sc_l), L)}
         secs = audio.shape[-1] / sr
         r = rel_l2(torch.from_numpy(audio), torch.from_numpy(base_audio))
         log(f"# levers (c) request (i), {name}: wall {wall:.1f} ms, CUDA events {ev:.1f} ms, "
@@ -3562,7 +3859,8 @@ def phase_levers(dev, wrappers: dict, tts) -> dict:
     # a trunk layer: K4 q/k/v/gate (one grouped launch), wo, w1/w3 (grouped),
     # w2; K5 before q/k/v/gate, wo, w1/w3 and w2
     want = {"joint_attention": k1_launches(sc, L), "res_chain": k2_decode,
-            "int8_gemm": 4 * per_fwd, "quant_rows": 4 * per_fwd}
+            "int8_gemm": 4 * per_fwd, "quant_rows": 4 * per_fwd,
+            **trunk_launches(trunk_forwards(sc), L)}
     secs = audio.shape[-1] / sr
     log(f"# int8 (d) request (i) on the int8 trunk: wall {wall:.1f} ms, CUDA events {ev:.1f} ms, "
         f"{secs / wall * 1e3:.2f} audio-s/s, peak memory {peak:.2f} GiB; launches {got} (expected "
@@ -3618,7 +3916,8 @@ def phase_levers(dev, wrappers: dict, tts) -> dict:
         return walls, np.concatenate(chunks, -1)
 
     (walls, s_audio), wall, ev, got = counted(stream)
-    want_s = {"int8_gemm": 4 * 4 * per_fwd, "quant_rows": 4 * 4 * per_fwd}
+    want_s = {"int8_gemm": 4 * 4 * per_fwd, "quant_rows": 4 * 4 * per_fwd,
+              **trunk_launches(4 * trunk_forwards(sc), L)}
     log(f"# int8 (d) sample_pipeline_stream on the int8 trunk, (64, 192): first audio "
         f"{walls[0] * 1e3:.1f} ms, total {walls[-1] * 1e3:.1f} ms, CUDA events {ev:.1f} ms, "
         f"{s_audio.shape[-1] / sr / walls[-1]:.2f} audio-s/s; launches {got} (expected K4/K5 "
@@ -3765,8 +4064,9 @@ def phase_train(tts, dev, wrappers: dict) -> dict:
 
     rng = np.random.default_rng(0)
     gen = torch.Generator(device=dev).manual_seed(1)
+    # K6-K8 none: the step runs under autograd, which takes the plain chain
     per_step = {"joint_attention": 2 * cfg.num_layers, "joint_attention_bwd": cfg.num_layers,
-                "res_chain": 0}
+                "res_chain": 0, **trunk_launches(0, cfg.num_layers)}
     rows, first_batch = [], None
     for epoch in range(2):  # two batches of 8 per epoch
         for batch in batches_prefetch(ds, TRAIN_B, rng, prefetch=2):
@@ -5175,21 +5475,23 @@ def main(argv) -> int:
     from echo_tts_tpu_torch.ops.quant_rows import quant_rows
     from echo_tts_tpu_torch.ops.res_chain import res_units_cl
 
-    slice_wrappers = {"joint_attention": joint_attention, "res_chain": res_units_cl}
+    base_wrappers = {"joint_attention": joint_attention, "res_chain": res_units_cl}
+    slice_wrappers = {**base_wrappers, **trunk_wrappers()}
     train_wrappers = {**slice_wrappers, "joint_attention_bwd": joint_attention_bwd}
     int8_wrappers = {**slice_wrappers, "int8_gemm": int8_gemm, "quant_rows": quant_rows}
-    ckpt_wrappers = {**int8_wrappers, "joint_attention_bwd": joint_attention_bwd}
+    ckpt_wrappers = {**base_wrappers, "int8_gemm": int8_gemm, "quant_rows": quant_rows,
+                     "joint_attention_bwd": joint_attention_bwd}
     if mesh_only:
         phase_build(("joint_attention", "joint_attention_bwd", "res_chain", "int8_gemm",
-                     "quant_rows"))
+                     "quant_rows", "trunk_rows"))
         phase_mesh(dev, smi)
     elif checkpoints_only:
         phase_build(("joint_attention", "joint_attention_bwd", "res_chain", "int8_gemm",
-                     "quant_rows"))
+                     "quant_rows", "trunk_rows"))
         phase_checkpoints(dev, ckpt_wrappers)
     elif slices_only:
         phase_build(("joint_attention", "joint_attention_bwd", "res_chain", "int8_gemm",
-                     "quant_rows"))
+                     "quant_rows", "trunk_rows"))
         tts, _ = phase_slice(dev, slice_wrappers)
         phase_train(tts, dev, train_wrappers)
         del tts
@@ -5207,6 +5509,7 @@ def main(argv) -> int:
         phase_int8_core_check(dev)
         errs = phase_kernel_checks(dev)
         errs.update(phase_int8_checks(dev))
+        errs.update(phase_trunk_rows_checks(dev))
         errs.update(phase_variant_checks(dev))
         launches = {"one_shot": {"joint_attention": 0, "res_chain": 0},
                     "training": {"joint_attention": 0, "joint_attention_bwd": 0, "res_chain": 0}}

@@ -7,9 +7,14 @@ linear weights are (in, out) and used as `x @ w`, q_norm/k_norm are (H, Dh).
 KV caches are head-major (L, B, H, T, Dh). The CFG branches are a group axis
 G on the queries; every branch shares the text/speaker caches and differs
 only in its masks. Joint attention goes through kernel K1
-(`ops/joint_attention.py`). The blockwise (streaming) path adds a third
-segment ahead of text and speaker: the latent-prefix cache of the blocks
-already sampled, built incrementally by `extend_latent_kv`.
+(`ops/joint_attention.py`); the trunk layer's elementwise islands (the
+gated residuals with the AdaLN norms, the q/k norms with RoPE, the sigmoid
+gate, SwiGLU's product) through K6-K8 (`ops/trunk_rows.py`) in a bf16
+forward on a card outside autograd, and through their plain chains in any
+other (`trunk_rows.ops_for`, one choice a forward). The blockwise
+(streaming) path adds a third segment ahead of text and speaker: the
+latent-prefix cache of the blocks already sampled, built incrementally by
+`extend_latent_kv`.
 
 The "force speaker" scale is a per-layer list of host floats (the schedule
 is known on the host), applied at use-site inside the attention.
@@ -43,12 +48,7 @@ from torch.utils.checkpoint import checkpoint
 
 from echo_tts_tpu_torch.core.config import DiTConfig
 from echo_tts_tpu_torch.core.device import resolve_device
-from echo_tts_tpu_torch.core.layers import (
-    modulate_rms,
-    precompute_adaln,
-    rms_norm,
-    timestep_embedding,
-)
+from echo_tts_tpu_torch.core.layers import precompute_adaln, rms_norm, timestep_embedding
 from echo_tts_tpu_torch.core.rope import (
     apply_rope,
     apply_rope_half_heads,
@@ -58,9 +58,11 @@ from echo_tts_tpu_torch.core.rope import (
     rope_rows,
 )
 from echo_tts_tpu_torch.models import quant
+from echo_tts_tpu_torch.ops import trunk_rows
 from echo_tts_tpu_torch.ops.attention import sdpa
 from echo_tts_tpu_torch.ops.joint_attention import joint_attention, joint_attention_trainable
 from echo_tts_tpu_torch.parallel.tp import head_split
+from echo_tts_tpu_torch.utils.profiling import count
 
 _NEG = -1e30
 
@@ -398,25 +400,33 @@ def _dit_forward_grouped(
     a_shift, a_scale, a_gate = precompute_adaln(cond, layer_weights(blocks["attention_adaln"]))
     m_shift, m_scale, m_gate = precompute_adaln(cond, layer_weights(blocks["mlp_adaln"]))
     text_bias, spk_bias = _mask_bias(text_mask), _mask_bias(spk_mask)
-    stacks = [*kv_text, *kv_speaker, a_shift, a_scale, a_gate, m_shift, m_scale, m_gate]
+    stacks = [m_gate, *kv_text, *kv_speaker, a_shift, a_scale, a_gate, m_shift, m_scale]
     if kv_latent is not None:
         lat_bias = _mask_bias(latent_mask)
         stacks += kv_latent
     per = zip(layer_slices({"attention": blocks["attention"], "mlp": blocks["mlp"]}),
               *(stack.unbind(0) for stack in stacks))
 
-    def layer(x, p, kt_k, kt_v, ks_k, ks_v, a_shift, a_scale, a_gate, m_shift, m_scale,
-              m_gate, kl_k=None, kl_v=None, skv=None):
+    rows = trunk_rows.ops_for(x, cfg.model_size, dh)
+    h_buf = None
+    if rows.fused:  # K7 reads the tables as they lie in memory; K6 writes h into one buffer
+        cos_q, sin_q, h_buf = cos_q.contiguous(), sin_q.contiguous(), torch.empty_like(x)
+
+    # With the kernels a layer leaves its MLP residual (y, its gate) to the
+    # next layer's first K6, and the last one's to the out_norm: a residual
+    # add and the norm after it are one pass. The plain chain adds it in the
+    # layer, so a checkpoint boundary under remat keeps x alone.
+    def layer(x, y, y_gate, p, m_gate, kt_k, kt_v, ks_k, ks_v, a_shift, a_scale, a_gate,
+              m_shift, m_scale, kl_k=None, kl_v=None, skv=None):
         p = layer_weights(p)
         a = p["attention"]
-        h = modulate_rms(x, a_shift, a_scale, eps)
+        x, h = rows.residual_modulate(x, y, y_gate, a_shift, a_scale, eps, h_buf)
         q, k_self, v_self, gate = quant.proj_shared(h, [a["wq"], a["wk"], a["wv"], a["gate"]],
                                                     group)
-        q = rms_norm(q.reshape(g, b, s, h_, dh), a["q_norm"], eps)
-        k_self = rms_norm(k_self.reshape(g, b, s, h_, dh), a["k_norm"], eps)
+        q, k_self = rows.qk_norm_rope(q.reshape(g, b, s, h_, dh), k_self.reshape(g, b, s, h_, dh),
+                                      a["q_norm"], a["k_norm"], cos_q, sin_q, h_off,
+                                      cfg.num_heads, eps)
         v_self = v_self.reshape(g, b, s, h_, dh)
-        q = apply_rope_half_heads(q, cos_q, sin_q, h_off, cfg.num_heads)
-        k_self = apply_rope_half_heads(k_self, cos_q, sin_q, h_off, cfg.num_heads)
         # segment order [latent | text | speaker]
         segments = [] if kl_k is None else [(kl_k, kl_v, lat_bias, None, ())]
         segments += [(kt_k, kt_v, text_bias, None, branch_skips[0]),
@@ -427,21 +437,26 @@ def _dit_forward_grouped(
         else:
             o = _joint_attention_grouped(q, k_self, v_self, segments, layout="sm",
                                          self_len=self_len)
-        o = o.reshape(g, b, s, h_ * dh) * torch.sigmoid(gate)
-        x = x + a_gate * quant.mm(o, a["wo"], group)
-        h = modulate_rms(x, m_shift, m_scale, eps)
-        return x + m_gate * quant.swiglu_mlp_q(h, p["mlp"], group)
+        o = rows.sigmoid_gate(o.reshape(g, b, s, h_ * dh), gate)
+        x, h = rows.residual_modulate(x, quant.mm(o, a["wo"], group), a_gate, m_shift, m_scale,
+                                      eps, h_buf)
+        y = quant.swiglu_mlp_q(h, p["mlp"], group, rows.swiglu)
+        return (x, y) if rows.fused else (x + m_gate * y, None)
 
-    for l, args in enumerate(per):
+    y = y_gate = None
+    path = "trunk.fused_layers" if rows.fused else "trunk.plain_layers"
+    for l, (p, m_gate, *args) in enumerate(per):
         if kv_latent is None:
-            args += (None, None)
+            args += [None, None]
         skv = None if speaker_kv_scale is None else speaker_kv_scale[l]
         if remat:
-            x = checkpoint(layer, x, *args, skv, use_reentrant=False)
+            x, y = checkpoint(layer, x, y, y_gate, p, m_gate, *args, skv, use_reentrant=False)
         else:
-            x = layer(x, *args, skv)
+            x, y = layer(x, y, y_gate, p, m_gate, *args, skv)
+        y_gate = m_gate
+        count(path)
 
-    x = rms_norm(x, params["out_norm"], eps)
+    x = rows.residual_norm(x, y, y_gate, params["out_norm"], eps, h_buf)
     x = x @ params["out_proj"]["w"] + params["out_proj"]["b"]
     return x.float()
 

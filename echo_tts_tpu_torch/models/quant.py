@@ -158,12 +158,14 @@ def proj_shared(h: torch.Tensor, ws: list, group=None) -> list:
     return [o.reshape(*lead, o.shape[-1]) for o in outs]
 
 
-def swiglu_mlp_q(x: torch.Tensor, p: dict, group=None) -> torch.Tensor:
+def swiglu_mlp_q(x: torch.Tensor, p: dict, group=None, gated=None) -> torch.Tensor:
     """w2(silu(w1 x) * w3 x); quantized, the gated product is quantized
     again for w2. With a tp `group`, w1/w3 hold this rank's columns and w2
-    the matching rows: the result is summed over the group."""
+    the matching rows: the result is summed over the group. `gated(u, g)`
+    computes silu(u) * g where given (the DiT trunk passes its K8 or plain
+    chain, `ops/trunk_rows.py`)."""
     u, g = proj_shared(x, [p["w1"], p["w3"]], group)
-    return mm(F.silu(u) * g, p["w2"], group)
+    return mm(F.silu(u) * g if gated is None else gated(u, g), p["w2"], group)
 
 
 # ---------------------------------------------------------------------------

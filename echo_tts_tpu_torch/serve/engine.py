@@ -263,7 +263,7 @@ class Engine:
         if tts.device.type == "cuda":
             from echo_tts_tpu_torch.ops import _build
 
-            names = ("joint_attention", "res_chain") + (
+            names = ("joint_attention", "res_chain", "trunk_rows") + (
                 ("int8_gemm", "quant_rows") if self.int8 else ())
             _build.build_all(names)
             for name in names:

@@ -225,6 +225,12 @@ def kernel_family(name: str) -> str:
         return "K4 int8_gemm"
     if "quant_rows_kernel" in name:
         return "K5 quant_rows"
+    if "trunk_residual_modulate_kernel" in name:
+        return "K6 trunk_residual_modulate"
+    if "trunk_qk_norm_rope_kernel" in name:
+        return "K7 trunk_qk_norm_rope"
+    if "trunk_gated_product_kernel" in name:
+        return "K8 trunk_gated_product"
     if any(k in low for k in ("gemm", "xmma", "cutlass", "gemv", "nvjet")):
         return "GEMM (cuBLAS)"
     if "conv" in low or "cudnn" in low:

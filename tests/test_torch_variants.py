@@ -453,6 +453,10 @@ def test_trace_writes_a_chrome_trace_and_families_are_named(tmp_path):
                          ("res_chain_cf_kernel<96, 0>", "K2v-cf res_chain_cf"),
                          ("int8_gemm_kernel<0>", "K4 int8_gemm"),
                          ("quant_rows_kernel<true>", "K5 quant_rows"),
+                         ("trunk_residual_modulate_kernel<true, true>",
+                          "K6 trunk_residual_modulate"),
+                         ("trunk_qk_norm_rope_kernel<false>", "K7 trunk_qk_norm_rope"),
+                         ("trunk_gated_product_kernel<1>", "K8 trunk_gated_product"),
                          ("sm90_xmma_gemm_bf16", "GEMM (cuBLAS)"),
                          ("cudnn::engines::conv", "conv (cuDNN)"),
                          ("vectorized_elementwise_kernel", "other (elementwise, norms, copies)")):

@@ -113,6 +113,7 @@ def task_forward(rank: int, dirpath: str) -> dict:
     from echo_tts_tpu_torch.core import rope as rope_mod
     from echo_tts_tpu_torch.core.rope import precompute_rope
     from echo_tts_tpu_torch.models import dit, quant
+    from echo_tts_tpu_torch.ops import trunk_rows
     from echo_tts_tpu_torch.parallel.sharding import shard_params
     from echo_tts_tpu_torch.parallel.tp import STATS
     from echo_tts_tpu_torch.sampling.euler_cfg import sample_euler_cfg_independent_guidances
@@ -143,16 +144,17 @@ def task_forward(rank: int, dirpath: str) -> dict:
             sp, cfg, t["x"], t["t"], t["text_mask"], t["spk_mask"], kvt, kvs,
             rope_q=(cos[sp0:sp0 + s], sin[sp0:sp0 + s]), speaker_kv_scale=inp["scale"],
             kv_latent=(state["k"], state["v"]), latent_mask=t["latent_mask"]))
-        # the trap: half-head RoPE over the local heads alone
+        # the trap: half-head RoPE over the local heads alone, in the trunk's
+        # q/k chain (ops/trunk_rows.py) and in the latent cache's keys
         real = dit.apply_rope_half_heads
-        dit.apply_rope_half_heads = lambda x, c, s_, *a, **k: rope_mod.apply_rope_half_heads(
-            x, c, s_)
+        dit.apply_rope_half_heads = trunk_rows.apply_rope_half_heads = \
+            lambda x, c, s_, *a, **k: rope_mod.apply_rope_half_heads(x, c, s_)
         try:
             out["fwd_local_rope"] = _np(dit.dit_forward(sp, cfg, t["x"], t["t"], t["text_mask"],
                                                         t["spk_mask"], kvt, kvs))
             out["kv_latent_local_rope"] = _np(dit.get_kv_cache_latent(sp, cfg, t["prefix"]))
         finally:
-            dit.apply_rope_half_heads = real
+            dit.apply_rope_half_heads = trunk_rows.apply_rope_half_heads = real
         qsp = shard_params(quant.quantize_dit_params(params, encoders=True), mesh)
         out["int8_q_shape"] = {
             "wq": tuple(qsp["blocks"]["attention"]["wq"]["q"].shape),
