@@ -48,6 +48,11 @@ Phases, in order; any failure exits non-zero:
      S) in TRUNK_SHAPES, K7 with shared and per-row tables and at tp head
      offsets 0 and 8: at least 99 % of the elements bit for bit, each within
      one bf16 ulp (plus one ulp of the terms of a last sum that cancels);
+     their backward kernels against autograd of the plain chains at a LoRA
+     step's (G, B, S) = (1, 8, 640): K6 in its three modes, K7 on 16 heads
+     and a tp rank's 8 with per-row tables, K8 both products; at least 98 %
+     bit for bit (K8 99.9 %), each within one ulp (K6 and K7: plus one ulp
+     of the terms of the norm backward's last sum);
   5. the one-shot slice at the full width of DiTConfig(has_latent_modules=
      False) and AEConfig() in bf16, random weights from a seed: one CFG
      forward and one decode through the kernels against the plain versions;
@@ -58,10 +63,13 @@ Phases, in order; any failure exits non-zero:
   6. the training slice on the same weights: 16 synthetic 29.72 s clips
      written to WAV, pre-encoded by EchoTTSDataset (K2; a torch.profiler
      pass over the pre-encode once more), LoRA r16/alpha32
-     steps at B=8 (K1 forward and recompute, K3 backward), one warm-up and
-     three timed, with exact launch counts; a torch.profiler pass over one
-     more step; the LoRA gradient at B=1 through K1+K3 against the plain
-     attention under autograd;
+     steps at B=8 (K1 forward and recompute, K3 backward; K6-K8 forward
+     and recompute and their backward kernels, the adapters as side
+     products), one warm-up and three timed, with exact launch counts
+     (`trunk_train_launches`); a torch.profiler pass over one
+     more step; the LoRA gradient at B=1 through K1+K3 and K6-K8 against
+     the plain attention under autograd, and against the trunk's plain
+     chains (`trunk_rows.PLAIN`);
   9. (run after 6) the streaming slice at the full width of DiTConfig()
      (latent modules) and AEConfig() in bf16: one block's CFG forward with
      the latent segment [latent | text | speaker] through K1 against the
@@ -206,7 +214,9 @@ Phases, in order; any failure exits non-zero:
      and of encoding one TMA tensor map; K6, K7 and K8 at the one-shot
      shape (G, B, S = 3, 8, 640) and a stream block's (S = 192), beside
      their bytes bound and the plain chain, and the host time a call of
-     each wrapper beside its plain chain's; all over CUDA-graph replays.
+     each wrapper beside its plain chain's; their backward kernels at a
+     LoRA step's shape (1, 8, 640) beside their bytes bound and the plain
+     formulas; all over CUDA-graph replays.
 The line before the last is the kernel JSON; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX. --slices-only is for
 comparing two trees end to end in one call on one card (run them in turns:
@@ -979,10 +989,10 @@ def bf16_ulp(m: torch.Tensor) -> torch.Tensor:
     return torch.ldexp(torch.ones_like(m, dtype=torch.float32), e - 8)
 
 
-def trunk_rows_compare(what, got, ref, terms, failures) -> dict:
+def trunk_rows_compare(what, got, ref, terms, failures, share: float = 0.99) -> dict:
     """Max ulps, the share bit for bit, and whether every element lies within
     one ulp of the result plus one ulp of `terms` (the magnitude of the
-    terms of the chain's last fp32 sum, where one cancels), at least 99 %
+    terms of the chain's last fp32 sum, where one cancels), at least `share`
     bit for bit."""
     d = bf16_ulps(got, ref)
     diff = (got.float() - ref.float()).abs()
@@ -990,9 +1000,107 @@ def trunk_rows_compare(what, got, ref, terms, failures) -> dict:
     out = {"max_ulps": int(d.max()), "equal_share": float((d == 0).float().mean()),
            "within_one_ulp_share": float((d <= 1).float().mean()),
            "bounded": bool((diff <= tol).all())}
-    if not out["bounded"] or out["equal_share"] < 0.99:
+    if not out["bounded"] or out["equal_share"] < share:
         failures.append(f"{what}: {out}")
     return out
+
+
+def rms_bwd_terms(xf: torch.Tensor, dn: torch.Tensor, eps: float) -> torch.Tensor:
+    """The size of the terms of the RMS-norm backward's last fp32 sum,
+    |dn r| + |(dv / D) 2 x|, the row's sum of dn x taken over magnitudes:
+    that sum is the one the backward kernels take in another order."""
+    xf, dn = xf.float(), dn.float()
+    r = torch.rsqrt((xf * xf).sum(-1, keepdim=True) / xf.shape[-1] + eps)
+    return (dn * r).abs() + (dn * xf).abs().sum(-1, keepdim=True) * r.pow(3) * xf.abs() \
+        / xf.shape[-1]
+
+
+def trunk_rows_bwd_checks(dev, gen, eps: float, failures: list) -> dict:
+    """K6-K8's backward kernels (the `*_bwd` wrappers) against autograd of
+    the plain chains on the same bf16 inputs, at a LoRA step's shape (G = 1,
+    B = 8, S = 640; D = 2048, 16 heads of 128, SwiGLU's 5888): K6 in its
+    three modes, K7 on 16 heads and on a tp rank's 8 with per-row tables,
+    K8 both products. K6 and K7: at least 98 % of the elements bit for bit,
+    each within one ulp plus one ulp of the terms of the norm backward's
+    last sum (dy: plus dx''s error carried through the gate's product);
+    K8: at least 99.9 % bit for bit, each within one ulp."""
+    from echo_tts_tpu_torch.core.rope import precompute_rope, rope_rows
+    from echo_tts_tpu_torch.ops import trunk_rows as tr
+
+    bf, (g, b, s) = torch.bfloat16, (1, 8, 640)
+    worst = {"trunk_residual_modulate_bwd": [], "trunk_qk_norm_rope_bwd": [],
+             "trunk_gated_product_bwd": []}
+
+    def n(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * scale).to(bf)
+
+    def grads(outs, ins, douts):
+        ins = [t.detach().clone().requires_grad_(True) for t in ins]
+        got = torch.autograd.grad([o for o in outs(*ins) if o is not None], ins, douts)
+        return got
+
+    x, y, gate = n(g, b, s, 2048, scale=2.0), n(g, b, s, 2048), torch.tanh(n(b, 1, 2048))
+    shift, scale = n(b, 1, 2048, scale=0.5), n(b, 1, 2048, scale=0.5)
+    w = (1 + 0.2 * torch.randn(2048, generator=gen, device=dev)).to(bf)
+    dh, dxi = n(g, b, s, 2048), n(g, b, s, 2048)
+    for mode in ("first", "residual", "norm"):
+        mod, res = mode != "norm", mode != "first"
+        mul = scale if mod else w
+        xp = x + gate * y if res else x
+        if mode == "norm":
+            ref = grads(lambda x_, y_: [tr.residual_norm_plain(x_, y_, gate, w, eps)], [x, y],
+                        [dh])
+        elif res:
+            ref = grads(lambda x_, y_: tr.residual_modulate_plain(x_, y_, gate, shift, scale,
+                                                                  eps)[::-1], [x, y], [dh, dxi])
+        else:
+            ref = grads(lambda x_: [tr.residual_modulate_plain(x_, None, None, shift, scale,
+                                                               eps)[1], x_], [x], [dh, dxi])
+        got = tr.residual_modulate_bwd(xp, dh, dxi if mode != "norm" else None,
+                                       gate if res else None, mul, mod, eps)
+        terms = rms_bwd_terms(xp, dh.float() * (mul.float() + 1.0 if mod else mul.float()), eps)
+        worst["trunk_residual_modulate_bwd"].append(trunk_rows_compare(
+            f"K6 bwd {mode} dx", got[0], ref[0], terms, failures, share=0.98))
+        if res:
+            carried = 2 * gate.float().abs() * (terms + ref[0].float().abs())
+            worst["trunk_residual_modulate_bwd"].append(trunk_rows_compare(
+                f"K6 bwd {mode} dy", got[1], ref[1], carried, failures, share=0.98))
+    cos_all, sin_all = precompute_rope(128, 1024, device=dev)
+    for heads, off, rows in ((16, 0, False), (8, 0, True)):
+        q, k = n(g, b, s, heads, 128, scale=3.0), n(g, b, s, heads, 128)
+        qw, kw = ((1 + 0.3 * torch.randn(heads, 128, generator=gen, device=dev)).to(bf)
+                  for _ in "qk")
+        dq, dk = n(g, b, s, heads, 128), n(g, b, s, heads, 128)
+        if rows:
+            idx = torch.tensor([0, 64, 256, 448, 17, 5, 900, 300], device=dev)
+            cos, sin = rope_rows(cos_all, sin_all, idx[:, None] + torch.arange(s, device=dev))
+        else:
+            cos, sin = cos_all[100:100 + s].contiguous(), sin_all[100:100 + s].contiguous()
+        ref = grads(lambda q_, k_: tr.qk_norm_rope_plain(q_, k_, qw, kw, cos, sin, off, 16, eps),
+                    [q, k], [dq, dk])
+        got = tr.qk_norm_rope_bwd(q, k, dq, dk, qw, kw, cos, sin, off, 16, eps)
+        n_rot = tr._n_rot(heads, off, 16)
+        c, s_ = tr._tables(cos.float(), sin.float())
+        for which, t, dt, tw, gt, rf in zip("qk", (q, k), (dq, dk), (qw, kw), got, ref):
+            gf = dt.float()
+            if n_rot:  # the gradient rotated back, rounded as the chain rounds it
+                gr, gi = gf[..., :n_rot, 0::2], gf[..., :n_rot, 1::2]
+                rot = torch.stack([gr * c + gi * s_, gi * c - gr * s_], dim=-1).flatten(-2)
+                gf = torch.cat([rot.to(bf).float(), gf[..., n_rot:, :]], dim=-2)
+            worst["trunk_qk_norm_rope_bwd"].append(trunk_rows_compare(
+                f"K7 bwd d{which}, {heads} heads at {off}, {'row' if rows else 'shared'} tables",
+                gt, rf, rms_bwd_terms(t, gf * tw.float(), eps), failures, share=0.98))
+    for act, width in (("sigmoid", 2048), ("silu", 5888)):
+        a, bb, do = n(b * s, width, scale=4.0), n(b * s, width), n(b * s, width)
+        plain, bwd = ((tr.sigmoid_gate_plain, tr.sigmoid_gate_bwd) if act == "sigmoid"
+                      else (tr.swiglu_plain, tr.swiglu_bwd))
+        ref = grads(lambda a_, b_: [plain(a_, b_)], [a, bb], [do])
+        for which, gt, rf in zip("ab", bwd(a, bb, do), ref):
+            worst["trunk_gated_product_bwd"].append(trunk_rows_compare(
+                f"K8 bwd {act} d{which} at ({b * s}, {width})", gt, rf, None, failures,
+                share=0.999))
+    torch.cuda.synchronize()
+    return worst
 
 
 def phase_trunk_rows_checks(dev) -> dict:
@@ -1003,7 +1111,8 @@ def phase_trunk_rows_checks(dev) -> dict:
     gate at 2048 and SwiGLU at 5888. At least 99 % of the elements bit for
     bit, every one within one ulp (plus one ulp of the terms of a last sum
     that cancels: modulation's shift, RoPE's rotation); the wrappers
-    refusing what the kernels do not take."""
+    refusing what the kernels do not take; then their backward kernels
+    (`trunk_rows_bwd_checks`)."""
     from echo_tts_tpu_torch.core.layers import rms_norm
     from echo_tts_tpu_torch.core.rope import precompute_rope, rope_rows
     from echo_tts_tpu_torch.ops import trunk_rows as tr
@@ -1091,6 +1200,7 @@ def phase_trunk_rows_checks(dev) -> dict:
             if before != [f.launches for f in (tr.residual_modulate, tr.residual_norm,
                                                tr.qk_norm_rope, tr.swiglu, tr.sigmoid_gate)]:
                 failures.append(f"a refused call ({what}) launched")
+    worst.update(trunk_rows_bwd_checks(dev, gen, eps, failures))
     for name, cmp in worst.items():
         log(f"# check {name}: {len(cmp)} comparisons, max ulps {max(c['max_ulps'] for c in cmp)}, "
             f"bit for bit {min(c['equal_share'] for c in cmp):.5f}-"
@@ -1936,8 +2046,10 @@ def trunk_rows_times(dev, errs: dict, launches: dict) -> list:
                 f"{k} {v['kernel']:.2f} us" + (f" (plain chain {v['plain']:.2f} us)"
                                                if "plain" in v else "")
                 for k, v in host.items()))
+    bwd_rows = trunk_rows_bwd_times(dev, errs, launches)
     err_of = {"trunk_sigmoid_gate": "trunk_gated_product", "trunk_swiglu": "trunk_gated_product"}
-    return [{"name": name, "route": "cuda", "source": "echo_tts_tpu_torch/csrc/trunk_rows.cu",
+    return bwd_rows + [{"name": name, "route": "cuda",
+                        "source": "echo_tts_tpu_torch/csrc/trunk_rows.cu",
              "replaces": "none: the JAX package leaves these elementwise islands to XLA's "
                          "fusion (core/layers.py, core/rope.py, models/dit.py)",
              "launches_by_path": by_path(launches, name),
@@ -1945,6 +2057,72 @@ def trunk_rows_times(dev, errs: dict, launches: dict) -> list:
              "library_ms": None, "at_stream": rows["stream"], "host_us": host[name]["kernel"],
              "plain_host_us": host[name]["plain"], "ptxas": PTXAS.get("trunk_rows", {})}
             for name, rows in at.items()]
+
+
+def trunk_rows_bwd_times(dev, errs: dict, launches: dict) -> list:
+    """K6-K8's backward kernels at a LoRA step's shape (G = 1, B = 8,
+    S = 640: M = 5120 rows of 2048; 16 heads of 128; SwiGLU's 5888), device
+    ms over CUDA-graph replays, beside the bytes bound (each operand read
+    once, each gradient written once, at 3.35 TB/s) and the plain formulas'
+    time (`*_bwd_plain`, the kernels' arithmetic in PyTorch ops); each row
+    with the largest ulps phase 4 measured against autograd of the plain
+    chain."""
+    from echo_tts_tpu_torch.bench.timing import cuda_ms
+    from echo_tts_tpu_torch.core.rope import precompute_rope
+    from echo_tts_tpu_torch.ops import trunk_rows as tr
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    bf, eps, d, h, dh, f = torch.bfloat16, 1e-5, 2048, 16, 128, 5888
+    g, b, s = 1, 8, 640
+    m = g * b * s
+
+    def n(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * scale).to(bf)
+
+    xp, dhh, dxi, gate, scale = n(g, b, s, d), n(g, b, s, d), n(g, b, s, d), n(b, 1, d), n(b, 1, d)
+    q, k, dq, dk, qw, kw = n(g, b, s, h, dh), n(g, b, s, h, dh), n(g, b, s, h, dh), \
+        n(g, b, s, h, dh), n(h, dh), n(h, dh)
+    cos, sin = (t[:s].contiguous() for t in precompute_rope(dh, s, device=dev))
+    o, og, do = n(m, d, scale=4.0), n(m, d), n(m, d)
+    u, ug, du = n(m, f, scale=4.0), n(m, f), n(m, f)
+    rows = {
+        "trunk_residual_modulate_bwd": (
+            lambda: tr.residual_modulate_bwd(xp, dhh, dxi, gate, scale, True, eps),
+            lambda: tr.residual_modulate_bwd_plain(xp, dhh, dxi, gate, scale, True, eps),
+            5 * m * d * 2 + 2 * b * d * 2, "K6 bwd: x', dh, dx' in; dx', dy out"),
+        "trunk_qk_norm_rope_bwd": (
+            lambda: tr.qk_norm_rope_bwd(q, k, dq, dk, qw, kw, cos, sin, 0, h, eps),
+            lambda: tr.qk_norm_rope_bwd_plain(q, k, dq, dk, qw, kw, cos, sin, 0, h, eps),
+            6 * m * h * dh * 2 + 2 * h * dh * 2 + 2 * s * dh // 2 * 4,
+            "K7 bwd: q, k, dq, dk in; their inputs' gradients out"),
+        "trunk_sigmoid_gate_bwd": (lambda: tr.sigmoid_gate_bwd(o, og, do),
+                                   lambda: tr.sigmoid_gate_bwd_plain(o, og, do), 5 * m * d * 2,
+                                   "K8 bwd, sigmoid gate: a, b, dout in; da, db out"),
+        "trunk_swiglu_bwd": (lambda: tr.swiglu_bwd(u, ug, du),
+                             lambda: tr.swiglu_bwd_plain(u, ug, du), 5 * m * f * 2,
+                             "K8 bwd, SwiGLU: a, b, dout in; da, db out"),
+    }
+    err_of = {"trunk_sigmoid_gate_bwd": "trunk_gated_product_bwd",
+              "trunk_swiglu_bwd": "trunk_gated_product_bwd"}
+    out = []
+    with torch.no_grad():
+        for name, (fused, plain, nbytes, what) in rows.items():
+            b_ms, _ = bound(0.0, nbytes)
+            ms = cuda_ms(fused, graph_iters=GRAPH_ITERS)
+            plain_ms = cuda_ms(plain, graph_iters=GRAPH_ITERS)
+            log(f"# time {name} at a LoRA step's (G, B, S) = {(g, b, s)}: kernel {ms:.4f} ms "
+                f"({nbytes / ms / 1e6:.0f} GB/s, {100 * b_ms / ms:.1f} % of its bytes bound "
+                f"{b_ms:.4f} ms); plain formulas {plain_ms:.4f} ms ({what})")
+            out.append({"name": name, "route": "cuda",
+                        "source": "echo_tts_tpu_torch/csrc/trunk_rows_bwd.cu",
+                        "replaces": "none: the JAX package differentiates these islands "
+                                    "through XLA's fusion",
+                        "launches_by_path": by_path(launches, name),
+                        "max_ulps": errs[err_of.get(name, name)], "shape": (g, b, s),
+                        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": "bytes",
+                        "bytes": nbytes, "bound_share": b_ms / ms, "library_ms": None,
+                        "ptxas": PTXAS.get("trunk_rows_bwd", {})})
+    return out
 
 
 def layout_in_turns(dev, c, t) -> dict:
@@ -3633,6 +3811,27 @@ def trunk_launches(forwards: int, num_layers: int) -> dict:
     return {f"trunk_{name}": forwards * n for name, n in per.items()}
 
 
+def trunk_bwd_wrappers() -> dict:
+    """The backward kernels' wrappers (`ops/trunk_rows.py`), under their rows'
+    names in the kernel JSON."""
+    from echo_tts_tpu_torch.ops import trunk_rows
+
+    return {f"trunk_{name}": getattr(trunk_rows, name) for name in
+            ("residual_modulate_bwd", "qk_norm_rope_bwd", "sigmoid_gate_bwd", "swiglu_bwd")}
+
+
+def trunk_train_launches(num_layers: int) -> dict:
+    """K6-K8 launches of one LoRA step (autograd, remat): each layer's
+    forward twice (the step's forward and remat's recompute in the
+    backward), the out_norm once; each island's backward kernel once, but
+    none for the first layer's first K6, whose input takes no gradient (K6
+    bwd counts the out_norm's too)."""
+    return {**trunk_launches(2, num_layers), "trunk_residual_norm": 1,
+            "trunk_residual_modulate_bwd": 2 * num_layers,
+            "trunk_qk_norm_rope_bwd": num_layers, "trunk_sigmoid_gate_bwd": num_layers,
+            "trunk_swiglu_bwd": num_layers}
+
+
 def cont_streams(eng, streams: dict, block: int) -> dict:
     """Streams of `streams` ({seed: (text, SamplerConfig)}) through a
     continuous engine: the first alone, the others once its group is live
@@ -4064,9 +4263,8 @@ def phase_train(tts, dev, wrappers: dict) -> dict:
 
     rng = np.random.default_rng(0)
     gen = torch.Generator(device=dev).manual_seed(1)
-    # K6-K8 none: the step runs under autograd, which takes the plain chain
     per_step = {"joint_attention": 2 * cfg.num_layers, "joint_attention_bwd": cfg.num_layers,
-                "res_chain": 0, **trunk_launches(0, cfg.num_layers)}
+                "res_chain": 0, **trunk_train_launches(cfg.num_layers)}
     rows, first_batch = [], None
     for epoch in range(2):  # two batches of 8 per epoch
         for batch in batches_prefetch(ds, TRAIN_B, rng, prefetch=2):
@@ -4111,9 +4309,12 @@ def phase_train(tts, dev, wrappers: dict) -> dict:
 
 def phase_train_grad_check(tts, dev, lora, lc, batch) -> None:
     """At B=1, with every b perturbed from zero and one injected t and
-    noise: the LoRA gradient through K1+K3 against the same loss with the
-    plain attention under autograd. rel-L2 of the whole vector < 2e-2."""
+    noise: the LoRA gradient through K1+K3 and the trunk's K6-K8 (forward
+    and backward kernels) against the same loss with the plain attention
+    under autograd, and against the trunk's plain chains (`ops_for`
+    patched to PLAIN). rel-L2 of the whole vector < 2e-2 each."""
     import echo_tts_tpu_torch.models.dit as dit_mod
+    from echo_tts_tpu_torch.ops import trunk_rows
     from echo_tts_tpu_torch.ops.joint_attention import joint_attention_plain
     from echo_tts_tpu_torch.train.loop import tree_leaves
     from echo_tts_tpu_torch.train.lora import lora_params
@@ -4140,19 +4341,35 @@ def phase_train_grad_check(tts, dev, lora, lc, batch) -> None:
     def plain_trainable(q, k_self, v_self, segments, layout="hm", self_len=None):
         return joint_attention_plain(q, k_self, v_self, segments, layout, self_len)
 
+    k6_bwd = trunk_rows.residual_modulate_bwd.launches
     loss_k, g_k = grads()
+    if trunk_rows.residual_modulate_bwd.launches == k6_bwd:
+        raise SystemExit("the LoRA gradient check did not run the trunk's backward kernels")
     kernel_fn, dit_mod.joint_attention_trainable = (dit_mod.joint_attention_trainable,
                                                     plain_trainable)
     try:
         loss_p, g_p = grads()
     finally:
         dit_mod.joint_attention_trainable = kernel_fn
-    r = rel_l2(g_k, g_p)
+    k6_bwd = trunk_rows.residual_modulate_bwd.launches
+    kernel_ops_for, trunk_rows.ops_for = trunk_rows.ops_for, lambda *a: trunk_rows.PLAIN
+    try:
+        loss_c, g_c = grads()
+    finally:
+        trunk_rows.ops_for = kernel_ops_for
+    if trunk_rows.residual_modulate_bwd.launches != k6_bwd:
+        raise SystemExit("the plain-chain arm of the LoRA gradient check ran K6 bwd")
+    r, r_c = rel_l2(g_k, g_p), rel_l2(g_k, g_c)
     log(f"# full-width LoRA gradient at B=1, K1+K3 vs plain attention under autograd: "
         f"rel-L2 {r:.3e} over {g_k.numel()} values (|g| {float(g_p.norm()):.3e}); "
         f"loss {loss_k:.6f} vs {loss_p:.6f}")
+    log(f"# full-width LoRA gradient at B=1, K6-K8 and their backward kernels vs the trunk's "
+        f"plain chains: rel-L2 {r_c:.3e} (|g| {float(g_c.norm()):.3e}); loss {loss_k:.6f} vs "
+        f"{loss_c:.6f}")
     if not (r < REL_L2_BOUND and torch.isfinite(g_k).all()):
         raise SystemExit("the full-width LoRA gradient disagrees with the plain attention's")
+    if not r_c < REL_L2_BOUND:
+        raise SystemExit("the full-width LoRA gradient disagrees with the trunk's plain chains'")
 
 
 # ---------------------------------------------------------------------------
@@ -5477,7 +5694,8 @@ def main(argv) -> int:
 
     base_wrappers = {"joint_attention": joint_attention, "res_chain": res_units_cl}
     slice_wrappers = {**base_wrappers, **trunk_wrappers()}
-    train_wrappers = {**slice_wrappers, "joint_attention_bwd": joint_attention_bwd}
+    train_wrappers = {**slice_wrappers, "joint_attention_bwd": joint_attention_bwd,
+                      **trunk_bwd_wrappers()}
     int8_wrappers = {**slice_wrappers, "int8_gemm": int8_gemm, "quant_rows": quant_rows}
     ckpt_wrappers = {**base_wrappers, "int8_gemm": int8_gemm, "quant_rows": quant_rows,
                      "joint_attention_bwd": joint_attention_bwd}
@@ -5487,11 +5705,11 @@ def main(argv) -> int:
         phase_mesh(dev, smi)
     elif checkpoints_only:
         phase_build(("joint_attention", "joint_attention_bwd", "res_chain", "int8_gemm",
-                     "quant_rows", "trunk_rows"))
+                     "quant_rows", "trunk_rows", "trunk_rows_bwd"))
         phase_checkpoints(dev, ckpt_wrappers)
     elif slices_only:
         phase_build(("joint_attention", "joint_attention_bwd", "res_chain", "int8_gemm",
-                     "quant_rows", "trunk_rows"))
+                     "quant_rows", "trunk_rows", "trunk_rows_bwd"))
         tts, _ = phase_slice(dev, slice_wrappers)
         phase_train(tts, dev, train_wrappers)
         del tts

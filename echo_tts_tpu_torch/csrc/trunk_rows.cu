@@ -48,55 +48,24 @@
 // float4 each), the sum of squares a 16-lane butterfly, 16 heads a block;
 // blockIdx.y picks q or k. K8: one 16-byte chunk a thread (the trunk's
 // widths, 2048 and 5888, are multiples of 8).
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "trunk_rows.cuh"
 
-#include <initializer_list>
+using namespace trunk_rows;
 
 namespace {
-
-constexpr int K6_THREADS = 128;
-constexpr int K6_D = 2048;                   // the trunk's width, every configuration's
-constexpr int K6_CPT = K6_D / 8 / K6_THREADS;  // 16-byte chunks a thread
-constexpr int K7_THREADS = 256;
-constexpr int K7_DH = 128;
-constexpr int K8_THREADS = 256;
-
-__device__ __forceinline__ void unpack8(const uint4 c, float (&v)[8]) {
-  const uint32_t w[4] = {c.x, c.y, c.z, c.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    v[2 * i] = __uint_as_float(w[i] << 16);
-    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
-
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&p);
-}
-
-// eight floats rounded to bf16 (to nearest, ties to even) as one chunk
-__device__ __forceinline__ uint4 pack8(const float (&v)[8]) {
-  return make_uint4(pack2(v[0], v[1]), pack2(v[2], v[3]), pack2(v[4], v[5]),
-                    pack2(v[6], v[7]));
-}
-
-__device__ __forceinline__ float round_bf16(float f) {
-  return __bfloat162float(__float2bfloat16_rn(f));
-}
 
 // ---------------------------------------------------------------------------
 // K6
 // ---------------------------------------------------------------------------
 
 // x (M, K6_D), rows in (..., B, S) order, so row r belongs to batch row
-// (r / S) % B; y (M, K6_D) and gate (B, K6_D) when RES; MOD: mul = scale
+// (r / S) % B; y (M, K6_D) and gate (B, K6_D) when RES, x + gate * y then
+// written to xo (x itself, in place, outside autograd); MOD: mul = scale
 // (B, K6_D), add = shift (B, K6_D); else mul = w (K6_D,). h (M, K6_D).
 template <bool RES, bool MOD>
 __global__ void __launch_bounds__(K6_THREADS)
-    trunk_residual_modulate_kernel(uint16_t* __restrict__ x, const uint16_t* __restrict__ y,
+    trunk_residual_modulate_kernel(const uint16_t* x, uint16_t* xo,
+                                   const uint16_t* __restrict__ y,
                                    const uint16_t* __restrict__ gate,
                                    const uint16_t* __restrict__ mul,
                                    const uint16_t* __restrict__ add, uint16_t* __restrict__ h,
@@ -104,7 +73,8 @@ __global__ void __launch_bounds__(K6_THREADS)
   __shared__ float part[K6_THREADS / 32];
   const int row = blockIdx.x;
   const int b = (row / S) % B;
-  uint4* xr = reinterpret_cast<uint4*>(x + static_cast<size_t>(row) * K6_D);
+  const uint4* xr = reinterpret_cast<const uint4*>(x + static_cast<size_t>(row) * K6_D);
+  uint4* xw = reinterpret_cast<uint4*>(xo + static_cast<size_t>(row) * K6_D);
 
   uint4 xc[K6_CPT], yc[K6_CPT], gc[K6_CPT];
 #pragma unroll
@@ -140,7 +110,7 @@ __global__ void __launch_bounds__(K6_THREADS)
 #pragma unroll
       for (int j = 0; j < 8; ++j)
         v[i][j] = round_bf16(__fadd_rn(v[i][j], round_bf16(__fmul_rn(gv[j], yv[j]))));
-      xr[threadIdx.x + i * K6_THREADS] = pack8(v[i]);
+      xw[threadIdx.x + i * K6_THREADS] = pack8(v[i]);
     }
 #pragma unroll
     for (int j = 0; j < 8; ++j) ss = __fadd_rn(ss, __fmul_rn(v[i][j], v[i][j]));
@@ -174,10 +144,10 @@ __global__ void __launch_bounds__(K6_THREADS)
 }
 
 template <bool RES, bool MOD>
-cudaError_t launch_k6(void* x, const void* y, const void* gate, const void* mul, const void* add,
-                      void* h, int M, int S, int B, float eps, cudaStream_t st) {
+cudaError_t launch_k6(const void* x, void* xo, const void* y, const void* gate, const void* mul,
+                      const void* add, void* h, int M, int S, int B, float eps, cudaStream_t st) {
   trunk_residual_modulate_kernel<RES, MOD><<<M, K6_THREADS, 0, st>>>(
-      static_cast<uint16_t*>(x), static_cast<const uint16_t*>(y),
+      static_cast<const uint16_t*>(x), static_cast<uint16_t*>(xo), static_cast<const uint16_t*>(y),
       static_cast<const uint16_t*>(gate), static_cast<const uint16_t*>(mul),
       static_cast<const uint16_t*>(add), static_cast<uint16_t*>(h), S, B, eps);
   return cudaGetLastError();
@@ -187,23 +157,25 @@ cudaError_t launch_k6(void* x, const void* y, const void* gate, const void* mul,
 // K7
 // ---------------------------------------------------------------------------
 
-// q, k (n_heads, 128) bf16 heads in (..., B, S, H) order; qw, kw (H, 128)
-// bf16; cos, sin fp32 (S, 64), or (B, S, 64) when ROWS; heads h % H < n_rot
-// are rotated.
+// q, k (n_heads, 128) bf16 heads in (..., B, S, H) order, the results
+// written to qo, ko (q and k themselves, in place, outside autograd); qw, kw
+// (H, 128) bf16; cos, sin fp32 (S, 64), or (B, S, 64) when ROWS; heads
+// h % H < n_rot are rotated.
 template <bool ROWS>
 __global__ void __launch_bounds__(K7_THREADS)
-    trunk_qk_norm_rope_kernel(uint16_t* __restrict__ q, uint16_t* __restrict__ k,
+    trunk_qk_norm_rope_kernel(const uint16_t* q, const uint16_t* k, uint16_t* qo, uint16_t* ko,
                               const uint16_t* __restrict__ qw, const uint16_t* __restrict__ kw,
                               const float* __restrict__ cos, const float* __restrict__ sin,
                               int n_heads, int H, int S, int B, int n_rot, float eps) {
-  uint16_t* t = blockIdx.y ? k : q;
+  const uint16_t* t = blockIdx.y ? k : q;
+  uint16_t* to = blockIdx.y ? ko : qo;
   const uint16_t* w = blockIdx.y ? kw : qw;
   const int head = blockIdx.x * (K7_THREADS / 16) + (threadIdx.x >> 4);
   const int lane = threadIdx.x & 15;
   const bool valid = head < n_heads;
   const int hl = valid ? head % H : 0;
-  uint4* p = reinterpret_cast<uint4*>(t + static_cast<size_t>(valid ? head : 0) * K7_DH) + lane;
-  const uint4 c = valid ? *p : make_uint4(0u, 0u, 0u, 0u);
+  const size_t at = static_cast<size_t>(valid ? head : 0) * K7_DH;
+  const uint4 c = valid ? reinterpret_cast<const uint4*>(t + at)[lane] : make_uint4(0u, 0u, 0u, 0u);
   const uint4 wc = __ldg(reinterpret_cast<const uint4*>(w + hl * K7_DH) + lane);
   const bool rot = valid && hl < n_rot;
   float4 cc = make_float4(0.f, 0.f, 0.f, 0.f), sc = cc;
@@ -235,7 +207,7 @@ __global__ void __launch_bounds__(K7_THREADS)
       v[2 * i + 1] = __fadd_rn(__fmul_rn(xr, sn[i]), __fmul_rn(xi, cs[i]));
     }
   }
-  if (valid) *p = pack8(v);
+  if (valid) reinterpret_cast<uint4*>(to + at)[lane] = pack8(v);
 }
 
 // ---------------------------------------------------------------------------
@@ -270,54 +242,55 @@ __global__ void __launch_bounds__(K8_THREADS)
   reinterpret_cast<uint4*>(out)[c] = pack8(av);
 }
 
-// whether every pointer is 16-byte aligned (null ones are not read)
-bool aligned(std::initializer_list<const void*> ptrs) {
-  for (const void* p : ptrs)
-    if (reinterpret_cast<uintptr_t>(p) % 16) return false;
-  return true;
-}
-
 }  // namespace
 
 // K6. x, y, h (M, 2048) bf16 contiguous, 16-byte aligned, rows in
-// (..., B, S) order. With y (and gate (B, 2048)) x is updated in place; with
-// add, mul = scale (B, 2048) and add = shift (B, 2048); without, mul = the
-// norm's weight (2048,), and y is required (the trunk's out_norm always
-// takes the last layer's MLP residual).
+// (..., B, S) order. With y (and gate (B, 2048)) x + gate * y is written to
+// xo, or to x in place where xo is null; with add, mul = scale (B, 2048) and
+// add = shift (B, 2048); without, mul = the norm's weight (2048,), and y is
+// required (the trunk's out_norm always takes the last layer's MLP
+// residual).
 extern "C" int trunk_residual_modulate(void* x, const void* y, const void* gate, const void* mul,
-                                       const void* add, void* h, int M, int D, int S, int B,
-                                       float eps, void* stream) {
+                                       const void* add, void* h, void* xo, int M, int D, int S,
+                                       int B, float eps, void* stream) {
   const bool res = y != nullptr, mod = add != nullptr;
+  if (!xo) xo = x;
   if (M < 1 || D != K6_D || S < 1 || B < 1 || !x || !mul || !h || (res && !gate) ||
-      !(res || mod) || !aligned({x, y, gate, mul, add, h}))
+      !(res || mod) || !aligned({x, y, gate, mul, add, h, xo}))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (res && mod) return (int)launch_k6<true, true>(x, y, gate, mul, add, h, M, S, B, eps, st);
-  if (res) return (int)launch_k6<true, false>(x, y, gate, mul, add, h, M, S, B, eps, st);
-  return (int)launch_k6<false, true>(x, y, gate, mul, add, h, M, S, B, eps, st);
+  if (res && mod)
+    return (int)launch_k6<true, true>(x, xo, y, gate, mul, add, h, M, S, B, eps, st);
+  if (res) return (int)launch_k6<true, false>(x, xo, y, gate, mul, add, h, M, S, B, eps, st);
+  return (int)launch_k6<false, true>(x, xo, y, gate, mul, add, h, M, S, B, eps, st);
 }
 
 // K7. q, k (n_heads, 128) bf16 contiguous, 16-byte aligned, heads in
-// (..., B, S, H) order, updated in place; qw, kw (H, 128) bf16; cos, sin fp32
-// (S, 64) or, with rows, (B, S, 64); n_rot heads of each position rotated
-// (cos and sin may be null when n_rot is 0).
-extern "C" int trunk_qk_norm_rope(void* q, void* k, const void* qw, const void* kw,
-                                  const void* cos, const void* sin, int n_heads, int H, int S,
-                                  int B, int n_rot, int rows, float eps, void* stream) {
+// (..., B, S, H) order; the results written to qo, ko, or to q and k in
+// place where those are null; qw, kw (H, 128) bf16; cos, sin fp32 (S, 64)
+// or, with rows, (B, S, 64); n_rot heads of each position rotated (cos and
+// sin may be null when n_rot is 0).
+extern "C" int trunk_qk_norm_rope(void* q, void* k, void* qo, void* ko, const void* qw,
+                                  const void* kw, const void* cos, const void* sin, int n_heads,
+                                  int H, int S, int B, int n_rot, int rows, float eps,
+                                  void* stream) {
+  if (!qo) qo = q;
+  if (!ko) ko = k;
   if (n_heads < 1 || H < 1 || S < 1 || B < 1 || n_rot < 0 || (n_rot > 0 && (!cos || !sin)) ||
-      !aligned({q, k, qw, kw, cos, sin}))
+      !aligned({q, k, qo, ko, qw, kw, cos, sin}))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid((n_heads + K7_THREADS / 16 - 1) / (K7_THREADS / 16), 2);
-  uint16_t *qp = static_cast<uint16_t*>(q), *kp = static_cast<uint16_t*>(k);
+  const uint16_t *qp = static_cast<const uint16_t*>(q), *kp = static_cast<const uint16_t*>(k);
+  uint16_t *qop = static_cast<uint16_t*>(qo), *kop = static_cast<uint16_t*>(ko);
   const uint16_t *qwp = static_cast<const uint16_t*>(qw), *kwp = static_cast<const uint16_t*>(kw);
   const float *cp = static_cast<const float*>(cos), *sp = static_cast<const float*>(sin);
   if (rows)
-    trunk_qk_norm_rope_kernel<true><<<grid, K7_THREADS, 0, st>>>(qp, kp, qwp, kwp, cp, sp, n_heads,
-                                                                 H, S, B, n_rot, eps);
+    trunk_qk_norm_rope_kernel<true><<<grid, K7_THREADS, 0, st>>>(qp, kp, qop, kop, qwp, kwp, cp,
+                                                                 sp, n_heads, H, S, B, n_rot, eps);
   else
-    trunk_qk_norm_rope_kernel<false><<<grid, K7_THREADS, 0, st>>>(qp, kp, qwp, kwp, cp, sp,
-                                                                  n_heads, H, S, B, n_rot, eps);
+    trunk_qk_norm_rope_kernel<false><<<grid, K7_THREADS, 0, st>>>(qp, kp, qop, kop, qwp, kwp, cp,
+                                                                  sp, n_heads, H, S, B, n_rot, eps);
   return (int)cudaGetLastError();
 }
 

@@ -10,8 +10,9 @@ only in its masks. Joint attention goes through kernel K1
 (`ops/joint_attention.py`); the trunk layer's elementwise islands (the
 gated residuals with the AdaLN norms, the q/k norms with RoPE, the sigmoid
 gate, SwiGLU's product) through K6-K8 (`ops/trunk_rows.py`) in a bf16
-forward on a card outside autograd, and through their plain chains in any
-other (`trunk_rows.ops_for`, one choice a forward). The blockwise
+forward on a card, under autograd too (with their backward kernels) when
+the modulation and the norms' weights are frozen, and through their plain
+chains in any other (`trunk_rows.ops_for`, one choice a forward). The blockwise
 (streaming) path adds a third segment ahead of text and speaker: the
 latent-prefix cache of the blocks already sampled, built incrementally by
 `extend_latent_kv`.
@@ -22,11 +23,13 @@ is known on the host), applied at use-site inside the attention.
 Training (`dit_forward(..., remat=True, attn_impl="trainable")`) runs each
 trunk layer under `torch.utils.checkpoint` and attention through
 `joint_attention_trainable` (K1 forward, K3 backward). A stacked leaf may be
-a LoRA-adapted weight (`train/lora.py:LoRAWeight`) instead of a tensor: each
-layer forms its own w + s·a@b where it uses it, so under remat the merged
-weight is recomputed, never saved. A leaf may also be an int8 quantized
-weight (`models/quant.py`, inference only), on which `quant.mm` and
-`quant.proj_shared` dispatch.
+a LoRA-adapted weight (`models/lora_linear.py:LoRAWeight`) instead of a tensor: the
+trunk's products and the context K/V projections hand it to `quant.mm` and
+`quant.proj_shared`, which compute h @ w + s·(h @ a) @ b, so no merged
+weight is formed and the frozen w takes no gradient; any other adapted leaf
+is merged where a layer uses it (`layer_weights`). A leaf may also be an
+int8 quantized weight (`models/quant.py`, inference only), on which
+`quant.mm` and `quant.proj_shared` dispatch.
 
 Tensor parallelism: every forward here runs on a tree sharded by
 `parallel/sharding.py:shard_params`. Its attentions hold H/tp contiguous
@@ -90,7 +93,9 @@ def local_heads(attn: dict, num_heads: int):
 
 def layer_weights(tree):
     """Tensors of a (per-layer or stacked) pytree: a LoRA-adapted leaf
-    becomes its merged weight w + s·a@b here."""
+    becomes its merged weight w + s·a@b here. For the leaves of what does
+    not go through `models/quant.py`'s products, which take the adapted
+    leaf itself."""
     if isinstance(tree, dict):
         return {k: layer_weights(v) for k, v in tree.items()}
     return tree if isinstance(tree, torch.Tensor) else tree.weight()
@@ -110,7 +115,6 @@ def encoder_forward(blocks: dict, x: torch.Tensor, mask: Optional[torch.Tensor],
     hd = d // num_heads
     heads, _, group = local_heads(blocks["attention"], num_heads)
     for p in layer_slices(blocks):
-        p = layer_weights(p)
         a = p["attention"]
         h = rms_norm(x, p["attention_norm"], eps)
         q, k, v, gate = quant.proj_shared(h, [a["wq"], a["wk"], a["wv"], a["gate"]], group)
@@ -168,7 +172,6 @@ def _project_kv(blocks_attn: dict, state: torch.Tensor, wk_name: str, wv_name: s
     hd = blocks_attn["k_norm"].shape[-1]
     ks, vs = [], []
     for p in layer_slices({n: blocks_attn[n] for n in (wk_name, wv_name, "k_norm")}):
-        p = layer_weights(p)
         k, v = quant.proj_shared(state, [p[wk_name], p[wv_name]], group)
         k = rms_norm(k.reshape(b, s, heads, hd), p["k_norm"], eps)
         if rope is not None:
@@ -276,7 +279,6 @@ def extend_latent_kv(params: dict, cfg: DiTConfig, state: dict, new_latent: torc
     x = new_latent.reshape(b, n, d_lat * p) @ enc["in_proj"]["w"] + enc["in_proj"]["b"]
     x = x / 6.0
     for l, lp in enumerate(layer_slices(enc["blocks"])):
-        lp = layer_weights(lp)
         a = lp["attention"]
         h = rms_norm(x, lp["attention_norm"], eps)
         q, k, v, gate = quant.proj_shared(h, [a["wq"], a["wk"], a["wv"], a["gate"]], group)
@@ -407,18 +409,21 @@ def _dit_forward_grouped(
     per = zip(layer_slices({"attention": blocks["attention"], "mlp": blocks["mlp"]}),
               *(stack.unbind(0) for stack in stacks))
 
-    rows = trunk_rows.ops_for(x, cfg.model_size, dh)
-    h_buf = None
-    if rows.fused:  # K7 reads the tables as they lie in memory; K6 writes h into one buffer
-        cos_q, sin_q, h_buf = cos_q.contiguous(), sin_q.contiguous(), torch.empty_like(x)
+    attn = blocks["attention"]
+    rows = trunk_rows.ops_for(x, cfg.model_size, dh, [
+        a_shift, a_scale, a_gate, m_shift, m_scale, m_gate, attn["q_norm"], attn["k_norm"],
+        params["out_norm"]])
+    h_buf = torch.empty_like(x) if rows.h_buffer else None  # K6 writes h into one buffer
+    if rows.fused:  # K7 reads the tables as they lie in memory
+        cos_q, sin_q = cos_q.contiguous(), sin_q.contiguous()
 
     # With the kernels a layer leaves its MLP residual (y, its gate) to the
     # next layer's first K6, and the last one's to the out_norm: a residual
-    # add and the norm after it are one pass. The plain chain adds it in the
-    # layer, so a checkpoint boundary under remat keeps x alone.
+    # add and the norm after it are one pass, and under remat a checkpoint
+    # boundary keeps x and y. The plain chain adds it in the layer, so a
+    # boundary keeps x alone.
     def layer(x, y, y_gate, p, m_gate, kt_k, kt_v, ks_k, ks_v, a_shift, a_scale, a_gate,
               m_shift, m_scale, kl_k=None, kl_v=None, skv=None):
-        p = layer_weights(p)
         a = p["attention"]
         x, h = rows.residual_modulate(x, y, y_gate, a_shift, a_scale, eps, h_buf)
         q, k_self, v_self, gate = quant.proj_shared(h, [a["wq"], a["wk"], a["wv"], a["gate"]],

@@ -45,6 +45,7 @@ import torch.nn.functional as F
 
 import torch.distributed as dist
 
+from echo_tts_tpu_torch.models.lora_linear import LoRAWeight, side_product
 from echo_tts_tpu_torch.ops.int8_gemm import MAX_GROUPS, int8_gemm, int8_gemm_grouped
 from echo_tts_tpu_torch.ops.quant_rows import quant_rows, quant_rows_at, quant_rows_scale
 from echo_tts_tpu_torch.parallel.tp import all_reduce_, copy_to_tp, reduce_from_tp
@@ -128,9 +129,12 @@ def qdot_tp(h: torch.Tensor, w: dict, group) -> torch.Tensor:
 
 
 def mm(h: torch.Tensor, w, group=None) -> torch.Tensor:
-    """h @ w for a plain or a quantized weight leaf; h's dtype out. With a
-    tp `group`, w is row-sharded and h holds this rank's part of K: the
-    result is the sum over the group."""
+    """h @ w for a plain, a quantized or a LoRA-adapted weight leaf (the
+    adapter as a side product, `models/lora_linear.py`); h's dtype
+    out. With a tp `group`, w is row-sharded and h holds this rank's part of
+    K: the result is the sum over the group."""
+    if isinstance(w, LoRAWeight):
+        return reduce_from_tp(side_product(h, w, group, row=True), group)
     if is_quantized(w):
         if group is not None:
             return qdot_tp(h, w, group)
@@ -147,7 +151,7 @@ def proj_shared(h: torch.Tensor, ws: list, group=None) -> list:
     over the group."""
     h = copy_to_tp(h, group)
     if not is_quantized(ws[0]):
-        return [h @ w for w in ws]
+        return [side_product(h, w, group) if isinstance(w, LoRAWeight) else h @ w for w in ws]
     q, s = quant_rows(h)
     lead = q.shape[:-1]
     q2, s2 = q.reshape(-1, q.shape[-1]), s.reshape(-1)

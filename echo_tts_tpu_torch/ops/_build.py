@@ -27,7 +27,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "echo_tts_tpu_torch"
 KERNELS = ("joint_attention", "joint_attention_bwd", "res_chain",
            "joint_attention_variants", "res_chain_variants", "attention_core_check",
-           "conv_core_check", "int8_gemm", "quant_rows", "trunk_rows")
+           "conv_core_check", "int8_gemm", "quant_rows", "trunk_rows", "trunk_rows_bwd")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILD_SECONDS: Dict[str, float] = {}  # nvcc wall seconds per source built by this process

@@ -18,6 +18,11 @@ An int8 leaf (`models/quant.py`: {"q": int8 (L, N, K), "s": fp32 (L, N)},
 K-major) is sharded by the name one level up, in that layout: a
 column-sharded q splits on N and its s follows; a row-sharded q splits on K
 and its s (over N) stays whole.
+
+A LoRA tree (`train/lora.py`: {"blocks.attention.wq": {"a": (L, in, r),
+"b": (L, r, out)}, ...}) follows its base weights: a column-sharded
+weight's b splits on out and its a stays whole; a row-sharded weight's a
+splits on in and its b stays whole.
 """
 from __future__ import annotations
 
@@ -35,6 +40,13 @@ def spec_for(names: Sequence[str], ndim: int) -> Tuple:
     """The spec of the leaf at path `names` (dict keys from the root) with
     `ndim` axes."""
     name = names[-1]
+    if name in ("a", "b") and len(names) >= 2 and "." in names[-2]:
+        wname = names[-2].rsplit(".", 1)[-1]
+        if ndim == 3 and name == "b" and wname in _COL:
+            return (None, None, "tp")
+        if ndim == 3 and name == "a" and wname in _ROW:
+            return (None, "tp", None)
+        return ()
     if name in ("q", "s") and len(names) >= 2:
         wname = names[-2]
         if wname in _COL:

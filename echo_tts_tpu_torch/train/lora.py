@@ -7,10 +7,12 @@ in fp32 and the sum cast back to w's dtype. Checkpoints are the JAX
 package's npz format, so an adapter saved by either package loads in the
 other.
 
-Training does not merge the whole stack up front: `lora_params` puts a
-`LoRAWeight` in place of each targeted leaf, and the DiT forward
-(`models/dit.py`) forms w[l] + s·a[l]@b[l] inside each layer, where it is
-recomputed under remat instead of saved.
+Training merges nothing: `lora_params` puts a `LoRAWeight`
+(`models/lora_linear.py`) in place of each targeted leaf, and the DiT
+forward hands it to `models/quant.py`'s products, which apply it as a
+rank-r side product: h @ w + s·(h @ a) @ b, the frozen w taking no
+gradient. Serving and export merge (`apply_lora`, `merge_lora`,
+`LoRAWeight.weight`).
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ import numpy as np
 import torch
 
 from echo_tts_tpu_torch.core.device import resolve_device
-from echo_tts_tpu_torch.utils.profiling import span
+from echo_tts_tpu_torch.models.lora_linear import LoRAWeight
 
 # decoder attention + text cross-attention + MLP; the speaker path is left
 # out to preserve voice cloning
@@ -42,26 +44,6 @@ class LoRAConfig:
     @property
     def scaling(self) -> float:
         return self.alpha / self.rank
-
-
-@dataclasses.dataclass(frozen=True)
-class LoRAWeight:
-    """A base weight with its adapter, merged only where it is used: a
-    stacked (L, in, out) leaf, or one layer's (in, out) slice of it."""
-
-    w: torch.Tensor
-    a: torch.Tensor
-    b: torch.Tensor
-    scaling: float
-
-    def unbind(self, dim: int = 0) -> list:
-        return [LoRAWeight(w, a, b, self.scaling)
-                for w, a, b in zip(self.w.unbind(dim), self.a.unbind(dim), self.b.unbind(dim))]
-
-    def weight(self) -> torch.Tensor:
-        with span("train.lora_merge", "launch"):
-            delta = self.a.float() @ self.b.float()
-            return (self.w.float() + self.scaling * delta).to(self.w.dtype)
 
 
 def _get(tree: dict, dotted: str):
@@ -98,8 +80,8 @@ def init_lora(generator: torch.Generator, params: dict, lc: LoRAConfig,
 
 
 def lora_params(params: dict, lora: dict, lc: LoRAConfig) -> dict:
-    """params with a `LoRAWeight` at each adapted leaf (nothing merged yet;
-    the base tree is shared, not copied)."""
+    """params with a `LoRAWeight` at each adapted leaf (nothing merged; the
+    base tree is shared, not copied)."""
     out = params
     for tgt, ab in lora.items():
         out = _with(out, tgt, LoRAWeight(_get(params, tgt), ab["a"], ab["b"], lc.scaling))

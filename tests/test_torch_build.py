@@ -61,3 +61,10 @@ def test_conv_kernels_share_the_conv_core_header(name):
     files = _build.source_files(name)
     assert _build.CSRC / "conv_core.cuh" in files
     assert _build.CSRC / "attention_core.cuh" in files
+
+
+@pytest.mark.parametrize("name", ["trunk_rows", "trunk_rows_bwd"])
+def test_trunk_row_kernels_share_their_header(name):
+    """K6-K8 and their backward kernels stand on trunk_rows.cuh (the shapes
+    and the bf16 packing): an edit of it rebuilds both."""
+    assert _build.CSRC / "trunk_rows.cuh" in _build.source_files(name)

@@ -380,6 +380,68 @@ def test_train_step_tp_dp_params(train_run):
         walk(r["params"], ref, ())
 
 
+def test_tp_lora_side_products_match_tp1(tmp_path):
+    """tp=2 with the adapters sharded as their weights (a column-sharded
+    weight's b on its columns, a row-sharded weight's a on its rows) and
+    applied as side products: each rank's loss and the slice of every
+    adapter gradient it holds equal one process's merged-weight loss and
+    gradients (`apply_lora`), fp32, every b moved off zero."""
+    from echo_tts_tpu_torch.models.dit import init_dit_params
+    from echo_tts_tpu_torch.train import lora as tlora
+    from echo_tts_tpu_torch.train.loss import compute_diffusion_loss
+
+    cfg = tc.DiTConfig(has_latent_modules=False).tiny()
+    params = init_dit_params(cfg, torch.float32, "cpu", seed=5)
+    lc = tlora.LoRAConfig(rank=4, alpha=8.0)
+    gen = torch.Generator().manual_seed(6)
+    lora = tlora.init_lora(gen, params, lc)
+    for ab in lora.values():
+        ab["b"].normal_(0.0, 0.05, generator=gen)
+    b, n = 2, 16
+    lm = torch.ones(b, n, dtype=torch.bool)
+    lm[1, 11:] = False
+    tm = torch.ones(b, 24, dtype=torch.bool)
+    tm[0, 15:] = False
+    batch = {"latent": torch.randn(b, n, 80, generator=gen), "latent_mask": lm,
+             "text_input_ids": torch.randint(0, 256, (b, 24), generator=gen),
+             "text_mask": tm, "speaker_latent": torch.randn(b, 16, 80, generator=gen),
+             "speaker_mask": torch.ones(b, 16, dtype=torch.bool)}
+    t, noise = torch.rand(b, generator=gen) ** 2, torch.randn(b, n, 80, generator=gen)
+    d = tmp_path / "lora"
+    d.mkdir()
+    torch.save({"cfg": cfg, "params": params, "lora": lora, "lc": lc, "batch": batch, "t": t,
+                "noise": noise}, d / "inputs.pt")
+    collect = spawn_ranks("lora_tp", 2, d / "run")
+    leaves = {(tgt, k): lora[tgt][k].clone().requires_grad_(True) for tgt in lora
+              for k in ("a", "b")}
+    ref_lora = {tgt: {k: leaves[tgt, k] for k in ("a", "b")} for tgt in lora}
+    loss = compute_diffusion_loss(tlora.apply_lora(params, ref_lora, lc), cfg, None,
+                                  batch["latent"], lm, batch["text_input_ids"], tm,
+                                  batch["speaker_latent"], batch["speaker_mask"],
+                                  model_dtype=torch.float32, t=t, noise=noise)
+    grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()),
+                                                 allow_unused=True)))
+    loss = float(loss.detach())
+    for r in collect():
+        assert abs(r["loss"] - loss) <= 1e-5 * abs(loss), (r["loss"], loss)
+        for (tgt, k), g in r["grads"].items():
+            ref = grads[tgt, k]
+            if ref is None:  # the text cache is built without autograd
+                assert g is None or not np.any(g), (tgt, k)
+                continue
+            ref = ref.numpy()
+            spec = tsh.spec_for((tgt, k), ref.ndim)
+            if "tp" in spec:
+                ax = spec.index("tp")
+                ref = _heads(ref, r["tp_rank"], ax, ref.shape[ax] // 2)
+            assert g.shape == ref.shape, (tgt, k)
+            np.testing.assert_allclose(g, ref, rtol=1e-4, atol=1e-6 * np.abs(ref).max(),
+                                       err_msg=f"{tgt}.{k} on rank {r['tp_rank']}")
+    assert tsh.spec_for(("blocks.attention.wq", "b"), 3) == (None, None, "tp")
+    assert tsh.spec_for(("blocks.mlp.w2", "a"), 3) == (None, "tp", None)
+    assert tsh.spec_for(("blocks.mlp.w2", "b"), 3) == tsh.spec_for(("in_proj", "b"), 1) == ()
+
+
 # ---------------------------------------------------------------------------
 # checkpoints
 # ---------------------------------------------------------------------------

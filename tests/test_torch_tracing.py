@@ -260,12 +260,8 @@ def test_lora_step_span_tree_and_host_syncs(recording):
         assert [(by_id[r.parent].name, r.attrs["what"]) for r in syncs] == [
             ("train.forward", "batch_upload"), ("train.optimizer", "all_finite"),
             ("train.optimizer", "clip")]
-        merges = [r for r in recs if r.name == "train.lora_merge" and s.t0 <= r.t0 <= s.t1]
-        under = {by_id[r.parent].name for r in merges}
-        assert under <= {"train.forward", "train.backward"} and "train.backward" in under
-        # each layer merges every trunk target it uses in the forward
-        assert len([m for m in merges if by_id[m.parent] is fwd]) >= cfg.num_layers * (
-            len(lc.targets) - 2)
+        # the adapters are side products of the trunk's products: nothing merges
+        assert not [r for r in recs if r.name == "train.lora_merge" and s.t0 <= r.t0 <= s.t1]
     assert len(_named(recs, "data.wait")) >= 2
 
 

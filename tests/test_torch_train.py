@@ -215,6 +215,59 @@ def test_lora_identity_at_init(setup):
                      atol=1e-6, rtol=1e-6)
 
 
+@pytest.mark.parametrize("train_encoders", [False, True])
+def test_lora_side_products_match_the_merged_weights(setup, train_encoders):
+    """The adapters applied as rank-r side products (`lora_params`: h @ w +
+    s·(h @ a) @ b inside the trunk's products and the context K/V
+    projections) against the merged weights w + s·a@b (`apply_lora`,
+    differentiable in a and b): the same loss and a/b gradients in fp32;
+    with train_encoders the text cache's adapters take gradients too."""
+    jp, batch, tt, noise = setup
+    tp = _fresh_port_params(jp)
+    jl, _ = _perturbed_lora(jp, seed=4)
+    lora = lora_from_numpy(np_tree(jl), device="cpu")
+    lc = tlora.LoRAConfig(**LC)
+    leaves = _leaves_by_path(lora)
+    for x in leaves.values():
+        x.requires_grad_(True)
+    out = {}
+    for how, params in (("side", tlora.lora_params(tp, lora, lc)),
+                        ("merged", tlora.apply_lora(tp, lora, lc))):
+        loss = _port_loss(params, batch, tt, noise, train_encoders)
+        out[how] = (float(loss.detach()), tloop._grads(loss, list(leaves.values())))
+    np.testing.assert_allclose(out["side"][0], out["merged"][0], rtol=1e-6)
+    for path, g, r in zip(leaves, out["side"][1], out["merged"][1]):
+        assert_close(g, r.numpy(), atol=1e-6 * float(r.abs().max()), rtol=1e-4)
+    by_path = dict(zip(leaves, out["side"][1]))
+    assert bool(by_path["blocks.attention.wk_text.b"].any()) == train_encoders
+    assert by_path["blocks.mlp.w2.a"].abs().sum() > 0
+
+
+def test_lora_weight_slices_merge_from_the_fp32_adapter_in_bf16():
+    """A bf16 base with an fp32 adapter: a layer's slice (`unbind`) merges
+    from the fp32 a and b, bit for bit the stack's merge of that layer, and
+    hands the side product a and s·b in bf16, formed once for the stack."""
+    from echo_tts_tpu_torch.models.lora_linear import LoRAWeight, side_product
+
+    gen = torch.Generator().manual_seed(9)
+    w = torch.randn(3, 64, 48, generator=gen).to(torch.bfloat16)
+    a = torch.randn(3, 64, 4, generator=gen) * 0.3
+    b = torch.randn(3, 4, 48, generator=gen) * 1e-3  # a delta under half an ulp of w in bf16
+    stack = LoRAWeight(w, a, b, 2.0)
+    merged = stack.weight()
+    h = torch.randn(5, 64, generator=gen).to(torch.bfloat16)
+    for l, sl in enumerate(stack.unbind(0)):
+        assert sl.a.dtype == sl.b.dtype == torch.float32
+        assert torch.equal(sl.weight(), merged[l])
+        assert torch.equal(sl.weight(), LoRAWeight(w[l], a[l], b[l], 2.0).weight())
+        a_lo, b_lo = sl.side_factors()
+        assert a_lo.dtype == b_lo.dtype == torch.bfloat16
+        assert torch.equal(a_lo, a[l].to(torch.bfloat16))
+        assert torch.equal(b_lo, (2.0 * b[l]).to(torch.bfloat16))
+        ref = (h @ w[l]).addmm_(h @ a[l].to(torch.bfloat16), b[l].to(torch.bfloat16), alpha=2.0)
+        assert torch.equal(side_product(h, sl), ref)
+
+
 def test_lora_training_reduces_loss(setup):
     """15 LoRA steps on one batch with fixed t and noise (the same
     generator seed each step): the adapters fit it."""

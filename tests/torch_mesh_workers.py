@@ -239,6 +239,28 @@ def task_train(rank: int, dirpath: str) -> dict:
             "tp_rank": mesh.tp_rank}
 
 
+def task_lora_tp(rank: int, dirpath: str) -> dict:
+    """tp=2: the LoRA loss with the adapters sharded as their weights
+    (`shard_params` on the LoRA tree) and applied as side products, and each
+    adapter leaf's gradient on this rank."""
+    from echo_tts_tpu_torch.parallel.sharding import shard_params
+    from echo_tts_tpu_torch.train import lora as tlora
+    from echo_tts_tpu_torch.train.loss import compute_diffusion_loss
+
+    inp = _load(dirpath)
+    mesh = _mesh(1, 2)
+    sp, sl = shard_params(inp["params"], mesh), shard_params(inp["lora"], mesh)
+    leaves = {(tgt, n): sl[tgt][n].requires_grad_(True) for tgt in sl for n in ("a", "b")}
+    b = inp["batch"]
+    loss = compute_diffusion_loss(tlora.lora_params(sp, sl, inp["lc"]), inp["cfg"], None,
+                                  b["latent"], b["latent_mask"], b["text_input_ids"],
+                                  b["text_mask"], b["speaker_latent"], b["speaker_mask"],
+                                  model_dtype=torch.float32, t=inp["t"], noise=inp["noise"])
+    grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+    return {"loss": float(loss), "tp_rank": mesh.tp_rank,
+            "grads": {k: None if g is None else _np(g) for k, g in zip(leaves, grads)}}
+
+
 # ---------------------------------------------------------------------------
 # sharded checkpoints
 # ---------------------------------------------------------------------------
@@ -764,4 +786,4 @@ def task_continuous(rank: int, dirpath: str) -> dict:
 
 TASKS = {"forward": task_forward, "sample_dp": task_sample_dp, "train": task_train,
          "checkpoint": task_checkpoint, "engine": task_engine, "continuous": task_continuous,
-         "idle": task_idle, "dead": task_dead}
+         "idle": task_idle, "dead": task_dead, "lora_tp": task_lora_tp}
